@@ -1,0 +1,190 @@
+"""Weights between the reference's flax variables and the port's modules.
+
+``flax_to_torch`` maps a flax ResNet variables tree of numpy arrays
+(``{"params": ..., "batch_stats": ...}``, flax auto-names ``Conv_0``,
+``BatchNorm_0``, ``BottleneckBlock_k``, ``Dense_0``) to the port's
+torchvision-layout ``state_dict``; ``import_torch_resnet`` is the
+inverse, a copy of ``deep_vision_tpu/models/pretrained.py``
+``import_torch_resnet`` extended to any stage sizes.
+
+Layout mapping (flax ↔ torch):
+- conv kernel ``(kH, kW, I, O)`` ↔ weight ``(O, I, kH, kW)``
+- Dense kernel ``(I, O)`` ↔ fc weight ``(O, I)``
+- BatchNorm ``scale``/``bias`` (params) ↔ ``weight``/``bias``;
+  ``mean``/``var`` (batch_stats) ↔ ``running_mean``/``running_var``
+- torchvision block ``layer{s}.{i}`` ↔ ``{Basic,Bottleneck}Block_k``
+  with k counting blocks across stages in call order.
+
+Weight files (``--weights``) are ``.npz`` archives of the flax tree with
+keys joined by ``/`` (``params/Conv_0/kernel``).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+
+STAGE_SIZES = {
+    "resnet34": (3, 4, 6, 3),
+    "resnet50": (3, 4, 6, 3),
+    "resnet152": (3, 8, 36, 3),
+}
+BLOCK_NAME = {
+    "resnet34": "BasicBlock",
+    "resnet50": "BottleneckBlock",
+    "resnet152": "BottleneckBlock",
+}
+CONVS_PER_BLOCK = {"BasicBlock": 2, "BottleneckBlock": 3}
+
+
+def _np(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
+    """Nested dict → ``{"a/b/c": leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def unflatten_tree(flat: Mapping) -> dict:
+    """``{"a/b/c": leaf}`` → nested dict."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def load_npz(path: str) -> dict:
+    """A ``--weights`` archive → the nested flax variables tree."""
+    with np.load(path) as z:
+        return unflatten_tree({k: z[k] for k in z.files})
+
+
+def save_npz(path: str, variables: Mapping) -> None:
+    np.savez(path, **{k: _np(v) for k, v in
+                      flatten_tree(variables).items()})
+
+
+def _arch(arch, stage_sizes, block):
+    if stage_sizes is None or block is None:
+        if arch not in STAGE_SIZES:
+            raise ValueError(f"unknown arch '{arch}'; have "
+                             f"{sorted(STAGE_SIZES)}")
+        stage_sizes = STAGE_SIZES[arch] if stage_sizes is None \
+            else stage_sizes
+        block = BLOCK_NAME[arch] if block is None else block
+    if block not in CONVS_PER_BLOCK:
+        raise ValueError(f"unknown block '{block}'; have "
+                         f"{sorted(CONVS_PER_BLOCK)}")
+    return tuple(stage_sizes), block
+
+
+def _blocks(stage_sizes: Sequence[int], block: str):
+    """(torch prefix, flax block name) for every block, in call order."""
+    k = 0
+    for stage, num_blocks in enumerate(stage_sizes, start=1):
+        for i in range(num_blocks):
+            yield f"layer{stage}.{i}", f"{block}_{k}"
+            k += 1
+
+
+def flax_to_torch(variables: Mapping, arch: str = "resnet50",
+                  stage_sizes: Sequence[int] | None = None,
+                  block: str | None = None) -> dict:
+    """flax ResNet variables → torchvision-layout ``state_dict`` (numpy).
+
+    Raises ``KeyError`` naming the missing flax path when the tree does
+    not match the architecture."""
+    stage_sizes, block = _arch(arch, stage_sizes, block)
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    n_convs = CONVS_PER_BLOCK[block]
+    sd: dict = {}
+
+    def conv(torch_key, p):
+        sd[f"{torch_key}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
+
+    def bn(torch_prefix, p, s):
+        sd[f"{torch_prefix}.weight"] = _np(p["scale"])
+        sd[f"{torch_prefix}.bias"] = _np(p["bias"])
+        sd[f"{torch_prefix}.running_mean"] = _np(s["mean"])
+        sd[f"{torch_prefix}.running_var"] = _np(s["var"])
+        sd[f"{torch_prefix}.num_batches_tracked"] = np.array(0, np.int64)
+
+    conv("conv1", params["Conv_0"])
+    bn("bn1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    for t, name in _blocks(stage_sizes, block):
+        p, s = params[name], stats[name]
+        for j in range(n_convs):
+            conv(f"{t}.conv{j + 1}", p[f"Conv_{j}"])
+            bn(f"{t}.bn{j + 1}", p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"])
+        if f"Conv_{n_convs}" in p:
+            conv(f"{t}.downsample.0", p[f"Conv_{n_convs}"])
+            bn(f"{t}.downsample.1", p[f"BatchNorm_{n_convs}"],
+               s[f"BatchNorm_{n_convs}"])
+    sd["fc.weight"] = _np(params["Dense_0"]["kernel"]).T
+    sd["fc.bias"] = _np(params["Dense_0"]["bias"])
+    return {k: np.array(v, order="C") for k, v in sd.items()}
+
+
+def import_torch_resnet(state_dict: Mapping, arch: str = "resnet50",
+                        include_fc: bool = True,
+                        stage_sizes: Sequence[int] | None = None,
+                        block: str | None = None) -> dict:
+    """torchvision-style ``state_dict`` → ``{"params", "batch_stats"}``
+    flax variables.  ``include_fc=False`` drops the classifier head."""
+    stage_sizes, block = _arch(arch, stage_sizes, block)
+    sd = state_dict
+    n_convs = CONVS_PER_BLOCK[block]
+
+    def conv(torch_key):
+        return {"kernel": _np(sd[f"{torch_key}.weight"]).transpose(2, 3, 1, 0)}
+
+    def bn(torch_prefix, flax_parent, stats_parent, flax_name):
+        flax_parent[flax_name] = {"scale": _np(sd[f"{torch_prefix}.weight"]),
+                                  "bias": _np(sd[f"{torch_prefix}.bias"])}
+        stats_parent[flax_name] = {
+            "mean": _np(sd[f"{torch_prefix}.running_mean"]),
+            "var": _np(sd[f"{torch_prefix}.running_var"])}
+
+    params: dict = {"Conv_0": conv("conv1")}
+    stats: dict = {}
+    bn("bn1", params, stats, "BatchNorm_0")
+    for t, name in _blocks(stage_sizes, block):
+        p: dict = {}
+        s: dict = {}
+        for j in range(n_convs):
+            p[f"Conv_{j}"] = conv(f"{t}.conv{j + 1}")
+            bn(f"{t}.bn{j + 1}", p, s, f"BatchNorm_{j}")
+        if f"{t}.downsample.0.weight" in sd:
+            p[f"Conv_{n_convs}"] = conv(f"{t}.downsample.0")
+            bn(f"{t}.downsample.1", p, s, f"BatchNorm_{n_convs}")
+        params[name] = p
+        stats[name] = s
+    if include_fc:
+        params["Dense_0"] = {"kernel": _np(sd["fc.weight"]).T,
+                             "bias": _np(sd["fc.bias"])}
+    return {"params": params, "batch_stats": stats}
+
+
+def load_into(model, variables: Mapping) -> None:
+    """Copy flax ``variables`` into a port ResNet (strict key match)."""
+    import torch
+
+    block = model.block_cls.__name__
+    sd = flax_to_torch(variables, stage_sizes=model.stage_sizes, block=block)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)

@@ -1,0 +1,58 @@
+"""Weights → a serving-ready model, shared by every inference surface.
+
+Port of ``deep_vision_tpu/core/restore.py`` (``params_digest``,
+``serving_input_shape``, ``load_state``).  Orbax checkpoints are not read
+here: the port loads a ``--weights`` ``.npz`` archive of the reference's
+flax variables tree (``convert.py``), or, with no weights, builds a seeded
+random init and says so with a warning, as the reference does when no
+checkpoint exists.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import torch
+
+
+def params_digest(model: torch.nn.Module) -> str:
+    """Cheap byte hash of a model's ``state_dict`` (shapes, dtypes and
+    bytes through one blake2b): answers "are these the same weights?"."""
+    h = hashlib.blake2b(digest_size=8)
+    for key, t in model.state_dict().items():
+        a = t.detach().cpu().contiguous()
+        h.update(key.encode())
+        h.update(str(tuple(a.shape)).encode())
+        h.update(str(a.dtype).encode())
+        h.update(a.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def serving_input_shape(cfg) -> tuple:
+    """Per-example NHWC input shape ``(H, W, C)`` for ``cfg``."""
+    return (cfg.image_size, cfg.image_size, cfg.channels)
+
+
+def load_state(cfg, weights: str | None = None, *, log=print,
+               info: dict | None = None):
+    """Build ``cfg``'s model on the CPU in eval mode with its weights.
+
+    ``weights`` is a ``.npz`` of the flax variables tree; None gives a
+    random init from ``torch.Generator().manual_seed(cfg.seed)`` with a
+    warning.  ``info`` (optional dict) receives ``weights`` (the path or
+    None) and ``digest`` (:func:`params_digest`)."""
+    from deep_vision_tpu_torch import convert
+
+    if info is None:
+        info = {}
+    model = cfg.model()
+    if weights:
+        convert.load_into(model, convert.load_npz(weights))
+        log(f"[restore] loaded weights from {weights}")
+    else:
+        model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+        log(f"[restore] WARNING: no weights given, using random init "
+            f"(seed {cfg.seed})")
+    model.eval()
+    info.update({"weights": weights or None, "digest": params_digest(model)})
+    return model

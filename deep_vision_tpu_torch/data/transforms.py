@@ -1,0 +1,8 @@
+"""ImageNet channel statistics (RGB, on [0, 1] pixels) — the values the
+ResNet family was trained against, copied from the reference package's
+``data/transforms.py``."""
+
+import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)

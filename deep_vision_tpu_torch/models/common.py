@@ -1,0 +1,104 @@
+"""Shared building blocks: layers that hold float32 (or int8-resident)
+weights and compute in the model's dtype, with the reference's numerics.
+
+Port of ``deep_vision_tpu/models/common.py``.  The layers subclass
+``nn.Conv2d``/``nn.Linear``/``nn.BatchNorm2d`` so their ``state_dict``
+keys are torchvision's.  Conventions, as in the reference:
+
+- parameters are float32 (bfloat16 after a bf16 serving cast) and are
+  cast to the compute dtype at use;
+- a weight quantized for int8 serving (``serve/quant.py``) is an int8
+  buffer named ``weight`` beside a float32 per-output-channel
+  ``weight_scale``; it is dequantized inside each forward, and no float
+  copy is kept;
+- BatchNorm is the inference form the reference computes at any dtype:
+  ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, then
+  cast to the compute dtype.  Training-mode BatchNorm is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def conv_kernel_init(weight: torch.Tensor, generator: torch.Generator):
+    """He normal over fan-out (the reference's kaiming_normal fan_out)."""
+    fan_out = weight.shape[0] * math.prod(weight.shape[2:])
+    with torch.no_grad():
+        return weight.normal_(0.0, math.sqrt(2.0 / fan_out),
+                              generator=generator)
+
+
+def dense_kernel_init(weight: torch.Tensor, generator: torch.Generator):
+    """LeCun normal, truncated at two standard deviations (flax's Dense
+    default): std = sqrt(1/fan_in) / 0.8796."""
+    std = math.sqrt(1.0 / weight.shape[1]) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) → (N, C) mean over space."""
+    return x.mean(dim=(2, 3))
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 weight × its per-output-channel (dim 0) float32 scale."""
+    return q.to(torch.float32) * scale.view(-1, *([1] * (q.dim() - 1)))
+
+
+def resident_weight(module: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """``module.weight`` in ``dtype``, dequantized first if int8."""
+    w = module.weight
+    if w.dtype == torch.int8:
+        w = dequantize(w, module.weight_scale)
+    return w.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """Bias-free convolution computing in ``dtype`` (input and weight cast)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_ch, out_ch, kernel, stride, padding, bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.compute_dtype),
+                        resident_weight(self, self.compute_dtype), None,
+                        self.stride, self.padding)
+
+
+class Linear(nn.Linear):
+    """Dense layer computing in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), resident_weight(self, dt),
+                        self.bias.to(dt))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Inference BatchNorm with the reference's formula and rounding."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * \
+            self.weight.to(torch.float32)
+        y = (x.to(torch.float32) - self.running_mean.view(shape)) * \
+            mul.view(shape) + self.bias.to(torch.float32).view(shape)
+        return y.to(self.compute_dtype)

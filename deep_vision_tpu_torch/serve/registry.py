@@ -1,0 +1,229 @@
+"""Model registry: name → ServingModel with per-bucket forward callables.
+
+Port of ``deep_vision_tpu/serve/registry.py`` (``ServingModel``,
+``CheckpointServingModel``, ``ModelRegistry.load_checkpoint/get``).  The
+engine asks ``compile_bucket(b)`` for a callable that takes a padded
+batch of exactly ``b`` inputs; the model decides how it runs.
+
+Execution contract (what the engine relies on):
+
+  * a callable takes a tensor already on the model's device (the engine
+    stages and copies it there on its own stream) or host numpy (direct
+    callers), in the model's WIRE dtype;
+  * it runs on the caller's current CUDA stream and returns the float32
+    logits on the device without synchronising; the engine does the
+    single device-to-host copy per batch;
+  * it runs eagerly (CUDA graphs per bucket come in a later slice).
+
+Wire and compute dtypes: a uint8 wire ships raw 0–255 pixels and the
+callable normalizes them on the device; a float32 wire ships
+host-normalized pixels.  ``infer_dtype`` "bfloat16" casts the float
+parameters once at load and computes in bf16; "int8" calibrates and
+quantizes the weights at load (``serve/quant.py``) and, on the uint8
+wire, runs the ``serve_ingest`` kernel as the prologue.  Outputs are
+float32 whatever the compute dtype.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from deep_vision_tpu_torch.core.device import resolve_device
+from deep_vision_tpu_torch.serve.workloads import workload_for_task
+
+#: wire formats: what dtype the client ships and the engine stages
+WIRE_DTYPES = {"float32": torch.float32, "uint8": torch.uint8}
+#: compute dtypes (outputs are always float32)
+INFER_DTYPES = ("float32", "bfloat16", "int8")
+
+
+class ServingModel:
+    """One deployable model: metadata + per-bucket forwards on ``device``."""
+
+    def __init__(self, name: str, *, task: str, input_shape: tuple,
+                 num_classes: int, wire_dtype: str = "float32",
+                 infer_dtype: str = "float32", device=None):
+        if str(wire_dtype) not in WIRE_DTYPES:
+            raise ValueError(f"wire_dtype '{wire_dtype}' unsupported "
+                             f"(have {tuple(WIRE_DTYPES)})")
+        if str(infer_dtype) not in INFER_DTYPES:
+            raise ValueError(f"infer_dtype '{infer_dtype}' unsupported "
+                             f"(have {INFER_DTYPES})")
+        self.device = resolve_device(device)
+        self.name = name
+        self.task = task
+        self.input_shape = tuple(input_shape)
+        self.num_classes = num_classes
+        self.workload = workload_for_task(task)
+        #: the engine stages and copies exactly this dtype (numpy for
+        #: request decoding, torch for staging and the callables)
+        self.wire_dtype = np.dtype(str(wire_dtype))
+        self.wire_torch_dtype = WIRE_DTYPES[str(wire_dtype)]
+        self.infer_dtype = str(infer_dtype)
+        #: where the weights came from (None = seeded random init) and
+        #: their byte digest (core/restore.py)
+        self.weights: str | None = None
+        self.params_digest: str | None = None
+        self._model: torch.nn.Module | None = None
+
+    def compile_bucket(self, batch: int):
+        raise NotImplementedError
+
+    def param_bytes(self) -> int:
+        """Bytes of the resident weights and buffers: for int8 models the
+        int8 codes plus float32 scales, biases and BN statistics."""
+        if self._model is None:
+            return 0
+        return int(sum(t.numel() * t.element_size()
+                       for t in self._model.state_dict().values()))
+
+    def describe(self) -> dict:
+        return {"name": self.name, "task": self.task,
+                "workload": self.workload.verb,
+                "input_shape": list(self.input_shape),
+                "num_classes": self.num_classes,
+                "wire_dtype": str(self.wire_dtype),
+                "infer_dtype": self.infer_dtype,
+                "device": str(self.device),
+                "weights": self.weights,
+                "params_digest": self.params_digest}
+
+
+class CheckpointServingModel(ServingModel):
+    """An ``nn.Module`` with its weights, served per batch bucket."""
+
+    def __init__(self, name: str, cfg, model: torch.nn.Module,
+                 wire_dtype: str = "float32", infer_dtype: str = "float32",
+                 calib_batches: int = 2, calib_dir: str | None = None,
+                 device=None):
+        from deep_vision_tpu_torch.core.restore import serving_input_shape
+        from deep_vision_tpu_torch.ops.preprocess import serve_preprocess_kind
+
+        super().__init__(name, task=cfg.task,
+                         input_shape=serving_input_shape(cfg),
+                         num_classes=cfg.num_classes,
+                         wire_dtype=wire_dtype, infer_dtype=infer_dtype,
+                         device=device)
+        self.preprocess_kind = serve_preprocess_kind(cfg.task, cfg.channels)
+        #: int8 calibration (None outside int8)
+        self.quant = None
+        model = model.eval().to(self.device)
+        if self.infer_dtype == "bfloat16":
+            # bf16 compute, and the float PARAMETERS cast once here (the
+            # reference casts params; BN running statistics stay float32)
+            model.set_compute_dtype(torch.bfloat16)
+            for p in model.parameters():
+                p.data = p.data.to(torch.bfloat16)
+        if self.infer_dtype == "int8":
+            from deep_vision_tpu_torch.serve.quant import quantize_for_serving
+
+            self.quant = quantize_for_serving(
+                model, kind=self.preprocess_kind,
+                input_shape=self.input_shape,
+                calib_batches=int(calib_batches), calib_dir=calib_dir,
+                device=self.device)
+        if self.device.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        self._model = model
+
+    def describe(self) -> dict:
+        d = super().describe()
+        if self.quant is not None:
+            d["quant"] = dict(self.quant.describe(),
+                              param_bytes=self.param_bytes(),
+                              ingest="serve_ingest")
+        return d
+
+    def compile_bucket(self, batch: int):
+        from deep_vision_tpu_torch.ops.preprocess import (
+            make_int8_ingest,
+            make_serve_preprocess,
+        )
+
+        wire = self.wire_torch_dtype
+        compute = torch.bfloat16 if self.infer_dtype == "bfloat16" \
+            else torch.float32
+        model = self._model
+        if self.infer_dtype == "int8":
+            act_scale = float(self.quant.act_scale)
+            pre_q = make_int8_ingest(self.preprocess_kind, wire, act_scale)
+
+            def forward(x):
+                # int8 activations dequantize into the first conv's
+                # input; the weights dequantize inside each layer
+                xf = pre_q(x).to(torch.float32) * act_scale
+                return model(xf)
+        else:
+            pre = make_serve_preprocess(self.preprocess_kind, wire, compute)
+
+            def forward(x):
+                return model(pre(x))
+
+        shape = (batch, *self.input_shape)
+        device = self.device
+        wire_np = self.wire_dtype
+
+        def call(x):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x, wire_np))
+            if tuple(x.shape) != shape or x.dtype != wire:
+                raise ValueError(f"bucket {batch} of '{self.name}' takes "
+                                 f"{wire} {list(shape)}, got {x.dtype} "
+                                 f"{list(x.shape)}")
+            with torch.inference_mode():
+                return forward(x.to(device, non_blocking=True)).to(
+                    torch.float32)
+
+        return call
+
+
+class ModelRegistry:
+    def __init__(self):
+        self._models: dict[str, ServingModel] = {}
+
+    def add(self, model: ServingModel) -> ServingModel:
+        self._models[model.name] = model
+        return model
+
+    def load_checkpoint(self, config_name: str, weights: str | None = None,
+                        name: str | None = None,
+                        wire_dtype: str = "float32",
+                        infer_dtype: str = "float32",
+                        calib_batches: int = 2,
+                        calib_dir: str | None = None,
+                        device=None) -> ServingModel:
+        """Build ``config_name``'s model with ``weights`` (a flax-layout
+        ``.npz``; None = seeded random init) and serve it on ``device``
+        (default cuda).  ``wire_dtype``/``infer_dtype`` as in the module
+        docstring; int8 calibrates on ``calib_batches`` batches from
+        ``calib_dir`` (deterministic synthetic data when None)."""
+        from deep_vision_tpu_torch.core.config import get_config
+        from deep_vision_tpu_torch.core.restore import load_state
+
+        device = resolve_device(device)  # fail before any model work
+        cfg = get_config(config_name)
+        info: dict = {}
+        model = load_state(cfg, weights, info=info)
+        sm = CheckpointServingModel(name or config_name, cfg, model,
+                                    wire_dtype=wire_dtype,
+                                    infer_dtype=infer_dtype,
+                                    calib_batches=calib_batches,
+                                    calib_dir=calib_dir, device=device)
+        sm.weights = info["weights"]
+        sm.params_digest = info["digest"]
+        return self.add(sm)
+
+    def get(self, name: str | None = None) -> ServingModel:
+        if name is None:
+            if len(self._models) != 1:
+                raise KeyError(
+                    f"model name required (serving {sorted(self._models)})")
+            return next(iter(self._models.values()))
+        if name not in self._models:
+            raise KeyError(f"unknown model '{name}'; "
+                           f"serving {sorted(self._models)}")
+        return self._models[name]
+
+    def names(self) -> list[str]:
+        return sorted(self._models)
