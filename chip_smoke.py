@@ -35,11 +35,36 @@ Phases, each of which must pass:
               that check.
               Then the eager forward time of every bucket on the card,
               and one float32-infer request (the serve_normalize path);
-4. card     — print ``nvidia-smi --query-gpu=name,power.limit``.
+4. train kernel — hold ``train_ingest`` against its plain PyTorch
+              version on the card at (B, 224, 224, 3) for B in
+              {256, 32, 1} and at (3, 17, 23, 3), with seeded factors:
+              the outputs must be bit-identical.  Kernel device, eager
+              call, plain, library and bound times as for serve_ingest;
+5. training — write seeded raw-payload dvrec shards (train 1024, val
+              256 images, stored at 256×256×3, labels from 1000 classes)
+              and call ``cli/train.py``'s ``main`` in process for
+              ``resnet50`` at full width (224×224×3, 1000 classes, bf16,
+              batch 256) for 2 epochs, then again with ``--resume
+              --epochs 3``.  ``train_ingest`` must launch once per train
+              step, every logged loss be finite, ``bad_steps`` stay 0, a
+              checkpoint exist per epoch, and the resumed run start at
+              epoch 3, step 8, with the saved checkpoint's parameters,
+              buffers and momentum.  Prints the steady-state step ms (CUDA
+              events), img/s, peak device memory and final top-1/top-5;
+6. step check — one float32 train step (TF32 off) of full-width
+              ResNet-50 at the trainer's init on 8 seeded images with the
+              same weights and factors, on the card (through the kernel)
+              and on the CPU (through the plain version): the loss within
+              1e-4 relative, all updates (parameters and running
+              statistics) within 1e-3 in L2 and each tensor's within
+              1e-2·max|Δ| of the CPU's (``compare_steps`` says why); the
+              same comparison with two images' factors swapped on the
+              card's side must fail;
+7. card     — print ``nvidia-smi --query-gpu=name,power.limit``.
 
 Before the last line it prints ``{"kernels": [...]}`` (one entry per
-ported kernel: launches on the serving path, max error, kernel / plain /
-library times at the largest bucket, and the bound), and last
+ported kernel: launches on its own path, max error, kernel / plain /
+library times at the path's main shape, and the bound), and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result line; so does a machine without CUDA or a directory without the
 package.
@@ -67,6 +92,15 @@ F32_OPS_PER_S = 67e12
 #: float32 operations per element of the ingest: /255, −mean, /std,
 #: /act_scale, round, clamp (two compares)
 INGEST_OPS = {True: 7, False: 3}
+#: float32 operations per element of train_ingest: /255, ·fb, −m, ·fc,
+#: +m, the gray (5 per pixel, 5/3 per element), −gray, ·fs, +gray, clamp
+#: (two compares), −mean, /std
+TRAIN_INGEST_OPS = 13 + 5 / 3
+TRAIN_SHAPES = [(256, 224, 224, 3), (32, 224, 224, 3), (1, 224, 224, 3),
+                (3, 17, 23, 3)]
+N_TRAIN, N_VAL, STORED, BATCH = 1024, 256, 256, 256
+EPOCHS, RESUME_EPOCHS, WORKERS = 2, 3, 4
+STEP_CHECK_BATCH = 8
 BF16_BOUND = 3e-2
 MODEL = "resnet50"
 BUCKETS = (1, 2, 4, 8, 16, 32)
@@ -466,6 +500,337 @@ def phase_serving() -> dict:
               f"float32 answers: {out['float32_infer']['faults']}")
     return out
 
+def phase_train_kernels() -> list[dict]:
+    """train_ingest vs its plain version at the training shapes."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.ingest import ingest_norm_constants
+    from deep_vision_tpu_torch.ops.train_ingest import (
+        GRAY,
+        train_ingest,
+        train_ingest_factors,
+        train_ingest_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mean, std = ingest_norm_constants("imagenet", 3)
+    shift = torch.tensor(-mean / std, device="cuda")
+    inv_std = torch.tensor(1.0 / std, device="cuda")
+    gray_col = torch.tensor(GRAY, device="cuda").view(3, 1)
+
+    def library(p):
+        """Fewest-ops PyTorch expression of the same function."""
+        x, f = p
+        fb, fc, fs, m = f.t().reshape(4, -1, 1, 1, 1).unbind(0)
+        y = torch.addcmul(m * (1 - fc), x.float(), fb * fc / 255)
+        y = torch.lerp(y @ gray_col, y, fs).clamp_(0, 1)
+        return torch.addcmul(shift, y, inv_std)
+
+    def kernel(p):
+        return train_ingest(*p)
+
+    def plain(p):
+        return train_ingest_plain(*p)
+
+    rows = []
+    for shape in TRAIN_SHAPES:
+        numel = math.prod(shape)
+        n_bufs = max(2, min(128, math.ceil(100e6 / (5 * numel))))
+        pairs = []
+        for _ in range(n_bufs):
+            x = torch.randint(0, 256, shape, dtype=torch.uint8,
+                              device="cuda", generator=gen)
+            pairs.append((x, train_ingest_factors(x, gen)))
+        got, want = kernel(pairs[0]), plain(pairs[0])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want),
+              f"train_ingest differs from plain at {shape}: max err {err}")
+        lib_err = float((library(pairs[0]) - want).abs().max())
+        check(lib_err < 1e-4, f"the library expression is not the same "
+                              f"function at {shape}: {lib_err}")
+        bytes_moved = numel + 16 * shape[0] + 4 * numel
+        bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        bound_ops = numel * TRAIN_INGEST_OPS / F32_OPS_PER_S * 1e3
+        row = {"shape": list(shape), "max_abs_err": err,
+               "ms": device_ms(kernel, pairs),
+               "call_ms": call_ms(kernel, pairs),
+               "plain_ms": device_ms(plain, pairs),
+               "library_ms": device_ms(library, pairs),
+               "library_max_abs_err": lib_err,
+               "bound_ms": max(bound_bytes, bound_ops),
+               "bound_by": "bytes" if bound_bytes >= bound_ops
+               else "operations"}
+        rows.append(row)
+        log(f"train_ingest {shape}: device {row['ms'] * 1e3:.2f} us "
+            f"(eager call {row['call_ms'] * 1e3:.2f}, plain "
+            f"{row['plain_ms'] * 1e3:.2f}, library "
+            f"{row['library_ms'] * 1e3:.2f}, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us), max err {err}")
+        del pairs
+    empty = torch.empty((0, 224, 224, 3), dtype=torch.uint8, device="cuda")
+    before = train_ingest.launches
+    out = train_ingest(empty, torch.empty((0, 4), device="cuda"))
+    check(out.shape == empty.shape and train_ingest.launches == before,
+          "an empty batch must return an empty batch and launch nothing")
+    return rows
+
+
+def write_records(root: str) -> None:
+    """Seeded raw-payload dvrec shards (``prepare_data --store raw``),
+    stored at the loader's resize so no resize is needed."""
+    from deep_vision_tpu_torch.data.records import RecordWriter, shard_name
+
+    rng = np.random.default_rng(3)
+    for split, n, shards in (("train", N_TRAIN, 4), ("val", N_VAL, 1)):
+        labels = rng.integers(0, 1000, n)
+        for i in range(shards):
+            with RecordWriter(shard_name(root, split, i, shards)) as w:
+                for j in range(i, n, shards):
+                    img = rng.integers(0, 256, (STORED, STORED, 3),
+                                       dtype=np.uint8)
+                    w.write({"label": int(labels[j]), "enc": "raw",
+                             "shape": [STORED, STORED, 3]}, img.tobytes())
+
+
+def state_digest(model_sd: dict, momentum: dict) -> str:
+    """One hash over parameters, buffers and momentum."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.blake2b(digest_size=8)
+    for part in (model_sd, momentum):
+        for key in sorted(part):
+            a = part[key].detach().cpu().contiguous()
+            h.update(key.encode())
+            h.update(a.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_training() -> dict:
+    """cli.train end to end for resnet50 at full width on the card."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
+        t0 = time.monotonic()
+        write_records(data)
+        log(f"training: wrote {N_TRAIN}+{N_VAL} raw records in "
+            f"{time.monotonic() - t0:.1f} s")
+        argv = ["-m", MODEL, "--data-format", "records", "--data-root", data,
+                "--workdir", work, "--num-workers", str(WORKERS),
+                "--device", "cuda"]
+        steps = N_TRAIN // BATCH
+        torch.cuda.reset_peak_memory_stats()
+        train_ingest.launches = 0
+        t0 = time.monotonic()
+        check(cli.main(argv + ["--epochs", str(EPOCHS)]) == 0,
+              "cli.train failed")
+        first_s = time.monotonic() - t0
+        first = train_ingest.launches
+        check(first == EPOCHS * steps,
+              f"train_ingest launched {first} times in {EPOCHS * steps} "
+              f"train steps")
+        ckpts = Checkpointer(os.path.join(work, "checkpoints"))
+        check(ckpts.all_steps() == [steps * e for e in range(1, EPOCHS + 1)],
+              f"checkpoints {ckpts.all_steps()}, not one per epoch")
+        saved = ckpts.load(EPOCHS * steps)["state"]
+        want_digest = state_digest(saved["model"],
+                                   saved["optimizer"]["momentum"])
+        resumed = {}
+        original = Trainer.maybe_resume
+
+        def spy(self, state):
+            state = original(self, state)
+            resumed.update(
+                step=state.step, epoch=self.start_epoch,
+                digest=state_digest(state.model.state_dict(),
+                                    state.opt.state_dict()["momentum"]))
+            return state
+
+        Trainer.maybe_resume = spy
+        try:
+            t0 = time.monotonic()
+            check(cli.main(argv + ["--resume", "--epochs",
+                                   str(RESUME_EPOCHS)]) == 0,
+                  "cli.train --resume failed")
+            resume_s = time.monotonic() - t0
+        finally:
+            Trainer.maybe_resume = original
+        launches = train_ingest.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(launches - first == (RESUME_EPOCHS - EPOCHS) * steps,
+              f"the resumed run launched train_ingest {launches - first} "
+              f"times in {(RESUME_EPOCHS - EPOCHS) * steps} steps")
+        check(resumed == {"step": EPOCHS * steps, "epoch": EPOCHS + 1,
+                          "digest": want_digest},
+              f"resume restored {resumed}, not step {EPOCHS * steps} "
+              f"epoch {EPOCHS + 1} digest {want_digest}")
+        check(ckpts.all_steps() == [steps * e
+                                    for e in range(1, RESUME_EPOCHS + 1)],
+              f"checkpoints after resume: {ckpts.all_steps()}")
+        series: dict[str, list] = {}
+        with open(os.path.join(work, "metrics.jsonl")) as f:
+            for line in f:
+                d = json.loads(line)
+                series.setdefault(d["name"], []).append((d["step"],
+                                                         d["value"]))
+        losses = series.get("train_loss", [])
+        check(bool(losses), "no train loss was logged")
+        check(all(math.isfinite(v) for _, v in losses),
+              f"non-finite train loss: {losses}")
+        check(all(v == 0 for _, v in series["train_bad_steps"]),
+              f"bad steps: {series['train_bad_steps']}")
+        step_ms = [v for _, v in series["train_step_ms"]]
+        out = {"train_ingest_launches": launches,
+               "train_steps": RESUME_EPOCHS * steps,
+               "first_run_s": first_s, "resumed_run_s": resume_s,
+               "step_ms_by_epoch": step_ms,
+               "img_per_s_by_epoch": [BATCH * 1e3 / v for v in step_ms],
+               "peak_memory_bytes": peak,
+               "losses": losses,
+               "input_stall_frac": [v for _, v in
+                                    series.get("input_stall_frac", [])],
+               "final_val_top1": series["val_top1"][-1][1],
+               "final_val_top5": series["val_top5"][-1][1],
+               "checkpoints": ckpts.all_steps(),
+               "resumed": resumed}
+        log(f"training: {json.dumps(out)}")
+    return out
+
+
+def one_step(device: str, model_sd: dict, images, factors, workdir: str
+             ) -> tuple[float, dict, dict]:
+    """One float32 train step of full-width ResNet-50 on ``device``:
+    (loss, state_dict before, state_dict after), both on the CPU."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.models.resnet import ResNet50
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    cfg = get_config(MODEL)
+    cfg.batch_size = STEP_CHECK_BATCH
+    model = ResNet50(dtype=torch.float32)
+    model.load_state_dict(model_sd)
+    f = factors.to(device)
+
+    def preprocess(batch, generator, train):
+        return {**batch, "image": train_ingest(batch["image"], f)}
+
+    trainer = Trainer(cfg, model, ClassificationTask(1000), workdir=workdir,
+                      preprocess_fn=preprocess, device=device)
+    state = trainer.state_for(model)
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    batch = {"image": images, "label": np.arange(STEP_CHECK_BATCH,
+                                                 dtype=np.int32) * 97}
+    state, m = trainer.train_step(state, batch)
+    after = {k: v.detach().cpu().clone()
+             for k, v in state.model.state_dict().items()}
+    check(int(m["bad_steps"]) == 0, f"the {device} step was skipped")
+    return float(m["loss"]), before, after
+
+
+def update_errors(got, want) -> dict:
+    """Per tensor, max|Δgot − Δwant| / max|Δwant| of one step's updates
+    (running statistics included), and the same as one L2 ratio over
+    every tensor (``"global"``)."""
+    (_, gb, ga), (_, wb, wa) = got, want
+    out, num, den = {}, 0.0, 0.0
+    for k in wa:
+        if k.endswith("num_batches_tracked"):
+            continue
+        dw, dg = wa[k] - wb[k], ga[k] - gb[k]
+        out[k] = float((dg - dw).abs().max()) / max(float(dw.abs().max()),
+                                                    1e-30)
+        num += float(((dg - dw) ** 2).sum())
+        den += float((dw ** 2).sum())
+    out["global"] = (num / max(den, 1e-30)) ** 0.5
+    return out
+
+
+def compare_steps(got, want) -> list[str]:
+    """Faults of step ``got`` against step ``want``: the loss beyond 1e-4
+    relative, a tensor's update beyond 1e-2·max|Δ|, or all updates beyond
+    1e-3 in L2.  A tensor whose update is a sum of terms that nearly
+    cancel (a bias's gradient sums dy over 8·7·7 positions of both signs)
+    keeps the absolute rounding of its terms: on the H100 such tensors
+    read up to 5.9e-3·max|Δ| against the CPU, every other one below
+    1e-3."""
+    faults = []
+    if abs(got[0] - want[0]) > 1e-4 * abs(want[0]):
+        faults.append(f"loss {got[0]} vs {want[0]}")
+    errs = update_errors(got, want)
+    if errs.pop("global") > 1e-3:
+        faults.append("updates beyond 1e-3 in L2")
+    faults += [f"{k}: {e:.3e}·max|delta|" for k, e in errs.items()
+               if e > 1e-2]
+    return faults
+
+
+def phase_step_check() -> dict:
+    """float32 step on the card (kernel) vs on the CPU (plain version)."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest_factors
+
+    from deep_vision_tpu_torch.models.resnet import ResNet50
+
+    # the trainer's own init (the last BN scale of every block zero): with
+    # every BN scale non-zero, a 1e-7 relative change of the stem weights
+    # moves the CPU's own float32 one-step update by up to 10% of an
+    # update (ReLU gates near zero flip), so no 1e-3 bar could hold there
+    sd = ResNet50().reset_parameters(
+        torch.Generator().manual_seed(5)).state_dict()
+    images = np.random.default_rng(4).integers(
+        0, 256, (STEP_CHECK_BATCH, 224, 224, 3), dtype=np.uint8)
+    factors = train_ingest_factors(torch.from_numpy(images),
+                                   torch.Generator().manual_seed(6))
+    swapped = factors.clone()
+    swapped[[0, 1]] = factors[[1, 0]]
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        t0 = time.monotonic()
+        cpu = one_step("cpu", sd, images, factors, os.path.join(tmp, "c"))
+        cpu_s = time.monotonic() - t0
+        gpu = one_step("cuda", sd, images, factors, os.path.join(tmp, "g"))
+        control = one_step("cuda", sd, images, swapped,
+                           os.path.join(tmp, "s"))
+    faults = compare_steps(gpu, cpu)
+    control_faults = compare_steps(control, cpu)
+    errs = update_errors(gpu, cpu)
+    stats = [e for k, e in errs.items() if k.endswith(("running_mean",
+                                                       "running_var"))]
+    params = [e for k, e in errs.items() if k != "global"
+              and not k.endswith(("running_mean", "running_var"))]
+    out = {"loss_cuda": gpu[0], "loss_cpu": cpu[0],
+           "worst_rel_param_update_err": max(params),
+           "worst_rel_running_stat_err": max(stats),
+           "global_l2_update_err": errs["global"],
+           "tensors_above_1e-3": sorted(k for k, e in errs.items()
+                                        if e > 1e-3),
+           "faults": faults, "control_faults": len(control_faults),
+           "control_first_faults": control_faults[:3], "cpu_step_s": cpu_s}
+    log(f"step check: {json.dumps(out)}")
+    check(not faults, f"the card's float32 step disagrees with the CPU's: "
+                      f"{faults[:5]}")
+    check(bool(control_faults),
+          "the step check passed with two images' factors swapped")
+    return out
+
 
 def card() -> str:
     return subprocess.run(
@@ -496,7 +861,10 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     build_s = phase_build()
     rows = phase_kernels()
+    train_rows = phase_train_kernels()
     serving = phase_serving()
+    training = phase_training()
+    step_check = phase_step_check()
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     kernels = [{"name": "serve_ingest", "route": "cuda",
@@ -509,8 +877,22 @@ def main() -> int:
                 "bound_by": main_row["bound_by"],
                 "library_ms": main_row["library_ms"],
                 "shape": main_row["shape"], "build_s": build_s}]
+    train_row = train_rows[0]
+    kernels.append({
+        "name": "train_ingest", "route": "cuda",
+        "source": "deep_vision_tpu_torch/csrc/train_ingest.cu",
+        "replaces": "deep_vision_tpu/ops/pallas_ops.py:202",
+        "launches": training["train_ingest_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in train_rows),
+        "ms": train_row["ms"], "plain_ms": train_row["plain_ms"],
+        "bound_ms": train_row["bound_ms"], "bound_by": train_row["bound_by"],
+        "library_ms": train_row["library_ms"], "shape": train_row["shape"],
+        "build_s": build_s})
     print(json.dumps({"kernel_checks": rows}), flush=True)
+    print(json.dumps({"train_kernel_checks": train_rows}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"training": training}), flush=True)
+    print(json.dumps({"step_check": step_check}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,163 @@
+"""Training CLI for one GPU.
+
+    python -m deep_vision_tpu_torch.cli.train -m resnet50 \\
+        --data-format records --data-root D --workdir W [--resume] \\
+        [--epochs N] [--batch-size B] [--num-workers K] [--device cuda]
+    python -m deep_vision_tpu_torch.cli.train -m resnet50 --synthetic ...
+    python -m deep_vision_tpu_torch.cli.train --list -m x
+
+Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
+classification branch, ``build_classification_val_loader``) on the
+records input: ``D`` holds ``train-*.dvrec`` and ``val-*.dvrec`` shards
+with raw uint8 payloads (``prepare_data --store raw``).  The host reads,
+flips and crops uint8 pixels; the ``train_ingest`` CUDA kernel jitters and
+normalizes each train batch on the card.  Runs on CUDA unless given
+``--device cpu``; without a GPU it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from deep_vision_tpu_torch.core.device import (
+    configure_precision,
+    resolve_device,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="deep_vision_tpu_torch trainer")
+    p.add_argument("-m", "--model", required=True,
+                   help="config name (see --list)")
+    p.add_argument("--data-root", default=None,
+                   help="directory of train-*/val-*.dvrec shards")
+    p.add_argument("--data-format", choices=("records",), default="records",
+                   help="classification input: dvrec shards with raw uint8 "
+                        "payloads (the folder/JPEG layout is not ported)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic data smoke run (no dataset needed)")
+    p.add_argument("--synthetic-size", type=int, default=1024)
+    p.add_argument("-c", "--resume", action="store_true",
+                   help="resume from the latest checkpoint in --workdir")
+    p.add_argument("--workdir", default=None)
+    p.add_argument("--epochs", type=int, default=None,
+                   help="override config")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="override config")
+    p.add_argument("--image-size", type=int, default=None,
+                   help="override config (smoke runs at low resolution)")
+    p.add_argument("--num-workers", type=int, default=16,
+                   help="record read/crop worker processes (0 = inline)")
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="device batches staged ahead of the step "
+                        "(default 2)")
+    p.add_argument("--profile", action="store_true",
+                   help="torch.profiler trace of steps 10-20 → "
+                        "workdir/profile")
+    p.add_argument("--list", action="store_true",
+                   help="list configs and exit")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def build_classification_val_loader(cfg, data_root: str, split: str,
+                                    batch: int, num_workers: int = 4):
+    """Eval loader over ``split`` records at the config's crop size.
+    Returns ``(loader, dataset_size)``."""
+    from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
+    from deep_vision_tpu_torch.data.transforms import imagenet_resize_for
+
+    loader = ImageNetLoader.from_records(
+        data_root, split, batch, train=False, image_size=cfg.image_size,
+        resize=imagenet_resize_for(cfg.image_size), num_workers=num_workers)
+    return loader, len(loader.ds)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+
+    from deep_vision_tpu_torch.core.config import get_config, list_configs
+
+    if args.list:
+        print("\n".join(list_configs()))
+        return 0
+    device = resolve_device(args.device)
+    configure_precision()
+
+    cfg = get_config(args.model)
+    if args.epochs is not None:
+        cfg.total_epochs = args.epochs
+    if args.batch_size is not None:
+        cfg.batch_size = cfg.eval_batch_size = args.batch_size
+    if args.image_size is not None:
+        cfg.image_size = args.image_size
+    if args.prefetch_depth is not None:
+        cfg.prefetch_depth = args.prefetch_depth
+    if cfg.task != "classification":
+        raise NotImplementedError(
+            f"task '{cfg.task}' is not ported; classification only")
+
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.data.loader import ArrayLoader
+    from deep_vision_tpu_torch.tasks.classification import ClassificationTask
+
+    print(f"device: {device}", flush=True)
+    task = ClassificationTask(cfg.num_classes, cfg.label_smoothing)
+    preprocess_fn = None
+    loaders = []
+    try:
+        if args.synthetic:
+            from deep_vision_tpu_torch.data.synthetic import (
+                synthetic_classification,
+            )
+
+            train_data = synthetic_classification(
+                args.synthetic_size, cfg.image_size, cfg.channels,
+                cfg.num_classes, seed=1)
+            val_data = synthetic_classification(
+                max(args.synthetic_size // 4, cfg.batch_size),
+                cfg.image_size, cfg.channels, cfg.num_classes, seed=2)
+            train_loader = ArrayLoader(train_data, cfg.batch_size,
+                                       seed=cfg.seed)
+            val_loader = ArrayLoader(val_data, cfg.eval_batch_size,
+                                     shuffle=False, drop_last=False,
+                                     pad_last=True)
+        else:
+            from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
+            from deep_vision_tpu_torch.data.transforms import (
+                imagenet_resize_for,
+            )
+            from deep_vision_tpu_torch.ops.preprocess import (
+                make_imagenet_preprocess,
+            )
+
+            if not args.data_root:
+                raise SystemExit("--data-root is required without "
+                                 "--synthetic")
+            train_loader = ImageNetLoader.from_records(
+                args.data_root, "train", cfg.batch_size, train=True,
+                seed=cfg.seed, image_size=cfg.image_size,
+                resize=imagenet_resize_for(cfg.image_size),
+                num_workers=args.num_workers)
+            loaders.append(train_loader)
+            val_loader, _ = build_classification_val_loader(
+                cfg, args.data_root, "val", cfg.eval_batch_size,
+                num_workers=args.num_workers)
+            loaders.append(val_loader)
+            preprocess_fn = make_imagenet_preprocess()
+        trainer = Trainer(cfg, cfg.model(), task, workdir=args.workdir,
+                          preprocess_fn=preprocess_fn, device=device)
+        if args.profile:
+            trainer.profile_steps = (10, 20)
+        state = trainer.fit(train_loader, val_loader, resume=args.resume)
+        final = trainer.evaluate(state, val_loader)
+    finally:
+        for loader in loaders:
+            loader.close()
+    print("final:", " ".join(f"{k}={v:.4f}" for k, v in final.items()),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,12 +1,112 @@
-"""Serving metrics: latency quantiles and throughput.
+"""Metrics: the training logger, latency quantiles, throughput and
+step timing.
 
-Copies of ``LatencyHistogram`` and ``ThroughputMeter`` from
-``deep_vision_tpu/core/metrics.py``.
+Copies of ``MetricLogger`` (``metrics.jsonl``, no TensorBoard writer),
+``LatencyHistogram`` and ``ThroughputMeter`` from
+``deep_vision_tpu/core/metrics.py``, plus ``StepTimer``.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
+from typing import Mapping
+
+
+class MetricLogger:
+    """Named scalar series kept in memory (``history``, checkpointed so a
+    resumed run continues them) and appended to ``workdir/metrics.jsonl``
+    as one JSON object per value."""
+
+    def __init__(self, workdir: str | None = None,
+                 filename: str = "metrics.jsonl"):
+        self.history: dict[str, dict[str, list]] = {}
+        self._path = None
+        if workdir is not None:
+            os.makedirs(workdir, exist_ok=True)
+            self._path = os.path.join(workdir, filename)
+
+    def log(self, name: str, step: int, value: float):
+        series = self.history.setdefault(name, {"steps": [], "values": []})
+        series["steps"].append(int(step))
+        series["values"].append(float(value))
+        if self._path:
+            with open(self._path, "a") as f:
+                f.write(json.dumps({"name": name, "step": int(step),
+                                    "value": float(value),
+                                    "time": time.time()}) + "\n")
+
+    def log_dict(self, step: int, metrics: Mapping[str, float]):
+        for k, v in metrics.items():
+            self.log(k, step, v)
+
+    def log_input_block(self, step: int, stats: dict):
+        """The trainer's per-epoch input block from ``DevicePrefetcher``
+        stats: stall fraction, H2D bytes per step and the producer's
+        per-batch stage times."""
+        n = max(1, int(stats.get("batches", 0)))
+        prod = stats.get("producer_ms", {})
+        self.log_dict(step, {
+            "input_stall_frac": float(stats.get("input_stall_frac", 0.0)),
+            "input_h2d_bytes_per_step":
+                float(stats.get("h2d_bytes_per_step", 0.0)),
+            "input_prep_wait_ms": float(prod.get("prep_wait", 0.0)) / n,
+            "input_assemble_ms": float(prod.get("assemble", 0.0)) / n,
+            "input_h2d_ms": float(prod.get("h2d", 0.0)) / n,
+        })
+
+    def latest(self, name: str) -> float | None:
+        s = self.history.get(name)
+        return s["values"][-1] if s and s["values"] else None
+
+    def state_dict(self) -> dict:
+        return self.history
+
+    def load_state_dict(self, d: dict):
+        self.history = {k: {"steps": list(v["steps"]),
+                            "values": list(v["values"])}
+                        for k, v in d.items()}
+
+
+class StepTimer:
+    """Per-step times of a training loop.  On CUDA an event is recorded on
+    the current stream after each step, so the interval between two
+    events is the step's time on the device's clock (idle gaps included,
+    since the host may launch slower than the device runs); on the CPU it
+    reads the host clock.  ``mean_ms`` averages the steps after the first
+    ``warmup``."""
+
+    def __init__(self, device, warmup: int = 1):
+        import torch
+
+        self._cuda = torch.device(device).type == "cuda"
+        self.warmup = warmup
+        self._marks: list = []
+
+    def mark(self):
+        import torch
+
+        if self._cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self._marks.append(ev)
+        else:
+            self._marks.append(time.perf_counter())
+
+    def step_ms(self) -> list[float]:
+        """Milliseconds of every step after the first mark (syncs once)."""
+        if len(self._marks) < 2:
+            return []
+        if self._cuda:
+            self._marks[-1].synchronize()
+            return [a.elapsed_time(b)
+                    for a, b in zip(self._marks, self._marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self._marks, self._marks[1:])]
+
+    def mean_ms(self) -> float | None:
+        steady = self.step_ms()[self.warmup:]
+        return sum(steady) / len(steady) if steady else None
 
 
 class LatencyHistogram:

@@ -1,0 +1,111 @@
+"""Training state and the divergence guard.
+
+Port of ``deep_vision_tpu/core/state.py``.  ``TrainState`` is the model
+(parameters and BatchNorm running statistics), the optimizer's momentum,
+the step counter, the count of skipped non-finite steps and the rng seed.
+Unlike the reference's immutable pytree it is updated in place; the guard
+of ``apply_gradients_if_finite``/``keep_if`` becomes ``torch.where`` on a
+device flag, so a non-finite step costs no host sync.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from deep_vision_tpu_torch.core.optim import SGD
+
+
+class DivergenceGuard:
+    """Host-side policy over the cumulative ``bad_steps`` counter: warn on
+    newly skipped non-finite steps, halt once THIS RUN skipped more than
+    ``limit``.  ``baseline`` is the counter restored from a checkpoint,
+    so old skips never count against the current run."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.baseline = 0
+        self._seen = 0
+
+    def set_baseline(self, bad_steps: int):
+        self.baseline = self._seen = int(bad_steps)
+
+    def check(self, metrics: dict):
+        bad = int(metrics.get("bad_steps", 0))
+        if bad > self._seen:
+            print(f"[warn] skipped {bad - self._seen} non-finite step(s) — "
+                  f"{bad - self.baseline} total this run", flush=True)
+            self._seen = bad
+        if bad - self.baseline > self.limit:
+            raise RuntimeError(
+                f"training diverged: {bad - self.baseline} non-finite steps "
+                f"skipped (> max_bad_steps={self.limit}); lower the "
+                f"learning rate or inspect the input data")
+
+
+def all_finite(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """0-d bool device tensor: every element of every tensor is finite.
+    ``0·x`` is 0 for a finite ``x`` and NaN otherwise, so the norms of the
+    zeroed tensors are all 0 exactly when every element is finite (a norm
+    of the tensors themselves could overflow on large finite values)."""
+    norms = torch._foreach_norm(torch._foreach_mul(tensors, 0.0))
+    return torch.isfinite(torch.stack(norms)).all()
+
+
+class TrainState:
+    """Model + optimizer + counters: the checkpointable unit."""
+
+    def __init__(self, model: nn.Module, optimizer: SGD, rng: int):
+        self.model = model
+        self.opt = optimizer
+        self.rng = int(rng)
+        self.step = 0
+        device = optimizer.lr.device
+        self.bad_steps = torch.zeros((), dtype=torch.int32, device=device)
+        self.running_stats = [b for n, b in model.named_buffers()
+                              if n.endswith(("running_mean", "running_var"))]
+
+    def snapshot_stats(self) -> list[torch.Tensor]:
+        """Copies of the BatchNorm running statistics (one foreach op),
+        taken before a train forward so :meth:`keep_if` can restore them."""
+        if not self.running_stats:
+            return []
+        return torch._foreach_mul(self.running_stats, 1.0)
+
+    @torch.no_grad()
+    def apply_gradients_if_finite(self, loss: torch.Tensor,
+                                  grads: list[torch.Tensor],
+                                  stats_before: list[torch.Tensor]) -> None:
+        """Apply the optimizer update unless the loss or any gradient is
+        non-finite; then parameters, momentum and the running statistics
+        keep their values and ``bad_steps`` counts one.  The step counter
+        advances either way, so the per-step rng never repeats."""
+        ok = torch.isfinite(loss) & all_finite(grads)
+        self.opt.step(grads, ok)
+        for s, old in zip(self.running_stats, stats_before):
+            torch.where(ok, s, old, out=s)
+        self.bad_steps += (~ok).to(torch.int32)
+        self.step += 1
+
+    def save_dict(self) -> dict:
+        """CPU copies of everything a resumed run needs."""
+        return {
+            "step": self.step,
+            "rng": self.rng,
+            "bad_steps": int(self.bad_steps),
+            "model": {k: v.detach().cpu()
+                      for k, v in self.model.state_dict().items()},
+            "optimizer": {
+                "momentum": {k: v.detach().cpu() for k, v in
+                             self.opt.state_dict()["momentum"].items()},
+                "learning_rate": self.opt.get_learning_rate()},
+        }
+
+    @torch.no_grad()
+    def load_dict(self, d: dict) -> "TrainState":
+        self.model.load_state_dict(d["model"], strict=True)
+        self.opt.load_state_dict(d["optimizer"])
+        self.step = int(d["step"])
+        self.rng = int(d["rng"])
+        self.bad_steps.fill_(int(d["bad_steps"]))
+        return self

@@ -1,0 +1,358 @@
+"""The Trainer: epoch loop of train → validate → schedule → checkpoint.
+
+Port of ``deep_vision_tpu/core/trainer.py`` for one model and one
+optimizer on one device.  A train step is
+
+    step generator seeded from (seed, step) → preprocess_fn (on the card:
+    the train_ingest kernel) → forward in training mode → task loss →
+    backward → guarded SGD update (core/state.py)
+
+PyTorch runs eagerly: there is no jit, no donation and no mesh.  Metrics
+come back as device scalars and are fetched one step late at log
+intervals, so the host loop does not wait on the device every step; eval
+sums metrics on the device and fetches them once.  Gradient
+accumulation, the params EMA and multi-step dispatch (``scan_steps``)
+are not ported: their config fields must keep their defaults.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from deep_vision_tpu_torch.core import checkpoint as ckpt_lib
+from deep_vision_tpu_torch.core.config import TrainConfig
+from deep_vision_tpu_torch.core.device import resolve_device
+from deep_vision_tpu_torch.core.metrics import (
+    MetricLogger,
+    StepTimer,
+    ThroughputMeter,
+)
+from deep_vision_tpu_torch.core.optim import SGD, build_scheduler
+from deep_vision_tpu_torch.core.state import DivergenceGuard, TrainState
+
+
+def install_sigterm_flag(on_sigterm):
+    """Install a SIGTERM → callback handler; returns a restore function.
+    A no-op off the main thread; restores SIG_DFL when the previous
+    handler was installed outside Python."""
+    import signal
+
+    try:
+        prev = signal.signal(signal.SIGTERM, lambda *_: on_sigterm())
+    except ValueError:  # not the main thread: no handler, no-op restore
+        return lambda: None
+    restore_to = prev if prev is not None else signal.SIG_DFL
+    return lambda: signal.signal(signal.SIGTERM, restore_to)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The per-step rng seed: a hash of ``(seed, step)``, the counterpart
+    of the reference's ``fold_in(rng, step)`` chain."""
+    return int(np.random.SeedSequence([int(seed), int(step)])
+               .generate_state(1, np.uint64)[0] >> 1)
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """Host numpy arrays → tensors on ``device`` (tensors already there
+    pass through)."""
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        out[k] = t.to(device)
+    return out
+
+
+class Trainer:
+    """Single-model, single-optimizer trainer (classification)."""
+
+    def __init__(self, config: TrainConfig, model: torch.nn.Module, task,
+                 workdir: str | None = None, preprocess_fn=None,
+                 device=None):
+        for field, default in (("grad_accum_steps", 1), ("ema_decay", 0.0),
+                               ("scan_steps", 1)):
+            if getattr(config, field) != default:
+                raise NotImplementedError(
+                    f"{field}={getattr(config, field)} is not ported; the "
+                    f"trainer runs with {field}={default}")
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = model
+        self.task = task
+        # device-side input preprocessing, signature (batch, generator,
+        # train): on the card the uint8 → jitter → normalize kernel
+        self.preprocess_fn = preprocess_fn
+        self.workdir = workdir or os.path.join("runs", config.name)
+        self.logger = MetricLogger(self.workdir)
+        self.scheduler = build_scheduler(
+            config.scheduler.name, config.optimizer.learning_rate,
+            **config.scheduler.kwargs)
+        self.checkpointer = ckpt_lib.Checkpointer(
+            os.path.join(self.workdir, "checkpoints"),
+            max_to_keep=config.keep_checkpoints)
+        self.best_checkpointer = ckpt_lib.Checkpointer(
+            os.path.join(self.workdir, "checkpoints_best"), max_to_keep=1)
+        self.start_epoch = 1
+        self.guard = DivergenceGuard(config.max_bad_steps)
+        # preemption: SIGTERM asks for a step-boundary checkpoint and a
+        # clean return (fit installs the handler)
+        self._preempted = False
+        # torch.profiler window over steps [start, stop) of the first epoch
+        self.profile_steps: tuple[int, int] | None = None
+        self.prefetch_depth = max(1, int(config.prefetch_depth))
+        self._prefetcher = None
+
+    # ------------------------------------------------------------------ init
+
+    def init_state(self) -> TrainState:
+        """The model at the reference's init from ``config.seed``, on the
+        device (channels_last on CUDA, where cuDNN's NHWC convolutions are
+        fastest), with a fresh optimizer."""
+        self.model.reset_parameters(
+            torch.Generator().manual_seed(self.config.seed))
+        return self.state_for(self.model)
+
+    def state_for(self, model: torch.nn.Module) -> TrainState:
+        """A fresh TrainState around ``model``'s current weights."""
+        model.to(self.device)
+        if self.device.type == "cuda":
+            model.to(memory_format=torch.channels_last)
+        self.model = model
+        return TrainState(model, SGD(self.config.optimizer, model),
+                          rng=self.config.seed)
+
+    def maybe_resume(self, state: TrainState) -> TrainState:
+        """Resume from the latest checkpoint if one exists."""
+        if self.checkpointer.latest_step() is None:
+            return state
+        state, extras = self.checkpointer.restore(state)
+        self.start_epoch = int(extras.get("epoch", 0)) + 1
+        if "scheduler" in extras:
+            self.scheduler.load_state_dict(extras["scheduler"])
+        if "history" in extras:
+            self.logger.load_state_dict(extras["history"])
+        # old skips must not count against the resumed run's budget
+        self.guard.set_baseline(int(state.bad_steps))
+        print(f"[resume] restored step={state.step} "
+              f"start_epoch={self.start_epoch}", flush=True)
+        return state
+
+    # ----------------------------------------------------------------- steps
+
+    def step_generator(self, state: TrainState) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(step_seed(state.rng, state.step))
+        return gen
+
+    def train_step(self, state: TrainState, batch: dict
+                   ) -> tuple[TrainState, dict]:
+        """One guarded optimizer step; metrics are 0-d device tensors."""
+        model = state.model
+        model.train()
+        batch = to_device(batch, self.device)
+        if self.preprocess_fn is not None:
+            batch = self.preprocess_fn(batch, self.step_generator(state),
+                                       True)
+        stats_before = state.snapshot_stats()
+        params = state.opt.params
+        for p in params:
+            p.grad = None
+        loss, aux = self.task.loss(model(batch["image"]), batch)
+        loss.backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        state.apply_gradients_if_finite(loss.detach(), grads, stats_before)
+        for p in params:
+            p.grad = None
+        metrics = {"loss": loss.detach(), "bad_steps": state.bad_steps.clone(),
+                   **{k: v.detach() for k, v in aux.items()}}
+        return state, metrics
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: dict) -> dict:
+        """Metric sums (device tensors) for one batch."""
+        state.model.eval()
+        batch = to_device(batch, self.device)
+        if self.preprocess_fn is not None:
+            batch = self.preprocess_fn(batch, None, False)
+        return self.task.eval_metrics(state.model(batch["image"]), batch)
+
+    # ----------------------------------------------------------------- loops
+
+    def evaluate(self, state: TrainState, val_data: Iterable) -> dict:
+        totals: dict[str, torch.Tensor] = {}
+        for batch in val_data:
+            for k, v in self.eval_step(state, batch).items():
+                totals[k] = totals[k] + v if k in totals else v
+        host = {k: float(v) for k, v in totals.items()}
+        count = max(host.pop("count", 1.0), 1.0)
+        return {k: v / count for k, v in host.items()}
+
+    def _get_prefetcher(self):
+        if self._prefetcher is None:
+            from deep_vision_tpu_torch.data.pipeline import DevicePrefetcher
+
+            self._prefetcher = DevicePrefetcher(self.device,
+                                                depth=self.prefetch_depth)
+        return self._prefetcher
+
+    def _log_input_stats(self, step: int, stats: dict, epoch: int):
+        if not stats or not stats.get("batches"):
+            return
+        self.logger.log_input_block(step, stats)
+        prod = stats.get("producer_ms", {})
+        n = max(1, stats["batches"])
+        print(f"[input] epoch {epoch} stall {stats['input_stall_frac']:.1%} "
+              f"h2d {stats['h2d_bytes_per_step'] / 1e6:.2f} MB/step "
+              f"prep {prod.get('prep_wait', 0.0) / n:.1f} "
+              f"assemble {prod.get('assemble', 0.0) / n:.1f} "
+              f"h2d {prod.get('h2d', 0.0) / n:.1f} ms/batch "
+              f"(pinned alloc {stats['pool']['allocated']} "
+              f"reuse {stats['pool']['reused']})", flush=True)
+
+    def _log_metrics(self, step: int, metrics: dict) -> dict:
+        m = {k: float(v) for k, v in metrics.items()}
+        self.guard.check(m)
+        self.logger.log_dict(step, {f"train_{k}": v for k, v in m.items()})
+        return m
+
+    def train_epoch(self, state: TrainState, train_data: Iterable,
+                    epoch: int) -> TrainState:
+        cfg = self.config
+        meter = ThroughputMeter()
+        timer = StepTimer(self.device)
+        pending = None  # metrics fetched one step late
+        profiling = self.profile_steps if epoch == self.start_epoch else None
+        prof = None
+        stream = self._get_prefetcher().iterate(train_data)
+        timer.mark()
+        bs = 0
+        for i, batch in enumerate(stream):
+            if profiling is not None and i == profiling[0]:
+                prof = self._start_profile()
+            state, metrics = self.train_step(state, batch)
+            timer.mark()
+            bs = len(batch["label"])
+            meter.update(bs)
+            if pending is not None and i % cfg.log_every_steps == 0:
+                m = self._log_metrics(state.step - 1, pending)
+                print(f"Epoch {epoch} Batch {i} loss {m['loss']:.4f} "
+                      f"lr {self.scheduler.lr:.2e} "
+                      f"{meter.images_per_sec:.1f} img/s", flush=True)
+            pending = metrics
+            if prof is not None and i + 1 == profiling[1]:
+                prof = self._stop_profile(prof)
+            if self._preempted:
+                print("[preempt] SIGTERM — stopping at step boundary",
+                      flush=True)
+                break
+        if prof is not None:  # the epoch ended inside the window
+            prof = self._stop_profile(prof)
+        if pending is not None:
+            self._log_metrics(state.step, pending)
+        step_ms = timer.mean_ms()
+        if step_ms is not None:
+            self.logger.log("train_step_ms", state.step, step_ms)
+            self.logger.log("images_per_sec", state.step,
+                            bs * 1e3 / step_ms)
+        self._log_input_stats(state.step, stream.stats(), epoch)
+        return state
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof):
+        prof.__exit__(None, None, None)
+        out = os.path.join(self.workdir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        print(f"[profile] trace written to {out}/trace.json", flush=True)
+        return None
+
+    def fit(self, train_data, val_data=None, state: TrainState | None = None,
+            resume: bool = False, monitor: str | None = None) -> TrainState:
+        """Epoch loop: train → validate → scheduler.step(metric) →
+        checkpoint (and the best-val checkpoint)."""
+        if state is None:
+            state = self.init_state()
+        if resume:
+            state = self.maybe_resume(state)
+        monitor = monitor or getattr(self.task, "monitor", None)
+        restore_handler = self._install_preempt_handler()
+        try:
+            return self._fit_epochs(train_data, val_data, state, monitor)
+        finally:
+            restore_handler()
+            # an abandoned epoch must not leave its producer thread or
+            # device batches behind
+            if self._prefetcher is not None:
+                self._prefetcher.close()
+
+    def _install_preempt_handler(self):
+        self._preempted = False  # a stale flag must not abort a fresh fit
+        return install_sigterm_flag(
+            lambda: setattr(self, "_preempted", True))
+
+    def _fit_epochs(self, train_data, val_data, state, monitor):
+        cfg = self.config
+        best = None
+        for epoch in range(self.start_epoch, cfg.total_epochs + 1):
+            lr = self.scheduler.epoch_begin(epoch)
+            state.opt.set_learning_rate(lr)
+            if hasattr(train_data, "set_epoch"):
+                train_data.set_epoch(epoch)
+            t0 = time.monotonic()
+            state = self.train_epoch(state, train_data, epoch)
+            if self._preempted:
+                # mid-epoch save as epoch-1: resume re-runs this epoch
+                # from its start but keeps every applied update
+                self.save(state, epoch - 1)
+                print(f"[preempt] checkpoint saved at step {state.step}; "
+                      f"rerun with --resume to continue", flush=True)
+                return state
+            metric_val = None
+            if val_data is not None:
+                val_metrics = self.evaluate(state, val_data)
+                self.logger.log_dict(
+                    state.step,
+                    {f"val_{k}": v for k, v in val_metrics.items()})
+                if monitor is not None:
+                    metric_val = val_metrics.get(monitor)
+                print(f"Epoch {epoch} val "
+                      + " ".join(f"{k}={v:.4f}"
+                                 for k, v in val_metrics.items())
+                      + f" ({time.monotonic() - t0:.1f}s)", flush=True)
+            if self._preempted:
+                self.save(state, epoch)
+                print(f"[preempt] checkpoint saved at step {state.step}; "
+                      f"rerun with --resume to continue", flush=True)
+                return state
+            self.scheduler.step(epoch, metric_val)
+            if epoch % cfg.checkpoint_every_epochs == 0:
+                self.save(state, epoch)
+            if metric_val is not None and (best is None or metric_val > best):
+                best = metric_val
+                self.best_checkpointer.save(
+                    state.step, state,
+                    extras={"epoch": epoch, "metric": float(metric_val),
+                            "monitor": monitor or ""})
+        return state
+
+    def save(self, state: TrainState, epoch: int):
+        self.checkpointer.save(
+            state.step, state,
+            extras={"epoch": epoch,
+                    "scheduler": self.scheduler.state_dict(),
+                    "history": self.logger.state_dict()})

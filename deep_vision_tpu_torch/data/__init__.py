@@ -1,1 +1,1 @@
-"""Dataset normalization constants the serving wire needs."""
+"""Input data: dvrec records, loaders, host transforms, device prefetch."""

@@ -1,8 +1,100 @@
-"""ImageNet channel statistics (RGB, on [0, 1] pixels) — the values the
-ResNet family was trained against, copied from the reference package's
-``data/transforms.py``."""
+"""Host image transforms for the uint8 training wire, and the ImageNet
+channel statistics.
+
+Copies of ``deep_vision_tpu/data/transforms.py``'s uint8 half
+(``rescale``, ``random_horizontal_flip``, ``random_crop``,
+``center_crop``, ``train_transform_u8``, ``eval_transform_u8``,
+``imagenet_resize_for``).  All functions take and return HWC uint8 numpy
+arrays on the host; randomness comes from an explicit
+``np.random.Generator`` with the reference's draw order (flip, then crop
+top, then crop left).  Color jitter and normalize run on the device
+(``ops/train_ingest.py``).
+"""
+
+from __future__ import annotations
 
 import numpy as np
 
+#: ImageNet channel statistics (RGB, on [0, 1] pixels) — the values the
+#: ResNet family was trained against
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def resize_bilinear(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Bilinear resize to (w, h) with cv2, else PIL.
+
+    An image already at the target size is returned as it is (it may be a
+    read-only view of a record's payload: callers never write it in
+    place).  A real resize needs cv2 or PIL; without either it raises."""
+    if img.shape[0] == h and img.shape[1] == w:
+        return img
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        return cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(
+            f"resizing a {img.shape[1]}x{img.shape[0]} image to {w}x{h} "
+            f"needs cv2 or PIL, and neither is installed; store records "
+            f"already at the loader's resize (prepare_data --store raw)"
+        ) from None
+    return np.asarray(Image.fromarray(img).resize((w, h), Image.BILINEAR))
+
+
+def imagenet_resize_for(image_size: int) -> int:
+    """Shorter-side resize target paired with a crop size (the 256-for-224
+    ratio, clamped above the crop)."""
+    return max(image_size * 256 // 224, image_size + 8)
+
+
+def rescale(img: np.ndarray, size: int) -> np.ndarray:
+    """Resize so the SHORTER side == size, preserving aspect ratio."""
+    h, w = img.shape[:2]
+    if h < w:
+        nh, nw = size, max(1, int(round(w * size / h)))
+    else:
+        nh, nw = max(1, int(round(h * size / w))), size
+    if (nh, nw) == (h, w):
+        return img
+    return resize_bilinear(img, nw, nh)
+
+
+def random_horizontal_flip(img: np.ndarray, rng: np.random.Generator,
+                           p: float = 0.5) -> np.ndarray:
+    if rng.random() < p:
+        return img[:, ::-1]
+    return img
+
+
+def random_crop(img: np.ndarray, size: int,
+                rng: np.random.Generator) -> np.ndarray:
+    h, w = img.shape[:2]
+    top = int(rng.integers(0, h - size + 1))
+    left = int(rng.integers(0, w - size + 1))
+    return img[top:top + size, left:left + size]
+
+
+def center_crop(img: np.ndarray, size: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    top, left = (h - size) // 2, (w - size) // 2
+    return img[top:top + size, left:left + size]
+
+
+def train_transform_u8(img: np.ndarray, rng: np.random.Generator,
+                       size: int = 224, resize: int = 256) -> np.ndarray:
+    """Rescale → flip → RandomCrop, all uint8.  Returns a VIEW when no
+    resize was needed; the one copy happens at batch assembly."""
+    img = rescale(img, resize)
+    img = random_horizontal_flip(img, rng)
+    return random_crop(img, size, rng)
+
+
+def eval_transform_u8(img: np.ndarray, size: int = 224,
+                      resize: int = 256) -> np.ndarray:
+    """Rescale → CenterCrop, uint8 (a view, as train_transform_u8)."""
+    return center_crop(rescale(img, resize), size)

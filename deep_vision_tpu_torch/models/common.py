@@ -11,9 +11,13 @@ keys are torchvision's.  Conventions, as in the reference:
   buffer named ``weight`` beside a float32 per-output-channel
   ``weight_scale``; it is dequantized inside each forward, and no float
   copy is kept;
-- BatchNorm is the inference form the reference computes at any dtype:
-  ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, then
-  cast to the compute dtype.  Training-mode BatchNorm is not ported yet.
+- BatchNorm computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
+  in float32, then casts to the compute dtype.  In eval mode ``mean`` and
+  ``var`` are the running statistics.  In training mode (``.train()``)
+  they are the batch's, with flax's numerics (float32 ``E[x]`` and
+  ``max(E[x²] − E[x]², 0)``), and the running statistics move as
+  ``0.9·running + 0.1·batch`` with the BIASED batch variance, as flax's
+  ``BatchNorm(momentum=0.9)`` does.
 """
 
 from __future__ import annotations
@@ -88,14 +92,70 @@ class Linear(nn.Linear):
                         self.bias.to(dt))
 
 
+#: flax's BatchNorm momentum: running = MOMENTUM·running + (1−MOMENTUM)·batch
+BN_MOMENTUM = 0.9
+
+
+class _TrainBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over (N, H, W) of an (N, C, H, W) input.
+
+    The backward keeps only the compute-dtype input and the per-channel
+    float32 ``mean`` and ``rstd``: built from float32 elementwise ops,
+    autograd would keep several float32 copies of every activation, which
+    at batch 256 does not fit on an 80 GB card."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, out_dtype):
+        shape = (1, -1, 1, 1)
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=(0, 2, 3))
+        mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        rstd = torch.rsqrt(var + eps)
+        mul = rstd * weight.to(torch.float32)
+        y = (xf - mean.view(shape)) * mul.view(shape) + \
+            bias.to(torch.float32).view(shape)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(out_dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        shape = (1, -1, 1, 1)
+        n = x.numel() // x.shape[1]
+        dyf = dy.to(torch.float32)
+        xhat = (x.to(torch.float32) - mean.view(shape)) * rstd.view(shape)
+        dbias = dyf.sum(dim=(0, 2, 3))
+        dscale = (dyf * xhat).sum(dim=(0, 2, 3))
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (dyf - (dbias / n).view(shape)
+                  - xhat * (dscale / n).view(shape)) * \
+                (rstd * weight.to(torch.float32)).view(shape)
+            dx = dx.to(x.dtype)
+        return (dx, dscale.to(weight.dtype), dbias.to(weight.dtype), None,
+                None)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm with the reference's formula and rounding."""
+    """BatchNorm with the reference's (flax's) formula and rounding: batch
+    statistics in training mode, running statistics in eval mode."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__(features, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            y, mean, var = _TrainBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, self.compute_dtype)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1.0 - BN_MOMENTUM) * var)
+            return y
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(self.running_var + self.eps) * \
             self.weight.to(torch.float32)

@@ -1,17 +1,22 @@
-"""Where a serving bucket's time goes: ``torch.profiler`` over a few
-forwards of one bucket callable, device time summed by kernel.
+"""Where a serving bucket's or a train step's time goes:
+``torch.profiler`` over a few calls, device time summed by kernel.
 
     python -m deep_vision_tpu_torch.obs.profile -m resnet50 \\
         --infer-dtype int8 --bucket 32 [--weights w.npz] [--device cuda]
+    python -m deep_vision_tpu_torch.obs.profile -m resnet50 --train \\
+        [--batch 256] [--device cuda]
 
-Prints one JSON object: the bucket's wall time per forward (host clock
-around synchronised calls), the device busy time per forward (the sum
-of its kernels' durations) and its share of the wall time, and the
-kernels with the most device time,
-grouped into ``conv`` (cuDNN/cuBLAS convolution and GEMM kernels,
-cuBLAS's ``nvjet_*`` included),
-``serve_ingest`` and ``other`` (elementwise, pooling, reductions).
-Where the profiler records no device time, those fields are null.
+Prints one JSON object: the wall time per forward (or per train step;
+host clock around synchronised calls), the device busy time per call
+(the sum of its kernels' durations) and its share of the wall time, and
+the kernels with the most device time, grouped into ``conv``
+(cuDNN/cuBLAS convolution and GEMM kernels, cuBLAS's ``nvjet_*``
+included), ``serve_ingest``, ``train_ingest``, ``optimizer`` (the
+foreach kernels of the SGD update and the divergence guard) and
+``other`` (elementwise, BatchNorm, pooling, reductions).  The train step
+runs ``--model``'s config at its batch on a seeded uint8 batch already on
+the device, through the trainer's own ``train_step``.  Where the
+profiler records no device time, those fields are null.
 """
 
 from __future__ import annotations
@@ -33,36 +38,37 @@ CONV_MARKERS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
 
 def kernel_group(name: str) -> str:
     low = name.lower()
-    if "serve_ingest" in low:
-        return "serve_ingest"
+    for kernel in ("serve_ingest", "train_ingest"):
+        if kernel in low:
+            return kernel
     if any(m in low for m in CONV_MARKERS):
         return "conv"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer"
     return "other"
 
 
-def profile_bucket(sm, bucket: int, iters: int = 5, top: int = 12) -> dict:
-    """Profile ``iters`` forwards of ``sm``'s ``bucket`` callable."""
+def _profiled(call, device: torch.device, iters: int, top: int,
+              unit: str) -> dict:
+    """Run ``call`` twice to warm up, then ``iters`` times under the
+    profiler; wall and device milliseconds per call (``unit``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    on_cuda = sm.device.type == "cuda"
+    on_cuda = device.type == "cuda"
 
     def sync():
         if on_cuda:
-            torch.cuda.synchronize(sm.device)
+            torch.cuda.synchronize(device)
 
-    fn = sm.compile_bucket(bucket)
-    gen = torch.Generator().manual_seed(0)
-    x = torch.randint(0, 256, (bucket, *sm.input_shape), generator=gen,
-                      dtype=torch.uint8).to(sm.device)
     for _ in range(2):
-        fn(x)
+        call()
     sync()
     activities = [ProfilerActivity.CPU] + \
         ([ProfilerActivity.CUDA] if on_cuda else [])
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            fn(x)
+            call()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     groups: dict[str, float] = {}
@@ -80,13 +86,64 @@ def profile_bucket(sm, bucket: int, iters: int = 5, top: int = 12) -> dict:
         kernels.append((dev_us / 1e3 / iters, e.count // iters, e.key))
     kernels.sort(reverse=True)
     busy = sum(groups.values()) if groups else None
-    return {"bucket": bucket, "device": str(sm.device),
-            "wall_ms_per_forward": wall_ms,
-            "device_busy_ms_per_forward": busy,
+    return {"device": str(device), f"wall_ms_per_{unit}": wall_ms,
+            f"device_busy_ms_per_{unit}": busy,
             "device_busy_share": busy / wall_ms if busy else None,
             "device_ms_by_group": groups or None,
+            f"launches_per_{unit}": sum(n for _, n, _ in kernels),
             "top_kernels": [{"ms": ms, "launches": n, "name": name[:120]}
                             for ms, n, name in kernels[:top]]}
+
+
+def profile_bucket(sm, bucket: int, iters: int = 5, top: int = 12) -> dict:
+    """Profile ``iters`` forwards of ``sm``'s ``bucket`` callable."""
+    fn = sm.compile_bucket(bucket)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(0, 256, (bucket, *sm.input_shape), generator=gen,
+                      dtype=torch.uint8).to(sm.device)
+    return {"bucket": bucket,
+            **_profiled(lambda: fn(x), sm.device, iters, top, "forward")}
+
+
+def profile_train_step(trainer, state, batch: dict, iters: int = 3,
+                       top: int = 12) -> dict:
+    """Profile ``iters`` of ``trainer``'s train steps on ``batch``."""
+    def step():
+        trainer.train_step(state, batch)
+
+    return {"batch": len(batch["label"]),
+            **_profiled(step, trainer.device, iters, top, "step")}
+
+
+def _train_main(args, device) -> dict:
+    import tempfile
+
+    import numpy as np
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    cfg = get_config(args.model)
+    if args.batch is not None:
+        cfg.batch_size = args.batch
+    rng = np.random.default_rng(0)
+    batch = {"image": torch.from_numpy(rng.integers(
+        0, 256, (cfg.batch_size, cfg.image_size, cfg.image_size,
+                 cfg.channels), dtype=np.uint8)).to(device),
+        "label": torch.from_numpy(rng.integers(
+            0, cfg.num_classes, cfg.batch_size).astype(np.int64)).to(device)}
+    with tempfile.TemporaryDirectory() as work:
+        trainer = Trainer(cfg, cfg.model(),
+                          ClassificationTask(cfg.num_classes),
+                          workdir=work,
+                          preprocess_fn=make_imagenet_preprocess(),
+                          device=device)
+        state = trainer.init_state()
+        return profile_train_step(trainer, state, batch)
 
 
 def main(argv=None):
@@ -96,12 +153,19 @@ def main(argv=None):
     p.add_argument("--infer-dtype", choices=("float32", "bfloat16", "int8"),
                    default="int8")
     p.add_argument("--bucket", type=int, default=32)
+    p.add_argument("--train", action="store_true",
+                   help="profile train steps instead of a serving bucket")
+    p.add_argument("--batch", type=int, default=None,
+                   help="train batch (default: the config's)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     from deep_vision_tpu_torch.serve.registry import ModelRegistry
 
     device = resolve_device(args.device)
     configure_precision()
+    if args.train:
+        print(json.dumps(_train_main(args, device)), flush=True)
+        return 0
     sm = ModelRegistry().load_checkpoint(args.model, args.weights,
                                          wire_dtype="uint8",
                                          infer_dtype=args.infer_dtype,

@@ -1,17 +1,26 @@
-"""Serving prologues: the uint8 wire's decode, normalize and quantize.
+"""Input prologues: the serving wire's decode, normalize and quantize,
+and the training batch's color jitter and normalize.
 
-Port of the serving half of ``deep_vision_tpu/ops/preprocess.py``.  Each
-function takes and returns NHWC tensors, the JAX package's layout.
+Port of ``deep_vision_tpu/ops/preprocess.py`` (the serving prologues,
+``jitter_normalize`` and ``make_imagenet_preprocess``).  Each function
+takes and returns NHWC tensors, the JAX package's layout.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from deep_vision_tpu_torch.data.mnist import MEAN as MNIST_MEAN
 from deep_vision_tpu_torch.data.mnist import STD as MNIST_STD
 from deep_vision_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from deep_vision_tpu_torch.ops.ingest import device_scalar, serve_ingest
+from deep_vision_tpu_torch.ops.train_ingest import (
+    GRAY,
+    jitter_uniform,
+    train_ingest,
+    train_ingest_factors,
+)
 
 #: normalization families the serving wire supports; "unit" is plain
 #: [0,1] scaling, "gan" the GAN pipelines' [-1,1] scaling
@@ -89,3 +98,57 @@ def make_int8_ingest(kind: str, wire_dtype: torch.dtype, act_scale: float):
         return quantize_activations(x, act_scale)
 
     return plain
+
+
+def jitter_normalize(images: torch.Tensor, generator: torch.Generator | None,
+                     train: bool, mean=IMAGENET_MEAN, std=IMAGENET_STD,
+                     brightness: float = 0.2, contrast: float = 0.2,
+                     saturation: float = 0.2) -> torch.Tensor:
+    """uint8 ``(B, H, W, 3)`` → normalized float32, with train-time color
+    jitter: the reference's multi-op XLA path, kept as the plain
+    reference of :func:`train_ingest`.  The factors come from
+    ``generator`` in the order :func:`train_ingest_factors` draws them
+    (brightness, contrast, saturation), so both paths see the same
+    factors from one seed."""
+    dev = images.device
+    x = images.to(torch.float32) / device_scalar(255.0, dev)
+    if train:
+        b = images.shape[0]
+        shape = (b, 1, 1, 1)
+        fb = jitter_uniform(b, brightness, generator, dev).view(shape)
+        fc = jitter_uniform(b, contrast, generator, dev).view(shape)
+        fs = jitter_uniform(b, saturation, generator, dev).view(shape)
+        x = x * fb
+        m = x.mean(dim=(1, 2, 3), keepdim=True)
+        x = (x - m) * fc + m
+        gray = (x * device_scalar(GRAY, dev)).sum(-1, keepdim=True)
+        x = gray + (x - gray) * fs
+        x = x.clamp(0.0, 1.0)
+    return ((x - device_scalar(tuple(np.asarray(mean).tolist()), dev))
+            / device_scalar(tuple(np.asarray(std).tolist()), dev))
+
+
+def make_imagenet_preprocess(brightness: float = 0.2, contrast: float = 0.2,
+                             saturation: float = 0.2):
+    """The trainer's ``preprocess_fn(batch, generator, train)`` for uint8
+    ImageNet batches already on the device.  Train batches take
+    :func:`train_ingest` (the CUDA kernel on the card) with factors drawn
+    from ``generator``; eval batches take the plain normalize, as in the
+    reference, where eval is XLA and not Pallas.  Float batches (host
+    normalized, e.g. ``--synthetic``) pass through untouched."""
+
+    def fn(batch: dict, generator: torch.Generator | None,
+           train: bool) -> dict:
+        img = batch["image"]
+        if img.dtype != torch.uint8:
+            return batch
+        out = dict(batch)
+        if train:
+            factors = train_ingest_factors(img, generator, brightness,
+                                           contrast, saturation)
+            out["image"] = train_ingest(img, factors)
+        else:
+            out["image"] = serve_normalize(img, "imagenet")
+        return out
+
+    return fn

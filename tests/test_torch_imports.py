@@ -24,6 +24,8 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "deep_vision_tpu_torch.serve.engine" in mods
+    assert "deep_vision_tpu_torch.core.trainer" in mods
+    assert "deep_vision_tpu_torch.cli.train" in mods
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
@@ -109,6 +111,20 @@ def test_registry_and_cli_require_cuda_unless_cpu(no_cuda):
     with pytest.raises(RuntimeError):
         cli.build_server(cli.build_parser().parse_args(
             ["-m", "resnet50", "--infer-dtype", "int8", "--port", "0"]))
+
+
+def test_train_cli_requires_cuda_unless_cpu(no_cuda, tmp_path):
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.core.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["-m", "resnet50", "--synthetic",
+                  "--workdir", str(tmp_path)])
+    from deep_vision_tpu_torch.core.config import get_config
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(get_config("resnet50"), None, None, workdir=str(tmp_path))
+    assert not os.listdir(tmp_path)  # both refused before touching the disk
 
 
 def test_cli_serves_on_cpu_when_asked(tmp_path):
