@@ -4,7 +4,7 @@
     python -m deep_vision_tpu_torch.obs.profile -m resnet50 \\
         --infer-dtype int8 --bucket 32 [--weights w.npz] [--device cuda]
     python -m deep_vision_tpu_torch.obs.profile -m resnet50 --train \\
-        [--batch 256] [--device cuda]
+        [--device cuda]
 
 Prints one JSON object: the wall time per forward (or per train step;
 host clock around synchronised calls), the device busy time per call
@@ -128,8 +128,6 @@ def _train_main(args, device) -> dict:
     )
 
     cfg = get_config(args.model)
-    if args.batch is not None:
-        cfg.batch_size = args.batch
     rng = np.random.default_rng(0)
     batch = {"image": torch.from_numpy(rng.integers(
         0, 256, (cfg.batch_size, cfg.image_size, cfg.image_size,
@@ -155,8 +153,6 @@ def main(argv=None):
     p.add_argument("--bucket", type=int, default=32)
     p.add_argument("--train", action="store_true",
                    help="profile train steps instead of a serving bucket")
-    p.add_argument("--batch", type=int, default=None,
-                   help="train batch (default: the config's)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     from deep_vision_tpu_torch.serve.registry import ModelRegistry
