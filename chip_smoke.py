@@ -63,7 +63,42 @@ Phases, each of which must pass:
               within 5e-2 in L2 (``compare_steps`` says why); the same
               comparison with two images' factors swapped on the card's
               side must fail;
-7. card     — print ``nvidia-smi --query-gpu=name,power.limit``.
+7. iou kernel — hold ``best_iou_max`` against its plain PyTorch version
+              on the card at the yolov3_coco loss shapes (128, N, 100)
+              for N = 3·52², 3·26², 3·13², and at (3, 1000, 7),
+              (2, 300, 600) and (2, 100, 0), on seeded boxes with a mixed
+              mask, a wholly masked image, zero-area boxes and NaN
+              prediction rows: bit-identical (a NaN matching any NaN).
+              Kernel device, eager call, plain and bound times as above;
+              no single PyTorch call computes this function, so there is
+              no library time;
+8. yolo training — write seeded raw-payload detection shards (train 384,
+              val 128 synthetic scenes stored at 416×416×3, boxes from 80
+              classes) and call ``cli/train.py``'s ``main`` for
+              ``yolov3_coco`` at full width (Darknet-53, 416², 80 classes,
+              bf16, batch 128, Adam with clipping) for 2 epochs, then
+              with ``--resume --epochs 3``.  ``best_iou_max`` must launch
+              3 times per train step and per eval batch, every logged
+              loss be finite, ``bad_steps`` stay 0, the ignore mask hide
+              a non-zero share of predictions in a logged step, the
+              val mAP be finite (the records are noise to a random model:
+              its value is no accuracy measurement), a checkpoint exist
+              per epoch, and the resumed run start at epoch 3, step 6,
+              with the saved weights and Adam state.  Prints step ms
+              (CUDA events), img/s, input stall, peak memory and mAP;
+9. yolo step check — one float32 forward + backward (TF32 off) of
+              full-width yolov3_coco on 2 seeded noise images at 128²
+              (grids 16, 8, 4) whose ground truths are cut from the
+              model's own jittered predictions (so the ignore mask hides
+              some), same weights, on the card (through the kernel)
+              and on the CPU (through the plain version): the loss and
+              every per-scale component within 1e-4 relative, the
+              gradients in L2 within 10× the CPU's own floor (its
+              gradients from weights moved by 1e-7), at least 1e-3 over
+              the model and 5e-2 per tensor; the ignore masks' flips are
+              printed.  The same step with each image's boxes in the
+              next image's ignore mask must break the loss bound;
+10. card    — print ``nvidia-smi --query-gpu=name,power.limit``.
 
 Before the last line it prints ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on its own path, max error, kernel / plain /
@@ -109,6 +144,19 @@ STEP_CHECK_BATCH = 8
 #: change of the weights moves the update by up to 10% (ReLU gates flip)
 STEP_CHECK_LAST_SCALE = 1e-2
 BF16_BOUND = 3e-2
+#: best_iou_max at yolov3_coco's loss: B=128, N = 3·(416/s)² for s in
+#: (8, 16, 32), M = MAX_BOXES
+IOU_SHAPES = [(128, 8112, 100), (128, 2028, 100), (128, 507, 100)]
+#: float32 operations of best_iou_max per unmasked pair: 2 max + 2 min
+#: (intersection corners), 2 sub + 2 clamp (its sides), 1 mul, add, sub,
+#: + eps, the division, the mask select and the running max; per masked
+#: pair the select and the max; per box its area (2 sub, 2 clamp, 1 mul)
+IOU_OPS_PER_PAIR, IOU_OPS_MASKED, IOU_OPS_AREA = 15, 2, 5
+#: the YOLOv3 run: yolov3_coco at full width (416², 80 classes, batch 128,
+#: bf16, Adam) on seeded synthetic records, 3 train steps an epoch and
+#: one val batch; the card-vs-CPU step at 128² (grids 16, 8, 4)
+YOLO_TRAIN, YOLO_VAL, YOLO_SIZE, YOLO_BATCH = 384, 128, 416, 128
+YOLO_CLASSES, YOLO_WORKERS, YOLO_CHECK_SIZE = 80, 6, 128
 MODEL = "resnet50"
 BUCKETS = (1, 2, 4, 8, 16, 32)
 N_SEQ, N_CONC = 8, 24
@@ -583,6 +631,119 @@ def phase_train_kernels() -> list[dict]:
     return rows
 
 
+def iou_inputs(shape, gen, edge: bool = False):
+    """Seeded (pred, gt, mask) for ``best_iou_max`` at (B, N, M): boxes
+    with centres in [0, 1] and sides in [0.01, 0.5], 70% of the ground
+    truths unmasked.  ``edge`` adds the edge cases: image 0 wholly
+    masked, zero-area boxes, and a NaN prediction row in images 0 and
+    1 (NaN out in image 1, 0 in the masked image 0)."""
+    import torch
+
+    b, n, m = shape
+
+    def boxes(count):
+        xy = torch.rand((b, count, 2), generator=gen, device="cuda")
+        wh = torch.rand((b, count, 2), generator=gen, device="cuda") \
+            * 0.49 + 0.01
+        return torch.cat([xy - wh / 2, xy + wh / 2], -1).contiguous()
+
+    pred, gt = boxes(n), boxes(m)
+    mask = (torch.rand((b, m), generator=gen, device="cuda")
+            > 0.3).float()
+    if edge:
+        mask[0] = 0.0
+        pred[:, ::7, 2] = pred[:, ::7, 0]       # zero width
+        gt[:, ::5, 3] = gt[:, ::5, 1]           # zero height
+        pred[0, 3] = float("nan")
+        pred[min(1, b - 1), 5] = float("nan")
+    return pred, gt, mask
+
+
+def iou_differing(got, want) -> int:
+    """Elements whose float32 bits differ, NaN matching any NaN."""
+    import torch
+
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        got.isnan() & want.isnan())
+    return int((~same).sum())
+
+
+def phase_iou_kernels() -> list[dict]:
+    """best_iou_max vs its plain version at the YOLOv3 416² loss shapes
+    (B=128; N = 3·52², 3·26², 3·13²; M = 100) and on the edge cases."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.best_iou import (
+        best_iou_max,
+        best_iou_max_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for shape in IOU_SHAPES:
+        b, n, m = shape
+        per_set = b * (n + m) * 20
+        n_sets = max(2, min(16, math.ceil(100e6 / per_set)))
+        sets = [iou_inputs(shape, gen, edge=(k == 0)) for k in range(n_sets)]
+        got, want = best_iou_max(*sets[0]), best_iou_max_plain(*sets[0])
+        torch.cuda.synchronize()
+        diff = iou_differing(got, want)
+        check(diff == 0, f"best_iou_max differs from plain at {shape} in "
+                         f"{diff} elements")
+        check(bool(want[1].isnan().any()) and bool((want[0] == 0).all()),
+              "the edge cases did not reach the output (NaN row, masked "
+              "image)")
+        ok = ~(got.isnan() | want.isnan())
+        err = float((got[ok] - want[ok]).abs().max())
+        on = sets[0][2].gt(0).sum(1).double()   # unmasked ground truths
+        pairs_on = float((on * n).sum())
+        ops = IOU_OPS_PER_PAIR * pairs_on + IOU_OPS_MASKED * (
+            b * n * m - pairs_on) + IOU_OPS_AREA * b * (n + m)
+        bound_ops = ops / F32_OPS_PER_S * 1e3
+        bound_bytes = (b * n * (16 + 4) + b * m * (16 + 4)) \
+            / HBM_BYTES_PER_S * 1e3
+
+        def kernel(p):
+            return best_iou_max(*p)
+
+        def plain(p):
+            return best_iou_max_plain(*p)
+
+        row = {"shape": list(shape), "differing": diff, "max_abs_err": err,
+               "nan_rows": int(got.isnan().any(1).sum()),
+               "ms": device_ms(kernel, sets),
+               "call_ms": call_ms(kernel, sets),
+               "plain_ms": device_ms(plain, sets, reps=5),
+               "library_ms": None,
+               "bound_ms": max(bound_bytes, bound_ops),
+               "bound_by": "bytes" if bound_bytes >= bound_ops
+               else "operations", "pairs": b * n * m,
+               "unmasked_pairs": pairs_on}
+        rows.append(row)
+        log(f"best_iou_max {shape}: device {row['ms'] * 1e3:.2f} us (eager "
+            f"call {row['call_ms'] * 1e3:.2f}, plain "
+            f"{row['plain_ms'] * 1e3:.2f}, bound {row['bound_ms'] * 1e3:.2f}"
+            f" us by {row['bound_by']}), {diff} differing elements")
+        del sets
+    # ragged N, M past one shared-memory chunk, M = 0, empty batch
+    for shape in ((3, 1000, 7), (2, 300, 600), (2, 100, 0)):
+        p = iou_inputs(shape, gen, edge=shape[2] > 0)
+        got, want = best_iou_max(*p), best_iou_max_plain(*p)
+        torch.cuda.synchronize()
+        diff = iou_differing(got, want)
+        check(diff == 0, f"best_iou_max differs from plain at {shape} in "
+                         f"{diff} elements")
+        if shape[2] == 0:
+            check(bool((got == 0).all()), "M = 0 must give 0")
+    before = best_iou_max.launches
+    out = best_iou_max(torch.empty((0, 10, 4), device="cuda"),
+                       torch.empty((0, 5, 4), device="cuda"),
+                       torch.empty((0, 5), device="cuda"))
+    check(out.shape == (0, 10) and best_iou_max.launches == before,
+          "an empty batch must return an empty result and launch nothing")
+    return rows
+
+
 def write_records(root: str) -> None:
     """Seeded raw-payload dvrec shards (``prepare_data --store raw``),
     stored at the loader's resize so no resize is needed."""
@@ -600,16 +761,25 @@ def write_records(root: str) -> None:
                              "shape": [STORED, STORED, 3]}, img.tobytes())
 
 
-def state_digest(model_sd: dict, momentum: dict) -> str:
-    """One hash over parameters, buffers and momentum."""
+def state_digest(model_sd: dict, opt_state: dict) -> str:
+    """One hash over parameters, buffers and the optimizer's tensors
+    (SGD momentum; Adam's mu, nu and count), nested dicts flattened."""
     import hashlib
 
     import torch
 
+    def leaves(tree, prefix=""):
+        for key in sorted(tree):
+            v = tree[key]
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{key}/")
+            elif isinstance(v, torch.Tensor):
+                yield f"{prefix}{key}", v
+
     h = hashlib.blake2b(digest_size=8)
-    for part in (model_sd, momentum):
-        for key in sorted(part):
-            a = part[key].detach().cpu().contiguous()
+    for part in (model_sd, opt_state):
+        for key, v in leaves(part):
+            a = v.detach().cpu().contiguous()
             h.update(key.encode())
             h.update(a.reshape(-1).view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
@@ -875,6 +1045,317 @@ def phase_step_check() -> dict:
     return out
 
 
+def write_detection_shards(root: str) -> None:
+    """Seeded raw-payload detection shards (the reference's raw store)
+    at 416²: synthetic scenes of 1-3 coloured boxes from 80 classes, so
+    un-cropped reads need no resize and cropped reads take the torch
+    resize."""
+    from deep_vision_tpu_torch.data.detection import (
+        synthetic_detection_dataset,
+    )
+    from deep_vision_tpu_torch.data.records import (
+        RecordWriter,
+        encode_detection_sample,
+        shard_name,
+    )
+
+    for split, n, shards in (("train", YOLO_TRAIN, 3), ("val", YOLO_VAL, 1)):
+        for i in range(shards):
+            scenes = synthetic_detection_dataset(
+                n // shards, YOLO_SIZE, YOLO_CLASSES,
+                seed=17 + i + (100 if split == "val" else 0))
+            with RecordWriter(shard_name(root, split, i, shards)) as w:
+                for scene in scenes:
+                    w.write(*encode_detection_sample(scene, YOLO_SIZE))
+
+
+def read_series(workdir: str) -> dict[str, list]:
+    series: dict[str, list] = {}
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        for line in f:
+            d = json.loads(line)
+            series.setdefault(d["name"], []).append((d["step"], d["value"]))
+    return series
+
+
+def phase_yolo_training() -> dict:
+    """cli.train end to end for yolov3_coco at full width on the card."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.best_iou import best_iou_max
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
+        t0 = time.monotonic()
+        write_detection_shards(data)
+        log(f"yolo training: wrote {YOLO_TRAIN}+{YOLO_VAL} raw detection "
+            f"records in {time.monotonic() - t0:.1f} s")
+        argv = ["-m", "yolov3_coco", "--data-root", data, "--workdir", work,
+                "--num-workers", str(YOLO_WORKERS), "--device", "cuda"]
+        steps = YOLO_TRAIN // YOLO_BATCH
+        evals = -(-YOLO_VAL // YOLO_BATCH)  # val batches per evaluation
+        torch.cuda.reset_peak_memory_stats()
+        best_iou_max.launches = 0
+        t0 = time.monotonic()
+        check(cli.main(argv + ["--epochs", str(EPOCHS)]) == 0,
+              "cli.train -m yolov3_coco failed")
+        first_s = time.monotonic() - t0
+        first = best_iou_max.launches
+        # every epoch evaluates once, and cli.train once more at the end
+        want = 3 * (EPOCHS * steps + (EPOCHS + 1) * evals)
+        check(first == want, f"best_iou_max launched {first} times, not "
+                             f"3 x ({EPOCHS * steps} train steps + "
+                             f"{(EPOCHS + 1) * evals} eval batches)")
+        ckpts = Checkpointer(os.path.join(work, "checkpoints"))
+        check(ckpts.all_steps() == [steps * e for e in range(1, EPOCHS + 1)],
+              f"checkpoints {ckpts.all_steps()}, not one per epoch")
+        saved = ckpts.load(EPOCHS * steps)["state"]
+        want_digest = state_digest(saved["model"], saved["optimizer"])
+        resumed = {}
+        original = Trainer.maybe_resume
+
+        def spy(self, state):
+            state = original(self, state)
+            resumed.update(
+                step=state.step, epoch=self.start_epoch,
+                count=int(state.opt.count),
+                digest=state_digest(state.model.state_dict(),
+                                    state.opt.state_dict()))
+            return state
+
+        Trainer.maybe_resume = spy
+        try:
+            t0 = time.monotonic()
+            check(cli.main(argv + ["--resume", "--epochs",
+                                   str(RESUME_EPOCHS)]) == 0,
+                  "cli.train -m yolov3_coco --resume failed")
+            resume_s = time.monotonic() - t0
+        finally:
+            Trainer.maybe_resume = original
+        launches = best_iou_max.launches
+        peak = torch.cuda.max_memory_allocated()
+        more = RESUME_EPOCHS - EPOCHS
+        check(launches - first == 3 * (more * steps + (more + 1) * evals),
+              f"the resumed run launched best_iou_max {launches - first} "
+              f"times")
+        check(resumed == {"step": EPOCHS * steps, "epoch": EPOCHS + 1,
+                          "count": EPOCHS * steps, "digest": want_digest},
+              f"resume restored {resumed}, not step {EPOCHS * steps} "
+              f"epoch {EPOCHS + 1} digest {want_digest}")
+        check(ckpts.all_steps() == [steps * e
+                                    for e in range(1, RESUME_EPOCHS + 1)],
+              f"checkpoints after resume: {ckpts.all_steps()}")
+        series = read_series(work)
+        losses = series.get("train_loss", [])
+        check(bool(losses), "no train loss was logged")
+        check(all(math.isfinite(v) for _, v in losses),
+              f"non-finite train loss: {losses}")
+        check(all(v == 0 for _, v in series["train_bad_steps"]),
+              f"bad steps: {series['train_bad_steps']}")
+        ignored = [[v for _, v in series[f"train_ignored_{s}"]]
+                   for s in range(3)]
+        check(any(sum(col) > 0 for col in zip(*ignored)),
+              f"the ignore mask hid no prediction in any logged step: "
+              f"{ignored}")
+        maps = [v for _, v in series["val_mAP"]]
+        check(all(math.isfinite(v) for v in maps), f"val mAP {maps}")
+        step_ms = [v for _, v in series["train_step_ms"]]
+        out = {"best_iou_max_launches": launches,
+               "train_steps": RESUME_EPOCHS * steps,
+               "eval_batches": (RESUME_EPOCHS + 2) * evals,
+               "first_run_s": first_s, "resumed_run_s": resume_s,
+               "step_ms_by_epoch": step_ms,
+               "img_per_s_by_epoch": [YOLO_BATCH * 1e3 / v for v in step_ms],
+               "peak_memory_bytes": peak, "losses": losses,
+               "ignored_share_by_scale": ignored,
+               "input_stall_frac": [v for _, v in
+                                    series.get("input_stall_frac", [])],
+               "val_mAP": maps,
+               "checkpoints": ckpts.all_steps(), "resumed": resumed}
+        log(f"yolo training: {json.dumps(out)}")
+    return out
+
+
+def yolo_step(device: str, model_sd: dict, batch: dict) -> dict:
+    """One float32 forward + backward of full-width YOLOv3 (train mode)
+    on ``device``: the loss, its components, each scale's ignore mask
+    and the gradients, all on the CPU."""
+    import torch
+
+    from deep_vision_tpu_torch.core.trainer import to_device
+    from deep_vision_tpu_torch.models.yolo import (
+        ANCHOR_MASKS,
+        YOLO_ANCHORS,
+        YoloV3,
+    )
+    from deep_vision_tpu_torch.ops.best_iou import best_iou_max
+    from deep_vision_tpu_torch.ops.boxes import xywh_to_corners
+    from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.detection import YoloTask, decode_boxes
+
+    model = YoloV3(YOLO_CLASSES, torch.float32)
+    model.load_state_dict(model_sd)
+    model.to(device).train()
+    if device == "cuda":
+        model.to(memory_format=torch.channels_last)
+    task = YoloTask(YOLO_CLASSES)
+    b = make_scale_preprocess()(to_device(batch, torch.device(device)),
+                                None, True)
+    outs = model(b["image"])
+    loss, comps = task.loss(outs, b)
+    loss.backward()
+    with torch.no_grad():
+        ignore = []
+        for s, raw in enumerate(outs):
+            anchors = torch.from_numpy(YOLO_ANCHORS[ANCHOR_MASKS[s]])
+            corners = xywh_to_corners(decode_boxes(
+                raw, anchors.to(raw.device))[0])
+            best = best_iou_max(corners.reshape(len(raw), -1, 4).contiguous(),
+                                b["boxes"], b["boxes_mask"])
+            ignore.append((best < 0.5).cpu())
+    return {"loss": float(loss.detach()),
+            "comps": {k: float(v.detach()) for k, v in comps.items()},
+            "ignore": ignore,
+            "grads": {n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters()}}
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """‖g − w‖ / ‖w‖ over all gradients (``total``) and per tensor."""
+    per = {k: float((got[k] - w).norm() / max(float(w.norm()), 1e-30))
+           for k, w in want.items()}
+    num = sum(float((got[k] - w).norm()) ** 2 for k, w in want.items())
+    den = sum(float(w.norm()) ** 2 for w in want.values())
+    return {"total": (num / max(den, 1e-30)) ** 0.5, "per": per}
+
+
+def comps_rel_err(got: dict, want: dict) -> float:
+    """The worst per-scale loss component's relative error."""
+    return max(abs(got["comps"][k] - v) / max(abs(v), 1e-2)
+               for k, v in want["comps"].items()
+               if not k.startswith("ignored"))
+
+
+def yolo_step_faults(got: dict, want: dict, bounds: dict) -> list[str]:
+    """The loss and each per-scale component beyond 1e-4 relative, the
+    gradients beyond ``bounds`` (total and per tensor, in L2)."""
+    faults = []
+    if abs(got["loss"] - want["loss"]) > 1e-4 * abs(want["loss"]):
+        faults.append(f"loss {got['loss']} vs {want['loss']}")
+    for k, v in want["comps"].items():
+        if k.startswith("ignored"):
+            continue
+        if abs(got["comps"][k] - v) > 1e-4 * max(abs(v), 1e-2):
+            faults.append(f"{k} {got['comps'][k]} vs {v}")
+    errs = grad_errors(got["grads"], want["grads"])
+    if errs["total"] > bounds["total"]:
+        faults.append(f"gradients {errs['total']:.3e} in L2")
+    faults += [f"{k}: {e:.3e} in L2" for k, e in errs["per"].items()
+               if e > bounds["tensor"]]
+    return faults
+
+
+def overlapping_batch(model, n: int, seed: int) -> dict:
+    """``n`` seeded noise images at YOLO_CHECK_SIZE² with ground truths
+    cut from ``model``'s own decoded predictions (train-mode forward on
+    the CPU; weights and statistics restored after), 4 a scale, sides
+    jittered by up to 5%: some predictions overlap a ground truth past
+    the 0.5 ignore threshold by construction, most do not."""
+    import torch
+
+    from deep_vision_tpu_torch.models.yolo import ANCHOR_MASKS, YOLO_ANCHORS
+    from deep_vision_tpu_torch.tasks.detection import (
+        decode_boxes,
+        encode_labels,
+    )
+
+    rng = np.random.default_rng(seed)
+    size = YOLO_CHECK_SIZE
+    images = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        outs = model.train()(torch.from_numpy(images).float() / 255.0)
+    model.load_state_dict(saved)
+    items = []
+    for i in range(n):
+        boxes = []
+        for s, raw in enumerate(outs):
+            anchors = torch.from_numpy(YOLO_ANCHORS[ANCHOR_MASKS[s]])
+            xywh = decode_boxes(raw[i:i + 1], anchors)[0].reshape(-1, 4)
+            pick = rng.choice(len(xywh), 4, replace=False)
+            boxes.append(xywh[pick].numpy()
+                         * rng.uniform(0.95, 1.05, (4, 4)))
+        xywh = np.concatenate(boxes).astype(np.float32)
+        xywh[:, :2] = np.clip(xywh[:, :2], 0.01, 0.99)
+        items.append(encode_labels(
+            xywh, rng.integers(0, YOLO_CLASSES, len(xywh)), YOLO_CLASSES,
+            grids=(size // 8, size // 16, size // 32)))
+    batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+    batch["image"] = images
+    return batch
+
+
+def phase_yolo_step_check() -> dict:
+    """float32 YOLOv3 step on the card (kernel) vs on the CPU (plain)."""
+    import torch
+
+    from deep_vision_tpu_torch.models.yolo import YoloV3
+
+    model = YoloV3(YOLO_CLASSES).reset_parameters(
+        torch.Generator().manual_seed(7))
+    sd = model.state_dict()
+    batch = overlapping_batch(model, 2, seed=21)
+    rolled = dict(batch, boxes=np.roll(batch["boxes"], 1, 0),
+                  boxes_mask=np.roll(batch["boxes_mask"], 1, 0))
+    gen = torch.Generator().manual_seed(9)
+    moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+             if v.is_floating_point() else v for k, v in sd.items()}
+    t0 = time.monotonic()
+    cpu = yolo_step("cpu", sd, batch)
+    cpu_s = time.monotonic() - t0
+    moved_step = yolo_step("cpu", moved, batch)
+    floor = grad_errors(moved_step["grads"], cpu["grads"])
+    gpu = yolo_step("cuda", sd, batch)
+    control = yolo_step("cuda", sd, rolled)
+    # bounds from the CPU's own rounding floor: ten times the change a
+    # 1e-7 move of the weights makes, and never tighter than 1e-3 over
+    # the model or 5e-2 per tensor
+    bounds = {"total": max(1e-3, 10 * floor["total"]),
+              "tensor": max(5e-2, 10 * max(floor["per"].values()))}
+    faults = yolo_step_faults(gpu, cpu, bounds)
+    control_faults = yolo_step_faults(control, cpu, bounds)
+    errs = grad_errors(gpu["grads"], cpu["grads"])
+    flips = [int((g != c).sum()) for g, c in zip(gpu["ignore"],
+                                                  cpu["ignore"])]
+    ignored = [int((~c).sum()) for c in cpu["ignore"]]
+    out = {"loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
+           "comps_rel_err": comps_rel_err(gpu, cpu),
+           "ignored_predictions_by_scale": ignored,
+           "ignore_flips_by_scale": flips,
+           "grad_l2_err": errs["total"],
+           "worst_tensor_grad_l2_err": max(errs["per"].values()),
+           "floor": {"comps_rel": comps_rel_err(moved_step, cpu),
+                     "grad_l2": floor["total"],
+                     "worst_tensor_grad_l2": max(floor["per"].values())},
+           "bounds": bounds, "faults": faults,
+           "control_loss_cuda": control["loss"],
+           "control_faults": len(control_faults),
+           "control_first_faults": control_faults[:3], "cpu_step_s": cpu_s}
+    log(f"yolo step check: {json.dumps(out)}")
+    check(sum(ignored) > 0, "the ignore mask hid nothing in the step check")
+    check(not faults, f"the card's float32 YOLOv3 step disagrees with the "
+                      f"CPU's: {faults[:5]}")
+    check(any(f.startswith(("loss", "obj")) for f in control_faults),
+          "the loss bound held with each image's boxes in the next "
+          "image's ignore mask")
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -905,9 +1386,12 @@ def main() -> int:
     build_s = phase_build()
     rows = phase_kernels()
     train_rows = phase_train_kernels()
+    iou_rows = phase_iou_kernels()
     serving = phase_serving()
     training = phase_training()
     step_check = phase_step_check()
+    yolo = phase_yolo_training()
+    yolo_check = phase_yolo_step_check()
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     kernels = [{"name": "serve_ingest", "route": "cuda",
@@ -931,11 +1415,25 @@ def main() -> int:
         "bound_ms": train_row["bound_ms"], "bound_by": train_row["bound_by"],
         "library_ms": train_row["library_ms"], "shape": train_row["shape"],
         "build_s": build_s})
+    iou_row = iou_rows[0]
+    kernels.append({
+        "name": "best_iou_max", "route": "cuda",
+        "source": "deep_vision_tpu_torch/csrc/best_iou_max.cu",
+        "replaces": "deep_vision_tpu/ops/pallas_ops.py:377",
+        "launches": yolo["best_iou_max_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in iou_rows),
+        "ms": iou_row["ms"], "plain_ms": iou_row["plain_ms"],
+        "bound_ms": iou_row["bound_ms"], "bound_by": iou_row["bound_by"],
+        "library_ms": iou_row["library_ms"], "shape": iou_row["shape"],
+        "build_s": build_s})
     print(json.dumps({"kernel_checks": rows}), flush=True)
     print(json.dumps({"train_kernel_checks": train_rows}), flush=True)
+    print(json.dumps({"iou_kernel_checks": iou_rows}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"step_check": step_check}), flush=True)
+    print(json.dumps({"yolo_training": yolo}), flush=True)
+    print(json.dumps({"yolo_step_check": yolo_check}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,22 @@
         --data-format records --data-root D --workdir W [--resume] \\
         [--epochs N] [--batch-size B] [--num-workers K] [--device cuda]
     python -m deep_vision_tpu_torch.cli.train -m resnet50 --synthetic ...
+    python -m deep_vision_tpu_torch.cli.train -m yolov3_coco \\
+        --data-root D --workdir W [--resume] [--num-workers K]
     python -m deep_vision_tpu_torch.cli.train --list -m x
 
 Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
-classification branch, ``build_classification_val_loader``) on the
-records input: ``D`` holds ``train-*.dvrec`` and ``val-*.dvrec`` shards
-with raw uint8 payloads (``prepare_data --store raw``).  The host reads,
-flips and crops uint8 pixels; the ``train_ingest`` CUDA kernel jitters and
-normalizes each train batch on the card.  Runs on CUDA unless given
-``--device cpu``; without a GPU it raises.
+classification branch, ``build_classification_val_loader`` and the YOLO
+half of ``_main_detection``) on the records input: ``D`` holds
+``train-*.dvrec`` and ``val-*.dvrec`` shards with raw uint8 payloads
+(``prepare_data --store raw``).  Classification: the host reads, flips
+and crops uint8 pixels; the ``train_ingest`` CUDA kernel jitters and
+normalizes each train batch on the card.  Detection (``-m yolov3_coco``
+and the other YOLOv3 configs): the host flips, crops, resizes and
+encodes labels; the card scales the uint8 batch to [0, 1], and the loss's
+ignore mask runs the ``best_iou_max`` CUDA kernel.  CenterNet is not
+ported.  Runs on CUDA unless given ``--device cpu``; without a GPU it
+raises.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--model", required=True,
                    help="config name (see --list)")
     p.add_argument("--data-root", default=None,
-                   help="directory of train-*/val-*.dvrec shards")
+                   help="directory of train-*/val-*.dvrec shards "
+                        "(raw payloads; detection: stored at the input size)")
     p.add_argument("--data-format", choices=("records",), default="records",
                    help="classification input: dvrec shards with raw uint8 "
                         "payloads (the folder/JPEG layout is not ported)")
@@ -93,58 +101,23 @@ def main(argv=None):
         cfg.image_size = args.image_size
     if args.prefetch_depth is not None:
         cfg.prefetch_depth = args.prefetch_depth
-    if cfg.task != "classification":
+    if cfg.task == "centernet":
         raise NotImplementedError(
-            f"task '{cfg.task}' is not ported; classification only")
-
-    from deep_vision_tpu_torch.core.trainer import Trainer
-    from deep_vision_tpu_torch.data.loader import ArrayLoader
-    from deep_vision_tpu_torch.tasks.classification import ClassificationTask
+            "CenterNet is not ported yet (ROADMAP.md Queue 1 item 3)")
+    if cfg.task not in ("classification", "detection"):
+        raise NotImplementedError(
+            f"task '{cfg.task}' is not ported; classification and "
+            f"detection (YOLOv3)")
 
     print(f"device: {device}", flush=True)
-    task = ClassificationTask(cfg.num_classes, cfg.label_smoothing)
-    preprocess_fn = None
+    build = _detection_loaders if cfg.task == "detection" \
+        else _classification_loaders
     loaders = []
     try:
-        if args.synthetic:
-            from deep_vision_tpu_torch.data.synthetic import (
-                synthetic_classification,
-            )
+        task, train_loader, val_loader, preprocess_fn = build(args, cfg,
+                                                              loaders)
+        from deep_vision_tpu_torch.core.trainer import Trainer
 
-            train_data = synthetic_classification(
-                args.synthetic_size, cfg.image_size, cfg.channels,
-                cfg.num_classes, seed=1)
-            val_data = synthetic_classification(
-                max(args.synthetic_size // 4, cfg.batch_size),
-                cfg.image_size, cfg.channels, cfg.num_classes, seed=2)
-            train_loader = ArrayLoader(train_data, cfg.batch_size,
-                                       seed=cfg.seed)
-            val_loader = ArrayLoader(val_data, cfg.eval_batch_size,
-                                     shuffle=False, drop_last=False,
-                                     pad_last=True)
-        else:
-            from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
-            from deep_vision_tpu_torch.data.transforms import (
-                imagenet_resize_for,
-            )
-            from deep_vision_tpu_torch.ops.preprocess import (
-                make_imagenet_preprocess,
-            )
-
-            if not args.data_root:
-                raise SystemExit("--data-root is required without "
-                                 "--synthetic")
-            train_loader = ImageNetLoader.from_records(
-                args.data_root, "train", cfg.batch_size, train=True,
-                seed=cfg.seed, image_size=cfg.image_size,
-                resize=imagenet_resize_for(cfg.image_size),
-                num_workers=args.num_workers)
-            loaders.append(train_loader)
-            val_loader, _ = build_classification_val_loader(
-                cfg, args.data_root, "val", cfg.eval_batch_size,
-                num_workers=args.num_workers)
-            loaders.append(val_loader)
-            preprocess_fn = make_imagenet_preprocess()
         trainer = Trainer(cfg, cfg.model(), task, workdir=args.workdir,
                           preprocess_fn=preprocess_fn, device=device)
         if args.profile:
@@ -157,6 +130,94 @@ def main(argv=None):
     print("final:", " ".join(f"{k}={v:.4f}" for k, v in final.items()),
           flush=True)
     return 0
+
+
+def _classification_loaders(args, cfg, loaders: list):
+    """(task, train loader, val loader, preprocess_fn) for a classifier;
+    loaders that own worker pools are appended to ``loaders``."""
+    from deep_vision_tpu_torch.data.loader import ArrayLoader
+    from deep_vision_tpu_torch.tasks.classification import ClassificationTask
+
+    task = ClassificationTask(cfg.num_classes, cfg.label_smoothing)
+    if args.synthetic:
+        from deep_vision_tpu_torch.data.synthetic import (
+            synthetic_classification,
+        )
+
+        train_data = synthetic_classification(
+            args.synthetic_size, cfg.image_size, cfg.channels,
+            cfg.num_classes, seed=1)
+        val_data = synthetic_classification(
+            max(args.synthetic_size // 4, cfg.batch_size),
+            cfg.image_size, cfg.channels, cfg.num_classes, seed=2)
+        train_loader = ArrayLoader(train_data, cfg.batch_size,
+                                   seed=cfg.seed)
+        val_loader = ArrayLoader(val_data, cfg.eval_batch_size,
+                                 shuffle=False, drop_last=False,
+                                 pad_last=True)
+        return task, train_loader, val_loader, None
+    from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
+    from deep_vision_tpu_torch.data.transforms import imagenet_resize_for
+    from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
+
+    if not args.data_root:
+        raise SystemExit("--data-root is required without --synthetic")
+    train_loader = ImageNetLoader.from_records(
+        args.data_root, "train", cfg.batch_size, train=True,
+        seed=cfg.seed, image_size=cfg.image_size,
+        resize=imagenet_resize_for(cfg.image_size),
+        num_workers=args.num_workers)
+    loaders.append(train_loader)
+    val_loader, _ = build_classification_val_loader(
+        cfg, args.data_root, "val", cfg.eval_batch_size,
+        num_workers=args.num_workers)
+    loaders.append(val_loader)
+    return task, train_loader, val_loader, make_imagenet_preprocess()
+
+
+def _detection_loaders(args, cfg, loaders: list):
+    """(task, train loader, val loader, preprocess_fn) for YOLOv3: uint8
+    batches from raw-payload detection records (or ``--synthetic``
+    scenes), scaled to [0, 1] on the device."""
+    from deep_vision_tpu_torch.data.detection import (
+        DetectionLoader,
+        synthetic_detection_dataset,
+    )
+    from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.detection import YoloTask
+
+    task = YoloTask(cfg.num_classes)
+    if args.synthetic:
+        train_samples = synthetic_detection_dataset(
+            args.synthetic_size, cfg.image_size, min(cfg.num_classes, 3),
+            seed=1)
+        val_samples = synthetic_detection_dataset(
+            max(args.synthetic_size // 4, cfg.batch_size), cfg.image_size,
+            min(cfg.num_classes, 3), seed=2)
+    else:
+        from deep_vision_tpu_torch.data.records import (
+            load_detection_records,
+        )
+
+        if not args.data_root:
+            raise SystemExit("--data-root is required without --synthetic")
+        # the train split is read by the worker pool (bounded memory); the
+        # val split is revisited every epoch inline, so keep its images
+        train_samples = load_detection_records(
+            args.data_root, "train", cache_decoded=args.num_workers == 0)
+        val_samples = load_detection_records(args.data_root, "val",
+                                             cache_decoded=True)
+    # in-memory synthetic samples need no reading: a pool would only add
+    # pickling
+    train_loader = DetectionLoader(
+        train_samples, cfg.batch_size, cfg.num_classes, cfg.image_size,
+        train=True, seed=cfg.seed, device_normalize=True,
+        num_workers=0 if args.synthetic else args.num_workers)
+    loaders.append(train_loader)
+    val_loader = DetectionLoader(
+        val_samples, cfg.eval_batch_size, cfg.num_classes, cfg.image_size,
+        train=False, device_normalize=True)
+    return task, train_loader, val_loader, make_scale_preprocess()
 
 
 if __name__ == "__main__":

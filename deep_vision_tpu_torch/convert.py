@@ -17,6 +17,13 @@ Layout mapping (flax ↔ torch):
 
 Weight files (``--weights``) are ``.npz`` archives of the flax tree with
 keys joined by ``/`` (``params/Conv_0/kernel``).
+
+``yolo_from_flax`` / ``yolo_to_flax`` do the same for YOLOv3
+(``models/yolo.py``): flax's auto-names (``Darknet53_0/DarknetConv_k``,
+``DarknetResidual_k``, ``YoloConvBlock_k``, ``YoloHead_k``, each
+DarknetConv holding ``Conv_0`` and ``BatchNorm_0``) ↔ the port's
+``backbone.stem``, ``backbone.stages.{k}.{i}``, ``block13``/``head13``/
+``lateral26``/…; the heads' 1×1 ``Conv_0`` carries a bias.
 """
 
 from __future__ import annotations
@@ -186,5 +193,114 @@ def load_into(model, variables: Mapping) -> None:
 
     block = model.block_cls.__name__
     sd = flax_to_torch(variables, stage_sizes=model.stage_sizes, block=block)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
+
+
+# ---------------------------------------------------------------------------
+# YOLOv3 (models/yolo.py)
+# ---------------------------------------------------------------------------
+
+#: the port's neck/head modules and the flax names of the same modules
+#: under ``YoloV3`` (created in this order by the reference's forward)
+YOLO_NECK = (("block13", "YoloConvBlock_0"), ("head13", "YoloHead_0"),
+             ("lateral26", "DarknetConv_0"), ("block26", "YoloConvBlock_1"),
+             ("head26", "YoloHead_1"), ("lateral52", "DarknetConv_1"),
+             ("block52", "YoloConvBlock_2"), ("head52", "YoloHead_2"))
+
+
+def _yolo_darknet_convs(blocks: Sequence[int]):
+    """(torch prefix, flax path) of every DarknetConv of a YoloV3, in the
+    reference's call order.  Flax counts ``DarknetConv_k`` and
+    ``DarknetResidual_k`` separately within each parent module."""
+    bb = "Darknet53_0"
+    yield "backbone.stem", (bb, "DarknetConv_0")
+    r = 0
+    for k, n in enumerate(blocks):
+        yield f"backbone.stages.{k}.0", (bb, f"DarknetConv_{k + 1}")
+        for i in range(n):
+            res = (bb, f"DarknetResidual_{r}")
+            yield f"backbone.stages.{k}.{i + 1}.conv1", \
+                (*res, "DarknetConv_0")
+            yield f"backbone.stages.{k}.{i + 1}.conv2", \
+                (*res, "DarknetConv_1")
+            r += 1
+    for t, f in YOLO_NECK:
+        if t.startswith("block"):
+            for i in range(5):
+                yield f"{t}.convs.{i}", (f, f"DarknetConv_{i}")
+        elif t.startswith("head"):
+            yield f"{t}.conv", (f, "DarknetConv_0")
+        else:
+            yield t, (f,)
+
+
+def _get(tree: Mapping, path: Sequence[str]):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _put(tree: dict, path: Sequence[str], value) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def yolo_from_flax(variables: Mapping,
+                   blocks: Sequence[int] = (1, 2, 8, 8, 4)) -> dict:
+    """flax YoloV3 variables (``{"params", "batch_stats"}``, numpy) → the
+    port's ``state_dict`` (numpy): conv kernels HWIO → OIHW, BatchNorm
+    scale/bias/mean/var → weight/bias/running_mean/running_var, the
+    heads' 1×1 conv kernel and bias.  Raises ``KeyError`` naming the
+    missing flax key when the tree does not match ``blocks``."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+    for t, path in _yolo_darknet_convs(tuple(blocks)):
+        p, s = _get(params, path), _get(stats, path)
+        sd[f"{t}.conv.weight"] = _np(p["Conv_0"]["kernel"]).transpose(
+            3, 2, 0, 1)
+        sd[f"{t}.bn.weight"] = _np(p["BatchNorm_0"]["scale"])
+        sd[f"{t}.bn.bias"] = _np(p["BatchNorm_0"]["bias"])
+        sd[f"{t}.bn.running_mean"] = _np(s["BatchNorm_0"]["mean"])
+        sd[f"{t}.bn.running_var"] = _np(s["BatchNorm_0"]["var"])
+        sd[f"{t}.bn.num_batches_tracked"] = np.array(0, np.int64)
+    for t, f in YOLO_NECK:
+        if t.startswith("head"):
+            out = params[f]["Conv_0"]
+            sd[f"{t}.out.weight"] = _np(out["kernel"]).transpose(3, 2, 0, 1)
+            sd[f"{t}.out.bias"] = _np(out["bias"])
+    return {k: np.array(v, order="C") for k, v in sd.items()}
+
+
+def yolo_to_flax(state_dict: Mapping,
+                 blocks: Sequence[int] = (1, 2, 8, 8, 4)) -> dict:
+    """The port's YoloV3 ``state_dict`` → flax ``{"params",
+    "batch_stats"}`` (numpy): the inverse of :func:`yolo_from_flax`."""
+    sd = state_dict
+    params: dict = {}
+    stats: dict = {}
+    for t, path in _yolo_darknet_convs(tuple(blocks)):
+        _put(params, (*path, "Conv_0", "kernel"),
+             _np(sd[f"{t}.conv.weight"]).transpose(2, 3, 1, 0))
+        _put(params, (*path, "BatchNorm_0"),
+             {"scale": _np(sd[f"{t}.bn.weight"]),
+              "bias": _np(sd[f"{t}.bn.bias"])})
+        _put(stats, (*path, "BatchNorm_0"),
+             {"mean": _np(sd[f"{t}.bn.running_mean"]),
+              "var": _np(sd[f"{t}.bn.running_var"])})
+    for t, f in YOLO_NECK:
+        if t.startswith("head"):
+            _put(params, (f, "Conv_0"),
+                 {"kernel": _np(sd[f"{t}.out.weight"]).transpose(2, 3, 1, 0),
+                  "bias": _np(sd[f"{t}.out.bias"])})
+    return {"params": params, "batch_stats": stats}
+
+
+def load_yolo(model, variables: Mapping) -> None:
+    """Copy flax YoloV3 ``variables`` into a port ``YoloV3`` (strict)."""
+    import torch
+
+    sd = yolo_from_flax(variables, model.blocks)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)

@@ -1,19 +1,24 @@
-"""SGD with decoupled-mask weight decay, and host LR schedulers.
+"""SGD and Adam with global-norm clipping and a decay mask, and host LR
+schedulers.
 
-Port of ``deep_vision_tpu/core/optim.py``: ``OptimizerConfig``, the SGD
-chain of ``build_optimizer`` (optax ``add_decayed_weights`` then
-``sgd(momentum)``), and the host-side schedulers, which are pure Python.
-Per parameter ``p`` with gradient ``g``:
+Port of ``deep_vision_tpu/core/optim.py``: ``OptimizerConfig``, the
+chains of ``build_optimizer`` and the host-side schedulers, which are
+pure Python.  Per parameter ``p`` with gradient ``g``, as optax composes
+them:
 
-    d   = g + wd·p            (only where the decay mask is set)
-    buf = momentum·buf + d    (buf starts at zeros)
-    p   = p − lr·buf
+    clip (grad_clip_norm c):  n = ‖all g‖₂;  g = g if n < c else g / n · c
+    sgd:   d = g + wd·p (decay mask);  buf = momentum·buf + d;
+           p = p − lr·buf
+    adam:  t += 1;  mu = (1−b1)·g + b1·mu;  nu = (1−b2)·g² + b2·nu;
+           u = (mu / (1−b1ᵗ)) / (sqrt(nu / (1−b2ᵗ)) + eps)
+           (+ wd·p on the decay mask: AdamW);  p = p − lr·u
 
-The update runs as ``torch._foreach_*`` ops with the learning rate in a
+The updates run as ``torch._foreach_*`` ops with the learning rate in a
 device tensor (the role of optax's ``inject_hyperparams``), so a
-scheduler changes it between epochs and the divergence guard
-(``core/state.py``) selects the result on a device flag, with no host
-sync.
+scheduler changes it between epochs, and the divergence guard
+(``core/state.py``) selects the result on a device flag with no host
+sync: a skipped step leaves parameters, moments and Adam's count ``t``
+as they were, as the reference keeps its old ``opt_state``.
 """
 
 from __future__ import annotations
@@ -27,14 +32,16 @@ from torch import nn
 
 @dataclasses.dataclass
 class OptimizerConfig:
-    name: str = "sgd"  # sgd; adam and rmsprop are not ported
+    name: str = "sgd"  # sgd | adam; rmsprop is not ported
     learning_rate: float = 0.1
     momentum: float = 0.9
-    nesterov: bool = False
+    nesterov: bool = False  # not ported: refused
     weight_decay: float = 0.0  # on the decay mask (no BN, no bias)
-    # the reference's options below are not ported: SGD refuses them
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
     grad_clip_norm: float | None = None
-    momentum_dtype: str | None = None
+    momentum_dtype: str | None = None  # not ported: refused
 
 
 def weight_decay_mask(model: nn.Module) -> dict[str, bool]:
@@ -50,24 +57,34 @@ def weight_decay_mask(model: nn.Module) -> dict[str, bool]:
     return mask
 
 
-class SGD:
-    """Momentum SGD over ``model``'s parameters (in ``named_parameters``
-    order), momentum buffers included."""
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float
+                        ) -> list[torch.Tensor]:
+    """optax's ``clip_by_global_norm``: the gradients as they are when
+    their global L2 norm is below ``max_norm``, else ``g / norm ·
+    max_norm``.  Decided on the device: when the norm is below, the
+    division and product are by 1 and exact."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    below = norm < max_norm
+    one = torch.ones((), dtype=norm.dtype, device=norm.device)
+    out = torch._foreach_div(grads, torch.where(below, one, norm))
+    torch._foreach_mul_(out, torch.where(below, one, one * max_norm))
+    return out
+
+
+class _Optimizer:
+    """Parameters (``named_parameters`` order), the decay mask, the
+    device learning rate and the clip shared by SGD and Adam."""
 
     def __init__(self, cfg: OptimizerConfig, model: nn.Module):
-        if cfg.name != "sgd":
+        if cfg.nesterov or cfg.momentum_dtype:
             raise NotImplementedError(
-                f"optimizer '{cfg.name}' is not ported; only sgd")
-        if cfg.nesterov or cfg.grad_clip_norm or cfg.momentum_dtype:
-            raise NotImplementedError(
-                "nesterov, grad_clip_norm and momentum_dtype are not ported")
+                "nesterov and momentum_dtype are not ported")
         self.cfg = cfg
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         mask = weight_decay_mask(model)
         self.decayed = [i for i, n in enumerate(self.names) if mask[n]]
-        self.momentum = [torch.zeros_like(p) for p in self.params]
         self.lr = torch.tensor(cfg.learning_rate, dtype=torch.float32,
                                device=self.params[0].device)
 
@@ -77,24 +94,46 @@ class SGD:
     def get_learning_rate(self) -> float:
         return float(self.lr)
 
+    def _clipped(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        if self.cfg.grad_clip_norm:
+            return clip_by_global_norm(grads, self.cfg.grad_clip_norm)
+        return grads
+
+    def _with_decay(self, updates: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``u + wd·p`` on the decay mask."""
+        updates = list(updates)
+        wd = self.cfg.weight_decay
+        if wd and self.decayed:
+            decayed = torch._foreach_add(
+                [updates[i] for i in self.decayed],
+                [self.params[i] for i in self.decayed], alpha=wd)
+            for i, u in zip(self.decayed, decayed):
+                updates[i] = u
+        return updates
+
+    def _apply(self, updates: list[torch.Tensor], ok: torch.Tensor) -> None:
+        """``p = p − lr·u`` where ``ok``; the old ``p`` elsewhere."""
+        steps = torch._foreach_mul(updates, self.lr)
+        new = torch._foreach_sub(self.params, steps)
+        for p, n in zip(self.params, new):
+            torch.where(ok, n, p, out=p)
+
+
+class SGD(_Optimizer):
+    """Momentum SGD (optax ``add_decayed_weights`` then ``sgd``)."""
+
+    def __init__(self, cfg: OptimizerConfig, model: nn.Module):
+        super().__init__(cfg, model)
+        self.momentum = [torch.zeros_like(p) for p in self.params]
+
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor], ok: torch.Tensor) -> None:
         """Apply one update where the 0-d bool device tensor ``ok`` holds;
         where it does not, parameters and momentum keep their values."""
-        d = list(grads)
-        wd = self.cfg.weight_decay
-        if wd and self.decayed:
-            decayed = torch._foreach_add([grads[i] for i in self.decayed],
-                                         [self.params[i]
-                                          for i in self.decayed], alpha=wd)
-            for i, g in zip(self.decayed, decayed):
-                d[i] = g
+        d = self._with_decay(self._clipped(grads))
         bufs = torch._foreach_mul(self.momentum, self.cfg.momentum)
         torch._foreach_add_(bufs, d)
-        steps = torch._foreach_mul(bufs, self.lr)
-        new = torch._foreach_sub(self.params, steps)
-        for p, n in zip(self.params, new):
-            torch.where(ok, n, p, out=p)
+        self._apply(bufs, ok)
         for b, n in zip(self.momentum, bufs):
             torch.where(ok, n, b, out=b)
 
@@ -107,6 +146,70 @@ class SGD:
         for name, buf in zip(self.names, self.momentum):
             buf.copy_(d["momentum"][name])
         self.set_learning_rate(d["learning_rate"])
+
+
+class Adam(_Optimizer):
+    """Adam (optax ``adam``: ``scale_by_adam`` then the learning rate),
+    AdamW (``adamw`` with the decay mask) when ``weight_decay`` is set."""
+
+    def __init__(self, cfg: OptimizerConfig, model: nn.Module):
+        super().__init__(cfg, model)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = torch.zeros((), dtype=torch.int32, device=self.lr.device)
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor], ok: torch.Tensor) -> None:
+        """One update where ``ok`` holds; where it does not, parameters,
+        ``mu``, ``nu`` and the count keep their values."""
+        cfg = self.cfg
+        g = self._clipped(grads)
+        mu = torch._foreach_mul(g, 1.0 - cfg.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(self.mu, cfg.b1))
+        nu = torch._foreach_mul(g, g)
+        torch._foreach_mul_(nu, 1.0 - cfg.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(self.nu, cfg.b2))
+        count = self.count + 1
+        t = count.to(torch.float32)
+        one = torch.ones((), dtype=torch.float32, device=t.device)
+        bc1 = one - torch.pow(one * cfg.b1, t)
+        bc2 = one - torch.pow(one * cfg.b2, t)
+        denom = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, cfg.eps)
+        u = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(u, denom)
+        self._apply(self._with_decay(u), ok)
+        for old, new in ((self.mu, mu), (self.nu, nu)):
+            for o, n in zip(old, new):
+                torch.where(ok, n, o, out=o)
+        torch.where(ok, count, self.count, out=self.count)
+
+    def state_dict(self) -> dict:
+        return {"mu": dict(zip(self.names, self.mu)),
+                "nu": dict(zip(self.names, self.nu)),
+                "count": self.count,
+                "learning_rate": self.get_learning_rate()}
+
+    @torch.no_grad()
+    def load_state_dict(self, d: dict) -> None:
+        for key in ("mu", "nu"):
+            for name, buf in zip(self.names, getattr(self, key)):
+                buf.copy_(d[key][name])
+        self.count.copy_(torch.as_tensor(d["count"]))
+        self.set_learning_rate(d["learning_rate"])
+
+
+OPTIMIZERS = {"sgd": SGD, "adam": Adam}
+
+
+def build_optimizer(cfg: OptimizerConfig, model: nn.Module) -> _Optimizer:
+    """The optimizer ``cfg.name`` names, over ``model``'s parameters."""
+    if cfg.name not in OPTIMIZERS:
+        raise NotImplementedError(
+            f"optimizer '{cfg.name}' is not ported; have "
+            f"{sorted(OPTIMIZERS)}")
+    return OPTIMIZERS[cfg.name](cfg, model)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Training state and the divergence guard.
 
 Port of ``deep_vision_tpu/core/state.py``.  ``TrainState`` is the model
-(parameters and BatchNorm running statistics), the optimizer's momentum,
-the step counter, the count of skipped non-finite steps and the rng seed.
-Unlike the reference's immutable pytree it is updated in place; the guard
+(parameters and BatchNorm running statistics), the optimizer's state
+(SGD momentum, or Adam's moments and count), the step counter, the count
+of skipped non-finite steps and the rng seed.  Unlike the reference's immutable pytree it is updated in place; the guard
 of ``apply_gradients_if_finite``/``keep_if`` becomes ``torch.where`` on a
 device flag, so a non-finite step costs no host sync.
 """
@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from deep_vision_tpu_torch.core.optim import SGD
 
 
 class DivergenceGuard:
@@ -52,10 +51,19 @@ def all_finite(tensors: list[torch.Tensor]) -> torch.Tensor:
     return torch.isfinite(torch.stack(norms)).all()
 
 
+def _to_cpu(tree):
+    """CPU copies of the tensors of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
 class TrainState:
     """Model + optimizer + counters: the checkpointable unit."""
 
-    def __init__(self, model: nn.Module, optimizer: SGD, rng: int):
+    def __init__(self, model: nn.Module, optimizer, rng: int):
         self.model = model
         self.opt = optimizer
         self.rng = int(rng)
@@ -77,9 +85,10 @@ class TrainState:
                                   grads: list[torch.Tensor],
                                   stats_before: list[torch.Tensor]) -> None:
         """Apply the optimizer update unless the loss or any gradient is
-        non-finite; then parameters, momentum and the running statistics
-        keep their values and ``bad_steps`` counts one.  The step counter
-        advances either way, so the per-step rng never repeats."""
+        non-finite; then parameters, optimizer state and the running
+        statistics keep their values and ``bad_steps`` counts one.  The
+        step counter advances either way, so the per-step rng never
+        repeats."""
         ok = torch.isfinite(loss) & all_finite(grads)
         self.opt.step(grads, ok)
         for s, old in zip(self.running_stats, stats_before):
@@ -95,10 +104,7 @@ class TrainState:
             "bad_steps": int(self.bad_steps),
             "model": {k: v.detach().cpu()
                       for k, v in self.model.state_dict().items()},
-            "optimizer": {
-                "momentum": {k: v.detach().cpu() for k, v in
-                             self.opt.state_dict()["momentum"].items()},
-                "learning_rate": self.opt.get_learning_rate()},
+            "optimizer": _to_cpu(self.opt.state_dict()),
         }
 
     @torch.no_grad()

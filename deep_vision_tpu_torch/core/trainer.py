@@ -4,13 +4,20 @@ Port of ``deep_vision_tpu/core/trainer.py`` for one model and one
 optimizer on one device.  A train step is
 
     step generator seeded from (seed, step) → preprocess_fn (on the card:
-    the train_ingest kernel) → forward in training mode → task loss →
-    backward → guarded SGD update (core/state.py)
+    the train_ingest kernel for ImageNet, the /255 scale for detection)
+    → forward in training mode → task loss (YOLO's through the
+    best_iou_max kernel on the card) → backward → guarded update of the
+    optimizer ``config.optimizer.name`` picks (core/optim.py,
+    core/state.py)
 
 PyTorch runs eagerly: there is no jit, no donation and no mesh.  Metrics
 come back as device scalars and are fetched one step late at log
 intervals, so the host loop does not wait on the device every step; eval
-sums metrics on the device and fetches them once.  Gradient
+sums metrics on the device and fetches them once.  A task with
+``eval_outputs`` (detection) also returns decoded outputs from the same
+eval forward; they are copied to the host batch by batch into the task's
+``make_host_evaluator()`` (mAP), whose metrics join the eval dict, and
+the task's ``monitor`` ("mAP", "top1") picks the best checkpoint.  Gradient
 accumulation, the params EMA and multi-step dispatch (``scan_steps``)
 are not ported: their config fields must keep their defaults.
 """
@@ -32,7 +39,7 @@ from deep_vision_tpu_torch.core.metrics import (
     StepTimer,
     ThroughputMeter,
 )
-from deep_vision_tpu_torch.core.optim import SGD, build_scheduler
+from deep_vision_tpu_torch.core.optim import build_optimizer, build_scheduler
 from deep_vision_tpu_torch.core.state import DivergenceGuard, TrainState
 
 
@@ -69,7 +76,8 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 
 class Trainer:
-    """Single-model, single-optimizer trainer (classification)."""
+    """Single-model, single-optimizer trainer (classification and YOLO
+    detection)."""
 
     def __init__(self, config: TrainConfig, model: torch.nn.Module, task,
                  workdir: str | None = None, preprocess_fn=None,
@@ -123,7 +131,8 @@ class Trainer:
         if self.device.type == "cuda":
             model.to(memory_format=torch.channels_last)
         self.model = model
-        return TrainState(model, SGD(self.config.optimizer, model),
+        return TrainState(model, build_optimizer(self.config.optimizer,
+                                                 model),
                           rng=self.config.seed)
 
     def maybe_resume(self, state: TrainState) -> TrainState:
@@ -174,24 +183,47 @@ class Trainer:
         return state, metrics
 
     @torch.no_grad()
-    def eval_step(self, state: TrainState, batch: dict) -> dict:
-        """Metric sums (device tensors) for one batch."""
+    def _eval_forward(self, state: TrainState, batch: dict):
+        """One eval forward: (metric sums, decoded outputs or None), both
+        device tensors.  The outputs carry the batch's ``weight``."""
         state.model.eval()
         batch = to_device(batch, self.device)
         if self.preprocess_fn is not None:
             batch = self.preprocess_fn(batch, None, False)
-        return self.task.eval_metrics(state.model(batch["image"]), batch)
+        out = state.model(batch["image"])
+        sums = self.task.eval_metrics(out, batch)
+        extra = None
+        if hasattr(self.task, "eval_outputs"):
+            extra = self.task.eval_outputs(out, batch)
+            if "weight" in batch:
+                extra["weight"] = batch["weight"]
+        return sums, extra
+
+    def eval_step(self, state: TrainState, batch: dict) -> dict:
+        """Metric sums (device tensors) for one batch."""
+        return self._eval_forward(state, batch)[0]
 
     # ----------------------------------------------------------------- loops
 
     def evaluate(self, state: TrainState, val_data: Iterable) -> dict:
+        """Mean eval metrics over ``val_data``, with the host evaluator's
+        metrics (mAP) where the task has one."""
+        make_ev = getattr(self.task, "make_host_evaluator", None)
+        evaluator = make_ev() if make_ev is not None else None
         totals: dict[str, torch.Tensor] = {}
         for batch in val_data:
-            for k, v in self.eval_step(state, batch).items():
+            sums, extra = self._eval_forward(state, batch)
+            for k, v in sums.items():
                 totals[k] = totals[k] + v if k in totals else v
+            if evaluator is not None and extra is not None:
+                evaluator.add_batch({k: v.cpu().numpy()
+                                     for k, v in extra.items()})
         host = {k: float(v) for k, v in totals.items()}
         count = max(host.pop("count", 1.0), 1.0)
-        return {k: v / count for k, v in host.items()}
+        out = {k: v / count for k, v in host.items()}
+        if evaluator is not None:
+            out.update(evaluator.compute())
+        return out
 
     def _get_prefetcher(self):
         if self._prefetcher is None:
@@ -237,7 +269,7 @@ class Trainer:
                 prof = self._start_profile()
             state, metrics = self.train_step(state, batch)
             timer.mark()
-            bs = len(batch["label"])
+            bs = len(batch["image"])
             meter.update(bs)
             if pending is not None and i % cfg.log_every_steps == 0:
                 m = self._log_metrics(state.step - 1, pending)

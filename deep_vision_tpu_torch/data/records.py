@@ -8,15 +8,23 @@ Copy of the format half of ``deep_vision_tpu/data/records.py``:
   and ``"shape": [H, W, C]``);
 - payload: raw bytes (uint8 HWC pixels for the raw store);
 - shards are named ``{split}-{i:05d}-of-{n:05d}.dvrec``.
+
+Detection records (``encode_detection_sample``,
+``write_detection_records``, ``load_detection_records``) are the
+reference's raw store: header ``{"boxes", "classes", "shape", "enc":
+"raw"}``, the image's HWC uint8 bytes at 416² by default.
 """
 
 from __future__ import annotations
 
+import functools
 import glob
 import json
 import os
 import struct
 from typing import Callable, Iterator, Sequence
+
+import numpy as np
 
 _U32 = struct.Struct("<I")
 
@@ -105,3 +113,97 @@ def write_sharded(items: Sequence, out_dir: str, split: str,
                 min(num_workers, num_shards)) as pool:
             results = pool.map(_write_shard, jobs)
     return [p for p, _ in results], sum(n for _, n in results)
+
+
+# ---------------------------------------------------------------------------
+# Detection records (raw payloads)
+# ---------------------------------------------------------------------------
+
+
+def encode_detection_sample(sample: dict, resize: int = 416
+                            ) -> tuple[dict, bytes]:
+    """``{"image": HWC uint8, "boxes": (N, 4) normalized corners,
+    "classes": (N,)}`` → a raw-store record: header ``{"boxes",
+    "classes", "shape", "enc": "raw"}`` and the image's uint8 HWC bytes,
+    square-resized to ``resize``² (boxes are normalized, so the square
+    resize changes no label), as the reference's
+    ``encode_detection_sample(store="raw")`` writes them.  The resize,
+    where one is needed, is bilinear through torch
+    (``data/transforms.resize_square_u8``)."""
+    from deep_vision_tpu_torch.data.transforms import resize_square_u8
+
+    header = {
+        "boxes": np.asarray(sample["boxes"], np.float32).reshape(
+            -1, 4).tolist(),
+        "classes": np.asarray(sample["classes"], np.int64).reshape(
+            -1).tolist(),
+    }
+    img = np.ascontiguousarray(resize_square_u8(
+        np.asarray(sample["image"], np.uint8), resize))
+    header["shape"] = list(img.shape)
+    header["enc"] = "raw"
+    return header, img.tobytes()
+
+
+def write_detection_records(samples: Sequence[dict], out_dir: str,
+                            split: str, num_shards: int = 8,
+                            num_workers: int = 8, store: str = "raw",
+                            resize: int = 416):
+    """Detection samples → ``num_shards`` raw-payload dvrec shards.  The
+    JPEG store needs an encoder the port does not have."""
+    if store != "raw":
+        raise NotImplementedError(
+            f"store '{store}': the port writes raw-payload records only")
+    encode = functools.partial(encode_detection_sample, resize=resize)
+    return write_sharded(samples, out_dir, split, num_shards, encode,
+                         num_workers)
+
+
+class LazyDetectionSample(dict):
+    """A detection record as a dict whose ``"image"`` is read on access
+    with one positioned read: ``boxes`` and ``classes`` come from the
+    header, the sample keeps only (shard, offset, length), so it pickles
+    to loader workers in a few hundred bytes.  ``cache_decoded`` keeps
+    the image after the first read (for a small, revisited split)."""
+
+    def __init__(self, header: dict, src: tuple, cache_decoded: bool):
+        super().__init__()
+        if header.get("enc") != "raw":
+            path, off, _ = src
+            raise ValueError(
+                f"{path}@{off}: a JPEG payload; the port reads "
+                f"raw-payload records (store='raw') and has no decoder")
+        self._src = src
+        self._cache = cache_decoded
+        self._shape = tuple(header["shape"])
+        self["boxes"] = np.asarray(header["boxes"], np.float32).reshape(
+            -1, 4)
+        self["classes"] = np.asarray(header["classes"], np.int64)
+
+    def __getitem__(self, key):
+        if key == "image" and not dict.__contains__(self, "image"):
+            path, off, plen = self._src
+            fd = os.open(path, os.O_RDONLY)
+            try:
+                payload = os.pread(fd, plen, off)
+            finally:
+                os.close(fd)
+            img = np.frombuffer(payload, np.uint8).reshape(self._shape)
+            if self._cache:
+                dict.__setitem__(self, "image", img)
+            return img
+        return dict.__getitem__(self, key)
+
+    def __contains__(self, key):
+        return key == "image" or dict.__contains__(self, key)
+
+
+def load_detection_records(root: str, split: str,
+                           cache_decoded: bool = False) -> list[dict]:
+    """Every ``split`` shard under ``root`` → lazy samples, one header
+    scan and no payload read."""
+    shards = list_shards(root, split)
+    if not shards:
+        raise FileNotFoundError(f"no {split}-*.dvrec under {root}")
+    return [LazyDetectionSample(header, (s, off, plen), cache_decoded)
+            for s in shards for header, off, plen in scan_records(s)]

@@ -98,3 +98,21 @@ def eval_transform_u8(img: np.ndarray, size: int = 224,
                       resize: int = 256) -> np.ndarray:
     """Rescale → CenterCrop, uint8 (a view, as train_transform_u8)."""
     return center_crop(rescale(img, resize), size)
+
+
+def resize_square_u8(img: np.ndarray, size: int) -> np.ndarray:
+    """HWC uint8 → ``size``×``size`` uint8, bilinear (half-pixel
+    centres, no antialias) through torch on the CPU, on every machine:
+    the card machine has neither cv2 nor PIL.  Against cv2's
+    ``INTER_LINEAR`` it differs by at most 1 grey level.  An image
+    already at the size is returned as it is (possibly a read-only
+    view: callers never write it in place)."""
+    if img.shape[0] == size and img.shape[1] == size:
+        return img
+    import torch
+    import torch.nn.functional as F
+
+    t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
+    out = F.interpolate(t, size=(size, size), mode="bilinear",
+                        align_corners=False, antialias=False)
+    return out[0].permute(1, 2, 0).contiguous().numpy()

@@ -65,16 +65,19 @@ def resident_weight(module: nn.Module, dtype: torch.dtype) -> torch.Tensor:
 
 
 class Conv2d(nn.Conv2d):
-    """Bias-free convolution computing in ``dtype`` (input and weight cast)."""
+    """Convolution computing in ``dtype`` (input, weight and bias cast);
+    bias-free unless ``bias``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0, dtype: torch.dtype = torch.float32):
-        super().__init__(in_ch, out_ch, kernel, stride, padding, bias=False)
+                 padding: int = 0, dtype: torch.dtype = torch.float32,
+                 bias: bool = False):
+        super().__init__(in_ch, out_ch, kernel, stride, padding, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x.to(self.compute_dtype),
-                        resident_weight(self, self.compute_dtype), None,
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv2d(x.to(dt), resident_weight(self, dt), bias,
                         self.stride, self.padding)
 
 

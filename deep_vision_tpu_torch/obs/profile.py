@@ -5,17 +5,21 @@
         --infer-dtype int8 --bucket 32 [--weights w.npz] [--device cuda]
     python -m deep_vision_tpu_torch.obs.profile -m resnet50 --train \\
         [--device cuda]
+    python -m deep_vision_tpu_torch.obs.profile -m yolov3_coco --train
 
 Prints one JSON object: the wall time per forward (or per train step;
 host clock around synchronised calls), the device busy time per call
 (the sum of its kernels' durations) and its share of the wall time, and
 the kernels with the most device time, grouped into ``conv``
 (cuDNN/cuBLAS convolution and GEMM kernels, cuBLAS's ``nvjet_*``
-included), ``serve_ingest``, ``train_ingest``, ``optimizer`` (the
-foreach kernels of the SGD update and the divergence guard) and
-``other`` (elementwise, BatchNorm, pooling, reductions).  The train step
-runs ``--model``'s config at its batch on a seeded uint8 batch already on
-the device, through the trainer's own ``train_step``.  Where the
+included), ``serve_ingest``, ``train_ingest``, ``best_iou_max``,
+``optimizer`` (the foreach kernels of the SGD or Adam update and the
+divergence guard) and ``other`` (elementwise, BatchNorm, pooling,
+reductions, NMS).  The train step runs ``--model``'s config at its batch
+on a seeded uint8 batch already on the device, through the trainer's own
+``train_step``: random pixels and labels for a classifier; for YOLOv3
+the seeded synthetic scenes of ``data/detection.py`` (1-3 boxes an
+image), un-augmented, with their encoded labels.  Where the
 profiler records no device time, those fields are null.
 """
 
@@ -38,7 +42,7 @@ CONV_MARKERS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
 
 def kernel_group(name: str) -> str:
     low = name.lower()
-    for kernel in ("serve_ingest", "train_ingest"):
+    for kernel in ("serve_ingest", "train_ingest", "best_iou_max"):
         if kernel in low:
             return kernel
     if any(m in low for m in CONV_MARKERS):
@@ -111,35 +115,60 @@ def profile_train_step(trainer, state, batch: dict, iters: int = 3,
     def step():
         trainer.train_step(state, batch)
 
-    return {"batch": len(batch["label"]),
+    return {"batch": len(batch["image"]),
             **_profiled(step, trainer.device, iters, top, "step")}
 
 
-def _train_main(args, device) -> dict:
-    import tempfile
-
+def _classification_batch(cfg):
     import numpy as np
 
-    from deep_vision_tpu_torch.core.config import get_config
-    from deep_vision_tpu_torch.core.trainer import Trainer
     from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
     from deep_vision_tpu_torch.tasks.classification import (
         ClassificationTask,
     )
 
-    cfg = get_config(args.model)
     rng = np.random.default_rng(0)
-    batch = {"image": torch.from_numpy(rng.integers(
+    batch = {"image": rng.integers(
         0, 256, (cfg.batch_size, cfg.image_size, cfg.image_size,
-                 cfg.channels), dtype=np.uint8)).to(device),
-        "label": torch.from_numpy(rng.integers(
-            0, cfg.num_classes, cfg.batch_size).astype(np.int64)).to(device)}
+                 cfg.channels), dtype=np.uint8),
+        "label": rng.integers(0, cfg.num_classes,
+                              cfg.batch_size).astype(np.int64)}
+    return (batch, ClassificationTask(cfg.num_classes),
+            make_imagenet_preprocess())
+
+
+def _detection_batch(cfg):
+    from deep_vision_tpu_torch.data.detection import (
+        DetectionLoader,
+        synthetic_detection_dataset,
+    )
+    from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.detection import YoloTask
+
+    samples = synthetic_detection_dataset(
+        cfg.batch_size, cfg.image_size, min(cfg.num_classes, 3), seed=0)
+    loader = DetectionLoader(samples, cfg.batch_size, cfg.num_classes,
+                             cfg.image_size, train=False,
+                             device_normalize=True)
+    batch = next(iter(loader))
+    batch.pop("weight")
+    return batch, YoloTask(cfg.num_classes), make_scale_preprocess()
+
+
+def _train_main(args, device) -> dict:
+    import tempfile
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer, to_device
+
+    cfg = get_config(args.model)
+    make = _detection_batch if cfg.task == "detection" \
+        else _classification_batch
+    batch, task, preprocess_fn = make(cfg)
+    batch = to_device(batch, device)
     with tempfile.TemporaryDirectory() as work:
-        trainer = Trainer(cfg, cfg.model(),
-                          ClassificationTask(cfg.num_classes),
-                          workdir=work,
-                          preprocess_fn=make_imagenet_preprocess(),
-                          device=device)
+        trainer = Trainer(cfg, cfg.model(), task, workdir=work,
+                          preprocess_fn=preprocess_fn, device=device)
         state = trainer.init_state()
         return profile_train_step(trainer, state, batch)
 

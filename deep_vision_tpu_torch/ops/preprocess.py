@@ -1,8 +1,10 @@
 """Input prologues: the serving wire's decode, normalize and quantize,
-and the training batch's color jitter and normalize.
+the training batch's color jitter and normalize, and the [0, 1] scale of
+detection batches.
 
 Port of ``deep_vision_tpu/ops/preprocess.py`` (the serving prologues,
-``jitter_normalize`` and ``make_imagenet_preprocess``).  Each function
+``jitter_normalize``, ``make_imagenet_preprocess`` and
+``make_scale_preprocess``).  Each function
 takes and returns NHWC tensors, the JAX package's layout.
 """
 
@@ -150,5 +152,23 @@ def make_imagenet_preprocess(brightness: float = 0.2, contrast: float = 0.2,
         else:
             out["image"] = serve_normalize(img, "imagenet")
         return out
+
+    return fn
+
+
+def make_scale_preprocess():
+    """The trainer's ``preprocess_fn(batch, generator, train)`` for
+    [0, 1]-input tasks (YOLO): a uint8 image batch on the device becomes
+    float32 / 255, dividing by a device tensor (PyTorch on CUDA would
+    turn a host-scalar division into a reciprocal multiply).  Float
+    batches (host-normalized) pass through untouched."""
+
+    def fn(batch: dict, generator: torch.Generator | None,
+           train: bool) -> dict:
+        img = batch["image"]
+        if img.dtype != torch.uint8:
+            return batch
+        return {**batch, "image": img.to(torch.float32)
+                / device_scalar(255.0, img.device)}
 
     return fn

@@ -26,6 +26,9 @@ def test_every_module_imports_with_jax_blocked():
     assert "deep_vision_tpu_torch.serve.engine" in mods
     assert "deep_vision_tpu_torch.core.trainer" in mods
     assert "deep_vision_tpu_torch.cli.train" in mods
+    assert "deep_vision_tpu_torch.ops.best_iou" in mods
+    assert "deep_vision_tpu_torch.tasks.detection" in mods
+    assert "deep_vision_tpu_torch.data.detection" in mods
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"

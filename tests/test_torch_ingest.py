@@ -155,12 +155,13 @@ def test_build_sources_and_missing_nvcc(monkeypatch, tmp_path):
     machine without nvcc gets a clear error, not a fallback."""
     from deep_vision_tpu_torch.ops import _build
 
-    assert _build.sources() == ["serve_ingest", "train_ingest"]
+    assert _build.sources() == ["best_iou_max", "serve_ingest",
+                                "train_ingest"]
     paths = [_build.library_path(n) for n in _build.sources()]
     for path in paths:
         assert path.startswith(_build.BUILD_DIR) and path.endswith(".so")
-    assert len(set(paths)) == 2
-    assert paths[0] == _build.library_path("serve_ingest")
+    assert len(set(paths)) == 3
+    assert paths[1] == _build.library_path("serve_ingest")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
