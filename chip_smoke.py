@@ -13,11 +13,15 @@ Phases, each of which must pass:
               (4, 32, 32, 1) mnist, int8 and float32 outputs: int8 must
               be bit-identical, float32 within 1e-6 (both divide with
               IEEE rounding; the tolerance only covers a compiler
-              contracting differently).  Device times come from CUDA
-              events around replays of a CUDA graph of one call per
-              input buffer (the buffers together exceed the 50 MB L2),
-              so host overhead drops out; the eager per-call time of the
-              wrapper is printed beside them;
+              contracting differently); then every channel count from 1
+              to 4 and misaligned inputs (the scalar path), checks only.
+              Device times come from CUDA events around replays of a
+              CUDA graph of one call per input buffer (the buffers
+              together exceed the 50 MB L2), so host overhead drops out;
+              the eager per-call time of the wrapper is printed beside
+              them, and so are each kernel's registers, shared memory
+              and local (spill) bytes from ``cuobjdump
+              --dump-resource-usage``;
 3. serving  — boot ``cli/serve.py``'s server for ``resnet50`` at full
               width (224×224×3, 1000 classes), ``--wire-dtype uint8
               --infer-dtype int8 --warmup``, with seeded weights (non-zero
@@ -65,13 +69,19 @@ Phases, each of which must pass:
               side must fail;
 7. iou kernel — hold ``best_iou_max`` against its plain PyTorch version
               on the card at the yolov3_coco loss shapes (128, N, 100)
-              for N = 3·52², 3·26², 3·13², and at (3, 1000, 7),
-              (2, 300, 600) and (2, 100, 0), on seeded boxes with a mixed
-              mask, a wholly masked image, zero-area boxes and NaN
-              prediction rows: bit-identical (a NaN matching any NaN).
-              Kernel device, eager call, plain and bound times as above;
-              no single PyTorch call computes this function, so there is
-              no library time;
+              for N = 3·52², 3·26², 3·13² with 70% of the ground truths
+              unmasked, and at (128, 8112, 100) on near ties (twinned
+              ground truths, predictions a few ulps off them), at a
+              COCO-like share (7% unmasked) and at the YOLOv3 run's share
+              (2%); and at (3, 1000, 7), (2, 300, 600) and (2, 100, 0)
+              with and without near ties.  The first input set of each
+              has a wholly masked image, zero-area boxes, NaN prediction
+              rows and inf, NaN and 1e30 ground truths; it and the first
+              timed set must be bit-identical (a NaN matching any NaN).
+              Kernel device, eager call, plain and bound times and the
+              kernel's resources as above, each timed set with its own
+              row; no single PyTorch call computes this function, so
+              there is no library time;
 8. yolo training — write seeded raw-payload detection shards (train 384,
               val 128 synthetic scenes stored at 416×416×3, boxes from 80
               classes) and call ``cli/train.py``'s ``main`` for
@@ -149,9 +159,10 @@ BF16_BOUND = 3e-2
 IOU_SHAPES = [(128, 8112, 100), (128, 2028, 100), (128, 507, 100)]
 #: float32 operations of best_iou_max per unmasked pair: 2 max + 2 min
 #: (intersection corners), 2 sub + 2 clamp (its sides), 1 mul, add, sub,
-#: + eps, the division, the mask select and the running max; per masked
-#: pair the select and the max; per box its area (2 sub, 2 clamp, 1 mul)
-IOU_OPS_PER_PAIR, IOU_OPS_MASKED, IOU_OPS_AREA = 15, 2, 5
+#: + eps, the division, the mask select and the running max; per ground
+#: truth its mask test (a masked one needs no work per pair: its IoU
+#: term is an exact 0); per box its area (2 sub, 2 clamp, 1 mul)
+IOU_OPS_PER_PAIR, IOU_OPS_MASK, IOU_OPS_AREA = 15, 1, 5
 #: the YOLOv3 run: yolov3_coco at full width (416², 80 classes, batch 128,
 #: bf16, Adam) on seeded synthetic records, 3 train steps an epoch and
 #: one val batch; the card-vs-CPU step at 128² (grids 16, 8, 4)
@@ -253,6 +264,7 @@ def phase_kernels() -> list[dict]:
         serve_ingest_plain,
     )
 
+    resources = kernel_resources("serve_ingest")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [("imagenet", (b, 224, 224, 3)) for b in (1, 8, 32)] + [
         ("imagenet", (3, 17, 23, 3)), ("mnist", (4, 32, 32, 1))]
@@ -296,7 +308,7 @@ def phase_kernels() -> list[dict]:
 
             row = {"kind": kind, "shape": list(shape),
                    "out": "int8" if quantize else "float32",
-                   "max_abs_err": err,
+                   "max_abs_err": err, "resources": resources,
                    "ms": device_ms(kernel, xs),
                    "call_ms": call_ms(kernel, xs),
                    "plain_ms": device_ms(plain, xs),
@@ -311,6 +323,24 @@ def phase_kernels() -> list[dict]:
                 f"{row['plain_ms'] * 1e3:.2f}, library "
                 f"{row['library_ms'] * 1e3:.2f}, bound "
                 f"{row['bound_ms'] * 1e3:.2f} us), max err {err}")
+    # every channel count the kernel takes, and a misaligned input (the
+    # scalar path over the table)
+    for kind, shape, offset in (("unit", (2, 15, 17, 2), 0),
+                                ("unit", (2, 16, 16, 4), 0),
+                                ("imagenet", (2, 31, 29, 3), 1),
+                                ("mnist", (3, 28, 28, 1), 3)):
+        numel = math.prod(shape)
+        buf = torch.randint(0, 256, (numel + offset,), dtype=torch.uint8,
+                            device="cuda", generator=gen)
+        x = buf[offset:].view(shape)
+        for quantize in (True, False):
+            got = serve_ingest(x, kind, 0.02, quantize)
+            want = serve_ingest_plain(x, kind, 0.02, quantize)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) if quantize else
+                  float((got - want).abs().max()) <= 1e-6,
+                  f"serve_ingest differs from plain at {shape} {kind} "
+                  f"(offset {offset}, int8 {quantize})")
     empty = torch.empty((0, 224, 224, 3), dtype=torch.uint8, device="cuda")
     before = serve_ingest.launches
     out = serve_ingest(empty, "imagenet", 1.0)
@@ -631,12 +661,18 @@ def phase_train_kernels() -> list[dict]:
     return rows
 
 
-def iou_inputs(shape, gen, edge: bool = False):
+def iou_inputs(shape, gen, edge: bool = False, unmasked: float = 0.7,
+               near_tie: bool = False):
     """Seeded (pred, gt, mask) for ``best_iou_max`` at (B, N, M): boxes
-    with centres in [0, 1] and sides in [0.01, 0.5], 70% of the ground
-    truths unmasked.  ``edge`` adds the edge cases: image 0 wholly
-    masked, zero-area boxes, and a NaN prediction row in images 0 and
-    1 (NaN out in image 1, 0 in the masked image 0)."""
+    with centres in [0, 1] and sides in [0.01, 0.5], a share ``unmasked``
+    of the ground truths unmasked.  ``edge`` adds the edge cases: image 0
+    wholly masked, zero-area boxes, a NaN prediction row in images 0 and
+    1 (NaN out in image 1, 0 in the masked image 0), and ground truths
+    that are not finite (inf, NaN, 1e30 corners) in image 1.
+    ``near_tie`` makes ties the reduction must break exactly: the second
+    half of each image's ground truths repeats the first half, every
+    other one a few ulps off, and half the predictions are ground truths
+    moved by a few ulps."""
     import torch
 
     b, n, m = shape
@@ -647,15 +683,33 @@ def iou_inputs(shape, gen, edge: bool = False):
             * 0.49 + 0.01
         return torch.cat([xy - wh / 2, xy + wh / 2], -1).contiguous()
 
+    def ulps_off(t, most):
+        step = torch.randint(-most, most + 1, t.shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+        return (t.view(torch.int32) + step).view(torch.float32)
+
     pred, gt = boxes(n), boxes(m)
+    if near_tie and m >= 2:
+        half = m // 2
+        twin = gt[:, :half].clone()
+        twin[:, 1::2] = ulps_off(twin[:, 1::2], 2)
+        gt[:, half:2 * half] = twin
+        src = gt[:, torch.randint(0, m, (n,), generator=gen, device="cuda")]
+        take = torch.rand((b, n, 1), generator=gen, device="cuda") < 0.5
+        pred = torch.where(take, ulps_off(src, 3), pred).contiguous()
     mask = (torch.rand((b, m), generator=gen, device="cuda")
-            > 0.3).float()
+            < unmasked).float()
     if edge:
         mask[0] = 0.0
         pred[:, ::7, 2] = pred[:, ::7, 0]       # zero width
         gt[:, ::5, 3] = gt[:, ::5, 1]           # zero height
         pred[0, 3] = float("nan")
         pred[min(1, b - 1), 5] = float("nan")
+        if b > 1 and m > 3:
+            gt[1, 1, 2] = float("inf")
+            gt[1, 2, 0] = float("nan")
+            gt[1, 3] = torch.tensor([-1e30, -1e30, 1e30, 1e30])
+            mask[1, 1:4] = 1.0
     return pred, gt, mask
 
 
@@ -668,9 +722,51 @@ def iou_differing(got, want) -> int:
     return int((~same).sum())
 
 
+def kernel_resources(name: str) -> list[dict]:
+    """Registers, static shared memory, stack and local (spill) bytes a
+    thread of each kernel in the built ``csrc/<name>.cu``, as ``cuobjdump
+    --dump-resource-usage`` reads them from the library."""
+    from deep_vision_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "--dump-resource-usage",
+                           _build.library_path(name)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    rows, function = [], None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            function = line[len("Function "):].rstrip(":")
+        elif line.startswith("REG:") and function is not None:
+            usage = dict(kv.split(":", 1) for kv in line.split())
+            rows.append({"function": function, "registers": int(usage["REG"]),
+                         "shared_bytes": int(usage["SHARED"]),
+                         "stack_bytes": int(usage["STACK"]),
+                         "local_bytes": int(usage["LOCAL"])})
+            function = None
+    check(bool(rows), f"cuobjdump found no kernel in {name}")
+    for r in rows:
+        log(f"{name} {r['function']}: {r['registers']} registers, "
+            f"{r['shared_bytes']} B shared, {r['stack_bytes']} B stack, "
+            f"{r['local_bytes']} B local (spills)")
+    return rows
+
+
+#: the timed best_iou_max inputs: shape, set name, unmasked share, near
+#: ties; the largest shape also on near ties, at a COCO-like share (COCO
+#: images hold about 7 boxes of MAX_BOXES = 100) and at the YOLOv3 run's
+#: share (its synthetic scenes hold 1-3 boxes, 2 on average)
+IOU_CASES = [(IOU_SHAPES[0], "mixed", 0.7, False),
+             (IOU_SHAPES[0], "near_tie", 0.7, True),
+             (IOU_SHAPES[0], "coco_share", 0.07, False),
+             (IOU_SHAPES[0], "run_share", 0.02, False)] + [
+                 (shape, "mixed", 0.7, False) for shape in IOU_SHAPES[1:]]
+
+
 def phase_iou_kernels() -> list[dict]:
     """best_iou_max vs its plain version at the YOLOv3 416² loss shapes
-    (B=128; N = 3·52², 3·26², 3·13²; M = 100) and on the edge cases."""
+    (B=128; N = 3·52², 3·26², 3·13²; M = 100), with near ties and at a
+    COCO-like unmasked share at the largest, and on the edge cases."""
     import torch
 
     from deep_vision_tpu_torch.ops.best_iou import (
@@ -678,27 +774,37 @@ def phase_iou_kernels() -> list[dict]:
         best_iou_max_plain,
     )
 
+    resources = kernel_resources("best_iou_max")
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for shape in IOU_SHAPES:
+    for shape, name, unmasked, near_tie in IOU_CASES:
         b, n, m = shape
         per_set = b * (n + m) * 20
         n_sets = max(2, min(16, math.ceil(100e6 / per_set)))
-        sets = [iou_inputs(shape, gen, edge=(k == 0)) for k in range(n_sets)]
+        sets = [iou_inputs(shape, gen, edge=(k == 0), unmasked=unmasked,
+                           near_tie=near_tie) for k in range(n_sets)]
         got, want = best_iou_max(*sets[0]), best_iou_max_plain(*sets[0])
         torch.cuda.synchronize()
         diff = iou_differing(got, want)
-        check(diff == 0, f"best_iou_max differs from plain at {shape} in "
-                         f"{diff} elements")
+        check(diff == 0, f"best_iou_max differs from plain at {shape} "
+                         f"{name} in {diff} elements")
         check(bool(want[1].isnan().any()) and bool((want[0] == 0).all()),
               "the edge cases did not reach the output (NaN row, masked "
               "image)")
         ok = ~(got.isnan() | want.isnan())
         err = float((got[ok] - want[ok]).abs().max())
-        on = sets[0][2].gt(0).sum(1).double()   # unmasked ground truths
-        pairs_on = float((on * n).sum())
-        ops = IOU_OPS_PER_PAIR * pairs_on + IOU_OPS_MASKED * (
-            b * n * m - pairs_on) + IOU_OPS_AREA * b * (n + m)
+        # the timed sets without the edge set's non-finite ground truths;
+        # the first of them is held against the plain version too
+        timed = sets[1:]
+        timed_diff = iou_differing(best_iou_max(*timed[0]),
+                                   best_iou_max_plain(*timed[0]))
+        check(timed_diff == 0, f"best_iou_max differs from plain at "
+                               f"{shape} {name} (a timed set) in "
+                               f"{timed_diff} elements")
+        on = torch.stack([s[2].gt(0).sum(1) for s in timed]).double()
+        pairs_on = float(on.sum(1).mean()) * n    # unmasked pairs a call
+        ops = IOU_OPS_PER_PAIR * pairs_on + IOU_OPS_MASK * b * m \
+            + IOU_OPS_AREA * b * (n + m)
         bound_ops = ops / F32_OPS_PER_S * 1e3
         bound_bytes = (b * n * (16 + 4) + b * m * (16 + 4)) \
             / HBM_BYTES_PER_S * 1e3
@@ -709,32 +815,34 @@ def phase_iou_kernels() -> list[dict]:
         def plain(p):
             return best_iou_max_plain(*p)
 
-        row = {"shape": list(shape), "differing": diff, "max_abs_err": err,
+        row = {"shape": list(shape), "set": name, "unmasked": unmasked,
+               "differing": diff, "max_abs_err": err,
                "nan_rows": int(got.isnan().any(1).sum()),
-               "ms": device_ms(kernel, sets),
-               "call_ms": call_ms(kernel, sets),
-               "plain_ms": device_ms(plain, sets, reps=5),
+               "ms": device_ms(kernel, timed),
+               "call_ms": call_ms(kernel, timed),
+               "plain_ms": device_ms(plain, timed, reps=5),
                "library_ms": None,
                "bound_ms": max(bound_bytes, bound_ops),
                "bound_by": "bytes" if bound_bytes >= bound_ops
                else "operations", "pairs": b * n * m,
-               "unmasked_pairs": pairs_on}
+               "unmasked_pairs": pairs_on, "resources": resources}
         rows.append(row)
-        log(f"best_iou_max {shape}: device {row['ms'] * 1e3:.2f} us (eager "
-            f"call {row['call_ms'] * 1e3:.2f}, plain "
+        log(f"best_iou_max {shape} {name}: device {row['ms'] * 1e3:.2f} us "
+            f"(eager call {row['call_ms'] * 1e3:.2f}, plain "
             f"{row['plain_ms'] * 1e3:.2f}, bound {row['bound_ms'] * 1e3:.2f}"
             f" us by {row['bound_by']}), {diff} differing elements")
-        del sets
+        del sets, timed
     # ragged N, M past one shared-memory chunk, M = 0, empty batch
     for shape in ((3, 1000, 7), (2, 300, 600), (2, 100, 0)):
-        p = iou_inputs(shape, gen, edge=shape[2] > 0)
-        got, want = best_iou_max(*p), best_iou_max_plain(*p)
-        torch.cuda.synchronize()
-        diff = iou_differing(got, want)
-        check(diff == 0, f"best_iou_max differs from plain at {shape} in "
-                         f"{diff} elements")
-        if shape[2] == 0:
-            check(bool((got == 0).all()), "M = 0 must give 0")
+        for near_tie in (False, True):
+            p = iou_inputs(shape, gen, edge=shape[2] > 0, near_tie=near_tie)
+            got, want = best_iou_max(*p), best_iou_max_plain(*p)
+            torch.cuda.synchronize()
+            diff = iou_differing(got, want)
+            check(diff == 0, f"best_iou_max differs from plain at {shape} "
+                             f"(near ties {near_tie}) in {diff} elements")
+            if shape[2] == 0:
+                check(bool((got == 0).all()), "M = 0 must give 0")
     before = best_iou_max.launches
     out = best_iou_max(torch.empty((0, 10, 4), device="cuda"),
                        torch.empty((0, 5, 4), device="cuda"),

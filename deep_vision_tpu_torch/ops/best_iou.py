@@ -15,10 +15,13 @@ unmasked ground truth is NaN scores NaN; a masked one scores 0.
 On a CUDA tensor, :func:`best_iou_max` launches the hand-written kernel
 ``csrc/best_iou_max.cu`` or raises; on a CPU tensor it computes
 :func:`best_iou_max_plain`, the PyTorch version the tests and
-``chip_smoke.py`` hold the kernel against.  Both perform the same IEEE
-operations in the same order, so they agree bit for bit.  The loss calls
-it on detached inputs: the ignore mask is a hard threshold and has no
-gradient, so there is no backward.
+``chip_smoke.py`` hold the kernel against.  The kernel computes every
+pair's intersection and denominator with the plain version's IEEE
+operations in the same order, keeps the pair with the largest exact
+quotient and divides it once; round-to-nearest is monotone, so the two
+agree bit for bit (tests/test_torch_best_iou.py models the reduction).
+The loss calls it on detached inputs: the ignore mask is a hard
+threshold and has no gradient, so there is no backward.
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ On a CUDA tensor, :func:`serve_ingest` launches the hand-written kernel
 :func:`serve_ingest_plain`, the PyTorch version of the same arithmetic
 that the tests and ``chip_smoke.py`` hold the kernel against.  Both
 divide (never multiply by a reciprocal) and round half to even, so they
-agree bit for bit with each other and with the JAX reference.
+agree bit for bit with each other and with the JAX reference; the kernel
+runs that arithmetic once per byte value and channel, into a table in
+shared memory, and looks every byte up.
 """
 
 from __future__ import annotations

@@ -64,6 +64,7 @@ def _sources():
             if f.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "kernel_ab.py")
 
 
 def test_no_jax_or_reference_imports_in_source():

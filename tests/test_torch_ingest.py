@@ -5,8 +5,11 @@ in interpret mode, and the XLA ``serve_normalize`` +
 
 On the CPU the wrapper computes the plain PyTorch version; the CUDA
 kernel is held against that same plain version on the card by
-``chip_smoke.py``.  Tolerances: int8 codes must agree exactly (the
-reference's own gate allows one quantization step, which is asserted
+``chip_smoke.py``; the kernel looks each byte up in a table of the
+plain arithmetic's outputs, so the plain version is held against the
+JAX reference on every byte value of every channel here.  Tolerances:
+int8 codes must agree exactly (the reference's own gate allows one
+quantization step, which is asserted
 too); float32 outputs within atol 1e-6, since XLA on the CPU may turn
 the division by 255 into a reciprocal multiply (1 ulp) where the port
 divides.
@@ -68,25 +71,40 @@ def test_f32_matches_pallas_interpret(kind, shape):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
+def _every_byte(channels):
+    """(1, 1, 256, channels) uint8: every byte value in every channel, the
+    256 entries per channel of the table the kernel builds and looks up."""
+    return np.ascontiguousarray(np.broadcast_to(
+        np.arange(256, dtype=np.uint8)[:, None], (256, channels))
+    ).reshape(1, 1, 256, channels)
+
+
 @pytest.mark.parametrize("kind,shape", CASES)
-def test_matches_xla_prologue(kind, shape):
-    """Plain ingest == JAX serve_normalize + quantize_activations, and the
-    port's own serve_normalize/quantize_activations agree with both."""
-    x = _raw(shape, seed=11)
-    act_scale = 2.64 / 127.0
-    ref_f = np.asarray(jax_serve_normalize(jnp.asarray(x), kind))
-    ref_q = np.asarray(jax_quantize_activations(jnp.asarray(ref_f),
-                                                act_scale)).astype(np.int32)
-    xt = torch.from_numpy(x)
-    got_f = serve_normalize(xt, kind).numpy()
-    np.testing.assert_allclose(got_f, ref_f, rtol=0, atol=1e-6)
-    got_q = serve_ingest_plain(xt, kind, act_scale).numpy().astype(np.int32)
-    assert np.abs(got_q - ref_q).max() <= 1
-    assert int((got_q != ref_q).sum()) == 0
-    # quantizing the port's normalize reproduces the fused ingest
-    np.testing.assert_array_equal(
-        quantize_activations(serve_normalize(xt, kind), act_scale).numpy(),
-        got_q.astype(np.int8))
+@pytest.mark.parametrize("act_scale", ACT_SCALES)
+def test_matches_xla_prologue(kind, shape, act_scale):
+    """Plain ingest == JAX serve_normalize + quantize_activations on a
+    seeded image and on every byte value of every channel, int8 and
+    float32, and the port's own serve_normalize/quantize_activations
+    agree with both."""
+    for x in (_raw(shape, seed=11), _every_byte(shape[-1])):
+        ref_f = np.asarray(jax_serve_normalize(jnp.asarray(x), kind))
+        ref_q = np.asarray(jax_quantize_activations(
+            jnp.asarray(ref_f), act_scale)).astype(np.int32)
+        xt = torch.from_numpy(x)
+        got_f = serve_normalize(xt, kind).numpy()
+        np.testing.assert_allclose(got_f, ref_f, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(
+            serve_ingest_plain(xt, kind, act_scale, quantize=False).numpy(),
+            ref_f, rtol=0, atol=1e-6)
+        got_q = serve_ingest_plain(xt, kind,
+                                   act_scale).numpy().astype(np.int32)
+        assert np.abs(got_q - ref_q).max() <= 1
+        assert int((got_q != ref_q).sum()) == 0
+        # quantizing the port's normalize reproduces the fused ingest
+        np.testing.assert_array_equal(
+            quantize_activations(serve_normalize(xt, kind),
+                                 act_scale).numpy(),
+            got_q.astype(np.int8))
 
 
 def test_gan_kind_keeps_plain_path():
