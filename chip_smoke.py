@@ -9,8 +9,9 @@ Phases, each of which must pass:
               parallel) and print the seconds it took;
 2. kernels  — hold ``serve_ingest`` against its plain PyTorch version on
               the card at the ResNet-50 bucket shapes (B, 224, 224, 3)
-              for B in {1, 8, 32}, at (3, 17, 23, 3) and at
-              (4, 32, 32, 1) mnist, int8 and float32 outputs: int8 must
+              for B in {1, 8, 32}, at (3, 17, 23, 3), at (4, 32, 32, 1)
+              mnist and at the detect buckets (32, 416, 416, 3) and
+              (32, 256, 256, 3) "unit", int8 and float32 outputs: int8 must
               be bit-identical, float32 within 1e-6 (both divide with
               IEEE rounding; the tolerance only covers a compiler
               contracting differently); then every channel count from 1
@@ -108,7 +109,31 @@ Phases, each of which must pass:
               the model and 5e-2 per tensor; the ignore masks' flips are
               printed.  The same step with each image's boxes in the
               next image's ignore mask must break the loss bound;
-10. card    — print ``nvidia-smi --query-gpu=name,power.limit``.
+10. detect serving — on heavily tied rows at the two decodes' shapes,
+              ``topk_stable`` on the card must equal the CPU's.  Then for
+              ``yolov3_coco`` (Darknet-53, 416², 80 classes) and
+              ``centernet`` (2 stacks, order 5, 256² → 64², 80 classes)
+              at full width: write seeded ``--weights`` through
+              ``yolo_to_flax``/``centernet_to_flax`` (non-zero BN scales,
+              the heads' output convs scaled to a trained model's spread,
+              ``detect_weights`` says why), boot ``cli/serve.py`` with
+              ``--wire-dtype uint8 --infer-dtype int8 --warmup``, buckets
+              1–32, and POST 32 ``/v1/detect`` requests (8 sequential, 24
+              concurrent) with the launch count set to 0 just before and
+              read just after.  Every reply must be 200 and equal a direct
+              call of the same model on the same image (PLAIN ingest, same
+              forward, same epilogue) at one of the buckets: the kept set
+              equal, scores and boxes within twice the card's own spread
+              between buckets 1 and 32 (at least 2^-23 and the boxes'
+              4-place rounding); the same replies held against an
+              "imagenet" ingest must fail on most rows; ``serve_ingest``
+              must launch once a batch the engine formed; D2H must be
+              exactly K·28 bytes a padded image; a batch decoded with
+              ``detect_decode="host"`` must answer byte for byte as device
+              decode; a classify request to a detection model answers
+              400.  Prints per bucket the forward and the epilogue ms
+              apart, the client p50 and the concurrent img/s;
+11. card    — print ``nvidia-smi --query-gpu=name,power.limit``.
 
 Before the last line it prints ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on its own path, max error, kernel / plain /
@@ -128,6 +153,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -171,6 +197,19 @@ YOLO_CLASSES, YOLO_WORKERS, YOLO_CHECK_SIZE = 80, 6, 128
 MODEL = "resnet50"
 BUCKETS = (1, 2, 4, 8, 16, 32)
 N_SEQ, N_CONC = 8, 24
+#: detect serving: both detection families at full width, int8 on the
+#: uint8 wire, with the default decode knobs (K = 100, score floor 0.05)
+DETECT_MODELS = ("yolov3_coco", "centernet")
+DETECT_SIZES = (416, 256)  # their input sizes: the kernel rows' shapes
+DETECT_TOPK, DETECT_FLOOR = 100, 0.05
+#: one image's device-decoded row: boxes (K, 4) f32, scores f32,
+#: classes int32, valid f32
+DETECT_ROW_BYTES_PER_K = 16 + 4 + 4 + 4
+#: the seeded heads' output spread and biases (see ``detect_weights``):
+#: CenterNet's heatmap prior, and a YOLO objectness bias that leaves
+#: about a hundred candidates an image over the score floor
+HEAD_STD = {"yolo": 1.5, "heat": 1.5, "wh": 1.0, "offset": 0.5}
+HEAT_PRIOR, YOLO_OBJ_BIAS = -2.19, -6.0
 
 
 def log(msg: str) -> None:
@@ -267,7 +306,8 @@ def phase_kernels() -> list[dict]:
     resources = kernel_resources("serve_ingest")
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [("imagenet", (b, 224, 224, 3)) for b in (1, 8, 32)] + [
-        ("imagenet", (3, 17, 23, 3)), ("mnist", (4, 32, 32, 1))]
+        ("imagenet", (3, 17, 23, 3)), ("mnist", (4, 32, 32, 1))] + [
+        ("unit", (32, s, s, 3)) for s in DETECT_SIZES]
     rows = []
     for kind, shape in cases:
         scale = act_scale_for(kind, shape[-1])
@@ -377,10 +417,11 @@ def seeded_weights(path: str, seed: int = 0) -> None:
                                                         MODEL))
 
 
-def post(port: int, body: bytes) -> tuple[int, dict, float]:
+def post(port: int, body: bytes, path: str = "/v1/classify"
+         ) -> tuple[int, dict, float]:
     """POST one pre-encoded JSON body (encoding stays out of the clock)."""
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/classify", data=body,
+        f"http://127.0.0.1:{port}{path}", data=body,
         headers={"Content-Type": "application/json"})
     t0 = time.monotonic()
     with urllib.request.urlopen(req, timeout=300) as r:
@@ -584,6 +625,353 @@ def phase_serving() -> dict:
         check(not out["float32_infer"]["faults"],
               f"float32 answers: {out['float32_infer']['faults']}")
     return out
+
+
+def detect_weights(name: str, path: str, seed: int) -> None:
+    """Weights of detection config ``name`` in the reference's flax
+    layout, written as the ``--weights`` npz a user would pass: the
+    reference's init from the seed, NON-ZERO BatchNorm scales and
+    positive running variances; then each head's output conv is scaled,
+    from one float32 forward of 4 seeded images on the card, so that
+    the head's output has the spread ``HEAD_STD``; the heatmap's bias
+    is the −2.19 prior, YOLO's objectness bias −6 (a trained detector
+    is confident about a few boxes, not about every anchor), the others
+    0.  At the init's own scale the second CenterNet stack's heatmap
+    logits spread over ±20 and more, where the sigmoid rounds many peaks
+    to exactly 1.0 and the decode would rank ties alone."""
+    import torch
+
+    from deep_vision_tpu_torch import convert
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.models.common import BatchNorm2d
+
+    model = get_config(name).model()
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.weight.uniform_(0.5, 1.0, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    yolo = name.startswith("yolo")
+    if yolo:
+        heads = [(getattr(model, h).out, HEAD_STD["yolo"], 0.0)
+                 for h in ("head13", "head26", "head52")]
+    else:
+        heads = [(h.out, HEAD_STD[kind], HEAT_PRIOR if kind == "heat"
+                  else 0.0) for s in model.stacks
+                 for kind, h in (("heat", s.heat), ("wh", s.wh),
+                                 ("offset", s.offset))]
+    spread = {}
+    hooks = [conv.register_forward_hook(
+        lambda m, _i, out: spread.__setitem__(
+            id(m), float((out - m.bias.view(1, -1, 1, 1)).std())))
+        for conv, _, _ in heads]
+    size = get_config(name).image_size
+    x = torch.rand((4, size, size, 3), generator=gen)
+    model.set_compute_dtype(torch.float32).eval().cuda()
+    with torch.no_grad():
+        model(x.cuda())
+    for h in hooks:
+        h.remove()
+    model.cpu()
+    with torch.no_grad():
+        for conv, std, bias in heads:
+            conv.weight.mul_(std / spread[id(conv)])
+            conv.bias.fill_(bias)
+            if yolo:  # channel a·(5 + C) + 4 is anchor a's objectness
+                conv.bias.view(3, -1)[:, 4] = YOLO_OBJ_BIAS
+    sd = model.state_dict()
+    variables = convert.yolo_to_flax(sd, model.blocks) if yolo else \
+        convert.centernet_to_flax(sd, model.num_stack, model.order,
+                                  model.filters)
+    convert.save_npz(path, variables)
+
+
+def direct_detect(sm, images: np.ndarray, bucket: int,
+                  kind: str | None = None) -> list[dict]:
+    """The served model called directly in batches of ``bucket`` (zero
+    padded), with the PLAIN ingest of ``kind`` (by default the model's
+    own), the same forward and the same epilogue: one K-row dict of
+    numpy arrays per image."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest_plain
+    from deep_vision_tpu_torch.serve.engine import map_leaves
+
+    kind = kind or sm.preprocess_kind
+    post = sm.workload.make_epilogue(sm)
+    s = float(sm.quant.act_scale)
+    rows = []
+    for i in range(0, len(images), bucket):
+        chunk = images[i:i + bucket]
+        batch = np.zeros((bucket, *sm.input_shape), np.uint8)
+        batch[:len(chunk)] = chunk
+        x = torch.from_numpy(batch).to(sm.device)
+        with torch.inference_mode():
+            xf = serve_ingest_plain(x, kind, s).to(torch.float32) * s
+            out = post(map_leaves(lambda t: t.to(torch.float32),
+                                  sm._model(xf)))
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        rows += [{k: v[j] for k, v in host.items()}
+                 for j in range(len(chunk))]
+    return rows
+
+
+def answer_diff(got: dict, want: dict) -> tuple[bool, float, float]:
+    """(same kept set, max |Δscore|, max |Δbox|) of two /v1/detect
+    answers: the kept set is the detections' count and classes in
+    order."""
+    a, b = got["detections"], want["detections"]
+    if len(a) != len(b) or [d["class"] for d in a] != \
+            [d["class"] for d in b]:
+        return False, math.inf, math.inf
+    if not a:
+        return True, 0.0, 0.0
+    ds = max(abs(x["score"] - y["score"]) for x, y in zip(a, b))
+    db = float(np.abs(np.array([x["box"] for x in a])
+                      - np.array([y["box"] for y in b])).max())
+    return True, ds, db
+
+
+def compare_detect(sm, replies, refs: dict, body: dict,
+                   bounds: tuple[float, float]) -> dict:
+    """Each served answer against the direct answers of its image at
+    every bucket (``refs``: bucket → rows): the engine puts a request
+    into a batch of some bucket, and the card's convolutions round
+    differently from one batch size to the next, so an answer must
+    match the direct answer at one of the buckets: the same kept set,
+    scores and boxes within ``bounds``.  Returns the numbers and the
+    faults."""
+    workload = sm.workload
+    faults, exact, worst = [], 0, (0.0, 0.0)
+    for i, (status, got, _) in enumerate(replies):
+        if status != 200:
+            faults.append(f"request {i}: HTTP {status} {got}")
+            continue
+        best = None
+        for bucket, rows in refs.items():
+            want = json.loads(json.dumps(workload.respond(sm, body,
+                                                          rows[i])))
+            if got == want:
+                exact += 1
+                best = (0.0, 0.0)
+                break
+            same, ds, db = answer_diff(got, want)
+            if same and ds <= bounds[0] and db <= bounds[1]:
+                best = min(best or (ds, db), (ds, db))
+        if best is None:
+            faults.append(f"request {i}: no bucket's direct answer has "
+                          f"its kept set within {bounds}")
+        else:
+            worst = (max(worst[0], best[0]), max(worst[1], best[1]))
+    return {"rows": len(replies), "exact": exact,
+            "max_score_err": worst[0], "max_box_err": worst[1],
+            "faults": faults}
+
+
+def detect_spread(sm, refs: dict, body: dict) -> dict:
+    """The card's own batch-to-batch spread: over the images whose
+    direct answers at buckets 1 and 32 keep the same set, the largest
+    score and box differences between the two."""
+    workload = sm.workload
+    small, large = refs[min(refs)], refs[max(refs)]
+    same, ds, db = 0, 0.0, 0.0
+    for a, b in zip(small, large):
+        ok, s, bx = answer_diff(workload.respond(sm, body, a),
+                                workload.respond(sm, body, b))
+        if ok:
+            same += 1
+            ds, db = max(ds, s), max(db, bx)
+    return {"same_kept_set": same, "images": len(small),
+            "score": ds, "box": db}
+
+
+def check_tied_topk() -> dict:
+    """``topk_stable`` on the card equals the CPU's on heavily tied
+    rows at the two decodes' shapes: CenterNet's (32, 64·64·80) heatmap
+    and YOLO's (32, 10647) pre-NMS scores."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.boxes import topk_stable
+
+    gen = torch.Generator().manual_seed(7)
+    out = {}
+    for shape, k in (((32, 64 * 64 * 80), 100), ((32, 10647), 512)):
+        x = torch.randint(0, 5, shape, generator=gen).float() / 4
+        cv, ci = topk_stable(x.cuda(), k)
+        hv, hi = topk_stable(x, k)
+        check(torch.equal(ci.cpu(), hi) and torch.equal(cv.cpu(), hv),
+              f"topk_stable on the card differs from the CPU on ties "
+              f"at {shape}")
+        out[str(shape)] = k
+    return out
+
+
+def bucket_detect_ms(sm, buckets, iters: int = 10) -> dict:
+    """Per bucket: the eager forward (ingest kernel + model + float32
+    head outputs) and, apart, the epilogue on those outputs (decode,
+    top-k, NMS), from CUDA events on random uint8 input on the card."""
+    import copy
+
+    import torch
+
+    dense = copy.copy(sm)
+    dense.detect_decode = "host"
+    post = sm.workload.make_epilogue(sm)
+    out = {}
+    for b in buckets:
+        fn = dense.compile_bucket(b)
+        x = torch.randint(0, 256, (b, *sm.input_shape), dtype=torch.uint8,
+                          device=sm.device)
+        heads = fn(x)
+        with torch.inference_mode():
+            out[str(b)] = {
+                "forward_ms": call_ms(fn, [x], iters=iters, warmup=2),
+                "epilogue_ms": call_ms(post, [heads], iters=iters,
+                                       warmup=2)}
+    return out
+
+
+def serve_detect(name: str, weights: str) -> dict:
+    """Serve ``name`` int8 over HTTP on the card, 8 sequential then 24
+    concurrent /v1/detect requests, and check them; returns the
+    numbers."""
+    import copy
+
+    import torch
+
+    from deep_vision_tpu_torch.cli import serve as cli
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+    from deep_vision_tpu_torch.serve.engine import map_leaves
+
+    argv = ["-m", name, "--weights", weights, "--wire-dtype", "uint8",
+            "--infer-dtype", "int8", "--port", "0",
+            "--max-batch", str(max(BUCKETS)),
+            "--buckets", ",".join(map(str, BUCKETS)), "--device", "cuda",
+            "--detect-topk", str(DETECT_TOPK),
+            "--detect-score-threshold", str(DETECT_FLOOR), "--warmup"]
+    t0 = time.monotonic()
+    engine, server = cli.build_server(cli.build_parser().parse_args(argv))
+    server.start_background()
+    sm = engine.model
+    log(f"serving {name} int8: boot + warmup {time.monotonic() - t0:.1f} s, "
+        f"buckets {engine.buckets}, act_scale {sm.quant.act_scale}")
+    check(sm.weights == weights and sm.preprocess_kind == "unit",
+          f"{name} did not load its weights with the 'unit' ingest")
+    n = N_SEQ + N_CONC
+    imgs = np.random.RandomState(3).randint(
+        0, 256, (n, *sm.input_shape), np.uint8)
+    body = {"score_threshold": DETECT_FLOOR}
+    bodies = [json.dumps(dict(body, pixels=im.tolist())).encode()
+              for im in imgs]
+    try:
+        serve_ingest.launches = 0
+        replies = [post(server.port, b, "/v1/detect")
+                   for b in bodies[:N_SEQ]]
+        t1 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(N_CONC) as pool:
+            replies += list(pool.map(
+                lambda b: post(server.port, b, "/v1/detect"),
+                bodies[N_SEQ:]))
+        conc_s = time.monotonic() - t1
+        launches = serve_ingest.launches
+        stats = engine.stats()
+        status, wrong_verb = 0, {}
+        try:
+            post(server.port, bodies[0])
+        except urllib.error.HTTPError as e:
+            status, wrong_verb = e.code, json.loads(e.read())
+    finally:
+        server.shutdown()
+        engine.stop(drain_deadline=10.0)
+    check(status == 400 and "/v1/detect" in wrong_verb.get("error", ""),
+          f"{name} on /v1/classify answered {status} {wrong_verb}")
+    check(launches == stats["batches"] > 0,
+          f"{name}: serve_ingest launched {launches} times for "
+          f"{stats['batches']} batches")
+    check(stats["batches"] < len(replies),
+          f"{name}: concurrent requests were never batched together")
+    pipe = stats["pipeline"]
+    images_copied = stats["served"] + stats["padded_images"]
+    check(pipe["d2h_bytes"] == DETECT_TOPK * DETECT_ROW_BYTES_PER_K
+          * images_copied == sum(pipe["d2h_bytes_by_bucket"].values()),
+          f"{name}: D2H {pipe['d2h_bytes']} B for {images_copied} padded "
+          f"images, not K·28 = {DETECT_TOPK * DETECT_ROW_BYTES_PER_K} "
+          f"each")
+    refs = {b: direct_detect(sm, imgs, b) for b in BUCKETS}
+    spread = detect_spread(sm, refs, body)
+    # the bound: twice the card's own batch-to-batch spread, and at
+    # least one float32 step at 1 (scores) or the 4-place rounding of
+    # the boxes
+    bounds = (max(2 * spread["score"], 2 ** -23),
+              max(2 * spread["box"], 1e-4))
+    agree = compare_detect(sm, replies, refs, body, bounds)
+    log(f"{name}: batch-to-batch spread {json.dumps(spread)}; answers vs "
+        f"direct plain-ingest calls: {json.dumps(agree)}")
+    check(not agree["faults"], f"{name} answers: {agree['faults'][:5]}")
+    check(sum(r[1]["num_detections"] for r in replies) > 0,
+          f"{name} answered no detection at all")
+    # the gate has power: an ingest with the ImageNet mean/std in place
+    # of the [0, 1] scaling must fail it
+    wrong = compare_detect(sm, replies, {b: direct_detect(
+        sm, imgs, b, "imagenet") for b in BUCKETS}, body, bounds)
+    log(f"{name} control, answers vs an 'imagenet' ingest: "
+        f"{len(wrong['faults'])} of {len(replies)} fail")
+    check(2 * len(wrong["faults"]) > len(replies),
+          f"{name}: the answer check passed against a wrong ingest")
+    # host decode answers as device decode does, on one batch
+    host = copy.copy(sm)
+    host.detect_decode = "host"
+    x = torch.from_numpy(imgs[:8]).to(sm.device)
+    dense = host.compile_bucket(8)(x)
+    dev = {k: v.cpu().numpy() for k, v in sm.compile_bucket(8)(x).items()}
+    for i in range(8):
+        row = map_leaves(lambda t, i=i: t[i].cpu().numpy(), dense)
+        a = json.dumps(sm.workload.respond(host, body, row))
+        b = json.dumps(sm.workload.respond(
+            sm, body, {k: v[i] for k, v in dev.items()}))
+        check(a == b, f"{name}: host decode answers otherwise than device "
+                      f"decode on image {i}")
+    timing = bucket_detect_ms(sm, BUCKETS)
+    lat = sorted(r[2] for r in replies)
+    out = {"launches": launches, "requests": len(replies),
+           "batches": stats["batches"],
+           "padded_images": stats["padded_images"],
+           "d2h_bytes": pipe["d2h_bytes"],
+           "d2h_bytes_by_bucket": pipe["d2h_bytes_by_bucket"],
+           "detections": sum(r[1]["num_detections"] for r in replies),
+           "client_p50_ms": lat[len(lat) // 2] * 1e3,
+           "concurrent_img_per_s": N_CONC / conc_s,
+           "engine_latency_ms": stats["latency"],
+           "device_idle_frac_host_proxy": pipe["device_idle_frac"],
+           "by_bucket_ms": timing, "spread": spread,
+           "bounds": list(bounds), "exact_answers": agree["exact"],
+           "max_score_err": agree["max_score_err"],
+           "max_box_err": agree["max_box_err"],
+           "control_faults": len(wrong["faults"]),
+           "act_scale": sm.quant.act_scale}
+    log(f"{name} detect serving: {json.dumps(out)}")
+    return out
+
+
+def phase_detect_serving() -> dict:
+    """Serve yolov3_coco and centernet over /v1/detect on the card."""
+    import torch
+
+    out = {"tied_topk": check_tied_topk()}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        for seed, name in enumerate(DETECT_MODELS):
+            weights = os.path.join(tmp, f"{name}.npz")
+            detect_weights(name, weights, seed)
+            out[name] = serve_detect(name, weights)
+            torch.cuda.empty_cache()
+    return out
+
 
 def phase_train_kernels() -> list[dict]:
     """train_ingest vs its plain version at the training shapes."""
@@ -1500,12 +1888,22 @@ def main() -> int:
     step_check = phase_step_check()
     yolo = phase_yolo_training()
     yolo_check = phase_yolo_step_check()
+    detect = phase_detect_serving()
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
+    by_path = {"classify_resnet50": serving["launches"],
+               **{f"detect_{m}": detect[m]["launches"]
+                  for m in DETECT_MODELS}}
+    detect_rows = [{k: r[k] for k in ("kind", "shape", "ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by",
+                                      "max_abs_err")}
+                   for r in rows if r["kind"] == "unit"
+                   and r["shape"][0] == 32 and r["out"] == "int8"]
     kernels = [{"name": "serve_ingest", "route": "cuda",
                 "source": "deep_vision_tpu_torch/csrc/serve_ingest.cu",
                 "replaces": "deep_vision_tpu/ops/pallas_ops.py:77",
-                "launches": serving["launches"],
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "detect_shapes": detect_rows,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"],
@@ -1542,6 +1940,7 @@ def main() -> int:
     print(json.dumps({"step_check": step_check}), flush=True)
     print(json.dumps({"yolo_training": yolo}), flush=True)
     print(json.dumps({"yolo_step_check": yolo_check}), flush=True)
+    print(json.dumps({"detect_serving": detect}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

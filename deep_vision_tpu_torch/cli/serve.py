@@ -4,6 +4,15 @@
         [--weights w.npz] --wire-dtype uint8 --infer-dtype int8 \\
         --port 8000 --max-batch 32 [--buckets 1,8,32] --warmup \\
         [--device cuda]
+    python -m deep_vision_tpu_torch.cli.serve -m yolov3_coco \\
+        [--weights w.npz] --wire-dtype uint8 --infer-dtype int8 \\
+        [--detect-decode device] [--detect-topk 100] \\
+        [--detect-score-threshold 0.05] [--detect-iou-threshold 0.5] \\
+        [--detect-soft-nms off] [--detect-soft-sigma 0.5] \\
+        [--detect-max-per-class 0]
+
+A classifier answers ``POST /v1/classify``; a detection model
+(``yolov3_*``, ``centernet*``) answers ``POST /v1/detect``.
 
 ``--weights`` is an ``.npz`` of the reference's flax variables tree
 (keys joined by ``/``, see ``convert.py``); without it the model is a
@@ -54,6 +63,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="build and run every bucket before taking traffic")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    # -- detect decode: detection models only --
+    p.add_argument("--detect-decode", choices=("device", "host"),
+                   default="device",
+                   help="where detection models decode: 'device' "
+                        "(default) runs decode → score floor → top-k → "
+                        "class-wise NMS inside the bucket callables, so "
+                        "the D2H copy moves K fixed-size boxes per image; "
+                        "'host' copies the dense head outputs and "
+                        "decodes per request (the baseline)")
+    p.add_argument("--detect-topk", type=int, default=100,
+                   help="max detections per image in the device decode "
+                        "(the K of the fixed-size output; D2H bytes per "
+                        "image = K·28)")
+    p.add_argument("--detect-score-threshold", type=float, default=0.05,
+                   help="score FLOOR of the detect decode: per-request "
+                        "'score_threshold' values above it trim the "
+                        "answer, values below it clamp to it (boxes "
+                        "under the floor never survived NMS)")
+    p.add_argument("--detect-iou-threshold", type=float, default=0.5,
+                   help="IoU threshold of the class-wise NMS (YOLO; "
+                        "CenterNet's peak decode has no NMS)")
+    p.add_argument("--detect-soft-nms", choices=("off", "gaussian",
+                                                 "linear"),
+                   default="off",
+                   help="suppression rule of the NMS: 'off' (default) "
+                        "is hard greedy NMS; 'gaussian' / 'linear' "
+                        "switch to Soft-NMS score decay (Bodla et al. "
+                        "2017): overlapping boxes survive with decayed "
+                        "scores instead of dying at the IoU threshold")
+    p.add_argument("--detect-soft-sigma", type=float, default=0.5,
+                   help="gaussian Soft-NMS decay width "
+                        "exp(-iou²/sigma); ignored for 'off'/'linear'")
+    p.add_argument("--detect-max-per-class", type=int, default=0,
+                   help="cap detections per class in the decode output "
+                        "(0 = uncapped): stops one dense class from "
+                        "taking all K rows")
     return p
 
 
@@ -71,7 +116,17 @@ def build_server(args):
     sm = registry.load_checkpoint(args.model, args.weights,
                                   wire_dtype=args.wire_dtype,
                                   infer_dtype=args.infer_dtype,
-                                  device=device)
+                                  device=device,
+                                  detect_decode=args.detect_decode,
+                                  detect_topk=args.detect_topk,
+                                  detect_score_threshold=(
+                                      args.detect_score_threshold),
+                                  detect_iou_threshold=(
+                                      args.detect_iou_threshold),
+                                  detect_soft_nms=args.detect_soft_nms,
+                                  detect_soft_sigma=args.detect_soft_sigma,
+                                  detect_max_per_class=(
+                                      args.detect_max_per_class))
     buckets = [int(b) for b in args.buckets.split(",")] if args.buckets \
         else None
     engine = BatchingEngine(
@@ -94,7 +149,8 @@ def main(argv=None):
     sm = engine.model
     print(f"[serve] {sm.name} on {sm.device}: wire={sm.wire_dtype} "
           f"infer={sm.infer_dtype} buckets={engine.buckets} — "
-          f"http://{server.host}:{server.port}/v1/classify", flush=True)
+          f"http://{server.host}:{server.port}/v1/{sm.workload.verb}",
+          flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

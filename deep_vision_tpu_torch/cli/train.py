@@ -103,7 +103,10 @@ def main(argv=None):
         cfg.prefetch_depth = args.prefetch_depth
     if cfg.task == "centernet":
         raise NotImplementedError(
-            "CenterNet is not ported yet (ROADMAP.md Queue 1 item 3)")
+            "CenterNet training is not ported yet: its loss, label "
+            "encoder and loader come in the next slice (ROADMAP.md "
+            "Queue 1 item 3); CenterNet serves /v1/detect through "
+            "cli.serve")
     if cfg.task not in ("classification", "detection"):
         raise NotImplementedError(
             f"task '{cfg.task}' is not ported; classification and "

@@ -24,6 +24,13 @@ keys joined by ``/`` (``params/Conv_0/kernel``).
 DarknetConv holding ``Conv_0`` and ``BatchNorm_0``) ↔ the port's
 ``backbone.stem``, ``backbone.stages.{k}.{i}``, ``block13``/``head13``/
 ``lateral26``/…; the heads' 1×1 ``Conv_0`` carries a bias.
+
+``centernet_from_flax`` / ``centernet_to_flax`` / ``load_centernet`` do
+the same for CenterNet (``models/centernet.py``), and
+``hourglass_from_flax`` / ``hourglass_to_flax`` and ``preact_from_flax``
+/ ``preact_to_flax`` for a bare ``HourglassModule`` or
+``PreActBottleneck``; these check both sides strictly: a flax leaf that
+no module takes raises, as a missing one does.
 """
 
 from __future__ import annotations
@@ -302,5 +309,193 @@ def load_yolo(model, variables: Mapping) -> None:
     import torch
 
     sd = yolo_from_flax(variables, model.blocks)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
+
+
+# ---------------------------------------------------------------------------
+# Hourglass modules and CenterNet (models/hourglass.py, models/centernet.py)
+# ---------------------------------------------------------------------------
+# Every conv of these models has a bias.  Flax names submodules by class
+# and call order: a PreActBottleneck holds ``Conv_0`` (the 1×1 shortcut,
+# first, where the channel count changes), then the three convs, and
+# ``BatchNorm_0..2``; a HourglassModule counts ``PreActBottleneck_k``
+# over up1, low1, low2 (order 1 only) and low3, and holds the next order
+# as ``HourglassModule_0``.  The walkers below yield ``(kind, torch
+# prefix, flax path)`` for every conv and BatchNorm, in that order.
+
+
+def _at(t: str, name: str) -> str:
+    return f"{t}.{name}" if t else name
+
+
+def _preact_leaves(t: str, f: tuple, shortcut: bool):
+    k = 0
+    if shortcut:
+        yield "conv", _at(t, "shortcut"), (*f, "Conv_0")
+        k = 1
+    for j in range(3):
+        yield "conv", _at(t, f"conv{j + 1}"), (*f, f"Conv_{j + k}")
+    for j in range(3):
+        yield "bn", _at(t, f"bn{j + 1}"), (*f, f"BatchNorm_{j}")
+
+
+def _hourglass_leaves(t: str, f: tuple, in_ch: int, order: int, filters,
+                      num_residual: int = 1):
+    from deep_vision_tpu_torch.models.hourglass import filters_at
+
+    fa, fb = filters_at(filters, 0), filters_at(filters, 1)
+    counter = [0]
+
+    def chain(name, n, cin, cout):
+        for j in range(n):
+            c = cin if j == 0 else cout
+            yield from _preact_leaves(
+                _at(t, f"{name}.{j}"),
+                (*f, f"PreActBottleneck_{counter[0]}"), c != cout)
+            counter[0] += 1
+
+    yield from chain("up1", num_residual + 1, in_ch, fa)
+    yield from chain("low1", num_residual, in_ch, fb)
+    low1_out = fb if num_residual else in_ch
+    if order > 1:
+        sub = filters if isinstance(filters, int) else list(filters[1:])
+        yield from _hourglass_leaves(_at(t, "sub"),
+                                     (*f, "HourglassModule_0"), low1_out,
+                                     order - 1, sub, num_residual)
+        low2_out = filters_at(sub, 0)
+    else:
+        yield from chain("low2", num_residual, low1_out, fb)
+        low2_out = fb if num_residual else low1_out
+    yield from chain("low3", num_residual, low2_out, fa)
+
+
+def _centernet_leaves(num_stack: int, order: int, filters):
+    base = filters[0]
+    yield "conv", "stem_conv", ("Conv_0",)
+    yield "bn", "stem_bn", ("BatchNorm_0",)
+    yield from _preact_leaves("stem_block", ("PreActBottleneck_0",),
+                              base // 2 != base)
+    for s in range(num_stack):
+        t = f"stacks.{s}"
+        yield from _hourglass_leaves(f"{t}.hourglass",
+                                     (f"HourglassModule_{s}",), base, order,
+                                     list(filters))
+        yield "conv", f"{t}.conv", (f"Conv_{1 + 2 * s}",)
+        yield "bn", f"{t}.bn", (f"BatchNorm_{1 + s}",)
+        for j, head in enumerate(("heat", "wh", "offset")):
+            d = (f"DetectionHead_{3 * s + j}",)
+            yield "conv", f"{t}.{head}.conv", (*d, "Conv_0")
+            yield "conv", f"{t}.{head}.out", (*d, "Conv_1")
+        if s < num_stack - 1:
+            yield "conv", f"{t}.reinject", (f"Conv_{2 + 2 * s}",)
+
+
+def _from_flax(leaves, variables: Mapping) -> dict:
+    """flax variables → ``state_dict`` (numpy) over ``leaves``; a flax
+    leaf that no module takes raises ``KeyError``, as a missing one
+    does."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    sd: dict = {}
+    used = set()
+    for kind, t, path in leaves:
+        p = _get(params, path)
+        if kind == "conv":
+            sd[f"{t}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
+            sd[f"{t}.bias"] = _np(p["bias"])
+            used.update({("params", *path, "kernel"),
+                         ("params", *path, "bias")})
+        else:
+            s = _get(stats, path)
+            sd[f"{t}.weight"] = _np(p["scale"])
+            sd[f"{t}.bias"] = _np(p["bias"])
+            sd[f"{t}.running_mean"] = _np(s["mean"])
+            sd[f"{t}.running_var"] = _np(s["var"])
+            sd[f"{t}.num_batches_tracked"] = np.array(0, np.int64)
+            used.update({("params", *path, "scale"),
+                         ("params", *path, "bias"),
+                         ("batch_stats", *path, "mean"),
+                         ("batch_stats", *path, "var")})
+    extra = sorted(k for col in ("params", "batch_stats")
+                   for k in flatten_tree(variables.get(col, {}), col)
+                   if tuple(k.split("/")) not in used)
+    if extra:
+        raise KeyError(f"flax leaves with no module: {extra[:5]}"
+                       f"{' ...' if len(extra) > 5 else ''}")
+    return {k: np.array(v, order="C") for k, v in sd.items()}
+
+
+def _to_flax(leaves, state_dict: Mapping) -> dict:
+    """The inverse of :func:`_from_flax`."""
+    sd = state_dict
+    params: dict = {}
+    stats: dict = {}
+    for kind, t, path in leaves:
+        if kind == "conv":
+            _put(params, path, {
+                "kernel": _np(sd[f"{t}.weight"]).transpose(2, 3, 1, 0),
+                "bias": _np(sd[f"{t}.bias"])})
+        else:
+            _put(params, path, {"scale": _np(sd[f"{t}.weight"]),
+                                "bias": _np(sd[f"{t}.bias"])})
+            _put(stats, path, {"mean": _np(sd[f"{t}.running_mean"]),
+                               "var": _np(sd[f"{t}.running_var"])})
+    return {"params": params, "batch_stats": stats}
+
+
+def preact_from_flax(variables: Mapping, in_ch: int, filters: int) -> dict:
+    """flax ``PreActBottleneck`` variables (its own tree at the root) →
+    the port's ``PreActBottleneck`` ``state_dict`` (numpy)."""
+    return _from_flax(_preact_leaves("", (), in_ch != filters), variables)
+
+
+def preact_to_flax(state_dict: Mapping, in_ch: int, filters: int) -> dict:
+    """The inverse of :func:`preact_from_flax`."""
+    return _to_flax(_preact_leaves("", (), in_ch != filters), state_dict)
+
+
+def hourglass_from_flax(variables: Mapping, in_ch: int, order: int,
+                        filters, num_residual: int = 1) -> dict:
+    """flax ``HourglassModule`` variables (its own tree at the root) →
+    the port's ``HourglassModule`` ``state_dict`` (numpy)."""
+    return _from_flax(_hourglass_leaves("", (), in_ch, order, filters,
+                                        num_residual), variables)
+
+
+def hourglass_to_flax(state_dict: Mapping, in_ch: int, order: int,
+                      filters, num_residual: int = 1) -> dict:
+    """The inverse of :func:`hourglass_from_flax`."""
+    return _to_flax(_hourglass_leaves("", (), in_ch, order, filters,
+                                      num_residual), state_dict)
+
+
+def centernet_from_flax(variables: Mapping, num_stack: int = 2,
+                        order: int = 5,
+                        filters: Sequence[int] = (256, 256, 384, 384, 384,
+                                                  512)) -> dict:
+    """flax CenterNet variables → the port's ``state_dict`` (numpy).
+    Raises ``KeyError`` naming a missing flax key, or the flax leaves
+    that no module takes, when the tree does not match."""
+    return _from_flax(_centernet_leaves(num_stack, order, tuple(filters)),
+                      variables)
+
+
+def centernet_to_flax(state_dict: Mapping, num_stack: int = 2,
+                      order: int = 5,
+                      filters: Sequence[int] = (256, 256, 384, 384, 384,
+                                                512)) -> dict:
+    """The port's CenterNet ``state_dict`` → flax ``{"params",
+    "batch_stats"}`` (numpy): the inverse of :func:`centernet_from_flax`."""
+    return _to_flax(_centernet_leaves(num_stack, order, tuple(filters)),
+                    state_dict)
+
+
+def load_centernet(model, variables: Mapping) -> None:
+    """Copy flax CenterNet ``variables`` into a port ``CenterNet``
+    (strict both ways)."""
+    import torch
+
+    sd = centernet_from_flax(variables, model.num_stack, model.order,
+                             model.filters)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)

@@ -3,9 +3,9 @@
 Port of ``deep_vision_tpu/core/restore.py`` (``params_digest``,
 ``serving_input_shape``, ``load_state``).  Orbax checkpoints are not read
 here: the port loads a ``--weights`` ``.npz`` archive of the reference's
-flax variables tree (``convert.py``), or, with no weights, builds a seeded
-random init and says so with a warning, as the reference does when no
-checkpoint exists.
+flax variables tree (``convert.py``, through the importer of the model's
+family), or, with no weights, builds a seeded random init and says so
+with a warning, as the reference does when no checkpoint exists.
 """
 
 from __future__ import annotations
@@ -33,6 +33,25 @@ def serving_input_shape(cfg) -> tuple:
     return (cfg.image_size, cfg.image_size, cfg.channels)
 
 
+def import_weights(model, variables) -> None:
+    """Copy a flax variables tree into ``model`` with the importer of
+    its family: ResNet, YOLOv3 or CenterNet; any other class raises
+    and names it."""
+    from deep_vision_tpu_torch import convert
+    from deep_vision_tpu_torch.models.centernet import CenterNet
+    from deep_vision_tpu_torch.models.resnet import ResNet
+    from deep_vision_tpu_torch.models.yolo import YoloV3
+
+    importers = ((ResNet, convert.load_into), (YoloV3, convert.load_yolo),
+                 (CenterNet, convert.load_centernet))
+    for cls, load in importers:
+        if isinstance(model, cls):
+            load(model, variables)
+            return
+    raise TypeError(f"no weight importer for {type(model).__name__}; "
+                    f"have {[cls.__name__ for cls, _ in importers]}")
+
+
 def load_state(cfg, weights: str | None = None, *, log=print,
                info: dict | None = None):
     """Build ``cfg``'s model on the CPU in eval mode with its weights.
@@ -47,7 +66,7 @@ def load_state(cfg, weights: str | None = None, *, log=print,
         info = {}
     model = cfg.model()
     if weights:
-        convert.load_into(model, convert.load_npz(weights))
+        import_weights(model, convert.load_npz(weights))
         log(f"[restore] loaded weights from {weights}")
     else:
         model.reset_parameters(torch.Generator().manual_seed(cfg.seed))

@@ -6,6 +6,8 @@
     python -m deep_vision_tpu_torch.obs.profile -m resnet50 --train \\
         [--device cuda]
     python -m deep_vision_tpu_torch.obs.profile -m yolov3_coco --train
+    python -m deep_vision_tpu_torch.obs.profile -m yolov3_coco \\
+        --infer-dtype int8 --bucket 32       # or -m centernet
 
 Prints one JSON object: the wall time per forward (or per train step;
 host clock around synchronised calls), the device busy time per call
@@ -15,7 +17,11 @@ the kernels with the most device time, grouped into ``conv``
 included), ``serve_ingest``, ``train_ingest``, ``best_iou_max``,
 ``optimizer`` (the foreach kernels of the SGD or Adam update and the
 divergence guard) and ``other`` (elementwise, BatchNorm, pooling,
-reductions, NMS).  The train step runs ``--model``'s config at its batch
+reductions), and, for a detection model that decodes on the device,
+``epilogue``: the decode, top-k and NMS.  Their kernels are generic
+(sorts, reductions, gathers), so they are told apart by stage, not by
+name: the epilogue is profiled alone on the forward's dense outputs,
+and the forward alone; the wall time is the whole callable's.  The train step runs ``--model``'s config at its batch
 on a seeded uint8 batch already on the device, through the trainer's own
 ``train_step``: random pixels and labels for a classifier; for YOLOv3
 the seeded synthetic scenes of ``data/detection.py`` (1-3 boxes an
@@ -40,7 +46,11 @@ CONV_MARKERS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "sm90_",
                 "implicit", "nvjet")
 
 
-def kernel_group(name: str) -> str:
+def kernel_group(name: str, stage: str = "forward") -> str:
+    """The group of a kernel launched in ``stage`` ("forward", "step"
+    or "epilogue": every kernel of the detect epilogue is its own)."""
+    if stage == "epilogue":
+        return "epilogue"
     low = name.lower()
     for kernel in ("serve_ingest", "train_ingest", "best_iou_max"):
         if kernel in low:
@@ -53,9 +63,10 @@ def kernel_group(name: str) -> str:
 
 
 def _profiled(call, device: torch.device, iters: int, top: int,
-              unit: str) -> dict:
+              unit: str, stage: str = "forward") -> dict:
     """Run ``call`` twice to warm up, then ``iters`` times under the
-    profiler; wall and device milliseconds per call (``unit``)."""
+    profiler; wall and device milliseconds per call (``unit``), the
+    kernels grouped by :func:`kernel_group` for ``stage``."""
     from torch.profiler import ProfilerActivity, profile
 
     on_cuda = device.type == "cuda"
@@ -85,7 +96,7 @@ def _profiled(call, device: torch.device, iters: int, top: int,
         dev_us = e.self_device_time_total
         if dev_us <= 0:
             continue
-        g = kernel_group(e.key)
+        g = kernel_group(e.key, stage)
         groups[g] = groups.get(g, 0.0) + dev_us / 1e3 / iters
         kernels.append((dev_us / 1e3 / iters, e.count // iters, e.key))
     kernels.sort(reverse=True)
@@ -100,13 +111,36 @@ def _profiled(call, device: torch.device, iters: int, top: int,
 
 
 def profile_bucket(sm, bucket: int, iters: int = 5, top: int = 12) -> dict:
-    """Profile ``iters`` forwards of ``sm``'s ``bucket`` callable."""
+    """Profile ``iters`` calls of ``sm``'s ``bucket`` callable.  Where
+    the workload fuses an epilogue (detect decode on the device), the
+    forward without it and the epilogue on the forward's outputs are
+    profiled apart, and ``device_ms_by_group`` holds both: the
+    forward's groups and ``epilogue``."""
+    import copy
+
     fn = sm.compile_bucket(bucket)
     gen = torch.Generator().manual_seed(0)
     x = torch.randint(0, 256, (bucket, *sm.input_shape), generator=gen,
                       dtype=torch.uint8).to(sm.device)
-    return {"bucket": bucket,
-            **_profiled(lambda: fn(x), sm.device, iters, top, "forward")}
+    rep = {"bucket": bucket,
+           **_profiled(lambda: fn(x), sm.device, iters, top, "forward")}
+    post = sm.workload.make_epilogue(sm)
+    if post is None:
+        return rep
+    dense = copy.copy(sm)
+    dense.detect_decode = "host"
+    forward = dense.compile_bucket(bucket)
+    fwd = _profiled(lambda: forward(x), sm.device, iters, top, "forward")
+    out = forward(x)
+    with torch.inference_mode():
+        epi = _profiled(lambda: post(out), sm.device, iters, top, "call",
+                        "epilogue")
+    groups = None
+    if fwd["device_ms_by_group"] is not None:
+        groups = dict(fwd["device_ms_by_group"],
+                      epilogue=epi["device_busy_ms_per_call"] or 0.0)
+    rep.update(device_ms_by_group=groups, forward_only=fwd, epilogue=epi)
+    return rep
 
 
 def profile_train_step(trainer, state, batch: dict, iters: int = 3,

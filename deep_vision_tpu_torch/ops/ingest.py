@@ -63,8 +63,12 @@ def device_scalar(value, device) -> torch.Tensor:
     ``device``, made once per device.  Divide by this, never by a Python
     scalar: CUDA turns division by a host scalar into a reciprocal
     multiply, which is not bit-identical to the division the kernel and
-    the JAX reference perform."""
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    the JAX reference perform.  Made outside inference mode even when
+    the first caller runs in it: the cached constant is shared with
+    autograd callers (the YOLO loss divides by its grid), and an
+    inference tensor cannot be saved for backward."""
+    with torch.inference_mode(False):
+        return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def serve_ingest_plain(x: torch.Tensor, kind: str, act_scale: float = 1.0,

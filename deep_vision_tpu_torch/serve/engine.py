@@ -7,11 +7,15 @@ Port of ``deep_vision_tpu/serve/engine.py`` (``power_of_two_buckets``,
                    stages the batch into a REUSED host buffer for its
                    bucket (pinned memory when the model is on CUDA), and
                    on the engine's own CUDA stream queues the H2D copy,
-                   the bucket's forward and ONE D2H copy of the whole
-                   output into pinned host memory, then records an event
+                   the bucket's forward and ONE D2H copy of each output
+                   leaf into pinned host memory, then records an event
                    and hands the in-flight record off;
   drainer thread   waits on each batch's event in dispatch order and
                    scatters the host rows to per-request futures.
+
+An output is a tensor (classify logits), a nested tuple of tensors
+(dense detection heads) or a dict (the detect epilogue's K rows); a
+request's row has the same structure, each leaf sliced to its image.
 
 A ``pipeline_depth``-bounded semaphore caps dispatched-but-undrained
 batches, so batch N+1's formation, staging and H2D overlap batch N's
@@ -50,6 +54,27 @@ from deep_vision_tpu_torch.serve.admission import AdmissionController, Shed
 from deep_vision_tpu_torch.serve.health import EngineHealth
 
 _log = get_logger("dvt.serve.engine")
+
+
+def map_leaves(fn, tree):
+    """``tree`` (a tensor or array, or dicts, tuples and lists of them)
+    with ``fn`` applied to every leaf, the structure kept."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def power_of_two_buckets(max_batch: int) -> list[int]:
@@ -184,6 +209,7 @@ class BatchingEngine:
         # of outputs copied back (one bulk copy per batch each way)
         self.h2d_bytes = 0  # guarded-by: _lock
         self.d2h_bytes = 0  # guarded-by: _lock
+        self.d2h_bytes_by_bucket: dict[int, int] = {}  # guarded-by: _lock
         # host proxy of device idle: wall time with an EMPTY in-flight
         # window between the first dispatch and the last drain
         self._first_dispatch: float | None = None  # guarded-by: _lock
@@ -426,16 +452,19 @@ class BatchingEngine:
             self._finish(rec)
 
     def _launch(self, fn, buf: torch.Tensor):
-        """Queue one batch: H2D, forward, one D2H.  On CUDA everything is
-        queued on the engine's stream and an event marks the end; on the
-        CPU the forward runs to completion here."""
+        """Queue one batch: H2D, forward, one D2H per output leaf.  On
+        CUDA everything is queued on the engine's stream and an event
+        marks the end; on the CPU the forward runs to completion here."""
         if self._stream is None:
             return fn(buf), None
+
+        def to_host(t):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return host.copy_(t, non_blocking=True)
+
         with torch.cuda.stream(self._stream), torch.inference_mode():
             x = buf.to(self.device, non_blocking=True)
-            out = fn(x)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
+            host = map_leaves(to_host, fn(x))
             done = torch.cuda.Event()
             done.record(self._stream)
         return host, done
@@ -472,7 +501,8 @@ class BatchingEngine:
     def _complete(self, rec: _Inflight):
         if rec.done is not None:
             rec.done.synchronize()
-        host = rec.host.numpy()
+        host = map_leaves(lambda t: t.numpy(), rec.host)
+        nbytes = sum(a.nbytes for a in _leaves(host))
         t_done = time.monotonic()
         n = len(rec.requests)
         with self._lock:
@@ -483,7 +513,9 @@ class BatchingEngine:
             self.batches += 1
             self.served += n
             self.padded_images += rec.bucket - n
-            self.d2h_bytes += host.nbytes
+            self.d2h_bytes += nbytes
+            self.d2h_bytes_by_bucket[rec.bucket] = \
+                self.d2h_bytes_by_bucket.get(rec.bucket, 0) + nbytes
         self.admission.observe_exec(t_done - busy_from, bucket=rec.bucket)
         self.throughput.update(n)
         for i, req in enumerate(rec.requests):
@@ -493,7 +525,8 @@ class BatchingEngine:
                 # takes over at resolve
                 req.span.mark("compute_d2h")
             if not req.future.done():
-                req.future.set_result(host[i].copy())
+                req.future.set_result(
+                    map_leaves(lambda a, i=i: a[i].copy(), host))
         self.health.record_success(t_done)
 
     def _cohort_failed(self, requests: list[_Request], err: Exception):
@@ -558,6 +591,8 @@ class BatchingEngine:
                        "max_inflight": self.max_inflight,
                        "h2d_bytes": self.h2d_bytes,
                        "d2h_bytes": self.d2h_bytes,
+                       "d2h_bytes_by_bucket": dict(
+                           self.d2h_bytes_by_bucket),
                        # host proxy: share of the first-dispatch →
                        # last-drain span with an empty in-flight window
                        "device_idle_frac": (

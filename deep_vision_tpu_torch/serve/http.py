@@ -16,6 +16,13 @@ Routes (JSON in, JSON out):
                         bad payload 400, ``image_b64`` 501 (no image
                         decoder on this server).  ``?debug=1`` attaches
                         the request's trace.
+    POST /v1/detect    {"pixels", "model"?, "deadline_ms"?,
+                        "score_threshold"?} → {"model", "num_detections",
+                        "detections": [{box, score, class}]}, boxes
+                        normalized xyxy; the same errors as classify.
+
+A verb that is not the model's workload answers 400 and names the right
+route; an unknown route answers 404 with the supported verbs.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import numpy as np
 
 from deep_vision_tpu_torch.obs.trace import REQUEST_ID_HEADER, new_request_id
 from deep_vision_tpu_torch.serve.admission import Shed
+from deep_vision_tpu_torch.serve.workloads import WORKLOADS
 
 #: request body cap (a 224×224×3 uint8 image is ~0.6 MB of JSON) and the
 #: per-connection socket timeout
@@ -128,17 +136,26 @@ class _Handler(BaseHTTPRequestHandler):
             raise ServeError(404, e.args[0]) from e
         return model, self.server.engines[model.name]
 
-    def _classify(self, body: dict, debug: bool) -> dict:
+    def _infer(self, verb: str, body: dict, debug: bool) -> dict:
         model, engine = self._engine(body)
+        # the verb names the workload; the model's task must serve it,
+        # checked before the request costs a batch slot
+        if model.workload.verb != verb:
+            raise ServeError(400, f"'{model.name}' is a {model.task} "
+                                  f"model; use /v1/{model.workload.verb}")
         x = decode_pixels(body, model)
         if self._span is not None:
             self._span.mark("decode")
         deadline_ms = body.get("deadline_ms", model.workload.slo.deadline_ms)
         try:
-            top_k = int(body.get("top_k", 5))
             deadline_ms = float(deadline_ms)
+            if verb == "classify":
+                params = {"top_k": int(body.get("top_k", 5))}
+            else:
+                params = {} if "score_threshold" not in body else {
+                    "score_threshold": float(body["score_threshold"])}
         except (TypeError, ValueError) as e:
-            raise ServeError(400, f"bad top_k/deadline_ms: {e}") from e
+            raise ServeError(400, f"bad request parameter: {e}") from e
         result = engine.infer(x, deadline_ms=deadline_ms, span=self._span)
         if isinstance(result, Shed):
             headers = None
@@ -147,7 +164,7 @@ class _Handler(BaseHTTPRequestHandler):
                            max(1, math.ceil(result.retry_after_s))}
             raise ServeError(429, f"shed: {result.reason} {result.detail}",
                              headers=headers)
-        payload = model.workload.respond(model, {"top_k": top_k}, result)
+        payload = model.workload.respond(model, params, result)
         if self._span is not None:
             self._span.mark("respond")
             if debug:
@@ -184,12 +201,13 @@ class _Handler(BaseHTTPRequestHandler):
         tracer = self.server.tracer
         span = self._span = tracer.start(self._rid, origin="recv")
         try:
-            if path != "/v1/classify":
+            verb = path[len("/v1/"):] if path.startswith("/v1/") else ""
+            if verb not in WORKLOADS:
                 self._body()  # consistent 400 on empty/oversized bodies
                 self._reply(404, {"error": f"no route {self.path}",
-                                  "supported_verbs": ["classify"]})
+                                  "supported_verbs": sorted(WORKLOADS)})
                 return
-            self._reply(200, self._classify(self._body(), debug))
+            self._reply(200, self._infer(verb, self._body(), debug))
         except ServeError as e:
             self._reply(e.status, {"error": str(e)}, headers=e.headers)
         except TimeoutError:

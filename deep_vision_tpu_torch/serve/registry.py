@@ -11,8 +11,11 @@ Execution contract (what the engine relies on):
     stages and copies it there on its own stream) or host numpy (direct
     callers), in the model's WIRE dtype;
   * it runs on the caller's current CUDA stream and returns the float32
-    logits on the device without synchronising; the engine does the
-    single device-to-host copy per batch;
+    outputs on the device without synchronising — a tensor (classify
+    logits), a nested tuple of tensors (dense detection heads), or the
+    workload epilogue's dict (device-decoded detections, whose
+    ``classes`` are int32); the engine copies each leaf to the host once
+    per batch;
   * it runs eagerly (CUDA graphs per bucket come in a later slice).
 
 Wire and compute dtypes: a uint8 wire ships raw 0–255 pixels and the
@@ -20,8 +23,10 @@ callable normalizes them on the device; a float32 wire ships
 host-normalized pixels.  ``infer_dtype`` "bfloat16" casts the float
 parameters once at load and computes in bf16; "int8" calibrates and
 quantizes the weights at load (``serve/quant.py``) and, on the uint8
-wire, runs the ``serve_ingest`` kernel as the prologue.  Outputs are
-float32 whatever the compute dtype.
+wire, runs the ``serve_ingest`` kernel as the prologue.  Floating
+outputs are float32 whatever the compute dtype.  The workload's epilogue
+(``serve/workloads.py``: the detect decode) runs after that cast, on the
+device, inside the same callable.
 """
 
 from __future__ import annotations
@@ -30,12 +35,15 @@ import numpy as np
 import torch
 
 from deep_vision_tpu_torch.core.device import resolve_device
+from deep_vision_tpu_torch.ops.boxes import SOFT_MODES
+from deep_vision_tpu_torch.serve.engine import map_leaves
 from deep_vision_tpu_torch.serve.workloads import workload_for_task
 
 #: wire formats: what dtype the client ships and the engine stages
 WIRE_DTYPES = {"float32": torch.float32, "uint8": torch.uint8}
 #: compute dtypes (outputs are always float32)
 INFER_DTYPES = ("float32", "bfloat16", "int8")
+DETECT_DECODES = ("device", "host")
 
 
 class ServingModel:
@@ -66,6 +74,21 @@ class ServingModel:
         self.weights: str | None = None
         self.params_digest: str | None = None
         self._model: torch.nn.Module | None = None
+        # detection decode knobs (serve/workloads.py DetectWorkload),
+        # read when a bucket callable is built: "device" runs decode →
+        # score floor → top-k → class-wise NMS inside the callable, so
+        # a batch leaves the device as K rows an image; "host" keeps
+        # the dense outputs and decodes per request in respond().  The
+        # score threshold is the FLOOR; request thresholds above it
+        # trim in respond().  soft_nms "off" is the reference's hard
+        # NMS; max_per_class > 0 caps each class's kept boxes.
+        self.detect_decode: str = "device"
+        self.detect_topk: int = 100
+        self.detect_score_threshold: float = 0.05
+        self.detect_iou_threshold: float = 0.5
+        self.detect_soft_nms: str = "off"
+        self.detect_soft_sigma: float = 0.5
+        self.detect_max_per_class: int = 0
 
     def compile_bucket(self, batch: int):
         raise NotImplementedError
@@ -79,8 +102,17 @@ class ServingModel:
                        for t in self._model.state_dict().values()))
 
     def describe(self) -> dict:
+        d = {}
+        if self.workload.verb == "detect":
+            d["detect"] = {"decode": self.detect_decode,
+                           "top_k": self.detect_topk,
+                           "score_threshold": self.detect_score_threshold,
+                           "iou_threshold": self.detect_iou_threshold,
+                           "soft_nms": self.detect_soft_nms,
+                           "soft_sigma": self.detect_soft_sigma,
+                           "max_per_class": self.detect_max_per_class}
         return {"name": self.name, "task": self.task,
-                "workload": self.workload.verb,
+                "workload": self.workload.verb, **d,
                 "input_shape": list(self.input_shape),
                 "num_classes": self.num_classes,
                 "wire_dtype": str(self.wire_dtype),
@@ -160,6 +192,13 @@ class CheckpointServingModel(ServingModel):
             def forward(x):
                 return model(pre(x))
 
+        post = self.workload.make_epilogue(self)
+
+        def finish(out):
+            out = map_leaves(lambda t: t.to(torch.float32)
+                             if t.is_floating_point() else t, out)
+            return out if post is None else post(out)
+
         shape = (batch, *self.input_shape)
         device = self.device
         wire_np = self.wire_dtype
@@ -172,8 +211,7 @@ class CheckpointServingModel(ServingModel):
                                  f"{wire} {list(shape)}, got {x.dtype} "
                                  f"{list(x.shape)}")
             with torch.inference_mode():
-                return forward(x.to(device, non_blocking=True)).to(
-                    torch.float32)
+                return finish(forward(x.to(device, non_blocking=True)))
 
         return call
 
@@ -192,15 +230,36 @@ class ModelRegistry:
                         infer_dtype: str = "float32",
                         calib_batches: int = 2,
                         calib_dir: str | None = None,
-                        device=None) -> ServingModel:
+                        device=None,
+                        detect_decode: str = "device",
+                        detect_topk: int = 100,
+                        detect_score_threshold: float = 0.05,
+                        detect_iou_threshold: float = 0.5,
+                        detect_soft_nms: str = "off",
+                        detect_soft_sigma: float = 0.5,
+                        detect_max_per_class: int = 0) -> ServingModel:
         """Build ``config_name``'s model with ``weights`` (a flax-layout
         ``.npz``; None = seeded random init) and serve it on ``device``
         (default cuda).  ``wire_dtype``/``infer_dtype`` as in the module
         docstring; int8 calibrates on ``calib_batches`` batches from
-        ``calib_dir`` (deterministic synthetic data when None)."""
+        ``calib_dir`` (deterministic synthetic data when None).
+
+        ``detect_*`` configure a detection model's decode
+        (``ServingModel``'s attributes of the same names): ``"device"``
+        decodes inside the bucket callables down to ``detect_topk`` rows
+        an image, ``"host"`` per request; ``detect_soft_nms``
+        ("gaussian"/"linear") switches NMS to Soft-NMS decay with
+        ``detect_soft_sigma``, and ``detect_max_per_class`` > 0 caps
+        each class's kept boxes.  Other models ignore them."""
         from deep_vision_tpu_torch.core.config import get_config
         from deep_vision_tpu_torch.core.restore import load_state
 
+        if str(detect_decode) not in DETECT_DECODES:
+            raise ValueError(f"detect_decode '{detect_decode}' "
+                             f"unsupported (have {DETECT_DECODES})")
+        if str(detect_soft_nms) not in SOFT_MODES:
+            raise ValueError(f"detect_soft_nms '{detect_soft_nms}' "
+                             f"unsupported (have {SOFT_MODES})")
         device = resolve_device(device)  # fail before any model work
         cfg = get_config(config_name)
         info: dict = {}
@@ -212,6 +271,13 @@ class ModelRegistry:
                                     calib_dir=calib_dir, device=device)
         sm.weights = info["weights"]
         sm.params_digest = info["digest"]
+        sm.detect_decode = str(detect_decode)
+        sm.detect_topk = int(detect_topk)
+        sm.detect_score_threshold = float(detect_score_threshold)
+        sm.detect_iou_threshold = float(detect_iou_threshold)
+        sm.detect_soft_nms = str(detect_soft_nms)
+        sm.detect_soft_sigma = float(detect_soft_sigma)
+        sm.detect_max_per_class = int(detect_max_per_class)
         return self.add(sm)
 
     def get(self, name: str | None = None) -> ServingModel:

@@ -1,9 +1,12 @@
 """Workload adapters: what the serving tier knows per model kind.
 
-Port of the classify half of ``deep_vision_tpu/serve/workloads.py``: the
-``SLO`` service class, the ``Workload`` base and ``ClassifyWorkload``
-(dense-logits rows → ``{"model", "top": [{class, prob, logit}]}``).  The
-other verbs, and classify's cascade top-k epilogue, wait for later
+Port of the classify and detect verbs of
+``deep_vision_tpu/serve/workloads.py``: the ``SLO`` service class, the
+``Workload`` base, ``ClassifyWorkload`` (dense-logits rows →
+``{"model", "top": [{class, prob, logit}]}``) and ``DetectWorkload``
+(both detection families behind ``/v1/detect``, decoded on the device
+by an epilogue fused after the forward).  Pose and generate, classify's
+cascade top-k epilogue, and the shadow ``agree`` rules wait for later
 slices.
 """
 
@@ -31,6 +34,11 @@ class Workload:
 
     verb = ""
     slo = SLO("interactive", deadline_ms=30_000.0, max_queue=256)
+
+    def make_epilogue(self, model):
+        """A transform of the forward's float32 outputs run on the
+        device inside each bucket callable, or None."""
+        return None
 
     def respond(self, model, body: dict, row) -> dict:
         raise NotImplementedError
@@ -62,8 +70,123 @@ class ClassifyWorkload(Workload):
                          "logit": float(logits[c])} for c in top]}
 
 
-WORKLOADS = {"classify": ClassifyWorkload()}
-_BY_TASK = {"classification": "classify"}
+class DetectWorkload(Workload):
+    """YOLOv3 (three-scale heads) and CenterNet (heatmap peaks) behind
+    one verb.  By default the decode runs on the device, fused after
+    the forward (:meth:`make_epilogue`): YOLO decodes every scale, takes
+    the pre-NMS top-512 and runs class-wise NMS; CenterNet suppresses
+    non-peaks and takes the top K.  Either way a batch leaves the device
+    as ``{boxes (B, K, 4) float32, scores (B, K) float32, classes (B, K)
+    int32, valid (B, K) float32}``, K·28 bytes an image.
+    ``detect_decode="host"`` keeps the dense outputs on the wire and
+    runs the same math per request in :meth:`respond` (the A/B
+    baseline), so both paths answer identically."""
+
+    verb = "detect"
+    slo = SLO("interactive", deadline_ms=30_000.0, max_queue=256)
+    #: the response threshold when the client sends none
+    default_score_threshold = 0.3
+
+    @staticmethod
+    def knobs(model) -> tuple:
+        """The model's decode knobs ``(top_k, score floor, iou
+        threshold)`` (``ServingModel``'s ``detect_*``; a top-k of 0
+        means the default 100, as in the reference)."""
+        return (int(model.detect_topk) or 100,
+                float(model.detect_score_threshold),
+                float(model.detect_iou_threshold))
+
+    @staticmethod
+    def nms_knobs(model) -> tuple:
+        """The suppression knobs ``(soft_nms, soft_sigma,
+        max_per_class)``."""
+        return (str(model.detect_soft_nms), float(model.detect_soft_sigma),
+                int(model.detect_max_per_class))
+
+    def _decode(self, model, out) -> dict:
+        """A batch of head outputs (float32, on any device) → the
+        K-row dict, by the model's family."""
+        import torch
+
+        k, floor, iou = self.knobs(model)
+        if model.task == "centernet":
+            from deep_vision_tpu_torch.ops.ingest import device_scalar
+            from deep_vision_tpu_torch.tasks.centernet import (
+                decode_detections,
+            )
+
+            # one (heat, wh, offset) per stack: serve the last, most
+            # refined one
+            heat, wh, offset = out[-1]
+            grid = device_scalar(float(heat.shape[1]), heat.device)
+            boxes, scores, cls = decode_detections(heat, wh, offset, k=k)
+            return {"boxes": boxes / grid, "scores": scores,
+                    "classes": cls.to(torch.int32),
+                    "valid": (scores >= floor).to(torch.float32)}
+        from deep_vision_tpu_torch.tasks.detection import postprocess
+
+        soft, sigma, per_cls_k = self.nms_knobs(model)
+        boxes, scores, classes, valid = postprocess(
+            out, int(model.num_classes), max_outputs=k, iou_threshold=iou,
+            score_threshold=floor, class_aware=True, soft_nms=soft,
+            soft_sigma=sigma, max_per_class=per_cls_k)
+        return {"boxes": boxes, "scores": scores,
+                "classes": classes.to(torch.int32), "valid": valid}
+
+    def make_epilogue(self, model):
+        """The decode fused into the bucket callables; None when
+        ``detect_decode`` is "host".  The compiled score threshold is a
+        FLOOR: greedy NMS selects in descending score order and a lower
+        score never suppresses a higher one, so NMS at the floor and a
+        trim at a higher request threshold in :meth:`respond` keep what
+        NMS at that threshold would."""
+        if model.detect_decode != "device":
+            return None
+
+        def post(out):
+            return self._decode(model, out)
+
+        return post
+
+    def _decoded(self, model, row) -> dict:
+        """One image's K-row dict whatever the row: a device-decoded
+        dict passes through; a dense row (``detect_decode="host"``) goes
+        back to the model's device with a batch dimension of 1 and
+        through the same math with the same knobs."""
+        if isinstance(row, dict):
+            return row
+        import torch
+
+        from deep_vision_tpu_torch.serve.engine import map_leaves
+
+        with torch.inference_mode():
+            dec = self._decode(model, map_leaves(
+                lambda a: torch.from_numpy(np.asarray(a)[None]).to(
+                    model.device), row))
+        return {key: v[0].cpu().numpy() for key, v in dec.items()}
+
+    def respond(self, model, body: dict, row) -> dict:
+        dec = self._decoded(model, row)
+        boxes = np.asarray(dec["boxes"])
+        scores = np.asarray(dec["scores"]).reshape(-1)
+        classes = np.asarray(dec["classes"]).reshape(-1)
+        valid = np.asarray(dec["valid"]).reshape(-1)
+        _, floor, _ = self.knobs(model)
+        # the compiled floor bounds the request threshold from below:
+        # boxes under it never survived NMS
+        thr = max(float(body.get("score_threshold",
+                                 self.default_score_threshold)), floor)
+        keep = np.nonzero((valid > 0) & (scores >= thr))[0]
+        return {"model": model.name, "num_detections": int(len(keep)),
+                "detections": [
+                    {"box": boxes[j].round(4).tolist(),
+                     "score": float(scores[j]),
+                     "class": int(classes[j])} for j in keep]}
+
+
+WORKLOADS = {w.verb: w for w in (ClassifyWorkload(), DetectWorkload())}
+_BY_TASK = {"classification": "classify", "detection": "detect",
+            "centernet": "detect"}
 
 
 def workload_for_task(task: str) -> Workload:

@@ -4,7 +4,8 @@ Port of ``deep_vision_tpu/tasks/detection.py``: ``decode_boxes``,
 ``encode_boxes``, ``_bce``, ``yolo_scale_loss``, ``YoloTask`` (loss,
 eval metrics, decoded eval outputs for the host mAP evaluator),
 ``MAX_BOXES``, ``find_best_anchor``, ``encode_labels`` (numpy, host) and
-``postprocess`` (decode → top-k → class-agnostic NMS).
+``postprocess`` (decode → top-k → NMS, class-agnostic by default and
+class-wise, Soft-NMS or capped per class for serving).
 
 The loss is float32.  Its ignore mask compares every prediction with a
 fixed-size padded list of its own image's ground-truth boxes
@@ -24,7 +25,11 @@ import torch
 
 from deep_vision_tpu_torch.models.yolo import ANCHOR_MASKS, YOLO_ANCHORS
 from deep_vision_tpu_torch.ops.best_iou import best_iou_max
-from deep_vision_tpu_torch.ops.boxes import batched_nms, xywh_to_corners
+from deep_vision_tpu_torch.ops.boxes import (
+    batched_nms,
+    topk_stable,
+    xywh_to_corners,
+)
 from deep_vision_tpu_torch.ops.ingest import device_scalar
 
 MAX_BOXES = 100  # static per-image ground-truth capacity
@@ -267,12 +272,21 @@ def postprocess(outputs, num_classes: int, max_outputs: int = 100,
                 iou_threshold: float = 0.5, score_threshold: float = 0.1,
                 anchors: np.ndarray = YOLO_ANCHORS,
                 masks: np.ndarray = ANCHOR_MASKS,
-                pre_nms_top_k: int = 512):
+                pre_nms_top_k: int = 512, class_aware: bool = False,
+                soft_nms: str = "off", soft_sigma: float = 0.5,
+                max_per_class: int = 0):
     """Raw 3-scale outputs → (boxes (B, K, 4) corners, scores (B, K),
-    classes (B, K), valid (B, K)), class-agnostic as the reference's
-    evaluation.  Only the ``pre_nms_top_k`` best-scoring candidates of
-    each image enter NMS (a box outside them can never outrank one
-    inside)."""
+    classes (B, K), valid (B, K)).  Only the ``pre_nms_top_k``
+    best-scoring candidates of each image enter NMS (a box outside them
+    can never outrank one inside), taken in ``jax.lax.top_k``'s order:
+    the lower index first among equal scores.
+
+    The default is class-agnostic hard NMS, as the reference's
+    evaluation; ``class_aware=True`` makes suppression class-wise (what
+    the serving epilogue uses), ``soft_nms``/``soft_sigma`` switch to
+    Soft-NMS decay and ``max_per_class`` caps each class's kept boxes
+    (``ops/boxes.batched_nms``).  ``max_per_class`` is ignored unless
+    ``class_aware``, as in the reference."""
     all_boxes, all_scores, all_cls = [], [], []
     for s, raw in enumerate(outputs):
         anchors_wh = torch.from_numpy(
@@ -288,11 +302,14 @@ def postprocess(outputs, num_classes: int, max_outputs: int = 100,
     scores = torch.cat(all_scores, 1)
     classes = torch.cat(all_cls, 1)
     k = min(pre_nms_top_k, scores.shape[1])
-    scores, top_idx = torch.topk(scores, k, dim=1)
+    scores, top_idx = topk_stable(scores, k)
     boxes = boxes.gather(1, top_idx[..., None].expand(-1, -1, 4))
     classes = classes.gather(1, top_idx)
-    idx, sel_scores, valid = batched_nms(boxes, scores, max_outputs,
-                                         iou_threshold, score_threshold)
+    idx, sel_scores, valid = batched_nms(
+        boxes, scores, max_outputs, iou_threshold, score_threshold,
+        classes=classes if class_aware else None, soft=soft_nms,
+        soft_sigma=soft_sigma,
+        max_per_class=max_per_class if class_aware else 0)
     sel_boxes = boxes.gather(1, idx[..., None].expand(-1, -1, 4))
     sel_classes = classes.gather(1, idx)
     return sel_boxes, sel_scores, sel_classes, valid
