@@ -116,7 +116,7 @@ Phases, each of which must pass:
               at full width: write seeded ``--weights`` through
               ``yolo_to_flax``/``centernet_to_flax`` (non-zero BN scales,
               the heads' output convs scaled to a trained model's spread,
-              ``detect_weights`` says why), boot ``cli/serve.py`` with
+              ``seeded_model`` says why), boot ``cli/serve.py`` with
               ``--wire-dtype uint8 --infer-dtype int8 --warmup``, buckets
               1–32, and POST 32 ``/v1/detect`` requests (8 sequential, 24
               concurrent) with the launch count set to 0 just before and
@@ -133,7 +133,52 @@ Phases, each of which must pass:
               decode; a classify request to a detection model answers
               400.  Prints per bucket the forward and the epilogue ms
               apart, the client p50 and the concurrent img/s;
-11. card    — print ``nvidia-smi --query-gpu=name,power.limit``.
+11. centernet training — write seeded raw-payload detection shards
+              (train 128, val 64 synthetic scenes stored at 256×256×3,
+              boxes from 80 classes) and call ``cli/train.py``'s ``main``
+              for ``centernet`` at full width (2 stacks of the order-5
+              hourglass, 256² → 64², 80 classes, bf16, batch 32, Adam)
+              with 6 loader workers for 2 epochs, then with ``--resume
+              --epochs 3``: every logged loss finite, ``bad_steps`` 0, a
+              checkpoint per epoch, the resumed run at epoch 3, step 8,
+              with the saved weights, BN statistics and Adam state, the
+              val loss and mAP finite (the mAP is noise on these scenes).
+              Prints step ms (CUDA events), img/s, input stall, peak
+              memory and mAP.  No hand-written kernel runs on this path;
+12. centernet step check — one float32 forward + backward (TF32 off) of
+              full-width ``centernet`` on 2 seeded scenes at 128²,
+              seeded weights as for serving (``seeded_model``), on the
+              card and on the CPU: every conv and BN weight, the
+              re-injection convs included, must get a gradient; the loss
+              and its components within 1e-4 relative, the gradients in
+              L2 within 10× the CPU's own floor (its gradients from
+              weights moved by 1e-7), at least 1e-3 over the model and
+              5e-2 per tensor; the same step with each image's labels
+              on the next image must break the loss bound;
+13. hourglass training and 14. step check — the same two phases for
+              ``hourglass104`` (4 stacks of the order-4 hourglass at 256
+              filters, 16 heatmaps, 256² → 64², bf16, batch 32, Adam) on
+              seeded raw pose shards (train 128, val 64 synthetic poses
+              stored at 256×256×3; the loader crops around the keypoints
+              and resizes), the val loss finite;
+15. pose serving — seeded ``hourglass104`` weights through
+              ``stacked_hourglass_to_flax`` (non-zero BN scales, each
+              stack's heatmap conv scaled to an output spread of 1),
+              ``cli/serve.py`` int8 on the uint8 wire, buckets 1–32, 32
+              ``/v1/pose`` requests (8 sequential, 24 concurrent) with the
+              launch count set to 0 just before and read just after:
+              every reply 200 and equal to a direct plain-ingest call at
+              one of the buckets within twice the card's own spread
+              between buckets 1 and 32 (scores, and keypoint positions);
+              an "imagenet" ingest control must fail on most rows;
+              ``serve_ingest`` must launch once a batch formed; D2H must
+              be exactly 192 bytes a padded image; the device decode must
+              equal a host decode of the same heatmaps copied out, and
+              its unrefined peaks ``heatmap_argmax``; classify and detect
+              requests answer 400 naming ``/v1/pose``.  Prints forward and
+              epilogue ms per bucket, the client p50 and the concurrent
+              img/s;
+16. card    — print ``nvidia-smi --query-gpu=name,power.limit``.
 
 Before the last line it prints ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on its own path, max error, kernel / plain /
@@ -149,6 +194,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -194,6 +240,28 @@ IOU_OPS_PER_PAIR, IOU_OPS_MASK, IOU_OPS_AREA = 15, 1, 5
 #: one val batch; the card-vs-CPU step at 128² (grids 16, 8, 4)
 YOLO_TRAIN, YOLO_VAL, YOLO_SIZE, YOLO_BATCH = 384, 128, 416, 128
 YOLO_CLASSES, YOLO_WORKERS, YOLO_CHECK_SIZE = 80, 6, 128
+#: CenterNet and Stacked Hourglass-104 training at full width (256², 80
+#: classes or 16 keypoints, bf16, batch 32, Adam) on seeded raw records
+#: stored at 256²: 4 train steps an epoch and 2 val batches; their
+#: card-vs-CPU float32 steps on 2 images at 128²
+HEAT_TRAIN, HEAT_VAL, HEAT_SIZE, HEAT_BATCH = 192, 64, 256, 32
+HEAT_WORKERS, HEAT_CHECK_SIZE, HEAT_CHECK_BATCH = 6, 128, 8
+#: the biases of the convs whose output goes straight into a training
+#: BatchNorm (each bottleneck's conv1/conv2, the stem conv, a stack's
+#: conv or linear layer): the normalization removes any per-channel
+#: constant, so their gradient is zero in exact arithmetic and rounding
+#: noise on any device (the CPU's own 1e-7 move changes it by 160-190%).
+#: In the stacked hourglass every conv bias but the heatmap conv's is
+#: such noise: its residual stream reaches the loss only through each
+#: stack's 1×1 linear layer and its BatchNorm, and the pools,
+#: upsamplings, additions and 1×1 convs on the way pass a constant on.
+BN_FED_BIAS = re.compile(r"(conv1|conv2|stem_conv|^stacks\.\d+\.conv"
+                         r"|^stacks\.\d+\.linear)\.bias$")
+HEAT_MODELS = ("centernet", "hourglass104")
+#: /v1/pose serving: hourglass104 int8 on the uint8 wire; one image's
+#: row is 16 keypoints' (x, y) and scores, float32
+POSE_MODEL = "hourglass104"
+POSE_ROW_BYTES = 16 * (2 * 4 + 4)
 MODEL = "resnet50"
 BUCKETS = (1, 2, 4, 8, 16, 32)
 N_SEQ, N_CONC = 8, 24
@@ -205,10 +273,11 @@ DETECT_TOPK, DETECT_FLOOR = 100, 0.05
 #: one image's device-decoded row: boxes (K, 4) f32, scores f32,
 #: classes int32, valid f32
 DETECT_ROW_BYTES_PER_K = 16 + 4 + 4 + 4
-#: the seeded heads' output spread and biases (see ``detect_weights``):
+#: the seeded heads' output spread and biases (see ``seeded_model``):
 #: CenterNet's heatmap prior, and a YOLO objectness bias that leaves
 #: about a hundred candidates an image over the score floor
-HEAD_STD = {"yolo": 1.5, "heat": 1.5, "wh": 1.0, "offset": 0.5}
+HEAD_STD = {"yolo": 1.5, "heat": 1.5, "wh": 1.0, "offset": 0.5,
+            "pose": 1.0}
 HEAT_PRIOR, YOLO_OBJ_BIAS = -2.19, -6.0
 
 
@@ -627,25 +696,25 @@ def phase_serving() -> dict:
     return out
 
 
-def detect_weights(name: str, path: str, seed: int) -> None:
-    """Weights of detection config ``name`` in the reference's flax
-    layout, written as the ``--weights`` npz a user would pass: the
-    reference's init from the seed, NON-ZERO BatchNorm scales and
-    positive running variances; then each head's output conv is scaled,
-    from one float32 forward of 4 seeded images on the card, so that
-    the head's output has the spread ``HEAD_STD``; the heatmap's bias
-    is the −2.19 prior, YOLO's objectness bias −6 (a trained detector
-    is confident about a few boxes, not about every anchor), the others
-    0.  At the init's own scale the second CenterNet stack's heatmap
-    logits spread over ±20 and more, where the sigmoid rounds many peaks
-    to exactly 1.0 and the decode would rank ties alone."""
+def seeded_model(name: str, seed: int):
+    """Config ``name``'s model at the reference's init from the seed,
+    with NON-ZERO BatchNorm scales and positive running variances, then
+    each head's output conv scaled, from float32 forwards of 4 seeded
+    images on the card, one head at a time, so that its output has the
+    spread
+    ``HEAD_STD`` (a trained model's; at the init's own scale the deeper
+    stacks' outputs spread over ±20 and more, where the sigmoid rounds
+    many CenterNet peaks to exactly 1.0 and the decode would rank ties
+    alone); the heatmap's bias is the −2.19 prior, YOLO's objectness
+    bias −6 (a trained detector is confident about a few boxes, not
+    about every anchor), the others 0.  On the CPU, in float32."""
     import torch
 
-    from deep_vision_tpu_torch import convert
     from deep_vision_tpu_torch.core.config import get_config
     from deep_vision_tpu_torch.models.common import BatchNorm2d
 
-    model = get_config(name).model()
+    cfg = get_config(name)
+    model = cfg.model()
     gen = torch.Generator().manual_seed(seed)
     model.reset_parameters(gen)
     with torch.no_grad():
@@ -659,43 +728,57 @@ def detect_weights(name: str, path: str, seed: int) -> None:
     if yolo:
         heads = [(getattr(model, h).out, HEAD_STD["yolo"], 0.0)
                  for h in ("head13", "head26", "head52")]
+    elif cfg.task == "pose":
+        heads = [(s.heat, HEAD_STD["pose"], 0.0) for s in model.stacks]
     else:
         heads = [(h.out, HEAD_STD[kind], HEAT_PRIOR if kind == "heat"
                   else 0.0) for s in model.stacks
                  for kind, h in (("heat", s.heat), ("wh", s.wh),
                                  ("offset", s.offset))]
-    spread = {}
-    hooks = [conv.register_forward_hook(
-        lambda m, _i, out: spread.__setitem__(
-            id(m), float((out - m.bias.view(1, -1, 1, 1)).std())))
-        for conv, _, _ in heads]
-    size = get_config(name).image_size
-    x = torch.rand((4, size, size, 3), generator=gen)
+    # one head at a time, in order: a stack's heatmap feeds the next
+    # stack through the re-injection, so its scale moves later outputs
+    x = torch.rand((4, cfg.image_size, cfg.image_size, 3), generator=gen)
     model.set_compute_dtype(torch.float32).eval().cuda()
-    with torch.no_grad():
-        model(x.cuda())
-    for h in hooks:
-        h.remove()
-    model.cpu()
-    with torch.no_grad():
-        for conv, std, bias in heads:
-            conv.weight.mul_(std / spread[id(conv)])
+    for conv, std, bias in heads:
+        spread = []
+        hook = conv.register_forward_hook(
+            lambda m, _i, out: spread.append(
+                float((out - m.bias.view(1, -1, 1, 1)).std())))
+        with torch.no_grad():
+            model(x.cuda())
+            hook.remove()
+            conv.weight.mul_(std / spread[0])
             conv.bias.fill_(bias)
             if yolo:  # channel a·(5 + C) + 4 is anchor a's objectness
                 conv.bias.view(3, -1)[:, 4] = YOLO_OBJ_BIAS
+    return model.cpu()
+
+
+def write_weights(name: str, path: str, seed: int) -> None:
+    """:func:`seeded_model`'s weights in the reference's flax layout,
+    written as the ``--weights`` npz a user would pass."""
+    from deep_vision_tpu_torch import convert
+
+    model = seeded_model(name, seed)
     sd = model.state_dict()
-    variables = convert.yolo_to_flax(sd, model.blocks) if yolo else \
-        convert.centernet_to_flax(sd, model.num_stack, model.order,
-                                  model.filters)
+    if name.startswith("yolo"):
+        variables = convert.yolo_to_flax(sd, model.blocks)
+    elif name.startswith("hourglass"):
+        variables = convert.stacked_hourglass_to_flax(
+            sd, model.num_stack, model.num_heatmap, model.filters,
+            model.num_residual, model.order)
+    else:
+        variables = convert.centernet_to_flax(sd, model.num_stack,
+                                              model.order, model.filters)
     convert.save_npz(path, variables)
 
 
-def direct_detect(sm, images: np.ndarray, bucket: int,
-                  kind: str | None = None) -> list[dict]:
+def direct_rows(sm, images: np.ndarray, bucket: int,
+                kind: str | None = None) -> list[dict]:
     """The served model called directly in batches of ``bucket`` (zero
     padded), with the PLAIN ingest of ``kind`` (by default the model's
-    own), the same forward and the same epilogue: one K-row dict of
-    numpy arrays per image."""
+    own), the same forward and the same epilogue: one row dict of numpy
+    arrays per image."""
     import torch
 
     from deep_vision_tpu_torch.ops.ingest import serve_ingest_plain
@@ -736,15 +819,27 @@ def answer_diff(got: dict, want: dict) -> tuple[bool, float, float]:
     return True, ds, db
 
 
-def compare_detect(sm, replies, refs: dict, body: dict,
-                   bounds: tuple[float, float]) -> dict:
+def pose_diff(got: dict, want: dict) -> tuple[bool, float, float]:
+    """(True, max |Δscore|, max |Δx| or |Δy|) of two /v1/pose
+    answers."""
+    a, b = got["keypoints"], want["keypoints"]
+    if len(a) != len(b):
+        return False, math.inf, math.inf
+    ds = max(abs(x["score"] - y["score"]) for x, y in zip(a, b))
+    dxy = max(max(abs(x["x"] - y["x"]), abs(x["y"] - y["y"]))
+              for x, y in zip(a, b))
+    return True, ds, dxy
+
+
+def compare_rows(sm, replies, refs: dict, body: dict,
+                 bounds: tuple[float, float], diff=answer_diff) -> dict:
     """Each served answer against the direct answers of its image at
     every bucket (``refs``: bucket → rows): the engine puts a request
     into a batch of some bucket, and the card's convolutions round
     differently from one batch size to the next, so an answer must
-    match the direct answer at one of the buckets: the same kept set,
-    scores and boxes within ``bounds``.  Returns the numbers and the
-    faults."""
+    match the direct answer at one of the buckets by ``diff``: the same
+    kept set, scores and positions within ``bounds``.  Returns the
+    numbers and the faults."""
     workload = sm.workload
     faults, exact, worst = [], 0, (0.0, 0.0)
     for i, (status, got, _) in enumerate(replies):
@@ -759,34 +854,34 @@ def compare_detect(sm, replies, refs: dict, body: dict,
                 exact += 1
                 best = (0.0, 0.0)
                 break
-            same, ds, db = answer_diff(got, want)
+            same, ds, db = diff(got, want)
             if same and ds <= bounds[0] and db <= bounds[1]:
                 best = min(best or (ds, db), (ds, db))
         if best is None:
-            faults.append(f"request {i}: no bucket's direct answer has "
-                          f"its kept set within {bounds}")
+            faults.append(f"request {i}: no bucket's direct answer is "
+                          f"within {bounds}")
         else:
             worst = (max(worst[0], best[0]), max(worst[1], best[1]))
     return {"rows": len(replies), "exact": exact,
-            "max_score_err": worst[0], "max_box_err": worst[1],
+            "max_score_err": worst[0], "max_pos_err": worst[1],
             "faults": faults}
 
 
-def detect_spread(sm, refs: dict, body: dict) -> dict:
+def bucket_spread(sm, refs: dict, body: dict, diff=answer_diff) -> dict:
     """The card's own batch-to-batch spread: over the images whose
     direct answers at buckets 1 and 32 keep the same set, the largest
-    score and box differences between the two."""
+    score and position differences between the two."""
     workload = sm.workload
     small, large = refs[min(refs)], refs[max(refs)]
-    same, ds, db = 0, 0.0, 0.0
+    same, ds, dp = 0, 0.0, 0.0
     for a, b in zip(small, large):
-        ok, s, bx = answer_diff(workload.respond(sm, body, a),
-                                workload.respond(sm, body, b))
+        ok, s, p = diff(workload.respond(sm, body, a),
+                        workload.respond(sm, body, b))
         if ok:
             same += 1
-            ds, db = max(ds, s), max(db, bx)
+            ds, dp = max(ds, s), max(dp, p)
     return {"same_kept_set": same, "images": len(small),
-            "score": ds, "box": db}
+            "score": ds, "position": dp}
 
 
 def check_tied_topk() -> dict:
@@ -810,20 +905,17 @@ def check_tied_topk() -> dict:
     return out
 
 
-def bucket_detect_ms(sm, buckets, iters: int = 10) -> dict:
+def bucket_epilogue_ms(sm, buckets, iters: int = 10) -> dict:
     """Per bucket: the eager forward (ingest kernel + model + float32
-    head outputs) and, apart, the epilogue on those outputs (decode,
-    top-k, NMS), from CUDA events on random uint8 input on the card."""
-    import copy
-
+    outputs) and, apart, the workload's epilogue on those outputs
+    (decode, top-k, NMS), from CUDA events on random uint8 input on the
+    card."""
     import torch
 
-    dense = copy.copy(sm)
-    dense.detect_decode = "host"
     post = sm.workload.make_epilogue(sm)
     out = {}
     for b in buckets:
-        fn = dense.compile_bucket(b)
+        fn = sm.compile_bucket(b, epilogue=False)
         x = torch.randint(0, 256, (b, *sm.input_shape), dtype=torch.uint8,
                           device=sm.device)
         heads = fn(x)
@@ -835,24 +927,25 @@ def bucket_detect_ms(sm, buckets, iters: int = 10) -> dict:
     return out
 
 
-def serve_detect(name: str, weights: str) -> dict:
-    """Serve ``name`` int8 over HTTP on the card, 8 sequential then 24
-    concurrent /v1/detect requests, and check them; returns the
-    numbers."""
-    import copy
-
-    import torch
-
+def serve_over_http(name: str, weights: str, verb: str, body: dict,
+                    extra=()) -> tuple:
+    """Serve ``name`` int8 on the uint8 wire over HTTP on the card
+    (buckets 1–32, warmed up), POST 8 sequential then 24 concurrent
+    ``/v1/{verb}`` requests of seeded noise images with ``serve_ingest``'s
+    count set to 0 just before and read just after, and a request to
+    every other verb, which must answer 400 naming ``/v1/{verb}``.
+    Checks that the kernel launched once a batch the engine formed and
+    that concurrent requests were batched.  Returns ``(served model,
+    images, replies, numbers)``."""
     from deep_vision_tpu_torch.cli import serve as cli
     from deep_vision_tpu_torch.ops.ingest import serve_ingest
-    from deep_vision_tpu_torch.serve.engine import map_leaves
+    from deep_vision_tpu_torch.serve.workloads import WORKLOADS
 
     argv = ["-m", name, "--weights", weights, "--wire-dtype", "uint8",
             "--infer-dtype", "int8", "--port", "0",
             "--max-batch", str(max(BUCKETS)),
             "--buckets", ",".join(map(str, BUCKETS)), "--device", "cuda",
-            "--detect-topk", str(DETECT_TOPK),
-            "--detect-score-threshold", str(DETECT_FLOOR), "--warmup"]
+            "--warmup", *extra]
     t0 = time.monotonic()
     engine, server = cli.build_server(cli.build_parser().parse_args(argv))
     server.start_background()
@@ -864,64 +957,104 @@ def serve_detect(name: str, weights: str) -> dict:
     n = N_SEQ + N_CONC
     imgs = np.random.RandomState(3).randint(
         0, 256, (n, *sm.input_shape), np.uint8)
-    body = {"score_threshold": DETECT_FLOOR}
     bodies = [json.dumps(dict(body, pixels=im.tolist())).encode()
               for im in imgs]
+    path = f"/v1/{verb}"
     try:
         serve_ingest.launches = 0
-        replies = [post(server.port, b, "/v1/detect")
-                   for b in bodies[:N_SEQ]]
+        replies = [post(server.port, b, path) for b in bodies[:N_SEQ]]
         t1 = time.monotonic()
         with concurrent.futures.ThreadPoolExecutor(N_CONC) as pool:
-            replies += list(pool.map(
-                lambda b: post(server.port, b, "/v1/detect"),
-                bodies[N_SEQ:]))
+            replies += list(pool.map(lambda b: post(server.port, b, path),
+                                     bodies[N_SEQ:]))
         conc_s = time.monotonic() - t1
         launches = serve_ingest.launches
         stats = engine.stats()
-        status, wrong_verb = 0, {}
-        try:
-            post(server.port, bodies[0])
-        except urllib.error.HTTPError as e:
-            status, wrong_verb = e.code, json.loads(e.read())
+        wrong_verbs = {}
+        for other in sorted(set(WORKLOADS) - {verb}):
+            try:
+                post(server.port, bodies[0], f"/v1/{other}")
+                wrong_verbs[other] = (200, {})
+            except urllib.error.HTTPError as e:
+                wrong_verbs[other] = (e.code, json.loads(e.read()))
     finally:
         server.shutdown()
         engine.stop(drain_deadline=10.0)
-    check(status == 400 and "/v1/detect" in wrong_verb.get("error", ""),
-          f"{name} on /v1/classify answered {status} {wrong_verb}")
+    for other, (status, reply) in wrong_verbs.items():
+        check(status == 400 and path in reply.get("error", ""),
+              f"{name} on /v1/{other} answered {status} {reply}")
     check(launches == stats["batches"] > 0,
           f"{name}: serve_ingest launched {launches} times for "
           f"{stats['batches']} batches")
     check(stats["batches"] < len(replies),
           f"{name}: concurrent requests were never batched together")
+    lat = sorted(r[2] for r in replies)
     pipe = stats["pipeline"]
-    images_copied = stats["served"] + stats["padded_images"]
-    check(pipe["d2h_bytes"] == DETECT_TOPK * DETECT_ROW_BYTES_PER_K
-          * images_copied == sum(pipe["d2h_bytes_by_bucket"].values()),
-          f"{name}: D2H {pipe['d2h_bytes']} B for {images_copied} padded "
-          f"images, not K·28 = {DETECT_TOPK * DETECT_ROW_BYTES_PER_K} "
-          f"each")
-    refs = {b: direct_detect(sm, imgs, b) for b in BUCKETS}
-    spread = detect_spread(sm, refs, body)
-    # the bound: twice the card's own batch-to-batch spread, and at
-    # least one float32 step at 1 (scores) or the 4-place rounding of
-    # the boxes
+    numbers = {"launches": launches, "requests": len(replies),
+               "batches": stats["batches"],
+               "padded_images": stats["padded_images"],
+               "images_copied": stats["served"] + stats["padded_images"],
+               "d2h_bytes": pipe["d2h_bytes"],
+               "d2h_bytes_by_bucket": pipe["d2h_bytes_by_bucket"],
+               "client_p50_ms": lat[len(lat) // 2] * 1e3,
+               "concurrent_img_per_s": N_CONC / conc_s,
+               "engine_latency_ms": stats["latency"],
+               "device_idle_frac_host_proxy": pipe["device_idle_frac"],
+               "wrong_verbs": {k: v[0] for k, v in wrong_verbs.items()},
+               "act_scale": sm.quant.act_scale}
+    return sm, imgs, replies, numbers
+
+
+def hold_answers(name: str, sm, imgs, replies, body: dict, diff) -> dict:
+    """The served answers against direct plain-ingest calls at every
+    bucket, within twice the card's own spread between buckets 1 and
+    32 (at least one float32 step at 1 in scores and the boxes' 4-place
+    rounding); then the same answers against an "imagenet" ingest, which
+    must fail on most rows."""
+    refs = {b: direct_rows(sm, imgs, b) for b in BUCKETS}
+    spread = bucket_spread(sm, refs, body, diff)
     bounds = (max(2 * spread["score"], 2 ** -23),
-              max(2 * spread["box"], 1e-4))
-    agree = compare_detect(sm, replies, refs, body, bounds)
+              max(2 * spread["position"], 1e-4))
+    agree = compare_rows(sm, replies, refs, body, bounds, diff)
     log(f"{name}: batch-to-batch spread {json.dumps(spread)}; answers vs "
         f"direct plain-ingest calls: {json.dumps(agree)}")
     check(not agree["faults"], f"{name} answers: {agree['faults'][:5]}")
-    check(sum(r[1]["num_detections"] for r in replies) > 0,
-          f"{name} answered no detection at all")
-    # the gate has power: an ingest with the ImageNet mean/std in place
-    # of the [0, 1] scaling must fail it
-    wrong = compare_detect(sm, replies, {b: direct_detect(
-        sm, imgs, b, "imagenet") for b in BUCKETS}, body, bounds)
+    wrong = compare_rows(sm, replies, {b: direct_rows(
+        sm, imgs, b, "imagenet") for b in BUCKETS}, body, bounds, diff)
     log(f"{name} control, answers vs an 'imagenet' ingest: "
         f"{len(wrong['faults'])} of {len(replies)} fail")
     check(2 * len(wrong["faults"]) > len(replies),
           f"{name}: the answer check passed against a wrong ingest")
+    return {"spread": spread, "bounds": list(bounds),
+            "exact_answers": agree["exact"],
+            "max_score_err": agree["max_score_err"],
+            "max_pos_err": agree["max_pos_err"],
+            "control_faults": len(wrong["faults"])}
+
+
+def serve_detect(name: str, weights: str) -> dict:
+    """Serve ``name`` int8 over HTTP on the card, 8 sequential then 24
+    concurrent /v1/detect requests, and check them; returns the
+    numbers."""
+    import copy
+
+    import torch
+
+    from deep_vision_tpu_torch.serve.engine import map_leaves
+
+    body = {"score_threshold": DETECT_FLOOR}
+    sm, imgs, replies, out = serve_over_http(
+        name, weights, "detect", body,
+        ("--detect-topk", str(DETECT_TOPK),
+         "--detect-score-threshold", str(DETECT_FLOOR)))
+    check(out["d2h_bytes"] == DETECT_TOPK * DETECT_ROW_BYTES_PER_K
+          * out["images_copied"] == sum(out["d2h_bytes_by_bucket"].values()),
+          f"{name}: D2H {out['d2h_bytes']} B for {out['images_copied']} "
+          f"padded images, not K·28 = "
+          f"{DETECT_TOPK * DETECT_ROW_BYTES_PER_K} each")
+    out.update(hold_answers(name, sm, imgs, replies, body, answer_diff))
+    out["detections"] = sum(r[1]["num_detections"] for r in replies)
+    check(out["detections"] > 0, f"{name} answered no detection at all")
     # host decode answers as device decode does, on one batch
     host = copy.copy(sm)
     host.detect_decode = "host"
@@ -935,24 +1068,7 @@ def serve_detect(name: str, weights: str) -> dict:
             sm, body, {k: v[i] for k, v in dev.items()}))
         check(a == b, f"{name}: host decode answers otherwise than device "
                       f"decode on image {i}")
-    timing = bucket_detect_ms(sm, BUCKETS)
-    lat = sorted(r[2] for r in replies)
-    out = {"launches": launches, "requests": len(replies),
-           "batches": stats["batches"],
-           "padded_images": stats["padded_images"],
-           "d2h_bytes": pipe["d2h_bytes"],
-           "d2h_bytes_by_bucket": pipe["d2h_bytes_by_bucket"],
-           "detections": sum(r[1]["num_detections"] for r in replies),
-           "client_p50_ms": lat[len(lat) // 2] * 1e3,
-           "concurrent_img_per_s": N_CONC / conc_s,
-           "engine_latency_ms": stats["latency"],
-           "device_idle_frac_host_proxy": pipe["device_idle_frac"],
-           "by_bucket_ms": timing, "spread": spread,
-           "bounds": list(bounds), "exact_answers": agree["exact"],
-           "max_score_err": agree["max_score_err"],
-           "max_box_err": agree["max_box_err"],
-           "control_faults": len(wrong["faults"]),
-           "act_scale": sm.quant.act_scale}
+    out["by_bucket_ms"] = bucket_epilogue_ms(sm, BUCKETS)
     log(f"{name} detect serving: {json.dumps(out)}")
     return out
 
@@ -967,9 +1083,54 @@ def phase_detect_serving() -> dict:
             as tmp:
         for seed, name in enumerate(DETECT_MODELS):
             weights = os.path.join(tmp, f"{name}.npz")
-            detect_weights(name, weights, seed)
+            write_weights(name, weights, seed)
             out[name] = serve_detect(name, weights)
             torch.cuda.empty_cache()
+    return out
+
+
+def phase_pose_serving() -> dict:
+    """Serve hourglass104 int8 over /v1/pose on the card and check the
+    answers, the D2H bytes and the decode against a host decode of the
+    copied heatmaps."""
+    import torch
+
+    from deep_vision_tpu_torch.tasks.pose import (
+        decode_heatmaps,
+        heatmap_argmax,
+    )
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        weights = os.path.join(tmp, f"{POSE_MODEL}.npz")
+        write_weights(POSE_MODEL, weights, 5)
+        sm, imgs, replies, out = serve_over_http(POSE_MODEL, weights,
+                                                 "pose", {})
+    check(out["d2h_bytes"] == POSE_ROW_BYTES * out["images_copied"]
+          == sum(out["d2h_bytes_by_bucket"].values()),
+          f"pose: D2H {out['d2h_bytes']} B for {out['images_copied']} "
+          f"padded images, not {POSE_ROW_BYTES} each")
+    out.update(hold_answers(POSE_MODEL, sm, imgs, replies, {}, pose_diff))
+    # the device decode against a host decode of the same heatmaps
+    # copied out (the last stack's): refined, and the integer peak of
+    # heatmap_argmax
+    x = torch.from_numpy(imgs[:8]).to(sm.device)
+    heads = sm.compile_bucket(8, epilogue=False)(x)
+    with torch.inference_mode():
+        dev = sm.workload.make_epilogue(sm)(heads)
+        coarse = decode_heatmaps(heads[-1], refine=False)["keypoints"].cpu()
+    host = heads[-1].cpu()
+    ref = decode_heatmaps(host)
+    check(all(torch.equal(dev[k].cpu(), ref[k]) for k in ref),
+          "pose: the device decode differs from the host decode of the "
+          "copied heatmaps")
+    peaks = np.stack([heatmap_argmax(h) for h in host.numpy()])
+    check(np.array_equal(coarse.numpy(), peaks),
+          "pose: the unrefined device decode differs from heatmap_argmax")
+    out.update(heatmap_std=float(host.std()),
+               by_bucket_ms=bucket_epilogue_ms(sm, BUCKETS))
+    log(f"pose serving: {json.dumps(out)}")
     return out
 
 
@@ -1541,11 +1702,12 @@ def phase_step_check() -> dict:
     return out
 
 
-def write_detection_shards(root: str) -> None:
+def write_detection_shards(root: str, n_train: int, n_val: int, size: int
+                           ) -> None:
     """Seeded raw-payload detection shards (the reference's raw store)
-    at 416²: synthetic scenes of 1-3 coloured boxes from 80 classes, so
-    un-cropped reads need no resize and cropped reads take the torch
-    resize."""
+    at ``size``²: synthetic scenes of 1-3 coloured boxes from 80
+    classes, so un-cropped reads need no resize and cropped reads take
+    the torch resize."""
     from deep_vision_tpu_torch.data.detection import (
         synthetic_detection_dataset,
     )
@@ -1555,14 +1717,36 @@ def write_detection_shards(root: str) -> None:
         shard_name,
     )
 
-    for split, n, shards in (("train", YOLO_TRAIN, 3), ("val", YOLO_VAL, 1)):
+    for split, n, shards in (("train", n_train, 3), ("val", n_val, 1)):
         for i in range(shards):
             scenes = synthetic_detection_dataset(
-                n // shards, YOLO_SIZE, YOLO_CLASSES,
+                n // shards, size, YOLO_CLASSES,
                 seed=17 + i + (100 if split == "val" else 0))
             with RecordWriter(shard_name(root, split, i, shards)) as w:
                 for scene in scenes:
-                    w.write(*encode_detection_sample(scene, YOLO_SIZE))
+                    w.write(*encode_detection_sample(scene, size))
+
+
+def write_pose_shards(root: str, n_train: int, n_val: int, size: int
+                      ) -> None:
+    """Seeded raw-payload pose shards (the reference's raw store) stored
+    at ``size``²: synthetic poses of 16 keypoints, bright dots on dark
+    noise; the loader crops around the keypoints and resizes."""
+    from deep_vision_tpu_torch.data.pose import synthetic_pose_dataset
+    from deep_vision_tpu_torch.data.records import (
+        RecordWriter,
+        encode_pose_sample,
+        shard_name,
+    )
+
+    for split, n, shards in (("train", n_train, 3), ("val", n_val, 1)):
+        for i in range(shards):
+            poses = synthetic_pose_dataset(
+                n // shards, size, 16,
+                seed=31 + i + (100 if split == "val" else 0))
+            with RecordWriter(shard_name(root, split, i, shards)) as w:
+                for pose in poses:
+                    w.write(*encode_pose_sample(pose, resize=size))
 
 
 def read_series(workdir: str) -> dict[str, list]:
@@ -1574,13 +1758,87 @@ def read_series(workdir: str) -> dict[str, list]:
     return series
 
 
-def phase_yolo_training() -> dict:
-    """cli.train end to end for yolov3_coco at full width on the card."""
+def train_and_resume(name: str, data: str, work: str, workers: int,
+                     steps: int, counter=None) -> dict:
+    """``cli.train.main`` for ``name`` on the card over the records in
+    ``data``: ``EPOCHS`` epochs, then ``--resume --epochs
+    RESUME_EPOCHS``.  Checks a checkpoint per epoch, that the resumed
+    run starts from the last one with its weights, BN statistics and
+    Adam state (one digest over all of them), every logged loss finite
+    and no bad step.  ``counter`` reads a kernel's launch count, set to
+    0 just before the first run.  Returns the numbers and the metric
+    series."""
     import torch
 
     from deep_vision_tpu_torch.cli import train as cli
     from deep_vision_tpu_torch.core.checkpoint import Checkpointer
     from deep_vision_tpu_torch.core.trainer import Trainer
+
+    argv = ["-m", name, "--data-root", data, "--workdir", work,
+            "--num-workers", str(workers), "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    check(cli.main(argv + ["--epochs", str(EPOCHS)]) == 0,
+          f"cli.train -m {name} failed")
+    first_s = time.monotonic() - t0
+    first = counter() if counter else None
+    ckpts = Checkpointer(os.path.join(work, "checkpoints"))
+    check(ckpts.all_steps() == [steps * e for e in range(1, EPOCHS + 1)],
+          f"{name}: checkpoints {ckpts.all_steps()}, not one per epoch")
+    saved = ckpts.load(EPOCHS * steps)["state"]
+    want_digest = state_digest(saved["model"], saved["optimizer"])
+    resumed = {}
+    original = Trainer.maybe_resume
+
+    def spy(self, state):
+        state = original(self, state)
+        resumed.update(
+            step=state.step, epoch=self.start_epoch,
+            count=int(state.opt.count),
+            digest=state_digest(state.model.state_dict(),
+                                state.opt.state_dict()))
+        return state
+
+    Trainer.maybe_resume = spy
+    try:
+        t0 = time.monotonic()
+        check(cli.main(argv + ["--resume", "--epochs",
+                               str(RESUME_EPOCHS)]) == 0,
+              f"cli.train -m {name} --resume failed")
+        resume_s = time.monotonic() - t0
+    finally:
+        Trainer.maybe_resume = original
+    check(resumed == {"step": EPOCHS * steps, "epoch": EPOCHS + 1,
+                      "count": EPOCHS * steps, "digest": want_digest},
+          f"{name}: resume restored {resumed}, not step {EPOCHS * steps} "
+          f"epoch {EPOCHS + 1} digest {want_digest}")
+    check(ckpts.all_steps() == [steps * e
+                                for e in range(1, RESUME_EPOCHS + 1)],
+          f"{name}: checkpoints after resume: {ckpts.all_steps()}")
+    series = read_series(work)
+    losses = series.get("train_loss", [])
+    check(bool(losses), f"{name}: no train loss was logged")
+    check(all(math.isfinite(v) for _, v in losses),
+          f"{name}: non-finite train loss: {losses}")
+    check(all(v == 0 for _, v in series["train_bad_steps"]),
+          f"{name}: bad steps: {series['train_bad_steps']}")
+    step_ms = [v for _, v in series["train_step_ms"]]
+    out = {"train_steps": RESUME_EPOCHS * steps,
+           "first_run_s": first_s, "resumed_run_s": resume_s,
+           "step_ms_by_epoch": step_ms,
+           "img_per_s_by_epoch": [v for _, v in series["images_per_sec"]],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses,
+           "input_stall_frac": [v for _, v in
+                                series.get("input_stall_frac", [])],
+           "checkpoints": ckpts.all_steps(), "resumed": resumed}
+    if counter:
+        out.update(first_launches=first, launches=counter())
+    return out, series
+
+
+def phase_yolo_training() -> dict:
+    """cli.train end to end for yolov3_coco at full width on the card."""
     from deep_vision_tpu_torch.ops.best_iou import best_iou_max
 
     os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
@@ -1588,71 +1846,25 @@ def phase_yolo_training() -> dict:
             as tmp:
         data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
         t0 = time.monotonic()
-        write_detection_shards(data)
+        write_detection_shards(data, YOLO_TRAIN, YOLO_VAL, YOLO_SIZE)
         log(f"yolo training: wrote {YOLO_TRAIN}+{YOLO_VAL} raw detection "
             f"records in {time.monotonic() - t0:.1f} s")
-        argv = ["-m", "yolov3_coco", "--data-root", data, "--workdir", work,
-                "--num-workers", str(YOLO_WORKERS), "--device", "cuda"]
         steps = YOLO_TRAIN // YOLO_BATCH
         evals = -(-YOLO_VAL // YOLO_BATCH)  # val batches per evaluation
-        torch.cuda.reset_peak_memory_stats()
         best_iou_max.launches = 0
-        t0 = time.monotonic()
-        check(cli.main(argv + ["--epochs", str(EPOCHS)]) == 0,
-              "cli.train -m yolov3_coco failed")
-        first_s = time.monotonic() - t0
-        first = best_iou_max.launches
+        out, series = train_and_resume(
+            "yolov3_coco", data, work, YOLO_WORKERS, steps,
+            lambda: best_iou_max.launches)
         # every epoch evaluates once, and cli.train once more at the end
+        first, launches = out.pop("first_launches"), out.pop("launches")
         want = 3 * (EPOCHS * steps + (EPOCHS + 1) * evals)
         check(first == want, f"best_iou_max launched {first} times, not "
                              f"3 x ({EPOCHS * steps} train steps + "
                              f"{(EPOCHS + 1) * evals} eval batches)")
-        ckpts = Checkpointer(os.path.join(work, "checkpoints"))
-        check(ckpts.all_steps() == [steps * e for e in range(1, EPOCHS + 1)],
-              f"checkpoints {ckpts.all_steps()}, not one per epoch")
-        saved = ckpts.load(EPOCHS * steps)["state"]
-        want_digest = state_digest(saved["model"], saved["optimizer"])
-        resumed = {}
-        original = Trainer.maybe_resume
-
-        def spy(self, state):
-            state = original(self, state)
-            resumed.update(
-                step=state.step, epoch=self.start_epoch,
-                count=int(state.opt.count),
-                digest=state_digest(state.model.state_dict(),
-                                    state.opt.state_dict()))
-            return state
-
-        Trainer.maybe_resume = spy
-        try:
-            t0 = time.monotonic()
-            check(cli.main(argv + ["--resume", "--epochs",
-                                   str(RESUME_EPOCHS)]) == 0,
-                  "cli.train -m yolov3_coco --resume failed")
-            resume_s = time.monotonic() - t0
-        finally:
-            Trainer.maybe_resume = original
-        launches = best_iou_max.launches
-        peak = torch.cuda.max_memory_allocated()
         more = RESUME_EPOCHS - EPOCHS
         check(launches - first == 3 * (more * steps + (more + 1) * evals),
               f"the resumed run launched best_iou_max {launches - first} "
               f"times")
-        check(resumed == {"step": EPOCHS * steps, "epoch": EPOCHS + 1,
-                          "count": EPOCHS * steps, "digest": want_digest},
-              f"resume restored {resumed}, not step {EPOCHS * steps} "
-              f"epoch {EPOCHS + 1} digest {want_digest}")
-        check(ckpts.all_steps() == [steps * e
-                                    for e in range(1, RESUME_EPOCHS + 1)],
-              f"checkpoints after resume: {ckpts.all_steps()}")
-        series = read_series(work)
-        losses = series.get("train_loss", [])
-        check(bool(losses), "no train loss was logged")
-        check(all(math.isfinite(v) for _, v in losses),
-              f"non-finite train loss: {losses}")
-        check(all(v == 0 for _, v in series["train_bad_steps"]),
-              f"bad steps: {series['train_bad_steps']}")
         ignored = [[v for _, v in series[f"train_ignored_{s}"]]
                    for s in range(3)]
         check(any(sum(col) > 0 for col in zip(*ignored)),
@@ -1660,20 +1872,162 @@ def phase_yolo_training() -> dict:
               f"{ignored}")
         maps = [v for _, v in series["val_mAP"]]
         check(all(math.isfinite(v) for v in maps), f"val mAP {maps}")
-        step_ms = [v for _, v in series["train_step_ms"]]
-        out = {"best_iou_max_launches": launches,
-               "train_steps": RESUME_EPOCHS * steps,
-               "eval_batches": (RESUME_EPOCHS + 2) * evals,
-               "first_run_s": first_s, "resumed_run_s": resume_s,
-               "step_ms_by_epoch": step_ms,
-               "img_per_s_by_epoch": [YOLO_BATCH * 1e3 / v for v in step_ms],
-               "peak_memory_bytes": peak, "losses": losses,
-               "ignored_share_by_scale": ignored,
-               "input_stall_frac": [v for _, v in
-                                    series.get("input_stall_frac", [])],
-               "val_mAP": maps,
-               "checkpoints": ckpts.all_steps(), "resumed": resumed}
+        out.update(best_iou_max_launches=launches,
+                   eval_batches=(RESUME_EPOCHS + 2) * evals,
+                   ignored_share_by_scale=ignored, val_mAP=maps)
         log(f"yolo training: {json.dumps(out)}")
+    return out
+
+
+def phase_heatmap_training(name: str) -> dict:
+    """cli.train end to end for ``centernet`` or ``hourglass104`` at full
+    width on the card (256², batch 32, bf16, Adam): seeded raw records
+    stored at 256², loader workers, EPOCHS epochs and a resumed one.  No
+    hand-written kernel runs on these paths."""
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
+        t0 = time.monotonic()
+        write = write_pose_shards if name == POSE_MODEL \
+            else write_detection_shards
+        write(data, HEAT_TRAIN, HEAT_VAL, HEAT_SIZE)
+        log(f"{name} training: wrote {HEAT_TRAIN}+{HEAT_VAL} raw records "
+            f"in {time.monotonic() - t0:.1f} s")
+        out, series = train_and_resume(name, data, work, HEAT_WORKERS,
+                                       HEAT_TRAIN // HEAT_BATCH)
+        evals = {k: [v for _, v in series[f"val_{k}"]]
+                 for k in ("loss", "mAP") if f"val_{k}" in series}
+        check(all(math.isfinite(v) for vs in evals.values() for v in vs),
+              f"{name}: val metrics {evals}")
+        out["val"] = evals
+        log(f"{name} training: {json.dumps(out)}")
+    return out
+
+
+def heatmap_batch(name: str, n: int, seed: int) -> dict:
+    """``n`` seeded synthetic scenes (CenterNet) or poses (hourglass) at
+    HEAT_CHECK_SIZE², un-augmented, with their encoded labels."""
+    from deep_vision_tpu_torch.core.config import get_config
+
+    cfg = get_config(name)
+    size = HEAT_CHECK_SIZE
+    if name == POSE_MODEL:
+        from deep_vision_tpu_torch.data.pose import (
+            PoseLoader,
+            synthetic_pose_dataset,
+        )
+
+        loader = PoseLoader(synthetic_pose_dataset(n, size, 16, seed=seed),
+                            n, size, size // 4, 16, train=False,
+                            device_normalize=True)
+    else:
+        from deep_vision_tpu_torch.data.detection import (
+            CenterNetLoader,
+            synthetic_detection_dataset,
+        )
+
+        loader = CenterNetLoader(
+            synthetic_detection_dataset(n, size, cfg.num_classes, seed=seed),
+            n, cfg.num_classes, size, train=False, device_normalize=True)
+    batch = next(iter(loader))
+    batch.pop("weight")
+    return batch
+
+
+def heatmap_step(name: str, device: str, model_sd: dict, batch: dict
+                 ) -> dict:
+    """One float32 forward + backward (train mode) of config ``name``'s
+    model on ``device``: the loss, its components and the gradients, on
+    the CPU, but those of the biases whose gradient is rounding noise
+    (``BN_FED_BIAS`` says which)."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import to_device
+    from deep_vision_tpu_torch.models.common import Conv2d
+    from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.centernet import CenterNetTask
+    from deep_vision_tpu_torch.tasks.pose import PoseTask
+
+    cfg = get_config(name)
+    model = cfg.model().set_compute_dtype(torch.float32)
+    model.load_state_dict(model_sd)
+    model.to(device).train()
+    if device == "cuda":
+        model.to(memory_format=torch.channels_last)
+    task = PoseTask() if cfg.task == "pose" else \
+        CenterNetTask(cfg.num_classes)
+    b = make_scale_preprocess()(to_device(batch, torch.device(device)),
+                                None, True)
+    loss, comps = task.loss(model(b["image"]), b)
+    loss.backward()
+    noise = {f"{n}.bias" for n, m in model.named_modules()
+             if isinstance(m, Conv2d) and (
+                 BN_FED_BIAS.search(f"{n}.bias") or
+                 (cfg.task == "pose" and not n.endswith(".heat")))}
+    return {"loss": float(loss.detach()),
+            "comps": {k: float(v.detach()) for k, v in comps.items()},
+            "grads": {n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters()
+                      if n not in noise}}
+
+
+def phase_heatmap_step_check(name: str) -> dict:
+    """float32 step of full-width ``centernet`` or ``hourglass104`` at
+    HEAT_CHECK_SIZE² on the card against the same step on the CPU.  At
+    batch 8 every training BatchNorm normalizes over at least 8 values
+    (CenterNet's order-5 hourglass reaches 1×1 at 128²): at batch 2 a
+    1e-7 relative move of the weights moved CenterNet's gradients on the
+    CPU by 1,285% in L2, at batch 8 by 0.16%."""
+    import torch
+
+    model = seeded_model(name, 11)
+    sd = model.state_dict()
+    batch = heatmap_batch(name, HEAT_CHECK_BATCH, seed=23)
+    # the control: each image's labels on the next image
+    rolled = {k: v if k == "image" else np.roll(v, 1, 0)
+              for k, v in batch.items()}
+    gen = torch.Generator().manual_seed(9)
+    moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+             if v.is_floating_point() else v for k, v in sd.items()}
+    t0 = time.monotonic()
+    cpu = heatmap_step(name, "cpu", sd, batch)
+    cpu_s = time.monotonic() - t0
+    moved_step = heatmap_step(name, "cpu", moved, batch)
+    floor = grad_errors(moved_step["grads"], cpu["grads"])
+    gpu = heatmap_step(name, "cuda", sd, batch)
+    control = heatmap_step(name, "cuda", sd, rolled)
+    # a gradient in every conv: every residual branch, every stack's
+    # re-injection convs and every head
+    dead = sorted(k for k, g in cpu["grads"].items()
+                  if k.endswith("weight") and not float(g.norm()) > 0)
+    reinject = [k for k in cpu["grads"] if "reinject" in k]
+    bounds = {"total": max(1e-3, 10 * floor["total"]),
+              "tensor": max(5e-2, 10 * max(floor["per"].values()))}
+    faults = step_faults(gpu, cpu, bounds)
+    control_faults = step_faults(control, cpu, bounds)
+    errs = grad_errors(gpu["grads"], cpu["grads"])
+    out = {"loss_cuda": gpu["loss"], "loss_cpu": cpu["loss"],
+           "comps_rel_err": comps_rel_err(gpu, cpu),
+           "grad_l2_err": errs["total"],
+           "worst_tensor_grad_l2_err": max(errs["per"].values()),
+           "floor": {"comps_rel": comps_rel_err(moved_step, cpu),
+                     "grad_l2": floor["total"],
+                     "worst_tensor_grad_l2": max(floor["per"].values())},
+           "bounds": bounds, "faults": faults,
+           "reinject_tensors": len(reinject), "zero_grad_weights": dead,
+           "control_loss_cuda": control["loss"],
+           "control_faults": len(control_faults),
+           "control_first_faults": control_faults[:3], "cpu_step_s": cpu_s}
+    log(f"{name} step check: {json.dumps(out)}")
+    check(not dead, f"{name}: no gradient reached {dead[:5]}")
+    check(len(reinject) > 0, f"{name}: no re-injection conv in the model")
+    check(not faults, f"{name}: the card's float32 step disagrees with the "
+                      f"CPU's: {faults[:5]}")
+    check(any(f.startswith(("loss", "heat", "mse")) for f in control_faults),
+          f"{name}: the loss bound held with each image's labels on the "
+          f"next image")
     return out
 
 
@@ -1737,7 +2091,7 @@ def comps_rel_err(got: dict, want: dict) -> float:
                if not k.startswith("ignored"))
 
 
-def yolo_step_faults(got: dict, want: dict, bounds: dict) -> list[str]:
+def step_faults(got: dict, want: dict, bounds: dict) -> list[str]:
     """The loss and each per-scale component beyond 1e-4 relative, the
     gradients beyond ``bounds`` (total and per tensor, in L2)."""
     faults = []
@@ -1823,8 +2177,8 @@ def phase_yolo_step_check() -> dict:
     # the model or 5e-2 per tensor
     bounds = {"total": max(1e-3, 10 * floor["total"]),
               "tensor": max(5e-2, 10 * max(floor["per"].values()))}
-    faults = yolo_step_faults(gpu, cpu, bounds)
-    control_faults = yolo_step_faults(control, cpu, bounds)
+    faults = step_faults(gpu, cpu, bounds)
+    control_faults = step_faults(control, cpu, bounds)
     errs = grad_errors(gpu["grads"], cpu["grads"])
     flips = [int((g != c).sum()) for g, c in zip(gpu["ignore"],
                                                   cpu["ignore"])]
@@ -1889,11 +2243,18 @@ def main() -> int:
     yolo = phase_yolo_training()
     yolo_check = phase_yolo_step_check()
     detect = phase_detect_serving()
+    heat_train, heat_check = {}, {}
+    for name in HEAT_MODELS:
+        heat_train[name] = phase_heatmap_training(name)
+        heat_check[name] = phase_heatmap_step_check(name)
+        torch.cuda.empty_cache()
+    pose = phase_pose_serving()
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
                **{f"detect_{m}": detect[m]["launches"]
-                  for m in DETECT_MODELS}}
+                  for m in DETECT_MODELS},
+               f"pose_{POSE_MODEL}": pose["launches"]}
     detect_rows = [{k: r[k] for k in ("kind", "shape", "ms", "plain_ms",
                                       "library_ms", "bound_ms", "bound_by",
                                       "max_abs_err")}
@@ -1941,6 +2302,9 @@ def main() -> int:
     print(json.dumps({"yolo_training": yolo}), flush=True)
     print(json.dumps({"yolo_step_check": yolo_check}), flush=True)
     print(json.dumps({"detect_serving": detect}), flush=True)
+    print(json.dumps({"heatmap_training": heat_train}), flush=True)
+    print(json.dumps({"heatmap_step_check": heat_check}), flush=True)
+    print(json.dumps({"pose_serving": pose}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,13 @@
         [--detect-score-threshold 0.05] [--detect-iou-threshold 0.5] \\
         [--detect-soft-nms off] [--detect-soft-sigma 0.5] \\
         [--detect-max-per-class 0]
+    python -m deep_vision_tpu_torch.cli.serve -m hourglass104 \\
+        [--weights w.npz] --wire-dtype uint8 --infer-dtype int8
 
 A classifier answers ``POST /v1/classify``; a detection model
-(``yolov3_*``, ``centernet*``) answers ``POST /v1/detect``.
+(``yolov3_*``, ``centernet*``) answers ``POST /v1/detect``; a pose model
+(``hourglass*``) answers ``POST /v1/pose {"pixels"}`` with its keypoints
+in heatmap pixels.
 
 ``--weights`` is an ``.npz`` of the reference's flax variables tree
 (keys joined by ``/``, see ``convert.py``); without it the model is a

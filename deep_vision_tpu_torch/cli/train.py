@@ -6,20 +6,27 @@
     python -m deep_vision_tpu_torch.cli.train -m resnet50 --synthetic ...
     python -m deep_vision_tpu_torch.cli.train -m yolov3_coco \\
         --data-root D --workdir W [--resume] [--num-workers K]
+    python -m deep_vision_tpu_torch.cli.train -m centernet \\
+        --data-root D --workdir W [--resume] [--num-workers K]
+    python -m deep_vision_tpu_torch.cli.train -m hourglass104 \\
+        --data-root D --workdir W [--resume] [--num-workers K]
     python -m deep_vision_tpu_torch.cli.train --list -m x
 
 Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
-classification branch, ``build_classification_val_loader`` and the YOLO
-half of ``_main_detection``) on the records input: ``D`` holds
-``train-*.dvrec`` and ``val-*.dvrec`` shards with raw uint8 payloads
-(``prepare_data --store raw``).  Classification: the host reads, flips
-and crops uint8 pixels; the ``train_ingest`` CUDA kernel jitters and
-normalizes each train batch on the card.  Detection (``-m yolov3_coco``
-and the other YOLOv3 configs): the host flips, crops, resizes and
-encodes labels; the card scales the uint8 batch to [0, 1], and the loss's
-ignore mask runs the ``best_iou_max`` CUDA kernel.  CenterNet is not
-ported.  Runs on CUDA unless given ``--device cpu``; without a GPU it
-raises.
+classification branch, ``build_classification_val_loader``,
+``_main_detection`` and ``_main_pose``) on the records input: ``D``
+holds ``train-*.dvrec`` and ``val-*.dvrec`` shards with raw uint8
+payloads (``prepare_data --store raw``).  Classification: the host
+reads, flips and crops uint8 pixels; the ``train_ingest`` CUDA kernel
+jitters and normalizes each train batch on the card.  Detection
+(``-m yolov3_coco`` and the other YOLOv3 configs, ``-m centernet``): the
+host flips, crops (YOLOv3 only), resizes and encodes labels; the card
+scales the uint8 batch to [0, 1], and YOLOv3's loss runs its ignore mask
+through the ``best_iou_max`` CUDA kernel.  Pose (``-m hourglass104``):
+the host crops around the keypoints, flips, resizes and draws the
+heatmaps; the card scales the batch to [0, 1].  ``--synthetic`` trains
+on seeded synthetic scenes or poses instead.  Runs on CUDA unless given
+``--device cpu``; without a GPU it raises.
 """
 
 from __future__ import annotations
@@ -101,20 +108,12 @@ def main(argv=None):
         cfg.image_size = args.image_size
     if args.prefetch_depth is not None:
         cfg.prefetch_depth = args.prefetch_depth
-    if cfg.task == "centernet":
+    build = LOADERS.get(cfg.task)
+    if build is None:
         raise NotImplementedError(
-            "CenterNet training is not ported yet: its loss, label "
-            "encoder and loader come in the next slice (ROADMAP.md "
-            "Queue 1 item 3); CenterNet serves /v1/detect through "
-            "cli.serve")
-    if cfg.task not in ("classification", "detection"):
-        raise NotImplementedError(
-            f"task '{cfg.task}' is not ported; classification and "
-            f"detection (YOLOv3)")
+            f"task '{cfg.task}' is not ported; have {sorted(LOADERS)}")
 
     print(f"device: {device}", flush=True)
-    build = _detection_loaders if cfg.task == "detection" \
-        else _classification_loaders
     loaders = []
     try:
         task, train_loader, val_loader, preprocess_fn = build(args, cfg,
@@ -179,17 +178,24 @@ def _classification_loaders(args, cfg, loaders: list):
 
 
 def _detection_loaders(args, cfg, loaders: list):
-    """(task, train loader, val loader, preprocess_fn) for YOLOv3: uint8
-    batches from raw-payload detection records (or ``--synthetic``
-    scenes), scaled to [0, 1] on the device."""
+    """(task, train loader, val loader, preprocess_fn) for YOLOv3 or
+    CenterNet: uint8 batches from raw-payload detection records (or
+    ``--synthetic`` scenes), scaled to [0, 1] on the device."""
     from deep_vision_tpu_torch.data.detection import (
+        CenterNetLoader,
         DetectionLoader,
         synthetic_detection_dataset,
     )
     from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
-    from deep_vision_tpu_torch.tasks.detection import YoloTask
 
-    task = YoloTask(cfg.num_classes)
+    if cfg.task == "centernet":
+        from deep_vision_tpu_torch.tasks.centernet import CenterNetTask
+
+        task, loader_cls = CenterNetTask(cfg.num_classes), CenterNetLoader
+    else:
+        from deep_vision_tpu_torch.tasks.detection import YoloTask
+
+        task, loader_cls = YoloTask(cfg.num_classes), DetectionLoader
     if args.synthetic:
         train_samples = synthetic_detection_dataset(
             args.synthetic_size, cfg.image_size, min(cfg.num_classes, 3),
@@ -212,15 +218,61 @@ def _detection_loaders(args, cfg, loaders: list):
                                              cache_decoded=True)
     # in-memory synthetic samples need no reading: a pool would only add
     # pickling
-    train_loader = DetectionLoader(
+    train_loader = loader_cls(
         train_samples, cfg.batch_size, cfg.num_classes, cfg.image_size,
         train=True, seed=cfg.seed, device_normalize=True,
         num_workers=0 if args.synthetic else args.num_workers)
     loaders.append(train_loader)
-    val_loader = DetectionLoader(
+    val_loader = loader_cls(
         val_samples, cfg.eval_batch_size, cfg.num_classes, cfg.image_size,
         train=False, device_normalize=True)
     return task, train_loader, val_loader, make_scale_preprocess()
+
+
+def _pose_loaders(args, cfg, loaders: list):
+    """(task, train loader, val loader, preprocess_fn) for the stacked
+    hourglass: uint8 crops from raw-payload pose records (or
+    ``--synthetic`` poses) with their heatmaps, scaled to [0, 1] on the
+    device."""
+    from deep_vision_tpu_torch.data.pose import (
+        PoseLoader,
+        synthetic_pose_dataset,
+    )
+    from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.pose import PoseTask
+
+    if args.synthetic:
+        train_samples = synthetic_pose_dataset(
+            args.synthetic_size, cfg.image_size, cfg.num_classes, seed=1)
+        val_samples = synthetic_pose_dataset(
+            max(args.synthetic_size // 4, cfg.batch_size), cfg.image_size,
+            cfg.num_classes, seed=2)
+    else:
+        from deep_vision_tpu_torch.data.records import load_pose_records
+
+        if not args.data_root:
+            raise SystemExit("--data-root is required without --synthetic")
+        train_samples = load_pose_records(
+            args.data_root, "train", cache_decoded=args.num_workers == 0)
+        val_samples = load_pose_records(args.data_root, "val",
+                                        cache_decoded=True)
+    heatmap_size = cfg.image_size // 4
+    train_loader = PoseLoader(
+        train_samples, cfg.batch_size, cfg.image_size, heatmap_size,
+        cfg.num_classes, train=True, seed=cfg.seed, device_normalize=True,
+        num_workers=0 if args.synthetic else args.num_workers)
+    loaders.append(train_loader)
+    val_loader = PoseLoader(
+        val_samples, cfg.eval_batch_size, cfg.image_size, heatmap_size,
+        cfg.num_classes, train=False, device_normalize=True)
+    return PoseTask(), train_loader, val_loader, make_scale_preprocess()
+
+
+#: the input builder of each ported task
+LOADERS = {"classification": _classification_loaders,
+           "detection": _detection_loaders,
+           "centernet": _detection_loaders,
+           "pose": _pose_loaders}
 
 
 if __name__ == "__main__":

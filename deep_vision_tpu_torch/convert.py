@@ -26,7 +26,10 @@ DarknetConv holding ``Conv_0`` and ``BatchNorm_0``) ↔ the port's
 ``lateral26``/…; the heads' 1×1 ``Conv_0`` carries a bias.
 
 ``centernet_from_flax`` / ``centernet_to_flax`` / ``load_centernet`` do
-the same for CenterNet (``models/centernet.py``), and
+the same for CenterNet (``models/centernet.py``),
+``stacked_hourglass_from_flax`` / ``stacked_hourglass_to_flax`` /
+``load_stacked_hourglass`` for the pose model (``models/hourglass.py
+StackedHourglass``), and
 ``hourglass_from_flax`` / ``hourglass_to_flax`` and ``preact_from_flax``
 / ``preact_to_flax`` for a bare ``HourglassModule`` or
 ``PreActBottleneck``; these check both sides strictly: a flax leaf that
@@ -391,6 +394,32 @@ def _centernet_leaves(num_stack: int, order: int, filters):
             yield "conv", f"{t}.reinject", (f"Conv_{2 + 2 * s}",)
 
 
+def _stacked_hourglass_leaves(num_stack: int, num_heatmap: int,
+                              filters: int, num_residual: int, order: int):
+    yield "conv", "stem_conv", ("Conv_0",)
+    yield "bn", "stem_bn", ("BatchNorm_0",)
+    for j, (cin, cout) in enumerate(((64, 128), (128, 128),
+                                     (128, filters))):
+        yield from _preact_leaves(f"stem_block{j + 1}",
+                                  (f"PreActBottleneck_{j}",), cin != cout)
+    for s in range(num_stack):
+        t = f"stacks.{s}"
+        yield from _hourglass_leaves(f"{t}.hourglass",
+                                     (f"HourglassModule_{s}",), filters,
+                                     order, filters, num_residual)
+        for j in range(num_residual):
+            yield from _preact_leaves(
+                f"{t}.residual.{j}",
+                (f"PreActBottleneck_{3 + s * num_residual + j}",), False)
+        base = 1 + 4 * s
+        yield "conv", f"{t}.linear", (f"Conv_{base}",)
+        yield "bn", f"{t}.bn", (f"BatchNorm_{1 + s}",)
+        yield "conv", f"{t}.heat", (f"Conv_{base + 1}",)
+        if s < num_stack - 1:
+            yield "conv", f"{t}.reinject_features", (f"Conv_{base + 2}",)
+            yield "conv", f"{t}.reinject_heat", (f"Conv_{base + 3}",)
+
+
 def _from_flax(leaves, variables: Mapping) -> dict:
     """flax variables → ``state_dict`` (numpy) over ``leaves``; a flax
     leaf that no module takes raises ``KeyError``, as a missing one
@@ -497,5 +526,36 @@ def load_centernet(model, variables: Mapping) -> None:
 
     sd = centernet_from_flax(variables, model.num_stack, model.order,
                              model.filters)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
+
+
+def stacked_hourglass_from_flax(variables: Mapping, num_stack: int = 4,
+                                num_heatmap: int = 16, filters: int = 256,
+                                num_residual: int = 1, order: int = 4
+                                ) -> dict:
+    """flax ``StackedHourglass`` variables → the port's ``state_dict``
+    (numpy).  Raises ``KeyError`` naming a missing flax key, or the flax
+    leaves that no module takes, when the tree does not match."""
+    return _from_flax(_stacked_hourglass_leaves(
+        num_stack, num_heatmap, filters, num_residual, order), variables)
+
+
+def stacked_hourglass_to_flax(state_dict: Mapping, num_stack: int = 4,
+                              num_heatmap: int = 16, filters: int = 256,
+                              num_residual: int = 1, order: int = 4) -> dict:
+    """The inverse of :func:`stacked_hourglass_from_flax`."""
+    return _to_flax(_stacked_hourglass_leaves(
+        num_stack, num_heatmap, filters, num_residual, order), state_dict)
+
+
+def load_stacked_hourglass(model, variables: Mapping) -> None:
+    """Copy flax ``StackedHourglass`` ``variables`` into a port
+    ``StackedHourglass`` (strict both ways)."""
+    import torch
+
+    sd = stacked_hourglass_from_flax(variables, model.num_stack,
+                                     model.num_heatmap, model.filters,
+                                     model.num_residual, model.order)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)

@@ -35,15 +35,17 @@ def serving_input_shape(cfg) -> tuple:
 
 def import_weights(model, variables) -> None:
     """Copy a flax variables tree into ``model`` with the importer of
-    its family: ResNet, YOLOv3 or CenterNet; any other class raises
-    and names it."""
+    its family: ResNet, YOLOv3, CenterNet or StackedHourglass; any other
+    class raises and names it."""
     from deep_vision_tpu_torch import convert
     from deep_vision_tpu_torch.models.centernet import CenterNet
+    from deep_vision_tpu_torch.models.hourglass import StackedHourglass
     from deep_vision_tpu_torch.models.resnet import ResNet
     from deep_vision_tpu_torch.models.yolo import YoloV3
 
     importers = ((ResNet, convert.load_into), (YoloV3, convert.load_yolo),
-                 (CenterNet, convert.load_centernet))
+                 (CenterNet, convert.load_centernet),
+                 (StackedHourglass, convert.load_stacked_hourglass))
     for cls, load in importers:
         if isinstance(model, cls):
             load(model, variables)

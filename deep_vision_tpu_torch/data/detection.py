@@ -1,15 +1,19 @@
-"""YOLOv3 detection input: box-preserving flip and crop, square resize,
-three-scale label encoding.
+"""Detection input: box-preserving flip and crop, square resize, and the
+label encoding of YOLOv3 (three scales) or CenterNet (stride-4 heatmaps).
 
 Port of ``deep_vision_tpu/data/detection.py`` (``flip_boxes_lr``,
 ``random_crop_with_boxes``, ``resize_square``, ``corners_to_xywh``,
-``prepare_yolo_sample``, ``DetectionLoader``,
+``_augment_resize``, ``prepare_yolo_sample``,
+``prepare_centernet_sample``, ``DetectionLoader``, ``CenterNetLoader``,
 ``synthetic_detection_dataset``).  Samples are dicts ``{"image": HWC
 uint8, "boxes": (N, 4) normalized corners, "classes": (N,) int}``; the
-loader yields static-shape batches ``{"image": (B, S, S, 3),
-"y_true_0..2", "boxes", "boxes_mask", "gt_classes"}`` (+ ``"weight"`` in
-eval).  The image stays uint8 with ``device_normalize`` (the /255 runs
-on the card, ``ops/preprocess.make_scale_preprocess``).
+loaders yield static-shape batches, ``{"image": (B, S, S, 3),
+"y_true_0..2", "boxes", "boxes_mask", "gt_classes"}`` for YOLOv3 and
+``{"image", "heatmap", "wh", "offset", "indices", "obj_mask", "boxes",
+"gt_classes"}`` for CenterNet (+ ``"weight"`` in eval).  CenterNet takes
+no crop, as in the reference.  The image stays uint8 with
+``device_normalize`` (the /255 runs on the card,
+``ops/preprocess.make_scale_preprocess``).
 
 One difference from the reference: the square resize after a crop is
 bilinear through torch (``data/transforms.resize_square_u8``) on every
@@ -26,6 +30,7 @@ import numpy as np
 
 from deep_vision_tpu_torch.data.loader import PreppedSampleLoader
 from deep_vision_tpu_torch.data.transforms import resize_square_u8
+from deep_vision_tpu_torch.tasks.centernet import encode_centernet_labels
 from deep_vision_tpu_torch.tasks.detection import encode_labels
 
 
@@ -75,13 +80,14 @@ def corners_to_xywh(boxes: np.ndarray) -> np.ndarray:
     return np.concatenate([xy, wh], axis=1)
 
 
-def prepare_yolo_sample(sample: dict, rng: np.random.Generator, *,
-                        num_classes: int, image_size: int, grids,
-                        augment: bool, device_normalize: bool = False
-                        ) -> dict:
-    """flip (p 0.5) → crop (p 0.5) → resize → label encoding; the draws
-    in the reference's order.  The image stays uint8 with
-    ``device_normalize``, else becomes float32 / 255."""
+def _augment_resize(sample: dict, rng: np.random.Generator,
+                    image_size: int, augment: bool, crop: bool,
+                    device_normalize: bool):
+    """The shared front half of a sample's prep: flip (p 0.5), then,
+    with ``crop``, crop (p 0.5), then the square resize; the draws in
+    the reference's order.  The image stays uint8 with
+    ``device_normalize``, else becomes float32 / 255.  Returns (image,
+    boxes, classes)."""
     img = sample["image"]
     boxes = np.asarray(sample["boxes"], np.float32).reshape(-1, 4)
     classes = np.asarray(sample["classes"], np.int64).reshape(-1)
@@ -89,13 +95,39 @@ def prepare_yolo_sample(sample: dict, rng: np.random.Generator, *,
         if rng.random() < 0.5:
             img = img[:, ::-1]
             boxes = flip_boxes_lr(boxes)
-        if rng.random() < 0.5:
+        if crop and rng.random() < 0.5:
             img, boxes, keep = random_crop_with_boxes(img, boxes, rng)
             classes = classes[keep]
     img = resize_square(img, image_size)
     x = img if device_normalize else img.astype(np.float32) / 255.0
+    return x, boxes, classes
+
+
+def prepare_yolo_sample(sample: dict, rng: np.random.Generator, *,
+                        num_classes: int, image_size: int, grids,
+                        augment: bool, device_normalize: bool = False
+                        ) -> dict:
+    """flip → crop → resize → YOLOv3's three-scale label encoding."""
+    x, boxes, classes = _augment_resize(sample, rng, image_size, augment,
+                                        crop=True,
+                                        device_normalize=device_normalize)
     enc = encode_labels(corners_to_xywh(boxes), classes, num_classes,
                         grids=grids)
+    return {"image": x, **enc}
+
+
+def prepare_centernet_sample(sample: dict, rng: np.random.Generator, *,
+                             num_classes: int, image_size: int, grids,
+                             augment: bool, device_normalize: bool = False
+                             ) -> dict:
+    """flip → resize (no crop) → CenterNet's label encoding at stride 4
+    (``grid = image_size // 4``; ``grids`` is unused, kept for the
+    shared loader signature)."""
+    x, boxes, classes = _augment_resize(sample, rng, image_size, augment,
+                                        crop=False,
+                                        device_normalize=device_normalize)
+    enc = encode_centernet_labels(corners_to_xywh(boxes), classes,
+                                  num_classes, grid=image_size // 4)
     return {"image": x, **enc}
 
 
@@ -127,6 +159,14 @@ class DetectionLoader(PreppedSampleLoader):
                     image_size=self.image_size, grids=self.grids,
                     augment=self.augment,
                     device_normalize=self.device_normalize)
+
+
+class CenterNetLoader(DetectionLoader):
+    """The same samples and augmentation (without the crop), with
+    CenterNet's target encoding (``tasks/centernet.py
+    encode_centernet_labels``) at stride 4."""
+
+    PREPARE = staticmethod(prepare_centernet_sample)
 
 
 def synthetic_detection_dataset(n: int, image_size: int = 416,

@@ -12,7 +12,10 @@ Copy of the format half of ``deep_vision_tpu/data/records.py``:
 Detection records (``encode_detection_sample``,
 ``write_detection_records``, ``load_detection_records``) are the
 reference's raw store: header ``{"boxes", "classes", "shape", "enc":
-"raw"}``, the image's HWC uint8 bytes at 416² by default.
+"raw"}``, the image's HWC uint8 bytes at 416² by default.  Pose records
+(``encode_pose_sample``, ``write_pose_records``, ``load_pose_records``)
+are too: header ``{"keypoints", "center", "scale", "shape", "enc":
+"raw"}``, the image with its shorter side at 384 by default.
 """
 
 from __future__ import annotations
@@ -159,12 +162,13 @@ def write_detection_records(samples: Sequence[dict], out_dir: str,
                          num_workers)
 
 
-class LazyDetectionSample(dict):
-    """A detection record as a dict whose ``"image"`` is read on access
-    with one positioned read: ``boxes`` and ``classes`` come from the
-    header, the sample keeps only (shard, offset, length), so it pickles
-    to loader workers in a few hundred bytes.  ``cache_decoded`` keeps
-    the image after the first read (for a small, revisited split)."""
+class LazyRecordSample(dict):
+    """A raw-store record as a dict whose ``"image"`` is read on access
+    with one positioned read; the labels come from the header
+    (``_parse``), and the sample keeps only (shard, offset, length), so
+    it pickles to loader workers in a few hundred bytes.
+    ``cache_decoded`` keeps the image after the first read (for a small,
+    revisited split)."""
 
     def __init__(self, header: dict, src: tuple, cache_decoded: bool):
         super().__init__()
@@ -176,9 +180,10 @@ class LazyDetectionSample(dict):
         self._src = src
         self._cache = cache_decoded
         self._shape = tuple(header["shape"])
-        self["boxes"] = np.asarray(header["boxes"], np.float32).reshape(
-            -1, 4)
-        self["classes"] = np.asarray(header["classes"], np.int64)
+        self._parse(header)
+
+    def _parse(self, header: dict):
+        raise NotImplementedError
 
     def __getitem__(self, key):
         if key == "image" and not dict.__contains__(self, "image"):
@@ -198,12 +203,95 @@ class LazyDetectionSample(dict):
         return key == "image" or dict.__contains__(self, key)
 
 
-def load_detection_records(root: str, split: str,
-                           cache_decoded: bool = False) -> list[dict]:
+def _load_lazy_records(root: str, split: str, sample_cls,
+                       cache_decoded: bool) -> list[dict]:
     """Every ``split`` shard under ``root`` → lazy samples, one header
     scan and no payload read."""
     shards = list_shards(root, split)
     if not shards:
         raise FileNotFoundError(f"no {split}-*.dvrec under {root}")
-    return [LazyDetectionSample(header, (s, off, plen), cache_decoded)
+    return [sample_cls(header, (s, off, plen), cache_decoded)
             for s in shards for header, off, plen in scan_records(s)]
+
+
+class LazyDetectionSample(LazyRecordSample):
+    def _parse(self, header: dict):
+        self["boxes"] = np.asarray(header["boxes"], np.float32).reshape(
+            -1, 4)
+        self["classes"] = np.asarray(header["classes"], np.int64)
+
+
+def load_detection_records(root: str, split: str,
+                           cache_decoded: bool = False) -> list[dict]:
+    """Every ``split`` detection shard under ``root`` → lazy samples."""
+    return _load_lazy_records(root, split, LazyDetectionSample,
+                              cache_decoded)
+
+
+# ---------------------------------------------------------------------------
+# Pose records (raw payloads; the MPII layout: keypoints, center, scale)
+# ---------------------------------------------------------------------------
+
+
+def encode_pose_sample(sample: dict, store: str = "raw", resize: int = 384
+                       ) -> tuple[dict, bytes]:
+    """``{"image": HWC uint8, "keypoints": (K, 3) [x_px, y_px, vis],
+    "center"?: (2,), "scale"?: float}`` → a raw-store record, as the
+    reference's ``encode_pose_sample(store="raw")`` writes it: the image
+    rescaled so its shorter side is ``resize`` (bilinear through torch,
+    ``data/transforms.rescale_u8``), and the labels, which are in PIXEL
+    coordinates, rescaled with it: keypoint x and the center's x by the
+    width's factor, y by the height's (the longer side rounds, so one
+    shared factor would drift keypoints by up to a pixel), and the MPII
+    person scale (·200 = the body's height in pixels) by the height's.
+    The JPEG store needs an encoder, and reading it a decoder, that the
+    card machine does not have: it is refused."""
+    if store != "raw":
+        raise NotImplementedError(
+            f"store '{store}': the port writes raw-payload records only")
+    if "image" not in sample:
+        raise ValueError("a pose sample for the raw store needs its "
+                         "decoded 'image' (the port has no decoder for "
+                         "'image_bytes')")
+    from deep_vision_tpu_torch.data.transforms import rescale_u8
+
+    kp = np.asarray(sample["keypoints"], np.float32).reshape(-1, 3)
+    center = np.asarray(sample.get("center", (0, 0)), np.float32)
+    scale = float(sample.get("scale", 1.0))
+    img = np.asarray(sample["image"], np.uint8)
+    h, w = img.shape[:2]
+    img = np.ascontiguousarray(rescale_u8(img, resize))
+    fy, fx = img.shape[0] / h, img.shape[1] / w
+    kp = np.concatenate([kp[:, 0:1] * fx, kp[:, 1:2] * fy, kp[:, 2:3]],
+                        axis=1)
+    header = {
+        "keypoints": kp.tolist(),
+        "center": [float(center[0]) * fx, float(center[1]) * fy],
+        "scale": scale * fy,
+        "shape": list(img.shape),
+        "enc": "raw",
+    }
+    return header, img.tobytes()
+
+
+def write_pose_records(samples: Sequence[dict], out_dir: str, split: str,
+                       num_shards: int = 8, num_workers: int = 8,
+                       store: str = "raw", resize: int = 384):
+    """Pose samples → ``num_shards`` raw-payload dvrec shards."""
+    encode = functools.partial(encode_pose_sample, store=store,
+                               resize=resize)
+    return write_sharded(samples, out_dir, split, num_shards, encode,
+                         num_workers)
+
+
+class LazyPoseSample(LazyRecordSample):
+    def _parse(self, header: dict):
+        self["keypoints"] = np.asarray(header["keypoints"], np.float32)
+        self["center"] = np.asarray(header["center"], np.float32)
+        self["scale"] = header["scale"]
+
+
+def load_pose_records(root: str, split: str,
+                      cache_decoded: bool = False) -> list[dict]:
+    """Every ``split`` pose shard under ``root`` → lazy samples."""
+    return _load_lazy_records(root, split, LazyPoseSample, cache_decoded)

@@ -4,7 +4,9 @@ channel statistics.
 Copies of ``deep_vision_tpu/data/transforms.py``'s uint8 half
 (``rescale``, ``random_horizontal_flip``, ``random_crop``,
 ``center_crop``, ``train_transform_u8``, ``eval_transform_u8``,
-``imagenet_resize_for``).  All functions take and return HWC uint8 numpy
+``imagenet_resize_for``), and the torch bilinear resizes that detection
+and pose use on every machine (``resize_u8``, ``resize_square_u8``,
+``rescale_u8``).  All functions take and return HWC uint8 numpy
 arrays on the host; randomness comes from an explicit
 ``np.random.Generator`` with the reference's draw order (flip, then crop
 top, then crop left).  Color jitter and normalize run on the device
@@ -52,14 +54,18 @@ def imagenet_resize_for(image_size: int) -> int:
     return max(image_size * 256 // 224, image_size + 8)
 
 
+def rescaled_hw(h: int, w: int, size: int) -> tuple[int, int]:
+    """(height, width) with the SHORTER side at ``size``, the aspect
+    ratio kept (the longer side rounds)."""
+    if h < w:
+        return size, max(1, int(round(w * size / h)))
+    return max(1, int(round(h * size / w))), size
+
+
 def rescale(img: np.ndarray, size: int) -> np.ndarray:
     """Resize so the SHORTER side == size, preserving aspect ratio."""
-    h, w = img.shape[:2]
-    if h < w:
-        nh, nw = size, max(1, int(round(w * size / h)))
-    else:
-        nh, nw = max(1, int(round(h * size / w))), size
-    if (nh, nw) == (h, w):
+    nh, nw = rescaled_hw(*img.shape[:2], size)
+    if (nh, nw) == img.shape[:2]:
         return img
     return resize_bilinear(img, nw, nh)
 
@@ -100,19 +106,32 @@ def eval_transform_u8(img: np.ndarray, size: int = 224,
     return center_crop(rescale(img, resize), size)
 
 
-def resize_square_u8(img: np.ndarray, size: int) -> np.ndarray:
-    """HWC uint8 → ``size``×``size`` uint8, bilinear (half-pixel
-    centres, no antialias) through torch on the CPU, on every machine:
-    the card machine has neither cv2 nor PIL.  Against cv2's
-    ``INTER_LINEAR`` it differs by at most 1 grey level.  An image
-    already at the size is returned as it is (possibly a read-only
-    view: callers never write it in place)."""
-    if img.shape[0] == size and img.shape[1] == size:
+def resize_u8(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """HWC uint8 → ``h``×``w`` uint8, bilinear (half-pixel centres, no
+    antialias) through torch on the CPU, on every machine: the card
+    machine has neither cv2 nor PIL.  Against cv2's ``INTER_LINEAR`` it
+    differs by at most 1 grey level.  An image already at the size is
+    returned as it is (possibly a read-only or negatively strided view:
+    callers never write it in place)."""
+    if img.shape[0] == h and img.shape[1] == w:
         return img
     import torch
     import torch.nn.functional as F
 
+    # torch takes no negative strides (a flipped view): copy first
     t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
-    out = F.interpolate(t, size=(size, size), mode="bilinear",
+    out = F.interpolate(t, size=(h, w), mode="bilinear",
                         align_corners=False, antialias=False)
     return out[0].permute(1, 2, 0).contiguous().numpy()
+
+
+def resize_square_u8(img: np.ndarray, size: int) -> np.ndarray:
+    """:func:`resize_u8` to ``size``×``size``."""
+    return resize_u8(img, size, size)
+
+
+def rescale_u8(img: np.ndarray, size: int) -> np.ndarray:
+    """:func:`rescale` through :func:`resize_u8`: the shorter side at
+    ``size``, on every machine."""
+    nh, nw = rescaled_hw(*img.shape[:2], size)
+    return resize_u8(img, nh, nw)

@@ -17,8 +17,6 @@ back to its input (re-injection).  Every conv has a bias.
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,6 +25,8 @@ from deep_vision_tpu_torch.models.common import (
     BatchNorm2d,
     Conv2d,
     conv_kernel_init,
+    lecun_conv_init,
+    same_pad,
 )
 from deep_vision_tpu_torch.models.hourglass import (
     HourglassModule,
@@ -37,14 +37,6 @@ from deep_vision_tpu_torch.models.hourglass import (
 CENTERNET_FILTERS = (256, 256, 384, 384, 384, 512)
 #: the heatmap head's bias: sigmoid(-2.19) ≈ 0.1 at init
 HEAT_BIAS = -2.19
-
-
-def same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:
-    """flax/XLA "SAME" padding (before, after) of one spatial dim: the
-    odd pixel goes after."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
 
 
 class DetectionHead(nn.Module):
@@ -149,11 +141,7 @@ class CenterNet(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv2d):
                 if id(m) in lecun:
-                    fan_in = m.weight.shape[1] * math.prod(m.weight.shape[2:])
-                    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                    with torch.no_grad():
-                        nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
-                                              2.0 * std, generator=generator)
+                    lecun_conv_init(m.weight, generator)
                 else:
                     conv_kernel_init(m.weight, generator)
                 nn.init.zeros_(m.bias)

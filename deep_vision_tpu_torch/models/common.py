@@ -46,6 +46,24 @@ def dense_kernel_init(weight: torch.Tensor, generator: torch.Generator):
                                      generator=generator)
 
 
+def lecun_conv_init(weight: torch.Tensor, generator: torch.Generator):
+    """flax's default conv kernel init: LeCun normal over fan-in,
+    truncated at two standard deviations."""
+    fan_in = weight.shape[1] * math.prod(weight.shape[2:])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
+def same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """flax/XLA "SAME" padding (before, after) of one spatial dim: the
+    odd pixel goes after."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """(N, C, H, W) → (N, C) mean over space."""
     return x.mean(dim=(2, 3))

@@ -1,8 +1,8 @@
-"""The hourglass building blocks as ``nn.Module``s.
+"""The hourglass building blocks and the Stacked Hourglass pose model.
 
 Port of ``deep_vision_tpu/models/hourglass.py`` (``PreActBottleneck``,
-``_up2``, ``HourglassModule``), which CenterNet is built from and the
-stacked-hourglass pose model will reuse.  Numerics follow the reference:
+``_up2``, ``HourglassModule``, which CenterNet is built from too, and
+``StackedHourglass``).  Numerics follow the reference:
 
 - every conv is flax's ``nn.Conv`` with its default bias, "SAME"
   padding at stride 1 (1 for a 3×3, 0 for a 1×1);
@@ -12,10 +12,13 @@ stacked-hourglass pose model will reuse.  Numerics follow the reference:
   pixel ``i`` reads input ``i // 2``, as ``jax.image.resize`` does at
   exactly 2×).
 
-Modules take and return NCHW tensors (channels_last on the card); the
-module tree is named for the reader, and ``convert.py`` maps it onto
-flax's auto-names (``Conv_k``, ``BatchNorm_k``, ``PreActBottleneck_k``,
-``HourglassModule_0``).
+The blocks take and return NCHW tensors (channels_last on the card);
+``StackedHourglass`` takes the reference's NHWC input and returns NHWC
+float32 heatmaps.  The module tree is named for the reader, and
+``convert.py`` maps it onto flax's auto-names (``Conv_k``,
+``BatchNorm_k``, ``PreActBottleneck_k``, ``HourglassModule_k``).  The
+pipeline split (``HourglassStem``, ``HourglassStack``,
+``merge_/split_stacked_variables``) is not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +29,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deep_vision_tpu_torch.models.common import BatchNorm2d, Conv2d
+from deep_vision_tpu_torch.models.common import (
+    BatchNorm2d,
+    Conv2d,
+    conv_kernel_init,
+    lecun_conv_init,
+    same_pad,
+)
 
 
 class PreActBottleneck(nn.Module):
@@ -122,3 +131,109 @@ class HourglassModule(nn.Module):
         for block in self.low3:
             low = block(low)
         return up1 + up2(low)
+
+
+class _PoseStack(nn.Module):
+    """One stack: hourglass → ``num_residual`` bottlenecks → the linear
+    layer (1×1 conv + BN + ReLU) → the 1×1 heatmap conv; all but the last
+    stack re-inject the linear layer's features and the heatmaps, each
+    through its own 1×1 conv, into the stack's input."""
+
+    def __init__(self, num_heatmap: int, filters: int, num_residual: int,
+                 order: int, reinject: bool, dtype: torch.dtype):
+        super().__init__()
+        self.hourglass = HourglassModule(filters, order, filters,
+                                         num_residual, dtype)
+        self.residual = nn.ModuleList(
+            PreActBottleneck(filters, filters, dtype)
+            for _ in range(num_residual))
+        self.linear = Conv2d(filters, filters, 1, dtype=dtype, bias=True)
+        self.bn = BatchNorm2d(filters, dtype)
+        self.heat = Conv2d(filters, num_heatmap, 1, dtype=dtype, bias=True)
+        self.reinject_features = self.reinject_heat = None
+        if reinject:
+            self.reinject_features = Conv2d(filters, filters, 1, dtype=dtype,
+                                            bias=True)
+            self.reinject_heat = Conv2d(num_heatmap, filters, 1,
+                                        dtype=dtype, bias=True)
+
+    def forward(self, x: torch.Tensor):
+        """``(next stack's input, heatmaps NCHW in the compute dtype)``."""
+        y = self.hourglass(x)
+        for block in self.residual:
+            y = block(y)
+        y = F.relu(self.bn(self.linear(y)))
+        heat = self.heat(y)
+        if self.reinject_features is not None:
+            x = x + self.reinject_features(y) + self.reinject_heat(heat)
+        return x, heat
+
+
+class StackedHourglass(nn.Module):
+    """256²×3 → ``num_stack`` heatmap predictions at 64² (the full
+    Hourglass-104 at ``num_stack=4``).  The stem is a 7×7/2 conv to 64
+    channels with flax's "SAME" padding ((2, 3) at an even input), BN +
+    ReLU, a bottleneck to 128, a 2×2 pool, and bottlenecks to 128 and
+    ``filters``; every stack works at ``filters`` channels."""
+
+    def __init__(self, num_stack: int = 4, num_heatmap: int = 16,
+                 filters: int = 256, num_residual: int = 1, order: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_stack = num_stack
+        self.num_heatmap = num_heatmap
+        self.filters = filters
+        self.num_residual = num_residual
+        self.order = order
+        self.compute_dtype = dtype
+        self.stem_conv = Conv2d(3, 64, 7, 2, 0, dtype, bias=True)
+        self.stem_bn = BatchNorm2d(64, dtype)
+        self.stem_block1 = PreActBottleneck(64, 128, dtype)
+        self.stem_block2 = PreActBottleneck(128, 128, dtype)
+        self.stem_block3 = PreActBottleneck(128, filters, dtype)
+        self.stacks = nn.ModuleList(
+            _PoseStack(num_heatmap, filters, num_residual, order,
+                       s < num_stack - 1, dtype) for s in range(num_stack))
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "StackedHourglass":
+        for m in self.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = dtype
+        return self
+
+    def forward(self, x: torch.Tensor):
+        """NHWC ``(N, H, W, 3)`` float input → a tuple of ``num_stack``
+        float32 NHWC heatmaps ``(N, H/4, W/4, num_heatmap)``."""
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
+        ph, pw = same_pad(x.shape[2], 7, 2), same_pad(x.shape[3], 7, 2)
+        x = self.stem_conv(F.pad(x, (*pw, *ph)))                     # /2
+        x = F.relu(self.stem_bn(x))
+        x = self.stem_block1(x)
+        x = F.max_pool2d(x, 2, 2)                                    # /4
+        x = self.stem_block3(self.stem_block2(x))
+        outputs = []
+        for stack in self.stacks:
+            x, heat = stack(x)
+            outputs.append(heat.permute(0, 2, 3, 1).to(torch.float32))
+        return tuple(outputs)
+
+    def reset_parameters(self, generator: torch.Generator
+                         ) -> "StackedHourglass":
+        """The reference's init: He normal over fan-out for the convs
+        that name ``conv_kernel_init`` (all but the re-injection convs),
+        flax's default LeCun normal for the re-injection convs; biases
+        0; BatchNorm scale 1 and bias 0, running mean 0 and variance
+        1."""
+        lecun = {id(c) for s in self.stacks
+                 for c in (s.reinject_features, s.reinject_heat)
+                 if c is not None}
+        for m in self.modules():
+            if isinstance(m, Conv2d):
+                if id(m) in lecun:
+                    lecun_conv_init(m.weight, generator)
+                else:
+                    conv_kernel_init(m.weight, generator)
+                nn.init.zeros_(m.bias)
+            elif isinstance(m, BatchNorm2d):
+                m.reset_parameters()
+        return self

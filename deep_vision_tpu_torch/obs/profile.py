@@ -7,7 +7,9 @@
         [--device cuda]
     python -m deep_vision_tpu_torch.obs.profile -m yolov3_coco --train
     python -m deep_vision_tpu_torch.obs.profile -m yolov3_coco \\
-        --infer-dtype int8 --bucket 32       # or -m centernet
+        --infer-dtype int8 --bucket 32       # or -m centernet, hourglass104
+    python -m deep_vision_tpu_torch.obs.profile -m centernet --train
+    python -m deep_vision_tpu_torch.obs.profile -m hourglass104 --train
 
 Prints one JSON object: the wall time per forward (or per train step;
 host clock around synchronised calls), the device busy time per call
@@ -17,16 +19,19 @@ the kernels with the most device time, grouped into ``conv``
 included), ``serve_ingest``, ``train_ingest``, ``best_iou_max``,
 ``optimizer`` (the foreach kernels of the SGD or Adam update and the
 divergence guard) and ``other`` (elementwise, BatchNorm, pooling,
-reductions), and, for a detection model that decodes on the device,
-``epilogue``: the decode, top-k and NMS.  Their kernels are generic
-(sorts, reductions, gathers), so they are told apart by stage, not by
-name: the epilogue is profiled alone on the forward's dense outputs,
-and the forward alone; the wall time is the whole callable's.  The train step runs ``--model``'s config at its batch
-on a seeded uint8 batch already on the device, through the trainer's own
-``train_step``: random pixels and labels for a classifier; for YOLOv3
-the seeded synthetic scenes of ``data/detection.py`` (1-3 boxes an
-image), un-augmented, with their encoded labels.  Where the
-profiler records no device time, those fields are null.
+reductions), and, for a model whose workload decodes on the device,
+``epilogue``: the detect decode, top-k and NMS, or the pose heatmap
+decode.  Their kernels are generic (sorts, reductions, gathers), so
+they are told apart by stage, not by name: the epilogue is profiled
+alone on the forward's dense outputs, and the forward alone; the wall
+time is the whole callable's.  The train step runs ``--model``'s config
+at its batch on a seeded uint8 batch already on the device, through the
+trainer's own ``train_step``: random pixels and labels for a
+classifier; for YOLOv3 and CenterNet the seeded synthetic scenes of
+``data/detection.py`` (1-3 boxes an image), for the stacked hourglass
+the seeded synthetic poses of ``data/pose.py``, un-augmented, with
+their encoded labels.  Where the profiler records no device time, those
+fields are null.
 """
 
 from __future__ import annotations
@@ -116,8 +121,6 @@ def profile_bucket(sm, bucket: int, iters: int = 5, top: int = 12) -> dict:
     forward without it and the epilogue on the forward's outputs are
     profiled apart, and ``device_ms_by_group`` holds both: the
     forward's groups and ``epilogue``."""
-    import copy
-
     fn = sm.compile_bucket(bucket)
     gen = torch.Generator().manual_seed(0)
     x = torch.randint(0, 256, (bucket, *sm.input_shape), generator=gen,
@@ -127,9 +130,7 @@ def profile_bucket(sm, bucket: int, iters: int = 5, top: int = 12) -> dict:
     post = sm.workload.make_epilogue(sm)
     if post is None:
         return rep
-    dense = copy.copy(sm)
-    dense.detect_decode = "host"
-    forward = dense.compile_bucket(bucket)
+    forward = sm.compile_bucket(bucket, epilogue=False)
     fwd = _profiled(lambda: forward(x), sm.device, iters, top, "forward")
     out = forward(x)
     with torch.inference_mode():
@@ -173,20 +174,49 @@ def _classification_batch(cfg):
 
 def _detection_batch(cfg):
     from deep_vision_tpu_torch.data.detection import (
+        CenterNetLoader,
         DetectionLoader,
         synthetic_detection_dataset,
     )
     from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.centernet import CenterNetTask
     from deep_vision_tpu_torch.tasks.detection import YoloTask
 
     samples = synthetic_detection_dataset(
         cfg.batch_size, cfg.image_size, min(cfg.num_classes, 3), seed=0)
-    loader = DetectionLoader(samples, cfg.batch_size, cfg.num_classes,
-                             cfg.image_size, train=False,
-                             device_normalize=True)
+    if cfg.task == "centernet":
+        loader_cls, task = CenterNetLoader, CenterNetTask(cfg.num_classes)
+    else:
+        loader_cls, task = DetectionLoader, YoloTask(cfg.num_classes)
+    loader = loader_cls(samples, cfg.batch_size, cfg.num_classes,
+                        cfg.image_size, train=False, device_normalize=True)
     batch = next(iter(loader))
     batch.pop("weight")
-    return batch, YoloTask(cfg.num_classes), make_scale_preprocess()
+    return batch, task, make_scale_preprocess()
+
+
+def _pose_batch(cfg):
+    from deep_vision_tpu_torch.data.pose import (
+        PoseLoader,
+        synthetic_pose_dataset,
+    )
+    from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.pose import PoseTask
+
+    samples = synthetic_pose_dataset(cfg.batch_size, cfg.image_size,
+                                     cfg.num_classes, seed=0)
+    loader = PoseLoader(samples, cfg.batch_size, cfg.image_size,
+                        cfg.image_size // 4, cfg.num_classes, train=False,
+                        device_normalize=True)
+    batch = next(iter(loader))
+    batch.pop("weight")
+    return batch, PoseTask(), make_scale_preprocess()
+
+
+#: the seeded train batch of each task
+TRAIN_BATCHES = {"classification": _classification_batch,
+                 "detection": _detection_batch,
+                 "centernet": _detection_batch, "pose": _pose_batch}
 
 
 def _train_main(args, device) -> dict:
@@ -196,9 +226,7 @@ def _train_main(args, device) -> dict:
     from deep_vision_tpu_torch.core.trainer import Trainer, to_device
 
     cfg = get_config(args.model)
-    make = _detection_batch if cfg.task == "detection" \
-        else _classification_batch
-    batch, task, preprocess_fn = make(cfg)
+    batch, task, preprocess_fn = TRAIN_BATCHES[cfg.task](cfg)
     batch = to_device(batch, device)
     with tempfile.TemporaryDirectory() as work:
         trainer = Trainer(cfg, cfg.model(), task, workdir=work,

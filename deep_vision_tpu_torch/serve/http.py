@@ -20,6 +20,9 @@ Routes (JSON in, JSON out):
                         "score_threshold"?} → {"model", "num_detections",
                         "detections": [{box, score, class}]}, boxes
                         normalized xyxy; the same errors as classify.
+    POST /v1/pose      {"pixels", "model"?, "deadline_ms"?} → {"model",
+                        "space": "heatmap", "keypoints": [{x, y,
+                        score}]}, in heatmap pixels; the same errors.
 
 A verb that is not the model's workload answers 400 and names the right
 route; an unknown route answers 404 with the supported verbs.
@@ -149,11 +152,11 @@ class _Handler(BaseHTTPRequestHandler):
         deadline_ms = body.get("deadline_ms", model.workload.slo.deadline_ms)
         try:
             deadline_ms = float(deadline_ms)
+            params = {}
             if verb == "classify":
                 params = {"top_k": int(body.get("top_k", 5))}
-            else:
-                params = {} if "score_threshold" not in body else {
-                    "score_threshold": float(body["score_threshold"])}
+            elif verb == "detect" and "score_threshold" in body:
+                params = {"score_threshold": float(body["score_threshold"])}
         except (TypeError, ValueError) as e:
             raise ServeError(400, f"bad request parameter: {e}") from e
         result = engine.infer(x, deadline_ms=deadline_ms, span=self._span)

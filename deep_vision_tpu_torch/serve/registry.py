@@ -14,8 +14,8 @@ Execution contract (what the engine relies on):
     outputs on the device without synchronising — a tensor (classify
     logits), a nested tuple of tensors (dense detection heads), or the
     workload epilogue's dict (device-decoded detections, whose
-    ``classes`` are int32); the engine copies each leaf to the host once
-    per batch;
+    ``classes`` are int32, or keypoints); the engine copies each leaf to
+    the host once per batch;
   * it runs eagerly (CUDA graphs per bucket come in a later slice).
 
 Wire and compute dtypes: a uint8 wire ships raw 0–255 pixels and the
@@ -25,8 +25,8 @@ parameters once at load and computes in bf16; "int8" calibrates and
 quantizes the weights at load (``serve/quant.py``) and, on the uint8
 wire, runs the ``serve_ingest`` kernel as the prologue.  Floating
 outputs are float32 whatever the compute dtype.  The workload's epilogue
-(``serve/workloads.py``: the detect decode) runs after that cast, on the
-device, inside the same callable.
+(``serve/workloads.py``: the detect decode, the pose decode) runs after
+that cast, on the device, inside the same callable.
 """
 
 from __future__ import annotations
@@ -90,7 +90,7 @@ class ServingModel:
         self.detect_soft_sigma: float = 0.5
         self.detect_max_per_class: int = 0
 
-    def compile_bucket(self, batch: int):
+    def compile_bucket(self, batch: int, epilogue: bool = True):
         raise NotImplementedError
 
     def param_bytes(self) -> int:
@@ -167,7 +167,9 @@ class CheckpointServingModel(ServingModel):
                               ingest="serve_ingest")
         return d
 
-    def compile_bucket(self, batch: int):
+    def compile_bucket(self, batch: int, epilogue: bool = True):
+        """The callable of bucket ``batch``; ``epilogue=False`` leaves
+        the workload's epilogue out (the profiler times it apart)."""
         from deep_vision_tpu_torch.ops.preprocess import (
             make_int8_ingest,
             make_serve_preprocess,
@@ -192,7 +194,7 @@ class CheckpointServingModel(ServingModel):
             def forward(x):
                 return model(pre(x))
 
-        post = self.workload.make_epilogue(self)
+        post = self.workload.make_epilogue(self) if epilogue else None
 
         def finish(out):
             out = map_leaves(lambda t: t.to(torch.float32)

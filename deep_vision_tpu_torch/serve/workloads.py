@@ -1,13 +1,14 @@
 """Workload adapters: what the serving tier knows per model kind.
 
-Port of the classify and detect verbs of
+Port of the classify, detect and pose verbs of
 ``deep_vision_tpu/serve/workloads.py``: the ``SLO`` service class, the
 ``Workload`` base, ``ClassifyWorkload`` (dense-logits rows →
-``{"model", "top": [{class, prob, logit}]}``) and ``DetectWorkload``
-(both detection families behind ``/v1/detect``, decoded on the device
-by an epilogue fused after the forward).  Pose and generate, classify's
-cascade top-k epilogue, and the shadow ``agree`` rules wait for later
-slices.
+``{"model", "top": [{class, prob, logit}]}``), ``DetectWorkload`` (both
+detection families behind ``/v1/detect``, decoded on the device by an
+epilogue fused after the forward) and ``PoseWorkload`` (the stacked
+hourglass behind ``/v1/pose``, its last stack's heatmaps decoded to
+keypoints on the device).  Generate, classify's cascade top-k epilogue,
+and the shadow ``agree`` rules wait for later slices.
 """
 
 from __future__ import annotations
@@ -184,9 +185,39 @@ class DetectWorkload(Workload):
                      "class": int(classes[j])} for j in keep]}
 
 
-WORKLOADS = {w.verb: w for w in (ClassifyWorkload(), DetectWorkload())}
+class PoseWorkload(Workload):
+    """Keypoints of one person an image.  The epilogue decodes the last
+    (most refined) stack's heatmaps on the device
+    (``tasks/pose.decode_heatmaps``, quarter-pixel refined), so a batch
+    leaves the device as ``{keypoints (B, K, 2) float32, scores (B, K)
+    float32}``, K·12 bytes an image; the answer is in heatmap pixels
+    (``"space": "heatmap"``, a quarter of the input's)."""
+
+    verb = "pose"
+    slo = SLO("interactive", deadline_ms=30_000.0, max_queue=256)
+
+    def make_epilogue(self, model):
+        from deep_vision_tpu_torch.tasks.pose import decode_heatmaps
+
+        def post(out):
+            hm = out[-1] if isinstance(out, (tuple, list)) else out
+            return decode_heatmaps(hm)
+
+        return post
+
+    def respond(self, model, body: dict, row) -> dict:
+        kp = np.asarray(row["keypoints"])
+        sc = np.asarray(row["scores"])
+        return {"model": model.name, "space": "heatmap",
+                "keypoints": [
+                    {"x": float(kp[j, 0]), "y": float(kp[j, 1]),
+                     "score": float(sc[j])} for j in range(kp.shape[0])]}
+
+
+WORKLOADS = {w.verb: w for w in (ClassifyWorkload(), DetectWorkload(),
+                                 PoseWorkload())}
 _BY_TASK = {"classification": "classify", "detection": "detect",
-            "centernet": "detect"}
+            "centernet": "detect", "pose": "pose"}
 
 
 def workload_for_task(task: str) -> Workload:

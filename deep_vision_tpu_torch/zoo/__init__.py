@@ -1,3 +1,8 @@
 """Experiment configs; importing the package registers them."""
 
-from deep_vision_tpu_torch.zoo import centernet, detection, resnet  # noqa: F401
+from deep_vision_tpu_torch.zoo import (  # noqa: F401
+    centernet,
+    detection,
+    pose,
+    resnet,
+)

@@ -4,8 +4,8 @@
 float32 parameters, Adam 2.5e-4 with the epoch-table LR {1: 2.5e-4,
 90: 2.5e-5, 120: 2.5e-6}, batch 32, 140 epochs.  ``centernet_toy``: one
 order-3 stack with filters (16, 16, 24, 24), 64² → 16², 3 classes,
-float32, the test-scale model.  Training CenterNet is not ported yet;
-these configs serve ``/v1/detect``."""
+float32, the test-scale model.  Both train through ``cli.train`` and
+serve ``/v1/detect``."""
 
 import torch
 

@@ -262,7 +262,7 @@ def test_http_detect_and_mismatched_verbs(served, tmp_path):
     """One server with a detection model and a classifier:
     ``/v1/detect`` with ``score_threshold`` answers what a direct
     ``respond`` answers; each model's wrong verb answers 400 naming the
-    right route; an unknown route 404 with both verbs."""
+    right route; an unknown route 404 with the supported verbs."""
     from deep_vision_tpu_torch.cli import serve as cli
 
     sm = served["centernet_toy"]
@@ -313,9 +313,12 @@ def test_http_detect_and_mismatched_verbs(served, tmp_path):
                              {"model": sm.name, "pixels": x[0].tolist(),
                               "score_threshold": "high"})
         assert status == 400
-        status, body = _post(srv.port, "/v1/pose", {"pixels": []})
+        status, body = _post(srv.port, "/v1/pose",
+                             {"model": clf.name, "pixels": []})
+        assert status == 400 and "/v1/classify" in body["error"]
+        status, body = _post(srv.port, "/v1/generate", {"pixels": []})
         assert status == 404
-        assert body["supported_verbs"] == ["classify", "detect"]
+        assert body["supported_verbs"] == ["classify", "detect", "pose"]
         status, models = _get(srv.port, "/v1/models")
         desc = models["models"][sm.name]["model"]
         assert desc["workload"] == "detect"

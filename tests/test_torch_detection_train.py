@@ -301,17 +301,25 @@ def test_cli_train_yolov3_toy_on_cpu_with_resume(tmp_path, capsys):
             "train_obj_2", "train_step_ms"} <= names
 
 
-def test_cli_refuses_centernet(tmp_path):
+def test_cli_refuses_centernet(tmp_path, monkeypatch):
+    """``-m centernet`` trains on the card: without a GPU and without
+    ``--device cpu`` it is refused before any work; a task that is not
+    ported is refused naming the ported ones."""
     from deep_vision_tpu_torch.cli import train as cli
     from deep_vision_tpu_torch.core import config as port_config
     from deep_vision_tpu_torch.models.yolo import YoloV3
 
-    port_config.register_config("torch_port_centernet_stub")(
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(["-m", "centernet", "--synthetic", "--workdir",
+                  str(tmp_path)])
+    assert not os.listdir(tmp_path)
+    port_config.register_config("torch_port_gan_stub")(
         lambda: port_config.TrainConfig(
-            name="torch_port_centernet_stub", model=lambda: YoloV3(3),
-            task="centernet"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["-m", "torch_port_centernet_stub", "--synthetic",
+            name="torch_port_gan_stub", model=lambda: YoloV3(3),
+            task="gan_dcgan"))
+    with pytest.raises(NotImplementedError, match="centernet"):
+        cli.main(["-m", "torch_port_gan_stub", "--synthetic",
                   "--workdir", str(tmp_path), "--device", "cpu"])
 
 
