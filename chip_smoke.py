@@ -39,7 +39,8 @@ Phases, each of which must pass:
               against an ingest without the ImageNet mean/std must fail
               that check.
               Then the eager forward time of every bucket on the card,
-              and one float32-infer request (the serve_normalize path);
+              and one float32-infer request (serve_ingest with float32
+              out);
 4. train kernel — hold ``train_ingest`` against its plain PyTorch
               version on the card at (B, 224, 224, 3) for B in
               {256, 32, 1} and at (3, 17, 23, 3), with seeded factors:
@@ -178,7 +179,49 @@ Phases, each of which must pass:
               requests answer 400 naming ``/v1/pose``.  Prints forward and
               epilogue ms per bucket, the client p50 and the concurrent
               img/s;
-16. card    — print ``nvidia-smi --query-gpu=name,power.limit``.
+16. zoo kernels — within phases 2 and 4: ``train_ingest`` at the zoo's
+              shapes (128, 224, 224, 3), (128, 299, 299, 3) (299·299·3
+              bytes an image is no multiple of 16: the per-pixel path) and
+              (1024, 224, 224, 3), and ``serve_ingest`` at (32, 32, 32, 1)
+              "mnist" and (32, 299, 299, 3) "imagenet", int8 and float32,
+              all bit for bit, timed against their bounds;
+17. zoo steps — each of alexnet1, alexnet2, vgg16, vgg19, inception1,
+              inception3, mobilenet1, shufflenet1, resnet50v2 and
+              resnet50_modern: the port's Trainer at the recipe's batch
+              and size, bf16, 3 steps on a seeded uint8 batch on the card
+              through ``train_ingest``: finite losses, 0 bad steps (for
+              inception1, whose reference recipe diverges at its init on
+              noise, the guard must skip the non-finite steps and keep the
+              weights finite: ``ZOO_DIVERGING``), one launch a step; step
+              ms (CUDA events), img/s, peak memory;
+18. zoo training — ``cli.train`` for inception3 (299², batch 128,
+              RMSprop) on 512 train and 128 val seeded raw records stored
+              at 341², 6 workers, and for lenet5 on seeded idx-ubyte files
+              at MNIST's size (60,000 + 10,000), each 2 epochs and a
+              resumed third: a checkpoint an epoch, the resumed run
+              starting from the last with its weights, BN statistics and
+              optimizer state (RMSprop's nu and trace, Adam's moments and
+              count), finite losses, no bad step, one ``train_ingest``
+              launch an inception3 step; step ms, img/s, input stall,
+              peak memory;
+19. zoo step checks — one float32 step of full-width mobilenet1
+              (RMSprop, depthwise convs, BN) and inception1 (SGD, LRN, two
+              aux heads, three dropouts) at 128², batch 8, on the card and
+              on the CPU from the same seeded weights, factors and dropout
+              masks (drawn on the CPU and copied): loss within 1e-4
+              relative, updates within max(1e-3, 10× the CPU's own floor)
+              in L2 (5e-2 a tensor), a gradient in every weight (every
+              Inception branch and both aux heads); rolled labels must
+              fail;
+20. classify serving — lenet5 float32 ("mnist") and inception3 int8
+              ("imagenet") on the uint8 wire, seeded weights with non-zero
+              BN scales, buckets 1–32, 32 ``/v1/classify`` requests each (8
+              sequential, 24 concurrent): every answer 200 and equal to a
+              direct plain-ingest call at one of the buckets (top-5
+              classes, logits within twice the card's own bucket-1-vs-32
+              spread), a "unit" ingest (no mean and std) control failing
+              on most rows, ``serve_ingest`` launches equal to the batches;
+21. card    — print ``nvidia-smi --query-gpu=name,power.limit``.
 
 Before the last line it prints ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on its own path, max error, kernel / plain /
@@ -218,6 +261,41 @@ INGEST_OPS = {True: 7, False: 3}
 TRAIN_INGEST_OPS = 13 + 5 / 3
 TRAIN_SHAPES = [(256, 224, 224, 3), (32, 224, 224, 3), (1, 224, 224, 3),
                 (3, 17, 23, 3)]
+#: the classifier zoo's train_ingest shapes: batch 128 at 224² (AlexNet,
+#: VGG, Inception V1, MobileNet), Inception V3's 299² (299·299·3 bytes
+#: an image is no multiple of 16: the per-pixel path) and
+#: resnet50_modern's batch 1024
+ZOO_TRAIN_SHAPES = [(128, 224, 224, 3), (128, 299, 299, 3),
+                    (1024, 224, 224, 3)]
+#: serve_ingest at the zoo's /v1/classify buckets: lenet5's "mnist"
+#: float32 and inception3's "imagenet" int8 (both outputs checked)
+ZOO_SERVE_CASES = [("mnist", (32, 32, 32, 1)), ("imagenet", (32, 299, 299, 3))]
+#: the classifier recipes driven for 3 train steps each at their own
+#: batch and size (bf16, train_ingest on every step)
+ZOO_STEP_MODELS = ("alexnet1", "alexnet2", "vgg16", "vgg19", "inception1",
+                   "inception3", "mobilenet1", "shufflenet1", "resnet50v2",
+                   "resnet50_modern")
+ZOO_STEPS = 3
+#: recipes whose own first steps diverge on seeded noise at the
+#: reference's init: Inception V1's He fan-out convs with no
+#: BatchNorm put its logits at a standard deviation of 72 (the JAX
+#: package's own init, 128²), and SGD at lr 0.01 takes the loss from
+#: about 780 to 7e11 and then NaN (the port on the CPU, float32, 224²,
+#: batch 16; one step of it equals the JAX Trainer's,
+#: tests/test_torch_zoo_step.py).  For these the divergence guard must
+#: skip exactly the non-finite steps and leave the weights finite.
+ZOO_DIVERGING = ("inception1",)
+#: inception3 through cli.train: seeded raw records stored at its
+#: resize (341²), 4 train steps an epoch at batch 128, one val batch
+ZOO_TRAIN, ZOO_VAL, ZOO_WORKERS = 512, 128, 6
+#: lenet5 through cli.train on MNIST's own sizes
+MNIST_TRAIN, MNIST_TEST = 60000, 10000
+#: the card-vs-CPU float32 steps: size, batch
+ZOO_CHECK_MODELS = ("mobilenet1", "inception1")
+ZOO_CHECK_SIZE, ZOO_CHECK_BATCH = 128, 8
+#: /v1/classify serving of the zoo: (config, --infer-dtype, ingest kind)
+CLASSIFY_MODELS = (("lenet5", "float32", "mnist"),
+                   ("inception3", "int8", "imagenet"))
 N_TRAIN, N_VAL, STORED, BATCH = 1024, 256, 256, 256
 EPOCHS, RESUME_EPOCHS, WORKERS = 2, 3, 4
 STEP_CHECK_BATCH = 8
@@ -376,7 +454,7 @@ def phase_kernels() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [("imagenet", (b, 224, 224, 3)) for b in (1, 8, 32)] + [
         ("imagenet", (3, 17, 23, 3)), ("mnist", (4, 32, 32, 1))] + [
-        ("unit", (32, s, s, 3)) for s in DETECT_SIZES]
+        ("unit", (32, s, s, 3)) for s in DETECT_SIZES] + ZOO_SERVE_CASES
     rows = []
     for kind, shape in cases:
         scale = act_scale_for(kind, shape[-1])
@@ -395,6 +473,10 @@ def phase_kernels() -> list[dict]:
             if quantize:
                 check(torch.equal(got, want),
                       f"serve_ingest int8 differs from plain at {shape} "
+                      f"{kind}: max err {err}")
+            elif (kind, shape) in ZOO_SERVE_CASES:
+                check(torch.equal(got, want),
+                      f"serve_ingest f32 differs from plain at {shape} "
                       f"{kind}: max err {err}")
             else:
                 check(err <= 1e-6, f"serve_ingest f32 differs from plain "
@@ -469,18 +551,12 @@ def seeded_weights(path: str, seed: int = 0) -> None:
     import torch
 
     from deep_vision_tpu_torch import convert
-    from deep_vision_tpu_torch.models.common import BatchNorm2d
     from deep_vision_tpu_torch.models.resnet import ResNet50
 
     gen = torch.Generator().manual_seed(seed)
     model = ResNet50().reset_parameters(gen)
+    nonzero_bn_(model, gen)
     with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, BatchNorm2d):
-                m.weight.uniform_(0.5, 1.0, generator=gen)
-                m.bias.normal_(0.0, 0.1, generator=gen)
-                m.running_mean.normal_(0.0, 0.1, generator=gen)
-                m.running_var.uniform_(0.5, 1.5, generator=gen)
         model.fc.bias.normal_(0.0, 0.1, generator=gen)
     convert.save_npz(path, convert.import_torch_resnet(model.state_dict(),
                                                         MODEL))
@@ -681,7 +757,8 @@ def phase_serving() -> dict:
               "concurrent requests were never batched together")
         log(f"int8 serving: {json.dumps(out)}")
         del sm, engine, server
-        # the serve_normalize path: one float32-infer request
+        # the float32 ingest (serve_ingest with float32 out): one
+        # float32-infer request
         engine, server = boot(weights, "float32", (1,), False)
         try:
             f32 = [post(server.port, bodies[0])]
@@ -694,6 +771,24 @@ def phase_serving() -> dict:
         check(not out["float32_infer"]["faults"],
               f"float32 answers: {out['float32_infer']['faults']}")
     return out
+
+
+def nonzero_bn_(model, gen) -> None:
+    """NON-ZERO BatchNorm scales (uniform 0.5–1), biases and running
+    means about 0, positive running variances, drawn from ``gen``: the
+    reference's init zeroes the last scale of a residual block, which
+    would hide the branch from a check."""
+    import torch
+
+    from deep_vision_tpu_torch.models.common import BatchNorm2d
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.weight.uniform_(0.5, 1.0, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
 
 
 def seeded_model(name: str, seed: int):
@@ -711,19 +806,12 @@ def seeded_model(name: str, seed: int):
     import torch
 
     from deep_vision_tpu_torch.core.config import get_config
-    from deep_vision_tpu_torch.models.common import BatchNorm2d
 
     cfg = get_config(name)
     model = cfg.model()
     gen = torch.Generator().manual_seed(seed)
     model.reset_parameters(gen)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, BatchNorm2d):
-                m.weight.uniform_(0.5, 1.0, generator=gen)
-                m.bias.normal_(0.0, 0.1, generator=gen)
-                m.running_mean.normal_(0.0, 0.1, generator=gen)
-                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    nonzero_bn_(model, gen)
     yolo = name.startswith("yolo")
     if yolo:
         heads = [(getattr(model, h).out, HEAD_STD["yolo"], 0.0)
@@ -786,7 +874,6 @@ def direct_rows(sm, images: np.ndarray, bucket: int,
 
     kind = kind or sm.preprocess_kind
     post = sm.workload.make_epilogue(sm)
-    s = float(sm.quant.act_scale)
     rows = []
     for i in range(0, len(images), bucket):
         chunk = images[i:i + bucket]
@@ -794,9 +881,18 @@ def direct_rows(sm, images: np.ndarray, bucket: int,
         batch[:len(chunk)] = chunk
         x = torch.from_numpy(batch).to(sm.device)
         with torch.inference_mode():
-            xf = serve_ingest_plain(x, kind, s).to(torch.float32) * s
-            out = post(map_leaves(lambda t: t.to(torch.float32),
-                                  sm._model(xf)))
+            if sm.infer_dtype == "int8":
+                s = float(sm.quant.act_scale)
+                xf = serve_ingest_plain(x, kind, s).to(torch.float32) * s
+            else:
+                xf = serve_ingest_plain(x, kind, quantize=False)
+            out = map_leaves(lambda t: t.to(torch.float32), sm._model(xf))
+            if post is not None:
+                out = post(out)
+        if isinstance(out, torch.Tensor):  # classify: the logits
+            host = out.cpu().numpy()
+            rows += [host[j] for j in range(len(chunk))]
+            continue
         host = {k: v.cpu().numpy() for k, v in out.items()}
         rows += [{k: v[j] for k, v in host.items()}
                  for j in range(len(chunk))]
@@ -817,6 +913,15 @@ def answer_diff(got: dict, want: dict) -> tuple[bool, float, float]:
     db = float(np.abs(np.array([x["box"] for x in a])
                       - np.array([y["box"] for y in b])).max())
     return True, ds, db
+
+
+def classify_diff(got: dict, want: dict) -> tuple[bool, float, float]:
+    """(same top-k classes in order, max |Δlogit|, 0) of two
+    /v1/classify answers."""
+    a, b = got["top"], want["top"]
+    if [t["class"] for t in a] != [t["class"] for t in b]:
+        return False, math.inf, math.inf
+    return True, max(abs(x["logit"] - y["logit"]) for x, y in zip(a, b)), 0.0
 
 
 def pose_diff(got: dict, want: dict) -> tuple[bool, float, float]:
@@ -928,9 +1033,10 @@ def bucket_epilogue_ms(sm, buckets, iters: int = 10) -> dict:
 
 
 def serve_over_http(name: str, weights: str, verb: str, body: dict,
-                    extra=()) -> tuple:
-    """Serve ``name`` int8 on the uint8 wire over HTTP on the card
-    (buckets 1–32, warmed up), POST 8 sequential then 24 concurrent
+                    extra=(), infer_dtype: str = "int8",
+                    kind: str = "unit") -> tuple:
+    """Serve ``name`` (``infer_dtype``, ``kind`` ingest) on the uint8
+    wire over HTTP on the card (buckets 1–32, warmed up), POST 8 sequential then 24 concurrent
     ``/v1/{verb}`` requests of seeded noise images with ``serve_ingest``'s
     count set to 0 just before and read just after, and a request to
     every other verb, which must answer 400 naming ``/v1/{verb}``.
@@ -942,7 +1048,7 @@ def serve_over_http(name: str, weights: str, verb: str, body: dict,
     from deep_vision_tpu_torch.serve.workloads import WORKLOADS
 
     argv = ["-m", name, "--weights", weights, "--wire-dtype", "uint8",
-            "--infer-dtype", "int8", "--port", "0",
+            "--infer-dtype", infer_dtype, "--port", "0",
             "--max-batch", str(max(BUCKETS)),
             "--buckets", ",".join(map(str, BUCKETS)), "--device", "cuda",
             "--warmup", *extra]
@@ -950,10 +1056,12 @@ def serve_over_http(name: str, weights: str, verb: str, body: dict,
     engine, server = cli.build_server(cli.build_parser().parse_args(argv))
     server.start_background()
     sm = engine.model
-    log(f"serving {name} int8: boot + warmup {time.monotonic() - t0:.1f} s, "
-        f"buckets {engine.buckets}, act_scale {sm.quant.act_scale}")
-    check(sm.weights == weights and sm.preprocess_kind == "unit",
-          f"{name} did not load its weights with the 'unit' ingest")
+    act_scale = sm.quant.act_scale if sm.quant is not None else None
+    log(f"serving {name} {infer_dtype}: boot + warmup "
+        f"{time.monotonic() - t0:.1f} s, buckets {engine.buckets}, "
+        f"act_scale {act_scale}")
+    check(sm.weights == weights and sm.preprocess_kind == kind,
+          f"{name} did not load its weights with the '{kind}' ingest")
     n = N_SEQ + N_CONC
     imgs = np.random.RandomState(3).randint(
         0, 256, (n, *sm.input_shape), np.uint8)
@@ -1001,16 +1109,18 @@ def serve_over_http(name: str, weights: str, verb: str, body: dict,
                "engine_latency_ms": stats["latency"],
                "device_idle_frac_host_proxy": pipe["device_idle_frac"],
                "wrong_verbs": {k: v[0] for k, v in wrong_verbs.items()},
-               "act_scale": sm.quant.act_scale}
+               "act_scale": act_scale}
     return sm, imgs, replies, numbers
 
 
-def hold_answers(name: str, sm, imgs, replies, body: dict, diff) -> dict:
+def hold_answers(name: str, sm, imgs, replies, body: dict, diff,
+                 control: str = "imagenet") -> dict:
     """The served answers against direct plain-ingest calls at every
     bucket, within twice the card's own spread between buckets 1 and
     32 (at least one float32 step at 1 in scores and the boxes' 4-place
-    rounding); then the same answers against an "imagenet" ingest, which
-    must fail on most rows."""
+    rounding); then the same answers against the ``control`` ingest (an
+    "imagenet" one for a [0, 1] model, "unit", without mean and std, for
+    a classifier), which must fail on most rows."""
     refs = {b: direct_rows(sm, imgs, b) for b in BUCKETS}
     spread = bucket_spread(sm, refs, body, diff)
     bounds = (max(2 * spread["score"], 2 ** -23),
@@ -1020,8 +1130,8 @@ def hold_answers(name: str, sm, imgs, replies, body: dict, diff) -> dict:
         f"direct plain-ingest calls: {json.dumps(agree)}")
     check(not agree["faults"], f"{name} answers: {agree['faults'][:5]}")
     wrong = compare_rows(sm, replies, {b: direct_rows(
-        sm, imgs, b, "imagenet") for b in BUCKETS}, body, bounds, diff)
-    log(f"{name} control, answers vs an 'imagenet' ingest: "
+        sm, imgs, b, control) for b in BUCKETS}, body, bounds, diff)
+    log(f"{name} control, answers vs a '{control}' ingest: "
         f"{len(wrong['faults'])} of {len(replies)} fail")
     check(2 * len(wrong["faults"]) > len(replies),
           f"{name}: the answer check passed against a wrong ingest")
@@ -1167,7 +1277,7 @@ def phase_train_kernels() -> list[dict]:
         return train_ingest_plain(*p)
 
     rows = []
-    for shape in TRAIN_SHAPES:
+    for shape in TRAIN_SHAPES + ZOO_TRAIN_SHAPES:
         numel = math.prod(shape)
         n_bufs = max(2, min(128, math.ceil(100e6 / (5 * numel))))
         pairs = []
@@ -1401,21 +1511,22 @@ def phase_iou_kernels() -> list[dict]:
     return rows
 
 
-def write_records(root: str) -> None:
+def write_records(root: str, n_train: int = N_TRAIN, n_val: int = N_VAL,
+                  stored: int = STORED) -> None:
     """Seeded raw-payload dvrec shards (``prepare_data --store raw``),
     stored at the loader's resize so no resize is needed."""
     from deep_vision_tpu_torch.data.records import RecordWriter, shard_name
 
     rng = np.random.default_rng(3)
-    for split, n, shards in (("train", N_TRAIN, 4), ("val", N_VAL, 1)):
+    for split, n, shards in (("train", n_train, 4), ("val", n_val, 1)):
         labels = rng.integers(0, 1000, n)
         for i in range(shards):
             with RecordWriter(shard_name(root, split, i, shards)) as w:
                 for j in range(i, n, shards):
-                    img = rng.integers(0, 256, (STORED, STORED, 3),
+                    img = rng.integers(0, 256, (stored, stored, 3),
                                        dtype=np.uint8)
                     w.write({"label": int(labels[j]), "enc": "raw",
-                             "shape": [STORED, STORED, 3]}, img.tobytes())
+                             "shape": [stored, stored, 3]}, img.tobytes())
 
 
 def state_digest(model_sd: dict, opt_state: dict) -> str:
@@ -1759,14 +1870,15 @@ def read_series(workdir: str) -> dict[str, list]:
 
 
 def train_and_resume(name: str, data: str, work: str, workers: int,
-                     steps: int, counter=None) -> dict:
+                     steps: int, counter=None, extra=()) -> dict:
     """``cli.train.main`` for ``name`` on the card over the records in
     ``data``: ``EPOCHS`` epochs, then ``--resume --epochs
     RESUME_EPOCHS``.  Checks a checkpoint per epoch, that the resumed
     run starts from the last one with its weights, BN statistics and
     Adam state (one digest over all of them), every logged loss finite
-    and no bad step.  ``counter`` reads a kernel's launch count, set to
-    0 just before the first run.  Returns the numbers and the metric
+    and no bad step (an optimizer without a count, SGD or RMSprop, is
+    held by the digest alone).  ``counter`` reads a kernel's launch
+    count, set to 0 just before the first run.  Returns the numbers and the metric
     series."""
     import torch
 
@@ -1775,7 +1887,7 @@ def train_and_resume(name: str, data: str, work: str, workers: int,
     from deep_vision_tpu_torch.core.trainer import Trainer
 
     argv = ["-m", name, "--data-root", data, "--workdir", work,
-            "--num-workers", str(workers), "--device", "cuda"]
+            "--num-workers", str(workers), "--device", "cuda", *extra]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     check(cli.main(argv + ["--epochs", str(EPOCHS)]) == 0,
@@ -1794,7 +1906,7 @@ def train_and_resume(name: str, data: str, work: str, workers: int,
         state = original(self, state)
         resumed.update(
             step=state.step, epoch=self.start_epoch,
-            count=int(state.opt.count),
+            count=int(getattr(state.opt, "count", EPOCHS * steps)),
             digest=state_digest(state.model.state_dict(),
                                 state.opt.state_dict()))
         return state
@@ -2206,6 +2318,383 @@ def phase_yolo_step_check() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The classifier zoo
+# ---------------------------------------------------------------------------
+
+
+def phase_zoo_steps() -> dict:
+    """Each zoo recipe's Trainer at its own batch and size, bf16, on a
+    seeded uint8 batch on the card through train_ingest: ZOO_STEPS
+    steps, finite losses, no bad step, one train_ingest launch a step.
+    Step ms from CUDA events (the first step includes cuDNN's choice of
+    algorithms), img/s and peak memory."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    out = {}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    for i, name in enumerate(ZOO_STEP_MODELS):
+        cfg = get_config(name)
+        b, size = cfg.batch_size, cfg.image_size
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        batch = {"image": torch.randint(0, 256, (b, size, size, 3),
+                                        dtype=torch.uint8, device="cuda",
+                                        generator=gen),
+                 "label": torch.randint(0, cfg.num_classes, (b,),
+                                        device="cuda", generator=gen)}
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(REPO, "_scratch")) as work:
+            t0 = time.monotonic()
+            trainer = Trainer(cfg, cfg.model(), ClassificationTask(
+                cfg.num_classes, cfg.label_smoothing), workdir=work,
+                preprocess_fn=make_imagenet_preprocess(), device="cuda")
+            state = trainer.init_state()
+            state.opt.set_learning_rate(trainer.scheduler.epoch_begin(1))
+            init_s = time.monotonic() - t0
+            params = sum(p.numel() for p in state.model.parameters())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            train_ingest.launches = 0
+            step_ms, losses = [], []
+            for _ in range(ZOO_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, m = trainer.train_step(state, batch)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms.append(start.elapsed_time(end))
+                losses.append(float(m["loss"]))
+            launches = train_ingest.launches
+            bad = int(state.bad_steps)
+            peak = torch.cuda.max_memory_allocated()
+            finite = all(bool(torch.isfinite(p).all())
+                         for p in state.model.parameters())
+            del trainer, state, m
+        torch.cuda.empty_cache()
+        steady = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
+        row = {"batch": b, "size": size, "params": params,
+               "optimizer": cfg.optimizer.name, "step_ms": step_ms,
+               "steady_step_ms": steady, "img_per_s": b * 1e3 / steady,
+               "peak_memory_bytes": peak, "losses": losses,
+               "bad_steps": bad, "train_ingest_launches": launches,
+               "weights_finite": finite, "init_s": init_s}
+        log(f"zoo step {name}: {json.dumps(row)}")
+        nonfinite = sum(not math.isfinite(v) for v in losses)
+        if name in ZOO_DIVERGING:
+            check(math.isfinite(losses[0]) and bad >= nonfinite and finite,
+                  f"{name}: the guard skipped {bad} steps for {nonfinite} "
+                  f"non-finite losses {losses} (weights finite: {finite})")
+        else:
+            check(nonfinite == 0 and bad == 0,
+                  f"{name}: losses {losses}, {bad} bad steps")
+        check(launches == ZOO_STEPS, f"{name}: train_ingest launched "
+                                     f"{launches} times in {ZOO_STEPS} steps")
+        out[name] = row
+    return out
+
+
+def phase_zoo_training() -> dict:
+    """cli.train for inception3 (InceptionV3, 299², bf16, batch 128,
+    RMSprop) on seeded raw records stored at its resize, loader workers,
+    2 epochs and a resumed third: exact resume of the weights, the BN
+    statistics and RMSprop's nu and trace; one train_ingest launch a
+    train step."""
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.data.transforms import imagenet_resize_for
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+
+    cfg = get_config("inception3")
+    stored = imagenet_resize_for(cfg.image_size)
+    steps = ZOO_TRAIN // cfg.batch_size
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
+        t0 = time.monotonic()
+        write_records(data, ZOO_TRAIN, ZOO_VAL, stored)
+        log(f"inception3: wrote {ZOO_TRAIN}+{ZOO_VAL} raw records at "
+            f"{stored}² in {time.monotonic() - t0:.1f} s")
+        train_ingest.launches = 0
+        out, series = train_and_resume(
+            "inception3", data, work, ZOO_WORKERS, steps,
+            lambda: train_ingest.launches,
+            ("--data-format", "records"))
+    check(out["first_launches"] == EPOCHS * steps
+          and out["launches"] == RESUME_EPOCHS * steps,
+          f"inception3: train_ingest launched {out['first_launches']} / "
+          f"{out['launches']} times in {EPOCHS * steps} / "
+          f"{RESUME_EPOCHS * steps} steps")
+    out.update(batch=cfg.batch_size, stored=stored,
+               val_loss=series["val_loss"][-1][1],
+               val_top1=series["val_top1"][-1][1])
+    check(math.isfinite(out["val_loss"]), "inception3: non-finite val loss")
+    log(f"inception3 training: {json.dumps(out)}")
+    return out
+
+
+def phase_lenet_training() -> dict:
+    """cli.train for lenet5 (float32, batch 64, Adam) on seeded idx-ubyte
+    files at MNIST's own size (60,000 train, 10,000 test images of
+    28×28), 2 epochs and a resumed third: exact resume of the weights
+    and Adam's moments and count."""
+    from deep_vision_tpu_torch.data import mnist
+
+    steps = MNIST_TRAIN // 64
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        data, work = os.path.join(tmp, "mnist"), os.path.join(tmp, "work")
+        os.makedirs(data)
+        rng = np.random.default_rng(8)
+        for split, n in (("train", MNIST_TRAIN), ("test", MNIST_TEST)):
+            mnist.write_idx(data, split,
+                            rng.integers(0, 256, (n, 28, 28), np.uint8),
+                            rng.integers(0, 10, n).astype(np.uint8))
+        out, series = train_and_resume("lenet5", data, work, 0, steps)
+    out.update(val_loss=series["val_loss"][-1][1],
+               val_top1=series["val_top1"][-1][1])
+    check(math.isfinite(out["val_loss"]), "lenet5: non-finite val loss")
+    log(f"lenet5 training: {json.dumps(out)}")
+    return out
+
+
+class MaskReplay:
+    """Forward hooks on a model's Dropouts: the first run draws each
+    mask on the CPU (in call order) and keeps it; later runs, on any
+    device, apply the kept masks, copied there.  A CUDA and a CPU
+    generator give different streams from one seed, so the card-vs-CPU
+    step holds dropout through its masks."""
+
+    def __init__(self, seed: int):
+        import torch
+
+        self.gen = torch.Generator().manual_seed(seed)
+        self.masks: list = []
+        self.calls = 0
+
+    def attach(self, model) -> list:
+        from deep_vision_tpu_torch.models.common import Dropout
+
+        self.calls = 0
+        return [m.register_forward_hook(self.hook) for m in model.modules()
+                if isinstance(m, Dropout)]
+
+    def hook(self, mod, inputs, out):
+        import torch
+
+        if not mod.training or mod.rate == 0.0:
+            return out
+        x = inputs[0]
+        if self.calls == len(self.masks):
+            self.masks.append(torch.rand(x.shape, generator=self.gen)
+                              < 1.0 - mod.rate)
+        keep = self.masks[self.calls].to(x.device)
+        self.calls += 1
+        return torch.where(keep, x / (1.0 - mod.rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def zoo_step(name: str, device: str, model_sd: dict, images, labels,
+             factors, masks: MaskReplay, workdir: str):
+    """One float32 train step of config ``name`` at ZOO_CHECK_SIZE² on
+    ``device`` with the config's optimizer (through train_ingest with
+    fixed factors, the dropout masks of ``masks``): (loss, state_dict
+    before, after), on the CPU."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    cfg = get_config(name)
+    cfg.batch_size, cfg.image_size = ZOO_CHECK_BATCH, ZOO_CHECK_SIZE
+    model = cfg.model().set_compute_dtype(torch.float32)
+    model.load_state_dict(model_sd)
+    f = factors.to(device)
+
+    def preprocess(batch, generator, train):
+        return {**batch, "image": train_ingest(batch["image"], f)}
+
+    trainer = Trainer(cfg, model, ClassificationTask(1000), workdir=workdir,
+                      preprocess_fn=preprocess, device=device)
+    state = trainer.state_for(model)
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    handles = masks.attach(model)
+    try:
+        state, m = trainer.train_step(state, {"image": images,
+                                              "label": labels})
+    finally:
+        for h in handles:
+            h.remove()
+    after = {k: v.detach().cpu().clone()
+             for k, v in state.model.state_dict().items()}
+    check(int(m["bad_steps"]) == 0, f"{name}: the {device} step was skipped")
+    return float(m["loss"]), before, after
+
+
+def phase_zoo_step_check(name: str) -> dict:
+    """float32 step of full-width ``mobilenet1`` (RMSprop, depthwise
+    convs, BN) or ``inception1`` (SGD, LRN, two aux heads, dropout) at
+    ZOO_CHECK_SIZE², batch ZOO_CHECK_BATCH, on the card (train_ingest
+    kernel) against the same step on the CPU (plain version), same
+    seeded weights (non-zero BN scales), factors and dropout masks
+    (drawn on the CPU): the loss within 1e-4 relative, the parameters'
+    update within max(1e-3, 10× the CPU's own floor) in L2, the running
+    statistics' within max(1e-4, 10× floor), each tensor's within
+    max(5e-2, 10× floor); the floor is the CPU's step from weights moved
+    by 1e-7 (relative): at full depth MobileNet's forward drifts by
+    rounding until ReLU gates flip.  Every weight's update must carry
+    gradient, not weight decay alone (every branch of every Inception
+    module and both aux heads); the same step with each image's label on
+    the next image must fail the bounds."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest_factors
+
+    cfg = get_config(name)
+    cfg.image_size = ZOO_CHECK_SIZE
+    gen = torch.Generator().manual_seed(12)
+    model = cfg.model().reset_parameters(gen)
+    nonzero_bn_(model, gen)
+    sd = model.state_dict()
+    rng = np.random.default_rng(13)
+    images = rng.integers(0, 256, (ZOO_CHECK_BATCH, ZOO_CHECK_SIZE,
+                                   ZOO_CHECK_SIZE, 3), dtype=np.uint8)
+    labels = (np.arange(ZOO_CHECK_BATCH) * 97).astype(np.int32)
+    factors = train_ingest_factors(torch.from_numpy(images),
+                                   torch.Generator().manual_seed(14))
+    moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+             if v.is_floating_point() else v for k, v in sd.items()}
+    masks = MaskReplay(15)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        t0 = time.monotonic()
+        cpu = zoo_step(name, "cpu", sd, images, labels, factors, masks,
+                       os.path.join(tmp, "c"))
+        cpu_s = time.monotonic() - t0
+        floor = update_errors(zoo_step(name, "cpu", moved, images, labels,
+                                       factors, masks,
+                                       os.path.join(tmp, "m")), cpu)
+        gpu = zoo_step(name, "cuda", sd, images, labels, factors, masks,
+                       os.path.join(tmp, "g"))
+        control = zoo_step(name, "cuda", sd, images, np.roll(labels, 1),
+                           factors, masks, os.path.join(tmp, "r"))
+    bounds = {"params": max(1e-3, 10 * floor["params"]),
+              "stats": max(1e-4, 10 * floor["stats"]),
+              "tensor": max(5e-2, 10 * max(floor["l2"].values()))}
+
+    def faults_of(step):
+        errs = update_errors(step, cpu)
+        faults = []
+        if abs(step[0] - cpu[0]) > 1e-4 * abs(cpu[0]):
+            faults.append(f"loss {step[0]} vs {cpu[0]}")
+        for part in ("params", "stats"):
+            if errs[part] > bounds[part]:
+                faults.append(f"{part} update {errs[part]:.3e} in L2")
+        faults += [f"{k}: {e:.3e} in L2" for k, e in errs["l2"].items()
+                   if e > bounds["tensor"]]
+        return faults, errs
+
+    faults, errs = faults_of(gpu)
+    control_faults, _ = faults_of(control)
+    # the share of each weight's update that is gradient, not decay
+    decay = cfg.optimizer.learning_rate * cfg.optimizer.weight_decay \
+        if cfg.optimizer.name == "sgd" else 0.0
+    _, before, after = cpu
+    shares = {k: float((after[k] - before[k] + decay * before[k]).norm()
+                       / max(float((after[k] - before[k]).norm()), 1e-30))
+              for k in after if k.endswith(".weight")
+              and after[k].dim() > 1}
+    aux = [k for k in shares if k.startswith(("aux1", "aux2"))]
+    out = {"loss_cuda": gpu[0], "loss_cpu": cpu[0],
+           "params_l2_update_err": errs["params"],
+           "stats_l2_update_err": errs["stats"],
+           "worst_tensor_l2_update_err": max(errs["l2"].values()),
+           "floor": {"params_l2": floor["params"],
+                     "stats_l2": floor["stats"],
+                     "worst_tensor_l2": max(floor["l2"].values())},
+           "bounds": bounds, "faults": faults,
+           "dropout_masks": len(masks.masks),
+           "min_grad_share": min(shares.values()),
+           "weights_held": len(shares), "aux_weights": len(aux),
+           "control_faults": len(control_faults),
+           "control_first_faults": control_faults[:3], "cpu_step_s": cpu_s}
+    log(f"{name} step check: {json.dumps(out)}")
+    check(min(shares.values()) > 1e-2,
+          f"{name}: some weight got no gradient: "
+          f"{sorted(shares, key=shares.get)[:3]}")
+    check(name != "inception1" or (len(aux) == 6 and len(masks.masks) == 3),
+          f"{name}: the aux heads or their dropouts did not run")
+    check(not faults, f"{name}: the card's float32 step disagrees with the "
+                      f"CPU's: {faults[:5]}")
+    check(bool(control_faults),
+          f"{name}: the step check passed with the labels rolled")
+    return out
+
+
+def write_classifier_weights(name: str, path: str, seed: int) -> None:
+    """Config ``name``'s model at the reference's init from the seed with
+    non-zero BatchNorm scales and positive running variances, written in
+    the reference's flax layout as a ``--weights`` npz."""
+    import torch
+
+    from deep_vision_tpu_torch import convert
+    from deep_vision_tpu_torch.core.config import get_config
+
+    model = get_config(name).model()
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    nonzero_bn_(model, gen)
+    convert.save_npz(path, convert.classifier_to_flax(model.state_dict(),
+                                                      model))
+
+
+def phase_classify_serving() -> dict:
+    """/v1/classify of lenet5 (float32 on the uint8 wire, "mnist") and
+    inception3 (int8 on the uint8 wire, "imagenet") over HTTP on the
+    card: 8 sequential and 24 concurrent requests each, every answer
+    200 and equal to a direct plain-ingest call at one of the buckets
+    within twice the card's own bucket-1-vs-32 spread, a control ingest
+    without mean and std failing on most rows, one serve_ingest launch
+    a batch formed."""
+    import torch
+
+    body = {"top_k": 5}
+    out = {}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        for seed, (name, dtype, kind) in enumerate(CLASSIFY_MODELS):
+            weights = os.path.join(tmp, f"{name}.npz")
+            write_classifier_weights(name, weights, 20 + seed)
+            sm, imgs, replies, row = serve_over_http(
+                name, weights, "classify", body, infer_dtype=dtype,
+                kind=kind)
+            row.update(hold_answers(name, sm, imgs, replies, body,
+                                    classify_diff, control="unit"))
+            row.update(infer_dtype=dtype, kind=kind,
+                       forward_ms_by_bucket=bucket_forward_ms(sm, BUCKETS))
+            log(f"{name} classify serving: {json.dumps(row)}")
+            out[name] = row
+            del sm
+            torch.cuda.empty_cache()
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2249,12 +2738,27 @@ def main() -> int:
         heat_check[name] = phase_heatmap_step_check(name)
         torch.cuda.empty_cache()
     pose = phase_pose_serving()
+    zoo_steps = phase_zoo_steps()
+    zoo_train = phase_zoo_training()
+    lenet = phase_lenet_training()
+    zoo_check = {}
+    for name in ZOO_CHECK_MODELS:
+        zoo_check[name] = phase_zoo_step_check(name)
+    classify = phase_classify_serving()
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
                **{f"detect_{m}": detect[m]["launches"]
                   for m in DETECT_MODELS},
-               f"pose_{POSE_MODEL}": pose["launches"]}
+               f"pose_{POSE_MODEL}": pose["launches"],
+               **{f"classify_{m}": classify[m]["launches"]
+                  for m, _, _ in CLASSIFY_MODELS}}
+    zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
+                                         "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "max_abs_err")}
+                      for r in rows
+                      if (r["kind"], tuple(r["shape"])) in ZOO_SERVE_CASES]
     detect_rows = [{k: r[k] for k in ("kind", "shape", "ms", "plain_ms",
                                       "library_ms", "bound_ms", "bound_by",
                                       "max_abs_err")}
@@ -2265,6 +2769,7 @@ def main() -> int:
                 "replaces": "deep_vision_tpu/ops/pallas_ops.py:77",
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path, "detect_shapes": detect_rows,
+                "zoo_shapes": zoo_serve_rows,
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
                 "bound_ms": main_row["bound_ms"],
@@ -2272,11 +2777,22 @@ def main() -> int:
                 "library_ms": main_row["library_ms"],
                 "shape": main_row["shape"], "build_s": build_s}]
     train_row = train_rows[0]
+    train_by_path = {
+        "train_resnet50": training["train_ingest_launches"],
+        "train_inception3": zoo_train["launches"],
+        **{f"steps_{m}": zoo_steps[m]["train_ingest_launches"]
+           for m in ZOO_STEP_MODELS}}
+    zoo_train_rows = [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")}
+                      for r in train_rows
+                      if tuple(r["shape"]) in ZOO_TRAIN_SHAPES]
     kernels.append({
         "name": "train_ingest", "route": "cuda",
         "source": "deep_vision_tpu_torch/csrc/train_ingest.cu",
         "replaces": "deep_vision_tpu/ops/pallas_ops.py:202",
-        "launches": training["train_ingest_launches"],
+        "launches": sum(train_by_path.values()),
+        "launches_by_path": train_by_path, "zoo_shapes": zoo_train_rows,
         "max_abs_err": max(r["max_abs_err"] for r in train_rows),
         "ms": train_row["ms"], "plain_ms": train_row["plain_ms"],
         "bound_ms": train_row["bound_ms"], "bound_by": train_row["bound_by"],
@@ -2305,6 +2821,11 @@ def main() -> int:
     print(json.dumps({"heatmap_training": heat_train}), flush=True)
     print(json.dumps({"heatmap_step_check": heat_check}), flush=True)
     print(json.dumps({"pose_serving": pose}), flush=True)
+    print(json.dumps({"zoo_steps": zoo_steps}), flush=True)
+    print(json.dumps({"zoo_training": {"inception3": zoo_train,
+                                       "lenet5": lenet}}), flush=True)
+    print(json.dumps({"zoo_step_check": zoo_check}), flush=True)
+    print(json.dumps({"classify_serving": classify}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

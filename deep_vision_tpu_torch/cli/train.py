@@ -4,6 +4,10 @@
         --data-format records --data-root D --workdir W [--resume] \\
         [--epochs N] [--batch-size B] [--num-workers K] [--device cuda]
     python -m deep_vision_tpu_torch.cli.train -m resnet50 --synthetic ...
+    python -m deep_vision_tpu_torch.cli.train -m inception3 \\
+        --data-root D --workdir W [--resume]   # or alexnet1, vgg16, ...
+    python -m deep_vision_tpu_torch.cli.train -m lenet5 \\
+        --data-root MNIST_DIR --workdir W [--resume]
     python -m deep_vision_tpu_torch.cli.train -m yolov3_coco \\
         --data-root D --workdir W [--resume] [--num-workers K]
     python -m deep_vision_tpu_torch.cli.train -m centernet \\
@@ -18,7 +22,10 @@ classification branch, ``build_classification_val_loader``,
 holds ``train-*.dvrec`` and ``val-*.dvrec`` shards with raw uint8
 payloads (``prepare_data --store raw``).  Classification: the host
 reads, flips and crops uint8 pixels; the ``train_ingest`` CUDA kernel
-jitters and normalizes each train batch on the card.  Detection
+jitters and normalizes each train batch on the card.  LeNet-5 and its
+tiers (``-m lenet5``, ``lenet5_nano``, ``lenet5_big``) read MNIST's
+idx-ubyte files from ``D`` instead: uint8 images padded to 32×32, which
+the card standardizes with the MNIST statistics.  Detection
 (``-m yolov3_coco`` and the other YOLOv3 configs, ``-m centernet``): the
 host flips, crops (YOLOv3 only), resizes and encodes labels; the card
 scales the uint8 batch to [0, 1], and YOLOv3's loss runs its ignore mask
@@ -75,13 +82,30 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+#: the configs that train on MNIST's idx-ubyte files
+MNIST_CONFIGS = ("lenet5_nano", "lenet5", "lenet5_big")
+
+
 def build_classification_val_loader(cfg, data_root: str, split: str,
                                     batch: int, num_workers: int = 4):
-    """Eval loader over ``split`` records at the config's crop size.
+    """Eval loader over ``split`` at the config's crop size: records, or,
+    where ``data_root`` holds MNIST's idx-ubyte files (any name
+    ``data/mnist.load_mnist`` accepts), MNIST's host-normalized images.
     Returns ``(loader, dataset_size)``."""
+    import glob
+    import os
+
     from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
     from deep_vision_tpu_torch.data.transforms import imagenet_resize_for
 
+    if glob.glob(os.path.join(data_root, "t10k-images*idx3-ubyte*")):
+        from deep_vision_tpu_torch.data.loader import ArrayLoader
+        from deep_vision_tpu_torch.data.mnist import load_mnist
+
+        data = load_mnist(data_root, "train" if split == "train" else "test")
+        loader = ArrayLoader(data, batch, shuffle=False, drop_last=False,
+                             pad_last=True)
+        return loader, len(data["label"])
     loader = ImageNetLoader.from_records(
         data_root, split, batch, train=False, image_size=cfg.image_size,
         resize=imagenet_resize_for(cfg.image_size), num_workers=num_workers)
@@ -158,12 +182,28 @@ def _classification_loaders(args, cfg, loaders: list):
                                  shuffle=False, drop_last=False,
                                  pad_last=True)
         return task, train_loader, val_loader, None
+    if not args.data_root:
+        raise SystemExit("--data-root is required without --synthetic")
+    if args.model in MNIST_CONFIGS:
+        from deep_vision_tpu_torch.data.mnist import load_mnist
+        from deep_vision_tpu_torch.ops.preprocess import (
+            make_mnist_preprocess,
+        )
+
+        # the uint8 wire: padded raw bytes cross to the card, which
+        # standardizes them
+        train_loader = ArrayLoader(
+            load_mnist(args.data_root, "train", device_normalize=True),
+            cfg.batch_size, seed=cfg.seed)
+        val_loader = ArrayLoader(
+            load_mnist(args.data_root, "test", device_normalize=True),
+            cfg.eval_batch_size, shuffle=False, drop_last=False,
+            pad_last=True)
+        return task, train_loader, val_loader, make_mnist_preprocess()
     from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
     from deep_vision_tpu_torch.data.transforms import imagenet_resize_for
     from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
 
-    if not args.data_root:
-        raise SystemExit("--data-root is required without --synthetic")
     train_loader = ImageNetLoader.from_records(
         args.data_root, "train", cfg.batch_size, train=True,
         seed=cfg.seed, image_size=cfg.image_size,

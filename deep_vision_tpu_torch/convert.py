@@ -34,6 +34,15 @@ StackedHourglass``), and
 / ``preact_to_flax`` for a bare ``HourglassModule`` or
 ``PreActBottleneck``; these check both sides strictly: a flax leaf that
 no module takes raises, as a missing one does.
+
+``classifier_from_flax`` / ``classifier_to_flax`` / ``load_classifier``
+do the same for the classifier zoo (LeNet-5 and its tiers, AlexNet, VGG,
+Inception V1/V3, MobileNet V1, ShuffleNet V1, ResNet-50 V2), walking the
+port model's own modules.  Where the JAX package imports the reference's
+PyTorch checkpoints (``pretrained.py import_torch_*``: LeNet-5, AlexNet,
+VGG, MobileNet V1, Inception V1) the port's ``state_dict`` is that
+layout, so a dense layer that reads a flattened map is permuted between
+flax's NHWC flatten and the port's NCHW one.
 """
 
 from __future__ import annotations
@@ -420,6 +429,39 @@ def _stacked_hourglass_leaves(num_stack: int, num_heatmap: int,
             yield "conv", f"{t}.reinject_heat", (f"Conv_{base + 3}",)
 
 
+def _flax_dense(w, chw) -> np.ndarray:
+    """A port dense weight ``(O, I)`` → flax kernel ``(I, O)``; with
+    ``chw = (C, H, W)`` the layer reads an NCHW flatten in the port and
+    an NHWC one in flax, so the input axis is permuted (the JAX
+    package's ``pretrained._linear``)."""
+    w = _np(w)
+    if chw is not None and chw[1] * chw[2] > 1:
+        c, h, wd = chw
+        return w.reshape(w.shape[0], c, h, wd).transpose(2, 3, 1, 0) \
+            .reshape(h * wd * c, -1)
+    return w.T
+
+
+def _torch_dense(kernel, chw) -> np.ndarray:
+    """The inverse of :func:`_flax_dense`."""
+    k = _np(kernel)
+    if chw is not None and chw[1] * chw[2] > 1:
+        c, h, wd = chw
+        return k.reshape(h, wd, c, -1).transpose(3, 2, 0, 1) \
+            .reshape(k.shape[1], c * h * wd)
+    return k.T
+
+
+#: the flax leaves of each kind of walked module: "conv" (with a bias),
+#: "convk" (kernel only), "dense" (kernel and bias; a fourth tuple item
+#: is the (C, H, W) of the NCHW map it flattens, or None) and "bn"
+_KIND_LEAVES = {"conv": (("params", "kernel"), ("params", "bias")),
+                "convk": (("params", "kernel"),),
+                "dense": (("params", "kernel"), ("params", "bias")),
+                "bn": (("params", "scale"), ("params", "bias"),
+                       ("batch_stats", "mean"), ("batch_stats", "var"))}
+
+
 def _from_flax(leaves, variables: Mapping) -> dict:
     """flax variables → ``state_dict`` (numpy) over ``leaves``; a flax
     leaf that no module takes raises ``KeyError``, as a missing one
@@ -427,13 +469,16 @@ def _from_flax(leaves, variables: Mapping) -> dict:
     params, stats = variables["params"], variables.get("batch_stats", {})
     sd: dict = {}
     used = set()
-    for kind, t, path in leaves:
+    for kind, t, path, *chw in leaves:
         p = _get(params, path)
-        if kind == "conv":
+        if kind in ("conv", "convk"):
             sd[f"{t}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
+            if kind == "conv":
+                sd[f"{t}.bias"] = _np(p["bias"])
+        elif kind == "dense":
+            sd[f"{t}.weight"] = _torch_dense(p["kernel"],
+                                             chw[0] if chw else None)
             sd[f"{t}.bias"] = _np(p["bias"])
-            used.update({("params", *path, "kernel"),
-                         ("params", *path, "bias")})
         else:
             s = _get(stats, path)
             sd[f"{t}.weight"] = _np(p["scale"])
@@ -441,10 +486,7 @@ def _from_flax(leaves, variables: Mapping) -> dict:
             sd[f"{t}.running_mean"] = _np(s["mean"])
             sd[f"{t}.running_var"] = _np(s["var"])
             sd[f"{t}.num_batches_tracked"] = np.array(0, np.int64)
-            used.update({("params", *path, "scale"),
-                         ("params", *path, "bias"),
-                         ("batch_stats", *path, "mean"),
-                         ("batch_stats", *path, "var")})
+        used.update((col, *path, leaf) for col, leaf in _KIND_LEAVES[kind])
     extra = sorted(k for col in ("params", "batch_stats")
                    for k in flatten_tree(variables.get(col, {}), col)
                    if tuple(k.split("/")) not in used)
@@ -459,10 +501,16 @@ def _to_flax(leaves, state_dict: Mapping) -> dict:
     sd = state_dict
     params: dict = {}
     stats: dict = {}
-    for kind, t, path in leaves:
-        if kind == "conv":
+    for kind, t, path, *chw in leaves:
+        if kind in ("conv", "convk"):
+            leaf = {"kernel": _np(sd[f"{t}.weight"]).transpose(2, 3, 1, 0)}
+            if kind == "conv":
+                leaf["bias"] = _np(sd[f"{t}.bias"])
+            _put(params, path, leaf)
+        elif kind == "dense":
             _put(params, path, {
-                "kernel": _np(sd[f"{t}.weight"]).transpose(2, 3, 1, 0),
+                "kernel": _flax_dense(sd[f"{t}.weight"],
+                                      chw[0] if chw else None),
                 "bias": _np(sd[f"{t}.bias"])})
         else:
             _put(params, path, {"scale": _np(sd[f"{t}.weight"]),
@@ -557,5 +605,206 @@ def load_stacked_hourglass(model, variables: Mapping) -> None:
     sd = stacked_hourglass_from_flax(variables, model.num_stack,
                                      model.num_heatmap, model.filters,
                                      model.num_residual, model.order)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
+
+
+# ---------------------------------------------------------------------------
+# The classifier zoo (models/lenet.py, alexnet.py, vgg.py, inception.py,
+# mobilenet.py, shufflenet.py, and ResNet-50 V2 in resnet.py)
+# ---------------------------------------------------------------------------
+# Flax names submodules by class and construction order; in
+# ``conv(c3)(conv(c3r)(x))`` the outer conv is constructed before its
+# argument runs, so each nested branch's outer conv takes the lower index.
+# The walkers below yield ``(kind, torch prefix, flax path[, chw])`` for
+# a port model, read off its modules.
+
+
+def _convbn_leaves(t: str, f: tuple):
+    yield "convk", f"{t}.conv", (*f, "Conv_0")
+    yield "bn", f"{t}.bn", (*f, "BatchNorm_0")
+
+
+def _basic_conv_leaves(module, t: str, f: tuple):
+    """Inception's BasicConv: V1 a biased conv, V3 conv + BatchNorm."""
+    if module.bn is None:
+        yield "conv", f"{t}.conv", (*f, "Conv_0")
+    else:
+        yield from _convbn_leaves(t, f)
+
+
+def _sequential_leaves(model):
+    from deep_vision_tpu_torch.models.common import Conv2d, Linear
+
+    last_out = None
+    j = 0
+    for i, m in enumerate(model.features):
+        if isinstance(m, Conv2d):
+            yield "conv", f"features.{i}", (f"Conv_{j}",)
+            last_out, j = m.out_channels, j + 1
+    j = 0
+    for i, m in enumerate(model.classifier):
+        if isinstance(m, Linear):
+            chw = (last_out, *model.flatten_hw) if j == 0 else None
+            yield "dense", f"classifier.{i}", (f"Dense_{j}",), chw
+            j += 1
+
+
+#: each V1 module branch and its flax index (construction order)
+INCEPTION_V1_BRANCHES = (
+    ("branch1_conv1x1", 0), ("branch2_conv3x3", 1), ("branch2_conv1x1", 2),
+    ("branch3_conv5x5", 3), ("branch3_conv1x1", 4), ("branch4_conv1x1", 5))
+INCEPTION_V1_MODULES = ("inception_3a", "inception_3b", "inception_4a",
+                        "inception_4b", "inception_4c", "inception_4d",
+                        "inception_4e", "inception_5a", "inception_5b")
+
+
+def _inception_v1_leaves(model):
+    for j, name in enumerate(("conv7x7", "conv1x1", "conv3x3")):
+        yield "conv", f"{name}.conv", (f"BasicConv_{j}", "Conv_0")
+    for m, mod in enumerate(INCEPTION_V1_MODULES):
+        for attr, j in INCEPTION_V1_BRANCHES:
+            yield "conv", f"{mod}.{attr}.conv", \
+                (f"InceptionModule_{m}", f"BasicConv_{j}", "Conv_0")
+    if model.aux_heads:
+        for a, aux in enumerate(("aux1", "aux2")):
+            f = f"AuxClassifier_{a}"
+            head = getattr(model, aux)
+            yield "conv", f"{aux}.features.1.conv", \
+                (f, "BasicConv_0", "Conv_0")
+            yield "dense", f"{aux}.classifier.0", (f, "Dense_0"), \
+                (128, *head.flatten_hw)
+            yield "dense", f"{aux}.classifier.3", (f, "Dense_1")
+    yield "dense", "linear", ("Dense_0",)
+
+
+#: each V3 block's branches in flax construction order, by class
+INCEPTION_V3_BRANCHES = {
+    "InceptionA": ("branch1x1", "branch5x5_2", "branch5x5_1",
+                   "branch3x3dbl_3", "branch3x3dbl_2", "branch3x3dbl_1",
+                   "branch_pool"),
+    "ReductionA": ("branch3x3", "branch3x3dbl_3", "branch3x3dbl_2",
+                   "branch3x3dbl_1"),
+    "InceptionB": ("branch1x1", "branch7x7_3", "branch7x7_2", "branch7x7_1",
+                   "branch7x7dbl_1", "branch7x7dbl_2", "branch7x7dbl_3",
+                   "branch7x7dbl_4", "branch7x7dbl_5", "branch_pool"),
+    "ReductionB": ("branch3x3_2", "branch3x3_1", "branch7x7x3_1",
+                   "branch7x7x3_2", "branch7x7x3_3", "branch7x7x3_4"),
+    "InceptionC": ("branch1x1", "branch3x3_1", "branch3x3_2a",
+                   "branch3x3_2b", "branch3x3dbl_2", "branch3x3dbl_1",
+                   "branch3x3dbl_3a", "branch3x3dbl_3b", "branch_pool"),
+}
+INCEPTION_V3_STEM = ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3",
+                     "Conv2d_3b_1x1", "Conv2d_4a_3x3")
+INCEPTION_V3_BLOCKS = ("Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6a",
+                       "Mixed_6b", "Mixed_6c", "Mixed_6d", "Mixed_6e",
+                       "Mixed_7a", "Mixed_7b", "Mixed_7c")
+
+
+def _inception_v3_leaves(model):
+    for j, name in enumerate(INCEPTION_V3_STEM):
+        yield from _convbn_leaves(name, (f"BasicConv_{j}",))
+    seen: dict = {}
+    for name in INCEPTION_V3_BLOCKS:
+        block = getattr(model, name)
+        cls = type(block).__name__
+        f = f"{cls}_{seen.get(cls, 0)}"
+        seen[cls] = seen.get(cls, 0) + 1
+        for j, attr in enumerate(INCEPTION_V3_BRANCHES[cls]):
+            yield from _convbn_leaves(f"{name}.{attr}",
+                                      (f, f"BasicConv_{j}"))
+    dense = 0
+    if model.aux_heads:
+        yield from _convbn_leaves("AuxLogits.conv0", ("BasicConv_5",))
+        yield from _convbn_leaves("AuxLogits.conv1", ("BasicConv_6",))
+        yield "dense", "AuxLogits.fc", ("Dense_0",)
+        dense = 1
+    yield "dense", "fc", (f"Dense_{dense}",)
+
+
+def _mobilenet_leaves(model):
+    yield "convk", "features.0", ("ConvBN_0", "Conv_0")
+    yield "bn", "features.1", ("ConvBN_0", "BatchNorm_0")
+    for k in range(len(model.features) - 3):
+        f = f"DepthwiseSeparable_{k}"
+        yield from _convbn_leaves(f"features.{k + 3}.dw", (f, "ConvBN_0"))
+        yield from _convbn_leaves(f"features.{k + 3}.pw", (f, "ConvBN_1"))
+    yield "dense", "linear", ("Dense_0",)
+
+
+def _shufflenet_leaves(model):
+    yield from _convbn_leaves("stem", ("ConvBN_0",))
+    k = 0
+    for s, stage in enumerate(model.stages):
+        for i in range(len(stage)):
+            for j, part in enumerate(("gconv1", "dwconv", "gconv2")):
+                yield from _convbn_leaves(f"stages.{s}.{i}.{part}",
+                                          (f"ShuffleUnit_{k}", f"ConvBN_{j}"))
+            k += 1
+    yield "dense", "fc", ("Dense_0",)
+
+
+def _preact_resnet_leaves(model):
+    yield "convk", "conv1", ("Conv_0",)
+    k = 0
+    for s, stage in enumerate(model.stages(), start=1):
+        for i, block in enumerate(stage):
+            f = f"{type(block).__name__}_{k}"
+            shift = 0
+            if block.downsample is not None:
+                yield "convk", f"layer{s}.{i}.downsample", (f, "Conv_0")
+                shift = 1
+            for j in range(3):
+                yield "convk", f"layer{s}.{i}.conv{j + 1}", \
+                    (f, f"Conv_{j + shift}")
+                yield "bn", f"layer{s}.{i}.bn{j + 1}", (f, f"BatchNorm_{j}")
+            k += 1
+    yield "bn", "post_bn", ("BatchNorm_0",)
+    yield "dense", "fc", ("Dense_0",)
+
+
+def classifier_leaves(model):
+    """The walker of ``model``'s family (the zoo beyond ResNet V1)."""
+    from deep_vision_tpu_torch.models.common import SequentialClassifier
+    from deep_vision_tpu_torch.models.inception import (
+        InceptionV1,
+        InceptionV3,
+    )
+    from deep_vision_tpu_torch.models.mobilenet import MobileNetV1
+    from deep_vision_tpu_torch.models.resnet import ResNet
+    from deep_vision_tpu_torch.models.shufflenet import ShuffleNetV1
+
+    walkers = ((SequentialClassifier, _sequential_leaves),
+               (InceptionV1, _inception_v1_leaves),
+               (InceptionV3, _inception_v3_leaves),
+               (MobileNetV1, _mobilenet_leaves),
+               (ShuffleNetV1, _shufflenet_leaves))
+    if isinstance(model, ResNet) and model.preact:
+        return list(_preact_resnet_leaves(model))
+    for cls, walk in walkers:
+        if isinstance(model, cls):
+            return list(walk(model))
+    raise TypeError(f"no classifier layout for {type(model).__name__}")
+
+
+def classifier_from_flax(variables: Mapping, model) -> dict:
+    """flax variables of the reference's counterpart of ``model`` (LeNet-5
+    and its tiers, AlexNet, VGG, Inception V1/V3, MobileNet V1,
+    ShuffleNet V1, ResNet-50 V2) → ``model``'s ``state_dict`` (numpy);
+    strict both ways.  Dense layers that read a flattened map are
+    permuted from flax's NHWC flatten to the port's NCHW one."""
+    return _from_flax(classifier_leaves(model), variables)
+
+
+def classifier_to_flax(state_dict: Mapping, model) -> dict:
+    """The inverse of :func:`classifier_from_flax`."""
+    return _to_flax(classifier_leaves(model), state_dict)
+
+
+def load_classifier(model, variables: Mapping) -> None:
+    """Copy flax ``variables`` into a zoo ``model`` (strict both ways)."""
+    import torch
+
+    sd = classifier_from_flax(variables, model)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)

@@ -1,5 +1,5 @@
-"""SGD and Adam with global-norm clipping and a decay mask, and host LR
-schedulers.
+"""SGD, Adam and RMSprop with global-norm clipping and a decay mask, and
+host LR schedulers.
 
 Port of ``deep_vision_tpu/core/optim.py``: ``OptimizerConfig``, the
 chains of ``build_optimizer`` and the host-side schedulers, which are
@@ -12,6 +12,13 @@ them:
     adam:  t += 1;  mu = (1−b1)·g + b1·mu;  nu = (1−b2)·g² + b2·nu;
            u = (mu / (1−b1ᵗ)) / (sqrt(nu / (1−b2ᵗ)) + eps)
            (+ wd·p on the decay mask: AdamW);  p = p − lr·u
+    rmsprop (optax ``rmsprop(lr, decay=rms_decay, eps=eps,
+           momentum=momentum)``: ``scale_by_rms``, the learning rate,
+           then ``trace``):  nu = (1−rms_decay)·g² + rms_decay·nu;
+           u = g · rsqrt(nu + eps)  (eps INSIDE the root, unlike torch's
+           ``g / (sqrt(nu) + eps)``);  buf = lr·u + momentum·buf;
+           p = p − buf.  The trace holds updates already scaled by the
+           learning rate of their step; no weight decay.
 
 The updates run as ``torch._foreach_*`` ops with the learning rate in a
 device tensor (the role of optax's ``inject_hyperparams``), so a
@@ -32,7 +39,7 @@ from torch import nn
 
 @dataclasses.dataclass
 class OptimizerConfig:
-    name: str = "sgd"  # sgd | adam; rmsprop is not ported
+    name: str = "sgd"  # sgd | adam | rmsprop
     learning_rate: float = 0.1
     momentum: float = 0.9
     nesterov: bool = False  # not ported: refused
@@ -40,6 +47,7 @@ class OptimizerConfig:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    rms_decay: float = 0.9  # RMSprop's decay of nu (torch's ``alpha``)
     grad_clip_norm: float | None = None
     momentum_dtype: str | None = None  # not ported: refused
 
@@ -200,7 +208,53 @@ class Adam(_Optimizer):
         self.set_learning_rate(d["learning_rate"])
 
 
-OPTIMIZERS = {"sgd": SGD, "adam": Adam}
+class RMSprop(_Optimizer):
+    """RMSprop with the reference's semantics (optax ``rmsprop`` with
+    ``momentum``): eps inside the square root, the momentum trace over
+    learning-rate-scaled updates, and no weight decay (the reference's
+    rmsprop branch applies none, whatever ``weight_decay`` says)."""
+
+    def __init__(self, cfg: OptimizerConfig, model: nn.Module):
+        super().__init__(cfg, model)
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor], ok: torch.Tensor) -> None:
+        """One update where ``ok`` holds; where it does not, parameters,
+        ``nu`` and the trace keep their values."""
+        cfg = self.cfg
+        g = self._clipped(grads)
+        nu = torch._foreach_mul(g, g)
+        torch._foreach_mul_(nu, 1.0 - cfg.rms_decay)
+        torch._foreach_add_(nu, torch._foreach_mul(self.nu, cfg.rms_decay))
+        scale = torch._foreach_add(nu, cfg.eps)
+        torch._foreach_rsqrt_(scale)
+        u = torch._foreach_mul(scale, g)
+        torch._foreach_mul_(u, self.lr)
+        trace = torch._foreach_mul(self.trace, cfg.momentum)
+        trace = torch._foreach_add(u, trace)
+        new = torch._foreach_sub(self.params, trace)
+        for p, n in zip(self.params, new):
+            torch.where(ok, n, p, out=p)
+        for old, upd in ((self.nu, nu), (self.trace, trace)):
+            for o, n in zip(old, upd):
+                torch.where(ok, n, o, out=o)
+
+    def state_dict(self) -> dict:
+        return {"nu": dict(zip(self.names, self.nu)),
+                "trace": dict(zip(self.names, self.trace)),
+                "learning_rate": self.get_learning_rate()}
+
+    @torch.no_grad()
+    def load_state_dict(self, d: dict) -> None:
+        for key in ("nu", "trace"):
+            for name, buf in zip(self.names, getattr(self, key)):
+                buf.copy_(d[key][name])
+        self.set_learning_rate(d["learning_rate"])
+
+
+OPTIMIZERS = {"sgd": SGD, "adam": Adam, "rmsprop": RMSprop}
 
 
 def build_optimizer(cfg: OptimizerConfig, model: nn.Module) -> _Optimizer:

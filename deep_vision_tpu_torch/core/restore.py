@@ -35,15 +35,24 @@ def serving_input_shape(cfg) -> tuple:
 
 def import_weights(model, variables) -> None:
     """Copy a flax variables tree into ``model`` with the importer of
-    its family: ResNet, YOLOv3, CenterNet or StackedHourglass; any other
-    class raises and names it."""
+    its family: ResNet V1, the classifier zoo (LeNet-5 and its tiers,
+    AlexNet, VGG, Inception V1/V3, MobileNet V1, ShuffleNet V1, ResNet-50
+    V2), YOLOv3, CenterNet or StackedHourglass; any other class raises
+    and names it.  Every importer is strict: a tree of another family
+    raises ``KeyError``."""
     from deep_vision_tpu_torch import convert
     from deep_vision_tpu_torch.models.centernet import CenterNet
+    from deep_vision_tpu_torch.models.common import Classifier
     from deep_vision_tpu_torch.models.hourglass import StackedHourglass
     from deep_vision_tpu_torch.models.resnet import ResNet
     from deep_vision_tpu_torch.models.yolo import YoloV3
 
-    importers = ((ResNet, convert.load_into), (YoloV3, convert.load_yolo),
+    if isinstance(model, ResNet) and model.preact:
+        convert.load_classifier(model, variables)
+        return
+    importers = ((ResNet, convert.load_into),
+                 (Classifier, convert.load_classifier),
+                 (YoloV3, convert.load_yolo),
                  (CenterNet, convert.load_centernet),
                  (StackedHourglass, convert.load_stacked_hourglass))
     for cls, load in importers:

@@ -5,7 +5,9 @@ optimizer on one device.  A train step is
 
     step generator seeded from (seed, step) → preprocess_fn (on the card:
     the train_ingest kernel for ImageNet, the /255 scale for detection)
-    → forward in training mode → task loss (YOLO's through the
+    → forward in training mode, the model's dropouts drawing from a
+    second generator seeded from (seed, step) (the reference's per-step
+    ``dropout`` rng; eval draws none) → task loss (YOLO's through the
     best_iou_max kernel on the card) → backward → guarded update of the
     optimizer ``config.optimizer.name`` picks (core/optim.py,
     core/state.py)
@@ -41,6 +43,7 @@ from deep_vision_tpu_torch.core.metrics import (
 )
 from deep_vision_tpu_torch.core.optim import build_optimizer, build_scheduler
 from deep_vision_tpu_torch.core.state import DivergenceGuard, TrainState
+from deep_vision_tpu_torch.models.common import set_dropout_generator
 
 
 def install_sigterm_flag(on_sigterm):
@@ -57,11 +60,18 @@ def install_sigterm_flag(on_sigterm):
     return lambda: signal.signal(signal.SIGTERM, restore_to)
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, stream: int | None = None) -> int:
     """The per-step rng seed: a hash of ``(seed, step)``, the counterpart
-    of the reference's ``fold_in(rng, step)`` chain."""
-    return int(np.random.SeedSequence([int(seed), int(step)])
+    of the reference's ``fold_in(rng, step)`` chain; ``stream`` (1 for
+    dropout) derives an independent seed from the same pair."""
+    entropy = [int(seed), int(step)] + ([] if stream is None
+                                        else [int(stream)])
+    return int(np.random.SeedSequence(entropy)
                .generate_state(1, np.uint64)[0] >> 1)
+
+
+#: ``step_seed`` stream of the dropout generator
+DROPOUT_STREAM = 1
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -153,9 +163,10 @@ class Trainer:
 
     # ----------------------------------------------------------------- steps
 
-    def step_generator(self, state: TrainState) -> torch.Generator:
+    def step_generator(self, state: TrainState,
+                       stream: int | None = None) -> torch.Generator:
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(step_seed(state.rng, state.step))
+        gen.manual_seed(step_seed(state.rng, state.step, stream))
         return gen
 
     def train_step(self, state: TrainState, batch: dict
@@ -171,7 +182,12 @@ class Trainer:
         params = state.opt.params
         for p in params:
             p.grad = None
-        loss, aux = self.task.loss(model(batch["image"]), batch)
+        set_dropout_generator(model, self.step_generator(state,
+                                                         DROPOUT_STREAM))
+        try:
+            loss, aux = self.task.loss(model(batch["image"]), batch)
+        finally:
+            set_dropout_generator(model, None)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]

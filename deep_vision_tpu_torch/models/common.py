@@ -18,6 +18,13 @@ keys are torchvision's.  Conventions, as in the reference:
   ``max(E[x²] − E[x]², 0)``), and the running statistics move as
   ``0.9·running + 0.1·batch`` with the BIASED batch variance, as flax's
   ``BatchNorm(momentum=0.9)`` does.
+
+The classifier zoo's pieces: ``ConvBN`` (groups, flax "SAME" or
+symmetric padding, the BatchNorm's eps), ``local_response_norm``,
+``Dropout`` drawing from an explicit generator that the trainer sets
+every step, flax's "SAME" max and average pools, ``reset_weights`` (the
+reference's inits by layer) and the ``Classifier`` and
+``SequentialClassifier`` bases.
 """
 
 from __future__ import annotations
@@ -84,19 +91,37 @@ def resident_weight(module: nn.Module, dtype: torch.dtype) -> torch.Tensor:
 
 class Conv2d(nn.Conv2d):
     """Convolution computing in ``dtype`` (input, weight and bias cast);
-    bias-free unless ``bias``."""
+    bias-free unless ``bias``.  ``padding`` is torch's symmetric padding
+    or ``"SAME"``, flax's: the odd pixel after (:func:`same_pad`), which
+    at a stride above 1 on an even input is asymmetric.  ``init`` names
+    the kernel init :func:`reset_weights` gives it: ``"he"``
+    (:func:`conv_kernel_init`) or ``"lecun"`` (flax's default)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding: int = 0, dtype: torch.dtype = torch.float32,
-                 bias: bool = False):
-        super().__init__(in_ch, out_ch, kernel, stride, padding, bias=bias)
+    def __init__(self, in_ch: int, out_ch: int, kernel, stride: int = 1,
+                 padding=0, dtype: torch.dtype = torch.float32,
+                 bias: bool = False, groups: int = 1, init: str = "he"):
+        same = padding == "SAME"
+        super().__init__(in_ch, out_ch, kernel, stride,
+                         0 if same else padding, bias=bias, groups=groups)
+        self.same = same
         self.compute_dtype = dtype
+        self.init = init
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), resident_weight(self, dt), bias,
-                        self.stride, self.padding)
+        x = x.to(dt)
+        padding = self.padding
+        if self.same:
+            (ht, hb), (wl, wr) = (
+                same_pad(x.shape[2 + d], self.kernel_size[d], self.stride[d])
+                for d in range(2))
+            if ht == hb and wl == wr:
+                padding = (ht, wl)
+            else:
+                x, padding = F.pad(x, (wl, wr, ht, hb)), 0
+        return F.conv2d(x, resident_weight(self, dt), bias, self.stride,
+                        padding, 1, self.groups)
 
 
 class Linear(nn.Linear):
@@ -163,8 +188,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with the reference's (flax's) formula and rounding: batch
     statistics in training mode, running statistics in eval mode."""
 
-    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
-        super().__init__(features, eps=1e-5, momentum=0.1)
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-5):
+        super().__init__(features, eps=eps, momentum=0.1)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -183,3 +209,177 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = (x.to(torch.float32) - self.running_mean.view(shape)) * \
             mul.view(shape) + self.bias.to(torch.float32).view(shape)
         return y.to(self.compute_dtype)
+
+
+class ConvBN(nn.Module):
+    """Conv (no bias, He init) → BatchNorm → optional activation: the
+    reference's ``ConvBN``, with ``groups`` (depthwise when it equals the
+    channels), flax ``padding`` ("SAME" by default, else torch's
+    symmetric) and the BatchNorm's ``eps``.  Children ``conv`` and
+    ``bn``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel=3, stride: int = 1,
+                 padding="SAME", groups: int = 1, act=F.relu,
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = Conv2d(in_ch, out_ch, kernel, stride, padding, dtype,
+                           groups=groups)
+        self.bn = BatchNorm2d(out_ch, dtype, eps)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return x if self.act is None else self.act(x)
+
+
+def local_response_norm(x: torch.Tensor, size: int, alpha: float = 1e-4,
+                        beta: float = 0.75, k: float = 1.0) -> torch.Tensor:
+    """Cross-channel LRN of an (N, C, H, W) input:
+    ``x / (k + alpha/size · Σ x²)^beta`` over the channel window
+    ``[c − size//2, c + (size−1)//2]``, zeros beyond the edges — the
+    reference's window ``(half, size − 1 − half)``.  The reference's
+    models pass the full channel count as ``size``.  The window sums are
+    one matmul of the squares by a 0/1 band matrix over the channels (a
+    GEMM over rows of C channels in the channels-last layout), in the
+    input's dtype."""
+    c = x.shape[1]
+    idx = torch.arange(c, device=x.device)
+    offset = idx[None, :] - idx[:, None]  # band[i, j]: j in i's window
+    band = ((offset >= -(size // 2)) & (offset <= (size - 1) // 2)) \
+        .to(x.dtype)
+    sums = torch.matmul((x * x).permute(0, 2, 3, 1), band.t())
+    return x / (k + alpha / size * sums.permute(0, 3, 1, 2)).pow(beta)
+
+
+class LocalResponseNorm(nn.Module):
+    """:func:`local_response_norm` as a module (no parameters)."""
+
+    def __init__(self, size: int):
+        super().__init__()
+        self.size = size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return local_response_norm(x, self.size)
+
+
+class Dropout(nn.Module):
+    """Dropout drawing its mask from an explicit ``torch.Generator``.
+
+    In training mode with ``0 < rate < 1`` each element is kept with
+    probability ``1 − rate`` and scaled by ``1/(1 − rate)`` (flax's
+    ``Dropout``: ``where(keep, x / keep_prob, 0)``); ``rate`` 0 and eval
+    mode pass the input through, ``rate`` 1 gives zeros.  The mask comes
+    from ``self.generator`` (on the input's device), which the trainer
+    sets for every step (:func:`set_dropout_generator`); a training
+    forward without one raises, as flax does without a ``dropout``
+    rng."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        if self.generator is None:
+            raise RuntimeError("a training forward through Dropout needs a "
+                               "generator: call set_dropout_generator")
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: torch.Generator | None) -> int:
+    """Give every :class:`Dropout` of ``model`` ``generator`` (None
+    clears it); returns how many there are.  They draw from it in call
+    order."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+            n += 1
+    return n
+
+
+def max_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax ``max_pool(..., padding="SAME")``: the :func:`same_pad`
+    borders filled with −inf, then a VALID pool (torch's ``ceil_mode``
+    differs at odd sizes)."""
+    (ht, hb), (wl, wr) = (same_pad(x.shape[2 + d], kernel, stride)
+                          for d in range(2))
+    if ht or hb or wl or wr:
+        x = F.pad(x, (wl, wr, ht, hb), value=float("-inf"))
+    return F.max_pool2d(x, kernel, stride)
+
+
+def avg_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax ``avg_pool(..., padding="SAME")``: zero borders that count in
+    the divisor (``kernel²`` everywhere), the odd pixel after."""
+    (ht, hb), (wl, wr) = (same_pad(x.shape[2 + d], kernel, stride)
+                          for d in range(2))
+    if ht or hb or wl or wr:
+        x = F.pad(x, (wl, wr, ht, hb))
+    return F.avg_pool2d(x, kernel, stride)
+
+
+def reset_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """The reference's init for a model built of these layers, in module
+    order: each conv's kernel by its ``init`` ("he" or "lecun"), dense
+    kernels LeCun normal, every bias 0, BatchNorm scale 1, running
+    mean 0 and variance 1."""
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            init = conv_kernel_init if m.init == "he" else lecun_conv_init
+            init(m.weight, generator)
+        elif isinstance(m, Linear):
+            dense_kernel_init(m.weight, generator)
+        elif isinstance(m, BatchNorm2d):
+            m.reset_parameters()
+            continue
+        else:
+            continue
+        if m.bias is not None:
+            nn.init.zeros_(m.bias)
+
+
+class Classifier(nn.Module):
+    """Base of the classifier zoo: ``forward`` takes the reference's NHWC
+    layout (a view of NCHW under ``torch.channels_last``) and returns
+    float32 logits; :meth:`reset_parameters` is :func:`reset_weights`."""
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "Classifier":
+        for m in self.modules():
+            if hasattr(m, "compute_dtype"):
+                m.compute_dtype = dtype
+        return self
+
+    def reset_parameters(self, generator: torch.Generator) -> "Classifier":
+        reset_weights(self, generator)
+        return self
+
+
+class SequentialClassifier(Classifier):
+    """``features`` (convolutions, activations, pools) → flatten →
+    ``classifier`` (dense layers): the reference's PyTorch layout of its
+    plain CNNs (``features.N``/``classifier.N``, the layers at the
+    indices its published checkpoints use).  The flatten is NCHW, as in
+    that layout; the reference flattens NHWC, so ``convert.py`` permutes
+    the first dense kernel over ``(C, *flatten_hw)``, the shape of the
+    last feature map at ``image_size``."""
+
+    flatten_hw: tuple[int, int] = (1, 1)
+
+    def __init__(self, dtype: torch.dtype):
+        super().__init__()
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC ``(N, H, W, C)`` float input → float32 logits."""
+        x = self.features(x.permute(0, 3, 1, 2).to(self.compute_dtype))
+        return self.classifier(torch.flatten(x, 1)).to(torch.float32)

@@ -10,6 +10,8 @@
         --infer-dtype int8 --bucket 32       # or -m centernet, hourglass104
     python -m deep_vision_tpu_torch.obs.profile -m centernet --train
     python -m deep_vision_tpu_torch.obs.profile -m hourglass104 --train
+    python -m deep_vision_tpu_torch.obs.profile -m inception3 --train
+        # or any classifier: vgg16, mobilenet1, lenet5, resnet50_modern...
 
 Prints one JSON object: the wall time per forward (or per train step;
 host clock around synchronised calls), the device busy time per call
@@ -27,7 +29,8 @@ alone on the forward's dense outputs, and the forward alone; the wall
 time is the whole callable's.  The train step runs ``--model``'s config
 at its batch on a seeded uint8 batch already on the device, through the
 trainer's own ``train_step``: random pixels and labels for a
-classifier; for YOLOv3 and CenterNet the seeded synthetic scenes of
+classifier (through ``train_ingest``, or for a grayscale one the MNIST
+normalize); for YOLOv3 and CenterNet the seeded synthetic scenes of
 ``data/detection.py`` (1-3 boxes an image), for the stacked hourglass
 the seeded synthetic poses of ``data/pose.py``, un-augmented, with
 their encoded labels.  Where the profiler records no device time, those
@@ -157,7 +160,10 @@ def profile_train_step(trainer, state, batch: dict, iters: int = 3,
 def _classification_batch(cfg):
     import numpy as np
 
-    from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
+    from deep_vision_tpu_torch.ops.preprocess import (
+        make_imagenet_preprocess,
+        make_mnist_preprocess,
+    )
     from deep_vision_tpu_torch.tasks.classification import (
         ClassificationTask,
     )
@@ -168,8 +174,10 @@ def _classification_batch(cfg):
                  cfg.channels), dtype=np.uint8),
         "label": rng.integers(0, cfg.num_classes,
                               cfg.batch_size).astype(np.int64)}
-    return (batch, ClassificationTask(cfg.num_classes),
-            make_imagenet_preprocess())
+    pre = make_mnist_preprocess() if cfg.channels == 1 \
+        else make_imagenet_preprocess()
+    return (batch, ClassificationTask(cfg.num_classes, cfg.label_smoothing),
+            pre)
 
 
 def _detection_batch(cfg):

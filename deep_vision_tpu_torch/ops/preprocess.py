@@ -3,8 +3,8 @@ the training batch's color jitter and normalize, and the [0, 1] scale of
 detection batches.
 
 Port of ``deep_vision_tpu/ops/preprocess.py`` (the serving prologues,
-``jitter_normalize``, ``make_imagenet_preprocess`` and
-``make_scale_preprocess``).  Each function
+``jitter_normalize``, ``make_imagenet_preprocess``,
+``make_mnist_preprocess`` and ``make_scale_preprocess``).  Each function
 takes and returns NHWC tensors, the JAX package's layout.
 """
 
@@ -63,13 +63,17 @@ def serve_normalize(x: torch.Tensor, kind: str) -> torch.Tensor:
 def make_serve_preprocess(kind: str, wire_dtype: torch.dtype,
                           compute_dtype: torch.dtype = torch.float32):
     """Prologue of the float32/bf16 bucket callables: an integer wire is
-    normalized here; a float wire arrives normalized by the client.
-    Either way the batch leaves in ``compute_dtype``."""
+    normalized here, through :func:`serve_ingest` with float32 out (the
+    CUDA kernel on the card, bit-identical to :func:`serve_normalize`)
+    for the kinds it holds, :func:`serve_normalize` for "gan"; a float
+    wire arrives normalized by the client.  Either way the batch leaves
+    in ``compute_dtype``."""
     wire_is_int = not wire_dtype.is_floating_point
 
     def fn(x):
         if wire_is_int:
-            x = serve_normalize(x, kind)
+            x = serve_normalize(x, kind) if kind == "gan" \
+                else serve_ingest(x, kind, quantize=False)
         return x.to(compute_dtype)
 
     return fn
@@ -152,6 +156,24 @@ def make_imagenet_preprocess(brightness: float = 0.2, contrast: float = 0.2,
         else:
             out["image"] = serve_normalize(img, "imagenet")
         return out
+
+    return fn
+
+
+def make_mnist_preprocess():
+    """The trainer's ``preprocess_fn(batch, generator, train)`` for the
+    grayscale path: a uint8 batch on the device (``data/mnist.load_mnist
+    (device_normalize=True)``) is standardized with the MNIST statistics
+    by :func:`serve_normalize`, in train and eval alike — plain PyTorch,
+    as the reference's is XLA and not a Pallas kernel.  Float batches
+    (host-normalized) pass through untouched."""
+
+    def fn(batch: dict, generator: torch.Generator | None,
+           train: bool) -> dict:
+        img = batch["image"]
+        if img.dtype != torch.uint8:
+            return batch
+        return {**batch, "image": serve_normalize(img, "mnist")}
 
     return fn
 

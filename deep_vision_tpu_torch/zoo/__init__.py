@@ -2,7 +2,9 @@
 
 from deep_vision_tpu_torch.zoo import (  # noqa: F401
     centernet,
+    classifiers,
     detection,
+    lenet,
     pose,
     resnet,
 )

@@ -253,9 +253,6 @@ def test_clip_by_global_norm_rule():
     assert all(torch.equal(a, b) for a, b in zip(same, g))
     cut = port_optim.clip_by_global_norm(g, 2.5)     # g / 5 · 2.5
     assert torch.equal(cut[0], torch.tensor([3.0, 4.0]) / 5.0 * 2.5)
-    with pytest.raises(NotImplementedError, match="rmsprop"):
-        port_optim.build_optimizer(
-            port_optim.OptimizerConfig(name="rmsprop"), _Tiny())
     with pytest.raises(NotImplementedError, match="nesterov"):
         port_optim.build_optimizer(
             port_optim.OptimizerConfig(nesterov=True), _Tiny())

@@ -30,7 +30,10 @@ def test_every_module_imports_with_jax_blocked():
     assert "deep_vision_tpu_torch.tasks.detection" in mods
     assert "deep_vision_tpu_torch.data.detection" in mods
     for new in ("models.hourglass", "models.centernet", "tasks.centernet",
-                "zoo.centernet", "tasks.pose", "data.pose", "zoo.pose"):
+                "zoo.centernet", "tasks.pose", "data.pose", "zoo.pose",
+                "models.lenet", "models.alexnet", "models.vgg",
+                "models.inception", "models.mobilenet", "models.shufflenet",
+                "zoo.classifiers", "zoo.lenet", "data.mnist"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
