@@ -45,7 +45,13 @@ Phases, each of which must pass:
               version on the card at (B, 224, 224, 3) for B in
               {256, 32, 1} and at (3, 17, 23, 3), with seeded factors:
               the outputs must be bit-identical.  Kernel device, eager
-              call, plain, library and bound times as for serve_ingest;
+              call, plain, library and bound times as for serve_ingest,
+              and the device time of ``train_ingest_factors`` (the int64
+              image sum) beside them.  Then the edge cases, bit for bit:
+              a contiguous view at an unaligned address (``x[1:]`` of a
+              (129, 299, 299, 3) batch: the per-pixel loop), images
+              smaller than a 16-pixel chunk (64, 2, 3, 3), and a batch
+              beyond 65,535 images (70000, 4, 4, 3);
 5. training — write seeded raw-payload dvrec shards (train 1024, val
               256 images, stored at 256×256×3, labels from 1000 classes)
               and call ``cli/train.py``'s ``main`` in process for
@@ -181,7 +187,7 @@ Phases, each of which must pass:
               img/s;
 16. zoo kernels — within phases 2 and 4: ``train_ingest`` at the zoo's
               shapes (128, 224, 224, 3), (128, 299, 299, 3) (299·299·3
-              bytes an image is no multiple of 16: the per-pixel path) and
+              bytes an image is no multiple of 16) and
               (1024, 224, 224, 3), and ``serve_ingest`` at (32, 32, 32, 1)
               "mnist" and (32, 299, 299, 3) "imagenet", int8 and float32,
               all bit for bit, timed against their bounds;
@@ -263,10 +269,16 @@ TRAIN_SHAPES = [(256, 224, 224, 3), (32, 224, 224, 3), (1, 224, 224, 3),
                 (3, 17, 23, 3)]
 #: the classifier zoo's train_ingest shapes: batch 128 at 224² (AlexNet,
 #: VGG, Inception V1, MobileNet), Inception V3's 299² (299·299·3 bytes
-#: an image is no multiple of 16: the per-pixel path) and
-#: resnet50_modern's batch 1024
+#: an image is no multiple of 16) and resnet50_modern's batch 1024
 ZOO_TRAIN_SHAPES = [(128, 224, 224, 3), (128, 299, 299, 3),
                     (1024, 224, 224, 3)]
+#: train_ingest's edge cases, checks only: (name, shape, leading images
+#: dropped by a view), the view x[1:] of a 299² batch at an address no
+#: multiple of 16, images smaller than the kernel's 16-pixel chunk, and
+#: more images than a grid dimension holds (65,535)
+TRAIN_EDGE_CASES = [("unaligned_view", (129, 299, 299, 3), 1),
+                    ("tiny_images", (64, 2, 3, 3), 0),
+                    ("past_grid_limit", (70000, 4, 4, 3), 0)]
 #: serve_ingest at the zoo's /v1/classify buckets: lenet5's "mnist"
 #: float32 and inception3's "imagenet" int8 (both outputs checked)
 ZOO_SERVE_CASES = [("mnist", (32, 32, 32, 1)), ("imagenet", (32, 299, 299, 3))]
@@ -1251,6 +1263,7 @@ def phase_train_kernels() -> list[dict]:
     from deep_vision_tpu_torch.ops.ingest import ingest_norm_constants
     from deep_vision_tpu_torch.ops.train_ingest import (
         GRAY,
+        tiled_path,
         train_ingest,
         train_ingest_factors,
         train_ingest_plain,
@@ -1304,14 +1317,42 @@ def phase_train_kernels() -> list[dict]:
                "library_max_abs_err": lib_err,
                "bound_ms": max(bound_bytes, bound_ops),
                "bound_by": "bytes" if bound_bytes >= bound_ops
-               else "operations"}
+               else "operations",
+               # the factor draw before each launch: three draws and the
+               # int64 image sum, which reads the batch once
+               "factors_ms": device_ms(
+                   lambda p: train_ingest_factors(p[0], None), pairs),
+               "factors_bound_ms": (numel + 16 * shape[0])
+               / HBM_BYTES_PER_S * 1e3}
         rows.append(row)
         log(f"train_ingest {shape}: device {row['ms'] * 1e3:.2f} us "
             f"(eager call {row['call_ms'] * 1e3:.2f}, plain "
             f"{row['plain_ms'] * 1e3:.2f}, library "
             f"{row['library_ms'] * 1e3:.2f}, bound "
-            f"{row['bound_ms'] * 1e3:.2f} us), max err {err}")
+            f"{row['bound_ms'] * 1e3:.2f} us; factors "
+            f"{row['factors_ms'] * 1e3:.2f} us, bound "
+            f"{row['factors_bound_ms'] * 1e3:.2f}), max err {err}")
         del pairs
+    for name, shape, drop in TRAIN_EDGE_CASES:
+        full = torch.randint(0, 256, shape, dtype=torch.uint8,
+                             device="cuda", generator=gen)
+        x = full[drop:]
+        aligned = x.data_ptr() % 16 == 0
+        check(x.is_contiguous() and aligned == (drop == 0),
+              f"train_ingest edge case {name} is not the case it names")
+        factors = train_ingest_factors(x, gen)
+        got, want = kernel((x, factors)), plain((x, factors))
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"train_ingest differs from plain "
+                                      f"at {name} {tuple(x.shape)}: {err}")
+        rows.append({"edge": name, "shape": list(x.shape),
+                     "tiled": tiled_path(x.data_ptr(), got.data_ptr(),
+                                         x.shape[1] * x.shape[2]),
+                     "max_abs_err": err})
+        log(f"train_ingest {name} {tuple(x.shape)}: bit-identical "
+            f"(tiled path {rows[-1]['tiled']})")
+        del full, x, got, want
     empty = torch.empty((0, 224, 224, 3), dtype=torch.uint8, device="cuda")
     before = train_ingest.launches
     out = train_ingest(empty, torch.empty((0, 4), device="cuda"))
@@ -2784,15 +2825,18 @@ def main() -> int:
            for m in ZOO_STEP_MODELS}}
     zoo_train_rows = [{k: r[k] for k in ("shape", "ms", "plain_ms",
                                          "library_ms", "bound_ms",
-                                         "bound_by", "max_abs_err")}
-                      for r in train_rows
-                      if tuple(r["shape"]) in ZOO_TRAIN_SHAPES]
+                                         "bound_by", "factors_ms",
+                                         "max_abs_err")}
+                      for r in train_rows if "edge" not in r
+                      and tuple(r["shape"]) in ZOO_TRAIN_SHAPES]
     kernels.append({
         "name": "train_ingest", "route": "cuda",
         "source": "deep_vision_tpu_torch/csrc/train_ingest.cu",
         "replaces": "deep_vision_tpu/ops/pallas_ops.py:202",
         "launches": sum(train_by_path.values()),
         "launches_by_path": train_by_path, "zoo_shapes": zoo_train_rows,
+        "edge_cases": [r["edge"] for r in train_rows if "edge" in r],
+        "factors_ms": train_row["factors_ms"],
         "max_abs_err": max(r["max_abs_err"] for r in train_rows),
         "ms": train_row["ms"], "plain_ms": train_row["plain_ms"],
         "bound_ms": train_row["bound_ms"], "bound_by": train_row["bound_by"],

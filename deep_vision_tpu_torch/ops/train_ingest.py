@@ -107,6 +107,38 @@ def _check(x: torch.Tensor, factors: torch.Tensor, kind: str) -> None:
                          f"(have {INGEST_KINDS})")
 
 
+#: the least image size, in pixels, of the kernel's tiled path: a group
+#: of a thread's pixels then spans at most two images
+MIN_TILED_IMAGE = 16
+
+
+def tiled_path(x_ptr: int, out_ptr: int, pixels: int) -> bool:
+    """Whether the kernel may take its tiled path for a batch at address
+    ``x_ptr`` into an output at ``out_ptr`` with ``pixels`` pixels an
+    image: its 16-byte loads and stores need both bases 16-byte aligned.
+    Otherwise (a view such as ``x[1:]``, or tiny images) the kernel takes
+    its per-pixel loop for the whole batch."""
+    return x_ptr % 16 == 0 and out_ptr % 16 == 0 and pixels >= MIN_TILED_IMAGE
+
+
+def division_magic(pixels: int, total: int) -> tuple[int, int]:
+    """``(magic, shift)`` with ``((q·magic) >> 64) >> shift == q // pixels``
+    for every ``0 <= q < total`` (``total <= 2**63``, ``pixels >= 2``):
+    the kernel finds a pixel's image with one 64-bit multiply-high.
+
+    With ``magic = ceil(2**s / pixels)`` the error ``e = magic·pixels −
+    2**s`` is below ``pixels``, and the quotient is exact while
+    ``q·e < 2**s``; ``2**s > (total − 1)·(pixels − 1)`` ensures it, and
+    ``s >= 64`` keeps ``magic`` within 64 bits.  ``pixels == 1`` needs no
+    division: ``(0, 0)``."""
+    if pixels < 1 or total < 0 or total > 2 ** 63:
+        raise ValueError(f"no magic for pixels={pixels}, total={total}")
+    if pixels == 1:
+        return 0, 0
+    s = max(64, (max(total - 1, 0) * (pixels - 1)).bit_length())
+    return -(-(1 << s) // pixels), s - 64
+
+
 def train_ingest(x: torch.Tensor, factors: torch.Tensor,
                  kind: str = "imagenet") -> torch.Tensor:
     """uint8 ``(B, H, W, 3)`` + ``(B, 4)`` factors → float32, same shape.
@@ -122,16 +154,18 @@ def train_ingest(x: torch.Tensor, factors: torch.Tensor,
     if x.numel() == 0:  # nothing to launch, so nothing to count
         return out
     factors = factors.to(torch.float32).contiguous()
-    pixels = x.shape[1] * x.shape[2]
-    vectorized = (x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-                  and (pixels * 3) % 16 == 0)
+    if factors.data_ptr() % 16:  # the kernel reads a row as one float4
+        factors = factors.clone()
+    batch, pixels = x.shape[0], x.shape[1] * x.shape[2]
+    magic, shift = division_magic(pixels, batch * pixels)
     mean_c = (ctypes.c_float * 3)(*mean.tolist())
     std_c = (ctypes.c_float * 3)(*std.tolist())
     lib = _library()
     err = lib.dvt_train_ingest(
-        x.data_ptr(), factors.data_ptr(), out.data_ptr(), x.shape[0],
-        pixels, ctypes.cast(mean_c, ctypes.c_void_p),
-        ctypes.cast(std_c, ctypes.c_void_p), int(vectorized),
+        x.data_ptr(), factors.data_ptr(), out.data_ptr(), batch, pixels,
+        ctypes.cast(mean_c, ctypes.c_void_p),
+        ctypes.cast(std_c, ctypes.c_void_p),
+        int(tiled_path(x.data_ptr(), out.data_ptr(), pixels)), magic, shift,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         msg = lib.dvt_train_ingest_error_string(err).decode()
@@ -151,8 +185,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("train_ingest")
     fn = lib.dvt_train_ingest
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.dvt_train_ingest_error_string.argtypes = [ctypes.c_int]
     lib.dvt_train_ingest_error_string.restype = ctypes.c_char_p

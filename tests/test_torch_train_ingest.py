@@ -34,12 +34,21 @@ from deep_vision_tpu_torch.ops.preprocess import (
     serve_normalize,
 )
 from deep_vision_tpu_torch.ops.train_ingest import (
+    MIN_TILED_IMAGE,
+    division_magic,
+    tiled_path,
     train_ingest,
     train_ingest_factors,
     train_ingest_plain,
 )
 
-SHAPES = [(4, 32, 32, 3), (2, 24, 40, 3), (3, 17, 23, 3), (2, 224, 224, 3)]
+SHAPES = [(4, 32, 32, 3), (2, 24, 40, 3), (3, 17, 23, 3), (2, 224, 224, 3),
+          (2, 299, 299, 3)]
+#: the kernel's (batch, pixels an image) on the main path (chip_smoke.py's
+#: TRAIN_SHAPES and ZOO_TRAIN_SHAPES) and at its edge cases
+KERNEL_SHAPES = [(256, 224 * 224), (32, 224 * 224), (1, 224 * 224),
+                 (3, 17 * 23), (128, 224 * 224), (128, 299 * 299),
+                 (1024, 224 * 224), (129, 299 * 299), (64, 6), (70000, 16)]
 
 
 def _raw(shape, seed):
@@ -142,3 +151,64 @@ def test_empty_batch():
     x = torch.empty((0, 8, 8, 3), dtype=torch.uint8)
     out = train_ingest(x, torch.empty((0, 4)))
     assert out.shape == x.shape and out.dtype == torch.float32
+
+
+def _magic_quotient(q, magic, shift):
+    """``((q·magic) >> 64) >> shift`` in uint64 numpy for q < 2**32: the
+    product split at magic's 32-bit halves."""
+    hi, lo = np.uint64(magic >> 32), np.uint64(magic & 0xFFFFFFFF)
+    mid = q * hi + ((q * lo) >> np.uint64(32))
+    return mid >> np.uint64(32 + shift)
+
+
+@pytest.mark.parametrize("batch,pixels", KERNEL_SHAPES)
+def test_division_magic_every_pixel(batch, pixels):
+    """The kernel's image of pixel q, umulhi(q, magic) >> shift, is
+    q // pixels for every pixel of the batch."""
+    total = batch * pixels
+    magic, shift = division_magic(pixels, total)
+    assert 0 <= magic < 2 ** 64 and 0 <= shift < 64
+    step = 1 << 22
+    for start in range(0, total, step):
+        q = np.arange(start, min(start + step, total), dtype=np.uint64)
+        np.testing.assert_array_equal(_magic_quotient(q, magic, shift),
+                                      q // np.uint64(pixels))
+
+
+@pytest.mark.parametrize("pixels", [2, 3, 16, 17, 391, 50176, 89401,
+                                    2 ** 31 - 1, 2 ** 32 + 7, 2 ** 40 - 3])
+@pytest.mark.parametrize("total_bits", [20, 40, 63])
+def test_division_magic_ends_of_range(pixels, total_bits):
+    """Exact at the ends of q's range, around every image boundary there,
+    and at the largest total (2**63), in Python's exact integers."""
+    total = 1 << total_bits
+    magic, shift = division_magic(pixels, total)
+    assert 0 <= magic < 2 ** 64 and 0 <= shift < 64
+    last = (total - 1) // pixels * pixels
+    qs = {0, 1, pixels - 1, pixels, pixels + 1, total - 1, total - 2,
+          last, last - 1, last - pixels, last - pixels - 1}
+    for q in sorted(v for v in qs if 0 <= v < total):
+        assert ((q * magic) >> 64) >> shift == q // pixels, q
+
+
+def test_division_magic_one_pixel_and_bad_input():
+    assert division_magic(1, 12345) == (0, 0)  # the kernel skips it
+    for pixels, total in ((0, 10), (-3, 10), (4, -1), (4, 2 ** 63 + 1)):
+        with pytest.raises(ValueError):
+            division_magic(pixels, total)
+
+
+@pytest.mark.parametrize("x_ptr,out_ptr,pixels,tiled", [
+    (0x7F0000000000, 0x7F0000100000, 224 * 224, True),
+    (0x7F0000000000, 0x7F0000100000, 299 * 299, True),
+    # x[1:] of a 299² batch: 268,203 bytes on, no multiple of 16
+    (0x7F0000000000 + 299 * 299 * 3, 0x7F0000100000, 299 * 299, False),
+    (0x7F0000000008, 0x7F0000100000, 224 * 224, False),
+    (0x7F0000000000, 0x7F0000100004, 224 * 224, False),
+    (0x7F0000000000, 0x7F0000100000, MIN_TILED_IMAGE, True),
+    (0x7F0000000000, 0x7F0000100000, MIN_TILED_IMAGE - 1, False),
+    (0x7F0000000000, 0x7F0000100000, 6, False),
+])
+def test_tiled_path_needs_aligned_bases_and_16_pixel_images(
+        x_ptr, out_ptr, pixels, tiled):
+    assert tiled_path(x_ptr, out_ptr, pixels) is tiled
