@@ -227,7 +227,47 @@ Phases, each of which must pass:
               classes, logits within twice the card's own bucket-1-vs-32
               spread), a "unit" ingest (no mean and std) control failing
               on most rows, ``serve_ingest`` launches equal to the batches;
-21. card    — print ``nvidia-smi --query-gpu=name,power.limit``.
+21. card    — print ``nvidia-smi --query-gpu=name,power.limit``;
+22. GAN training — ``cli.train`` for dcgan (28²×1, latent 100, bf16,
+              batch 256, Adam) on seeded idx-ubyte files at MNIST's size
+              (60,000 images: 234 steps an epoch, through the staged
+              prefetcher) and for cyclegan (256²×3, 9 residual blocks,
+              bf16, batch 1) on ``--synthetic --synthetic-size 64`` (64
+              steps an epoch: the 50-image pools fill and replay in the
+              first), each 2 epochs and then ``--resume --epochs 3``:
+              finite losses, 0 bad steps, a checkpoint at epoch 2 (the
+              recipes save every 2), the resumed run starting from it
+              with every network's weights, BN statistics, Adam moments
+              and count and the scheduler's state; step ms, img/s, input
+              stall (DCGAN) and peak memory.  No hand-written kernel runs
+              on these paths;
+23. GAN step checks — one float32 adversarial step of dcgan (batch 64, z
+              and dropout masks drawn on the CPU and copied) and of
+              cyclegan (9 blocks, 128², batch 1, valid pooled fakes) on
+              the card and on the CPU from the same seeded networks
+              (non-zero BN scales): every loss within 1e-4 relative,
+              gradients within max(1e-3, 10× the CPU's own floor) in L2
+              (5e-2 a tensor), BN statistics within max(1e-4, 10×
+              floor), Adam's first update (about lr·sign(g)) of the
+              other sign on at most 1% of the elements it moves, a
+              gradient in every parameter; rolled z (DCGAN) and swapped
+              domains (CycleGAN) must fail;
+24. generate serving — seeded generator weights (non-zero BN scales)
+              through ``gan_to_flax``: dcgan at float32 (its float32
+              latent wire forced over the requested uint8) and cyclegan
+              on the uint8 wire at float32 and int8, buckets 1–32, 32
+              ``/v1/generate`` requests each (8 sequential, 24
+              concurrent; DCGAN ``{"seed"}``, CycleGAN ``pixels``) with
+              ``serve_ingest``'s count set to 0 just before and read just
+              after, where it must stay 0 (the "gan" prologue is plain):
+              every answer 200 and its bytes within twice the card's own
+              bucket-1-vs-32 spread in codes of a direct call at one of
+              the buckets; the same request again answers the same bytes;
+              an "imagenet" prologue control fails on most CycleGAN rows;
+              D2H exactly 784 B (DCGAN) or 196,608 B (CycleGAN) a padded
+              image; other verbs answer 400 naming ``/v1/generate``.
+              Prints forward and epilogue ms per bucket, the client p50
+              and the concurrent img/s.
 
 Before the last line it prints ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on its own path, max error, kernel / plain /
@@ -369,6 +409,25 @@ DETECT_ROW_BYTES_PER_K = 16 + 4 + 4 + 4
 HEAD_STD = {"yolo": 1.5, "heat": 1.5, "wh": 1.0, "offset": 0.5,
             "pose": 1.0}
 HEAT_PRIOR, YOLO_OBJ_BIAS = -2.19, -6.0
+#: the GAN family at full width: dcgan through cli.train on seeded
+#: idx-ubyte files at MNIST's size (batch 256: 234 steps an epoch),
+#: cyclegan on seeded --synthetic domains (256², 9 blocks, batch 1: 64
+#: steps an epoch, so the 50-image pools fill and start replaying in the
+#: first epoch); both checkpoint every 2 epochs
+GAN_MODELS = ("dcgan", "cyclegan")
+GAN_SYNTHETIC = 64
+GAN_STEPS = {"dcgan": MNIST_TRAIN // 256, "cyclegan": GAN_SYNTHETIC}
+#: the card-vs-CPU float32 steps: DCGAN at batch 64, CycleGAN at 128²,
+#: batch 1, with valid pooled fakes
+DCGAN_CHECK_BATCH, CYCLE_CHECK_SIZE = 64, 128
+#: /v1/generate: (config, requested wire, --infer-dtype); dcgan's wire
+#: is forced to float32 (a latent), cyclegan's uint8 takes the plain
+#: "gan" prologue at float32 and int8
+GENERATE_MODELS = (("dcgan", "uint8", "float32"),
+                   ("cyclegan", "uint8", "float32"),
+                   ("cyclegan", "uint8", "int8"))
+#: one padded image's D2H bytes: the uint8 image
+GENERATE_ROW_BYTES = {"dcgan": 28 * 28 * 1, "cyclegan": 256 * 256 * 3}
 
 
 def log(msg: str) -> None:
@@ -2736,6 +2795,562 @@ def phase_classify_serving() -> dict:
     return out
 
 
+def gan_task(name: str, dtype):
+    """The task of GAN config ``name`` with its networks in ``dtype``."""
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.models import gan
+    from deep_vision_tpu_torch.tasks.gan import CycleGANTask, DCGANTask
+
+    opt = get_config(name).optimizer
+    if name == "dcgan":
+        return DCGANTask(lambda: gan.DCGANGenerator(dtype=dtype),
+                         lambda: gan.DCGANDiscriminator(dtype=dtype),
+                         opt=opt)
+    return CycleGANTask(lambda: gan.CycleGANGenerator(dtype=dtype),
+                        lambda: gan.PatchGANDiscriminator(dtype=dtype),
+                        opt=opt)
+
+
+def gan_train_and_resume(name: str, work: str, extra=()) -> dict:
+    """``cli.train.main`` for ``name`` on the card: EPOCHS epochs (a
+    checkpoint at the last: the recipes save every 2), then ``--resume
+    --epochs RESUME_EPOCHS``.  The resumed run must start from that
+    checkpoint with every network's weights, BN statistics, Adam moments
+    and count, and the scheduler's state; every logged loss finite, no
+    bad step.  Returns the numbers."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.core.adversarial import AdversarialTrainer
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+
+    steps = GAN_STEPS[name]
+    argv = ["-m", name, "--workdir", work, "--device", "cuda", *extra]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    check(cli.main(argv + ["--epochs", str(EPOCHS)]) == 0,
+          f"cli.train -m {name} failed")
+    first_s = time.monotonic() - t0
+    ckpts = Checkpointer(os.path.join(work, "checkpoints"))
+    check(ckpts.all_steps() == [EPOCHS * steps],
+          f"{name}: checkpoints {ckpts.all_steps()}, not one at epoch "
+          f"{EPOCHS}")
+    saved = ckpts.load()
+    want = {"step": EPOCHS * steps, "epoch": EPOCHS + 1,
+            "scheduler": saved["extras"]["scheduler"],
+            "digests": {n: state_digest(s["model"], s["optimizer"])
+                        for n, s in saved["states"].items()},
+            "counts": {n: EPOCHS * steps for n in saved["states"]}}
+    resumed = {}
+    original = AdversarialTrainer.maybe_resume
+
+    def spy(self, states):
+        states = original(self, states)
+        resumed.update(
+            step=next(iter(states.values())).step, epoch=self.start_epoch,
+            scheduler=self.scheduler.state_dict(),
+            digests={n: state_digest(s.model.state_dict(),
+                                     s.opt.state_dict())
+                     for n, s in states.items()},
+            counts={n: int(s.opt.count) for n, s in states.items()})
+        return states
+
+    AdversarialTrainer.maybe_resume = spy
+    try:
+        t0 = time.monotonic()
+        check(cli.main(argv + ["--resume", "--epochs",
+                               str(RESUME_EPOCHS)]) == 0,
+              f"cli.train -m {name} --resume failed")
+        resume_s = time.monotonic() - t0
+    finally:
+        AdversarialTrainer.maybe_resume = original
+    check(resumed == want, f"{name}: resume restored {resumed}, not {want}")
+    series = read_series(work)
+    losses = {k: [v for _, v in series[k]] for k in series
+              if k.endswith("loss") or k in ("gen_gan", "cycle", "ident",
+                                             "disc_a", "disc_b")}
+    check({"g_loss", "d_loss"} <= set(losses) and all(
+        math.isfinite(v) for vs in losses.values() for v in vs),
+          f"{name}: losses {losses}")
+    check(all(v == 0 for _, v in series["bad_steps"]),
+          f"{name}: bad steps: {series['bad_steps']}")
+    return {"train_steps": RESUME_EPOCHS * steps, "steps_per_epoch": steps,
+            "first_run_s": first_s, "resumed_run_s": resume_s,
+            "step_ms_by_epoch": [v for _, v in series["train_step_ms"]],
+            "img_per_s_by_epoch": [v for _, v in series["images_per_sec"]],
+            "input_stall_frac": [v for _, v in
+                                 series.get("input_stall_frac", [])],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "g_loss": losses["g_loss"][-3:], "d_loss": losses["d_loss"][-3:],
+            "checkpoints": ckpts.all_steps(),
+            "resumed": {k: resumed[k] for k in ("step", "epoch", "counts")}}
+
+
+def phase_gan_training() -> dict:
+    """cli.train for dcgan on seeded idx-ubyte files at MNIST's size
+    (through the staged prefetcher) and cyclegan on seeded synthetic
+    domains at 256² (the pools), EPOCHS epochs and a resumed one each."""
+    from deep_vision_tpu_torch.data import mnist
+
+    out = {}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        data = os.path.join(tmp, "mnist")
+        os.makedirs(data)
+        rng = np.random.default_rng(30)
+        mnist.write_idx(data, "train",
+                        rng.integers(0, 256, (MNIST_TRAIN, 28, 28), np.uint8),
+                        rng.integers(0, 10, MNIST_TRAIN).astype(np.uint8))
+        out["dcgan"] = gan_train_and_resume(
+            "dcgan", os.path.join(tmp, "dcgan"), ["--data-root", data])
+        check(bool(out["dcgan"]["input_stall_frac"]),
+              "dcgan: no input block: the prefetcher did not run")
+        out["cyclegan"] = gan_train_and_resume(
+            "cyclegan", os.path.join(tmp, "cyclegan"),
+            ["--synthetic", "--synthetic-size", str(GAN_SYNTHETIC)])
+    for name, row in out.items():
+        log(f"{name} training: {json.dumps(row)}")
+    return out
+
+
+def gan_seeded_models(name: str, seed: int, dtype) -> dict:
+    """Config ``name``'s networks at flax's init from the seed with
+    NON-ZERO, non-unit BatchNorm scales and positive running variances
+    (``nonzero_bn_``), on the CPU."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    models = gan_task(name, dtype).init_models(gen)
+    for m in models.values():
+        nonzero_bn_(m, gen)
+    return models
+
+
+def gan_step(name: str, device: str, sds: dict, batch: dict,
+             draws: dict | None) -> dict:
+    """One float32 adversarial step of ``name`` on ``device`` from the
+    networks' state_dicts ``sds``: the losses, every network's
+    state_dict before and after, and its gradients, all on the CPU."""
+    import torch
+
+    from deep_vision_tpu_torch.core.adversarial import AdversarialTrainer
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.ops.preprocess import make_gan_preprocess
+
+    cfg = get_config(name)
+    task = gan_task(name, torch.float32)
+    models = task.init_models(torch.Generator().manual_seed(0))
+    for n, m in models.items():
+        m.load_state_dict(sds[n])
+    grads = {}
+    step_fn = task.train_step
+
+    def spy(states, b, d):
+        g, outputs, metrics = step_fn(states, b, d)
+        grads.update({n: {k: t.detach().cpu().clone() for (k, _), t in
+                          zip(states[n].model.named_parameters(), g[n])}
+                      for n in g})
+        return g, outputs, metrics
+
+    task.train_step = spy
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        trainer = AdversarialTrainer(cfg, task, workdir=tmp,
+                                     preprocess_fn=make_gan_preprocess(),
+                                     device=device)
+        states = trainer.states_for(models)
+        before = {f"{n}/{k}": v.detach().cpu().clone()
+                  for n, st in states.items()
+                  for k, v in st.model.state_dict().items()}
+        dev = torch.device(device)
+        d = None if draws is None else {
+            k: v.to(dev) if isinstance(v, torch.Tensor)
+            else [m.to(dev) for m in v] for k, v in draws.items()}
+        _, m = trainer.train_step(states, batch, draws=d)
+        after = {f"{n}/{k}": v.detach().cpu().clone()
+                 for n, st in states.items()
+                 for k, v in st.model.state_dict().items()}
+    check(int(m["bad_steps"]) == 0, f"{name}: the {device} step was skipped")
+    return {"losses": {k: float(v) for k, v in m.items()
+                       if k != "bad_steps"},
+            "before": before, "after": after,
+            "grads": {f"{n}/{k}": g for n, gs in grads.items()
+                      for k, g in gs.items()}}
+
+
+def gan_check_batch(name: str):
+    """(batch, draws, control batch, control draws) of the step check:
+    DCGAN's seeded uint8 images with z and masks drawn on the CPU (the
+    control rolls z by one image); CycleGAN's synthetic domains at
+    CYCLE_CHECK_SIZE² with seeded pooled fakes and ``pool_valid`` 1 (the
+    control swaps the A and B domains)."""
+    import torch
+
+    from deep_vision_tpu_torch.data.gan import synthetic_unpaired
+
+    rng = np.random.default_rng(31)
+    if name == "dcgan":
+        batch = {"image": rng.integers(0, 256, (DCGAN_CHECK_BATCH, 28, 28,
+                                                1), dtype=np.uint8)}
+        draws = gan_task(name, torch.float32).draw(
+            DCGAN_CHECK_BATCH, torch.Generator().manual_seed(32), "cpu")
+        rolled = dict(draws, z=torch.roll(draws["z"], 1, 0))
+        return batch, draws, batch, rolled
+    a, b = synthetic_unpaired(2, CYCLE_CHECK_SIZE, seed=33,
+                              device_normalize=True)
+    pa, pb = synthetic_unpaired(1, CYCLE_CHECK_SIZE, seed=34)
+    batch = {"image_a": a[:1], "image_b": b[:1], "pool_a2b": pb,
+             "pool_b2a": pa, "pool_valid": np.ones((), np.float32)}
+    swapped = dict(batch, image_a=b[:1], image_b=a[:1])
+    return batch, None, swapped, None
+
+
+def adam_flip_share(step: dict, ref: dict, lr: float) -> float:
+    """The share of the parameter elements that ``ref``'s update moves
+    by at least lr/2 whose update in ``step`` is more than lr/100 off:
+    Adam's first update is about lr·sign(g), so such an element is one
+    whose gradient took the other sign."""
+    off = held = 0
+    for k, a in ref["after"].items():
+        if k.endswith(("running_mean", "running_var",
+                       "num_batches_tracked")):
+            continue
+        moved = (a - ref["before"][k]).abs() >= lr / 2
+        held += int(moved.sum())
+        off += int(((step["after"][k] - a).abs() > lr / 100)
+                   .logical_and(moved).sum())
+    return off / max(held, 1)
+
+
+def phase_gan_step_check(name: str) -> dict:
+    """One float32 step of full-width ``dcgan`` (batch 64) or
+    ``cyclegan`` (9 blocks, 128², batch 1, pooled fakes) on the card
+    against the same step on the CPU, from the same seeded networks
+    (non-zero BN scales) and, for DCGAN, the same z and dropout masks
+    drawn on the CPU: every loss within 1e-4 relative, the gradients
+    within max(1e-3, 10× the CPU's own floor) in L2 over all networks
+    (each tensor's within max(5e-2, 10× floor)), the BN statistics'
+    updates within max(1e-4, 10× floor); the floor is the CPU's step
+    from weights moved by 1e-7 (relative).  The recipes' Adam makes a
+    first update of about lr·sign(g), so its update in L2 is printed and
+    held by the share of the elements it moves by at least lr/2 that
+    land more than lr/100 off (a gradient of the other sign): at most
+    1%.  (On the card the DCGAN gradients came 3.4e-4 apart in L2 against
+    a CPU floor of 4.5e-7, as one leaky-ReLU input within rounding of 0
+    taking the other side moves them on the CPU, and Adam's update
+    2.5e-2 against a floor of 1.1e-4.)  Every parameter must get a gradient (no GAN conv that
+    feeds a BatchNorm has a bias, so none is zero in exact arithmetic).
+    The control (rolled z; swapped domains) must fail."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+
+    lr = get_config(name).optimizer.learning_rate
+    models = gan_seeded_models(name, 35, torch.float32)
+    sds = {n: m.state_dict() for n, m in models.items()}
+    gen = torch.Generator().manual_seed(36)
+    moved = {n: {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                 if v.is_floating_point() else v for k, v in sd.items()}
+             for n, sd in sds.items()}
+    batch, draws, cbatch, cdraws = gan_check_batch(name)
+    t0 = time.monotonic()
+    cpu = gan_step(name, "cpu", sds, batch, draws)
+    cpu_s = time.monotonic() - t0
+    moved_step = gan_step(name, "cpu", moved, batch, draws)
+    gpu = gan_step(name, "cuda", sds, batch, draws)
+    control = gan_step(name, "cuda", sds, cbatch, cdraws)
+
+    def errs_of(step):
+        return (update_errors((0, step["before"], step["after"]),
+                              (0, cpu["before"], cpu["after"])),
+                grad_errors(step["grads"], cpu["grads"]))
+
+    floor_u, floor_g = errs_of(moved_step)
+    bounds = {"grads": max(1e-3, 10 * floor_g["total"]),
+              "tensor": max(5e-2, 10 * max(floor_g["per"].values())),
+              "stats": max(1e-4, 10 * floor_u["stats"]),
+              "adam_flip_share": 1e-2}
+
+    def faults_of(step):
+        faults = [f"{k} {v} vs {cpu['losses'][k]}"
+                  for k, v in step["losses"].items()
+                  if abs(v - cpu["losses"][k])
+                  > 1e-4 * abs(cpu["losses"][k])]
+        upd, grd = errs_of(step)
+        if grd["total"] > bounds["grads"]:
+            faults.append(f"gradients {grd['total']:.3e} in L2")
+        faults += [f"{k}: gradient {e:.3e} in L2"
+                   for k, e in grd["per"].items() if e > bounds["tensor"]]
+        if upd["stats"] > bounds["stats"]:
+            faults.append(f"stats update {upd['stats']:.3e} in L2")
+        flips = adam_flip_share(step, cpu, lr)
+        if flips > bounds["adam_flip_share"]:
+            faults.append(f"Adam update of the other sign on {flips:.2%}")
+        return faults, upd, grd, flips
+
+    faults, upd, grd, flips = faults_of(gpu)
+    control_faults, _, _, _ = faults_of(control)
+    dead = sorted(k for k, g in cpu["grads"].items()
+                  if not float(g.norm()) > 0)
+    out = {"losses_cuda": gpu["losses"], "losses_cpu": cpu["losses"],
+           "grad_l2_err": grd["total"],
+           "worst_grad_tensors": dict(sorted(
+               grd["per"].items(), key=lambda kv: -kv[1])[:4]),
+           "stats_l2_update_err": upd["stats"],
+           "params_l2_update_err": upd["params"],
+           "worst_tensor_l2_update_err": max(upd["l2"].values()),
+           "adam_flip_share": flips,
+           "floor": {"grad_l2": floor_g["total"],
+                     "worst_tensor_grad_l2": max(floor_g["per"].values()),
+                     "stats_l2": floor_u["stats"],
+                     "params_l2": floor_u["params"],
+                     "adam_flip_share": adam_flip_share(moved_step, cpu,
+                                                        lr)},
+           "bounds": bounds, "faults": faults,
+           "params_held": len(cpu["grads"]), "zero_grad_params": dead,
+           "control_faults": len(control_faults),
+           "control_first_faults": control_faults[:3], "cpu_step_s": cpu_s}
+    log(f"{name} step check: {json.dumps(out)}")
+    check(not dead, f"{name}: no gradient reached {dead[:5]}")
+    check(not faults, f"{name}: the card's float32 step disagrees with the "
+                      f"CPU's: {faults[:5]}")
+    check(any(" vs " in f for f in control_faults),
+          f"{name}: the loss bound held under the control")
+    return out
+
+
+def write_gan_weights(name: str, path: str, seed: int) -> None:
+    """Config ``name``'s generator (bf16 compute, float32 weights) at
+    flax's init from the seed with non-zero BN scales, written in the
+    reference's flax layout as a ``--weights`` npz."""
+    import torch
+
+    from deep_vision_tpu_torch import convert
+    from deep_vision_tpu_torch.core.config import get_config
+
+    model = get_config(name).model()
+    gen = torch.Generator().manual_seed(seed)
+    model.reset_parameters(gen)
+    nonzero_bn_(model, gen)
+    convert.save_npz(path, convert.gan_to_flax(model.state_dict(), model))
+
+
+def generate_rows(sm, inputs: np.ndarray, bucket: int,
+                  kind: str | None = None) -> list:
+    """The served generator called directly in batches of ``bucket``
+    (zero padded): the PLAIN prologue of ``kind`` (by default the
+    model's own "gan"; none on a float32 wire), the same forward and the
+    same uint8 epilogue; one uint8 image per input."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.preprocess import (
+        quantize_activations,
+        serve_normalize,
+    )
+
+    kind = kind or sm.preprocess_kind
+    post = sm.workload.make_epilogue(sm)
+    rows = []
+    for i in range(0, len(inputs), bucket):
+        chunk = inputs[i:i + bucket]
+        batch = np.zeros((bucket, *sm.input_shape), sm.wire_dtype)
+        batch[:len(chunk)] = chunk
+        x = torch.from_numpy(batch).to(sm.device)
+        with torch.inference_mode():
+            if sm.wire_dtype == np.uint8:
+                x = serve_normalize(x, kind)
+            if sm.infer_dtype == "int8":
+                s = float(sm.quant.act_scale)
+                x = quantize_activations(x, s).to(torch.float32) * s
+            out = post(sm._model(x).to(torch.float32)).cpu().numpy()
+        rows += [out[j] for j in range(len(chunk))]
+    return rows
+
+
+def reply_image(reply: dict) -> np.ndarray:
+    import base64
+
+    img = reply["image"]
+    return np.frombuffer(base64.b64decode(img["b64"]), img["dtype"]) \
+        .reshape(img["shape"])
+
+
+def code_diff(a: np.ndarray, b: np.ndarray) -> int:
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def hold_images(replies, refs: dict, bound: int) -> list[str]:
+    """Each reply's image against the direct images of its input at
+    every bucket: within ``bound`` codes of one of them."""
+    faults = []
+    for i, (status, got, _) in enumerate(replies):
+        if status != 200:
+            faults.append(f"request {i}: HTTP {status}")
+            continue
+        img = reply_image(got)
+        if min(code_diff(img, rows[i]) for rows in refs.values()) > bound:
+            faults.append(f"request {i}: no bucket's direct image is "
+                          f"within {bound} codes")
+    return faults
+
+
+def generate_bucket_ms(sm, iters: int = 10) -> dict:
+    """Per bucket: the eager forward (prologue + generator + float32
+    out) and, apart, the uint8 epilogue, from CUDA events on seeded
+    input of the model's wire dtype on the card."""
+    import torch
+
+    post = sm.workload.make_epilogue(sm)
+    gen = torch.Generator(device=sm.device).manual_seed(0)
+    out = {}
+    for b in BUCKETS:
+        fn = sm.compile_bucket(b, epilogue=False)
+        shape = (b, *sm.input_shape)
+        x = torch.randn(shape, generator=gen, device=sm.device) \
+            if sm.wire_dtype != np.uint8 else torch.randint(
+                0, 256, shape, generator=gen, device=sm.device,
+                dtype=torch.uint8)
+        img = fn(x)
+        with torch.inference_mode():
+            out[str(b)] = {"forward_ms": call_ms(fn, [x], iters=iters,
+                                                 warmup=2),
+                           "epilogue_ms": call_ms(post, [img], iters=iters,
+                                                  warmup=2)}
+    return out
+
+
+def serve_generate(name: str, wire: str, infer_dtype: str,
+                   weights: str) -> dict:
+    """``/v1/generate`` of ``name`` over HTTP on the card (buckets 1–32,
+    warmed up): 8 sequential then 24 concurrent requests (DCGAN:
+    ``{"seed"}``; CycleGAN: seeded synthetic domain-A images as
+    ``pixels``) with ``serve_ingest``'s count set to 0 just before and
+    read just after, which must stay 0; the first request again, which
+    must answer the same bytes; every other verb, which must answer 400
+    naming ``/v1/generate``.  Every answer must be 200 and within twice
+    the card's own bucket-1-vs-32 spread (in codes) of a direct call at
+    one of the buckets; for CycleGAN an "imagenet" prologue must fail
+    on most rows.  D2H must be exactly one uint8 image a padded image."""
+    from deep_vision_tpu_torch.cli import serve as cli
+    from deep_vision_tpu_torch.data.gan import synthetic_unpaired
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+    from deep_vision_tpu_torch.serve.workloads import WORKLOADS
+
+    argv = ["-m", name, "--weights", weights, "--wire-dtype", wire,
+            "--infer-dtype", infer_dtype, "--port", "0",
+            "--max-batch", str(max(BUCKETS)),
+            "--buckets", ",".join(map(str, BUCKETS)), "--device", "cuda",
+            "--warmup"]
+    t0 = time.monotonic()
+    engine, server = cli.build_server(cli.build_parser().parse_args(argv))
+    server.start_background()
+    sm = engine.model
+    boot_s = time.monotonic() - t0
+    want_wire = "float32" if name == "dcgan" else wire
+    check(sm.weights == weights and str(sm.wire_dtype) == want_wire
+          and sm.output_wire == "uint8" and sm.preprocess_kind == "gan",
+          f"{name}: served {sm.describe()}")
+    n = N_SEQ + N_CONC
+    if name == "dcgan":
+        bodies = [{"seed": 100 + i} for i in range(n)]
+        inputs = np.stack([sm.workload.decode(b, sm) for b in bodies])
+    else:
+        inputs = synthetic_unpaired(n, sm.input_shape[0], seed=37,
+                                    device_normalize=True)[0]
+        bodies = [{"pixels": im.tolist()} for im in inputs]
+    blobs = [json.dumps(b).encode() for b in bodies]
+    path = "/v1/generate"
+    try:
+        serve_ingest.launches = 0
+        replies = [post(server.port, b, path) for b in blobs[:N_SEQ]]
+        t1 = time.monotonic()
+        with concurrent.futures.ThreadPoolExecutor(N_CONC) as pool:
+            replies += list(pool.map(lambda b: post(server.port, b, path),
+                                     blobs[N_SEQ:]))
+        conc_s = time.monotonic() - t1
+        again = post(server.port, blobs[0], path)
+        launches = serve_ingest.launches
+        stats = engine.stats()
+        wrong_verbs = {}
+        for other in sorted(set(WORKLOADS) - {"generate"}):
+            try:
+                post(server.port, blobs[0], f"/v1/{other}")
+                wrong_verbs[other] = (200, {})
+            except urllib.error.HTTPError as e:
+                wrong_verbs[other] = (e.code, json.loads(e.read()))
+    finally:
+        server.shutdown()
+        engine.stop(drain_deadline=10.0)
+    for other, (status, reply) in wrong_verbs.items():
+        check(status == 400 and path in reply.get("error", ""),
+              f"{name} on /v1/{other} answered {status} {reply}")
+    check(launches == 0, f"{name}: serve_ingest launched {launches} times "
+                         f"on the generate path")
+    check(again[0] == 200 and np.array_equal(reply_image(again[1]),
+                                             reply_image(replies[0][1])),
+          f"{name}: the same request answered different bytes")
+    pipe = stats["pipeline"]
+    copied = stats["served"] + stats["padded_images"]
+    check(pipe["d2h_bytes"] == copied * GENERATE_ROW_BYTES[name],
+          f"{name}: D2H {pipe['d2h_bytes']} B for {copied} padded images")
+    check(stats["batches"] - N_SEQ - 1 < N_CONC,
+          f"{name}: concurrent requests were never batched together")
+    shape = list(reply_image(replies[0][1]).shape)
+    check(shape == list(sm.input_shape if name != "dcgan" else (28, 28, 1)),
+          f"{name}: answered images of shape {shape}")
+    refs = {b: generate_rows(sm, inputs, b) for b in BUCKETS}
+    spread = max(code_diff(a, b) for a, b in zip(refs[min(BUCKETS)],
+                                                 refs[max(BUCKETS)]))
+    faults = hold_images(replies, refs, 2 * spread)
+    check(not faults, f"{name} {infer_dtype} answers: {faults[:5]}")
+    control = None
+    if sm.wire_dtype == np.uint8:
+        control = len(hold_images(replies, {b: generate_rows(
+            sm, inputs, b, "imagenet") for b in BUCKETS}, 2 * spread))
+        check(2 * control > len(replies),
+              f"{name}: the answer check passed against an 'imagenet' "
+              f"prologue")
+    exact = sum(min(code_diff(reply_image(r[1]), rows[i])
+                    for rows in refs.values()) == 0
+                for i, r in enumerate(replies))
+    lat = sorted(r[2] for r in replies)
+    out = {"wire": str(sm.wire_dtype), "infer_dtype": infer_dtype,
+           "boot_s": boot_s, "launches": launches,
+           "requests": len(replies) + 1, "batches": stats["batches"],
+           "padded_images": stats["padded_images"],
+           "d2h_bytes": pipe["d2h_bytes"],
+           "d2h_bytes_by_bucket": pipe["d2h_bytes_by_bucket"],
+           "bucket_spread_codes": spread, "exact_answers": exact,
+           "control_faults": control,
+           "client_p50_ms": lat[len(lat) // 2] * 1e3,
+           "concurrent_img_per_s": N_CONC / conc_s,
+           "wrong_verbs": {k: v[0] for k, v in wrong_verbs.items()},
+           "act_scale": sm.quant.act_scale if sm.quant else None,
+           "ms_by_bucket": generate_bucket_ms(sm)}
+    return out
+
+
+def phase_generate_serving() -> dict:
+    """/v1/generate of dcgan (float32, the float32 wire forced) and
+    cyclegan (uint8 wire, float32 and int8) on the card."""
+    import torch
+
+    out = {}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        for seed, (name, wire, dtype) in enumerate(GENERATE_MODELS):
+            weights = os.path.join(tmp, f"{name}.npz")
+            if not os.path.exists(weights):
+                write_gan_weights(name, weights, 40 + seed)
+            row = serve_generate(name, wire, dtype, weights)
+            log(f"{name} {dtype} generate serving: {json.dumps(row)}")
+            out[f"{name}_{dtype}"] = row
+            torch.cuda.empty_cache()
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2786,6 +3401,12 @@ def main() -> int:
     for name in ZOO_CHECK_MODELS:
         zoo_check[name] = phase_zoo_step_check(name)
     classify = phase_classify_serving()
+    gan_train = phase_gan_training()
+    gan_check = {}
+    for name in GAN_MODELS:
+        gan_check[name] = phase_gan_step_check(name)
+        torch.cuda.empty_cache()
+    generate = phase_generate_serving()
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
@@ -2793,7 +3414,9 @@ def main() -> int:
                   for m in DETECT_MODELS},
                f"pose_{POSE_MODEL}": pose["launches"],
                **{f"classify_{m}": classify[m]["launches"]
-                  for m, _, _ in CLASSIFY_MODELS}}
+                  for m, _, _ in CLASSIFY_MODELS},
+               **{f"generate_{k}": row["launches"]
+                  for k, row in generate.items()}}
     zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
@@ -2870,6 +3493,9 @@ def main() -> int:
                                        "lenet5": lenet}}), flush=True)
     print(json.dumps({"zoo_step_check": zoo_check}), flush=True)
     print(json.dumps({"classify_serving": classify}), flush=True)
+    print(json.dumps({"gan_training": gan_train}), flush=True)
+    print(json.dumps({"gan_step_check": gan_check}), flush=True)
+    print(json.dumps({"generate_serving": generate}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,17 @@
         [--detect-max-per-class 0]
     python -m deep_vision_tpu_torch.cli.serve -m hourglass104 \\
         [--weights w.npz] --wire-dtype uint8 --infer-dtype int8
+    python -m deep_vision_tpu_torch.cli.serve -m dcgan [--weights w.npz]
+    python -m deep_vision_tpu_torch.cli.serve -m cyclegan \\
+        [--weights w.npz] --wire-dtype uint8 [--infer-dtype int8]
 
 A classifier answers ``POST /v1/classify``; a detection model
 (``yolov3_*``, ``centernet*``) answers ``POST /v1/detect``; a pose model
 (``hourglass*``) answers ``POST /v1/pose {"pixels"}`` with its keypoints
-in heatmap pixels.
+in heatmap pixels; a GAN generator answers ``POST /v1/generate`` with a
+uint8 image in base64: ``dcgan`` from ``{"seed": N}`` or ``{"latent":
+[100 floats]}`` (its wire is float32 whatever ``--wire-dtype`` says),
+``cyclegan`` from ``{"pixels"}`` (the other domain's image).
 
 ``--weights`` is an ``.npz`` of the reference's flax variables tree
 (keys joined by ``/``, see ``convert.py``); without it the model is a

@@ -14,6 +14,10 @@
         --data-root D --workdir W [--resume] [--num-workers K]
     python -m deep_vision_tpu_torch.cli.train -m hourglass104 \\
         --data-root D --workdir W [--resume] [--num-workers K]
+    python -m deep_vision_tpu_torch.cli.train -m dcgan \
+        --data-root MNIST_DIR --workdir W [--resume]   # or --synthetic
+    python -m deep_vision_tpu_torch.cli.train -m cyclegan \
+        --synthetic [--synthetic-size N] --workdir W [--resume]
     python -m deep_vision_tpu_torch.cli.train --list -m x
 
 Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
@@ -32,8 +36,14 @@ scales the uint8 batch to [0, 1], and YOLOv3's loss runs its ignore mask
 through the ``best_iou_max`` CUDA kernel.  Pose (``-m hourglass104``):
 the host crops around the keypoints, flips, resizes and draws the
 heatmaps; the card scales the batch to [0, 1].  ``--synthetic`` trains
-on seeded synthetic scenes or poses instead.  Runs on CUDA unless given
-``--device cpu``; without a GPU it raises.
+on seeded synthetic scenes or poses instead.  The GAN family (``-m
+dcgan``, ``-m cyclegan``; ``_main_gan``) trains through the adversarial
+trainer on uint8 batches the card scales to [-1, 1]: DCGAN on MNIST's
+``train-images-idx3-ubyte[.gz]`` under ``D`` (or synthetic digits),
+CycleGAN on ``train_a-*``/``train_b-*.dvrec`` shards of encoded images
+(``prepare_data unpaired``; decoding them needs PIL) or on seeded
+synthetic domains.  Runs on CUDA unless given ``--device cpu``; without
+a GPU it raises.
 """
 
 from __future__ import annotations
@@ -132,10 +142,14 @@ def main(argv=None):
         cfg.image_size = args.image_size
     if args.prefetch_depth is not None:
         cfg.prefetch_depth = args.prefetch_depth
+    if cfg.task in GAN_TASKS:
+        print(f"device: {device}", flush=True)
+        return _main_gan(args, cfg, device)
     build = LOADERS.get(cfg.task)
     if build is None:
         raise NotImplementedError(
-            f"task '{cfg.task}' is not ported; have {sorted(LOADERS)}")
+            f"task '{cfg.task}' is not ported; have "
+            f"{sorted([*LOADERS, *GAN_TASKS])}")
 
     print(f"device: {device}", flush=True)
     loaders = []
@@ -308,7 +322,100 @@ def _pose_loaders(args, cfg, loaders: list):
     return PoseTask(), train_loader, val_loader, make_scale_preprocess()
 
 
-#: the input builder of each ported task
+def _main_gan(args, cfg, device) -> int:
+    """DCGAN or CycleGAN through the adversarial trainer, on uint8
+    batches that ``make_gan_preprocess`` scales on the device."""
+    import torch
+
+    from deep_vision_tpu_torch.core.adversarial import AdversarialTrainer
+    from deep_vision_tpu_torch.models import gan as gan_models
+    from deep_vision_tpu_torch.ops.preprocess import make_gan_preprocess
+    from deep_vision_tpu_torch.tasks.gan import CycleGANTask, DCGANTask
+
+    if args.profile:
+        raise SystemExit("--profile is not ported for the GAN tasks; "
+                         "profile a step with python -m "
+                         "deep_vision_tpu_torch.obs.profile -m "
+                         f"{args.model} --train")
+    dtype = torch.bfloat16 if cfg.half_precision else torch.float32
+    if cfg.task == "gan_dcgan":
+        from deep_vision_tpu_torch.data.gan import GANLoader, mnist_gan_data
+
+        if not args.synthetic and not args.data_root:
+            raise SystemExit("--data-root is required without --synthetic")
+        images = mnist_gan_data(None if args.synthetic else args.data_root,
+                                n_synthetic=args.synthetic_size,
+                                device_normalize=True)
+        loader = GANLoader(images, cfg.batch_size, seed=cfg.seed)
+        task = DCGANTask(lambda: gan_models.DCGANGenerator(dtype=dtype),
+                         lambda: gan_models.DCGANDiscriminator(dtype=dtype),
+                         opt=cfg.optimizer)
+    else:
+        from deep_vision_tpu_torch.data.gan import (
+            UnpairedLoader,
+            synthetic_unpaired,
+        )
+
+        if args.synthetic:
+            a, b = synthetic_unpaired(args.synthetic_size, cfg.image_size,
+                                      device_normalize=True)
+        else:
+            a, b = load_unpaired_records(args.data_root, cfg.image_size)
+        loader = UnpairedLoader(a, b, cfg.batch_size, seed=cfg.seed)
+        task = CycleGANTask(
+            lambda: gan_models.CycleGANGenerator(dtype=dtype),
+            lambda: gan_models.PatchGANDiscriminator(dtype=dtype),
+            opt=cfg.optimizer)
+    trainer = AdversarialTrainer(cfg, task, workdir=args.workdir,
+                                 preprocess_fn=make_gan_preprocess(),
+                                 device=device)
+    states = trainer.fit(loader, epochs=cfg.total_epochs,
+                         resume=args.resume)
+    print("done: trained", ", ".join(states), flush=True)
+    return 0
+
+
+def load_unpaired_records(data_root: str, image_size: int):
+    """``train_a-*``/``train_b-*.dvrec`` shards (``prepare_data
+    unpaired``: encoded image payloads) → two uint8 (N, S, S, 3) arrays,
+    each image decoded to RGB with PIL and resized to ``image_size``²
+    (``data/transforms.resize_bilinear``, the reference's resize)."""
+    import io
+
+    import numpy as np
+
+    from deep_vision_tpu_torch.data.records import list_shards, read_records
+    from deep_vision_tpu_torch.data.transforms import resize_bilinear
+
+    if not data_root:
+        raise SystemExit("--data-root is required without --synthetic")
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("decoding the unpaired image records needs PIL "
+                          "(Pillow), which is not installed; train with "
+                          "--synthetic instead") from e
+    out = []
+    for tag in ("a", "b"):
+        shards = list_shards(data_root, f"train_{tag}")
+        if not shards:
+            raise FileNotFoundError(
+                f"no train_{tag}-*.dvrec under {data_root} "
+                "(run prepare_data unpaired)")
+        imgs = []
+        for sh in shards:
+            for _, payload in read_records(sh):
+                img = np.asarray(Image.open(io.BytesIO(payload))
+                                 .convert("RGB"))
+                imgs.append(resize_bilinear(img, image_size, image_size)
+                            .astype(np.uint8))
+        out.append(np.stack(imgs))
+    return out[0], out[1]
+
+
+#: the tasks of the adversarial trainer (``_main_gan``)
+GAN_TASKS = ("gan_dcgan", "gan_cyclegan")
+#: the input builder of each ported task of the Trainer
 LOADERS = {"classification": _classification_loaders,
            "detection": _detection_loaders,
            "centernet": _detection_loaders,

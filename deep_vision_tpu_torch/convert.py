@@ -35,6 +35,9 @@ StackedHourglass``), and
 ``PreActBottleneck``; these check both sides strictly: a flax leaf that
 no module takes raises, as a missing one does.
 
+``gan_from_flax`` / ``gan_to_flax`` / ``load_gan`` do the same for the
+four GAN networks (``models/gan.py``).
+
 ``classifier_from_flax`` / ``classifier_to_flax`` / ``load_classifier``
 do the same for the classifier zoo (LeNet-5 and its tiers, AlexNet, VGG,
 Inception V1/V3, MobileNet V1, ShuffleNet V1, ResNet-50 V2), walking the
@@ -453,11 +456,14 @@ def _torch_dense(kernel, chw) -> np.ndarray:
 
 
 #: the flax leaves of each kind of walked module: "conv" (with a bias),
-#: "convk" (kernel only), "dense" (kernel and bias; a fourth tuple item
-#: is the (C, H, W) of the NCHW map it flattens, or None) and "bn"
+#: "convk" (kernel only; a flax ``ConvTranspose`` is one too, its port
+#: weight in the same out-first layout), "dense" (kernel and bias; a
+#: fourth tuple item is the (C, H, W) of the NCHW map it flattens, or
+#: None), "densek" (kernel only) and "bn"
 _KIND_LEAVES = {"conv": (("params", "kernel"), ("params", "bias")),
                 "convk": (("params", "kernel"),),
                 "dense": (("params", "kernel"), ("params", "bias")),
+                "densek": (("params", "kernel"),),
                 "bn": (("params", "scale"), ("params", "bias"),
                        ("batch_stats", "mean"), ("batch_stats", "var"))}
 
@@ -475,10 +481,11 @@ def _from_flax(leaves, variables: Mapping) -> dict:
             sd[f"{t}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
             if kind == "conv":
                 sd[f"{t}.bias"] = _np(p["bias"])
-        elif kind == "dense":
+        elif kind in ("dense", "densek"):
             sd[f"{t}.weight"] = _torch_dense(p["kernel"],
                                              chw[0] if chw else None)
-            sd[f"{t}.bias"] = _np(p["bias"])
+            if kind == "dense":
+                sd[f"{t}.bias"] = _np(p["bias"])
         else:
             s = _get(stats, path)
             sd[f"{t}.weight"] = _np(p["scale"])
@@ -507,11 +514,12 @@ def _to_flax(leaves, state_dict: Mapping) -> dict:
             if kind == "conv":
                 leaf["bias"] = _np(sd[f"{t}.bias"])
             _put(params, path, leaf)
-        elif kind == "dense":
-            _put(params, path, {
-                "kernel": _flax_dense(sd[f"{t}.weight"],
-                                      chw[0] if chw else None),
-                "bias": _np(sd[f"{t}.bias"])})
+        elif kind in ("dense", "densek"):
+            leaf = {"kernel": _flax_dense(sd[f"{t}.weight"],
+                                          chw[0] if chw else None)}
+            if kind == "dense":
+                leaf["bias"] = _np(sd[f"{t}.bias"])
+            _put(params, path, leaf)
         else:
             _put(params, path, {"scale": _np(sd[f"{t}.weight"]),
                                 "bias": _np(sd[f"{t}.bias"])})
@@ -806,5 +814,90 @@ def load_classifier(model, variables: Mapping) -> None:
     import torch
 
     sd = classifier_from_flax(variables, model)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
+
+
+# ---------------------------------------------------------------------------
+# The GAN family (models/gan.py)
+# ---------------------------------------------------------------------------
+# The port's modules reshape and flatten in the reference's NHWC order
+# (DCGAN's Dense → (7, 7, 256) and its discriminator's (7, 7, 128) →
+# Dense), so no kernel is permuted; a flax ``ConvTranspose`` kernel
+# (kH, kW, I, O) maps like a conv kernel to the port's (O, I, kH, kW).
+
+
+def _dcgan_generator_leaves(model):
+    yield "densek", "fc", ("Dense_0",)
+    yield "bn", "fc_bn", ("BatchNorm_0",)
+    for j in range(3):
+        yield "convk", f"deconv{j + 1}", (f"ConvTranspose_{j}",)
+        if j < 2:
+            yield "bn", f"bn{j + 1}", (f"BatchNorm_{j + 1}",)
+
+
+def _dcgan_discriminator_leaves(model):
+    yield "conv", "conv1", ("Conv_0",)
+    yield "conv", "conv2", ("Conv_1",)
+    yield "dense", "fc", ("Dense_0",)
+
+
+def _cyclegan_generator_leaves(model):
+    for j, (conv, bn) in enumerate((("conv_in", "bn_in"),
+                                    ("down1", "bn_down1"),
+                                    ("down2", "bn_down2"))):
+        yield "convk", conv, (f"Conv_{j}",)
+        yield "bn", bn, (f"BatchNorm_{j}",)
+    for k in range(model.n_blocks):
+        f = f"ResNetBlock_{k}"
+        for j in range(2):
+            yield "convk", f"blocks.{k}.conv{j + 1}", (f, f"Conv_{j}")
+            yield "bn", f"blocks.{k}.bn{j + 1}", (f, f"BatchNorm_{j}")
+    for j in range(2):
+        yield "convk", f"up{j + 1}", (f"ConvTranspose_{j}",)
+        yield "bn", f"bn_up{j + 1}", (f"BatchNorm_{3 + j}",)
+    yield "conv", "conv_out", ("Conv_3",)
+
+
+def _patchgan_leaves(model):
+    yield "conv", "conv1", ("Conv_0",)
+    for j in range(3):
+        yield "convk", f"conv{j + 2}", (f"Conv_{j + 1}",)
+        yield "bn", f"bn{j + 2}", (f"BatchNorm_{j}",)
+    yield "conv", "conv_out", ("Conv_4",)
+
+
+def gan_leaves(model):
+    """The walker of ``model``'s GAN network."""
+    from deep_vision_tpu_torch.models import gan
+
+    walkers = ((gan.DCGANGenerator, _dcgan_generator_leaves),
+               (gan.DCGANDiscriminator, _dcgan_discriminator_leaves),
+               (gan.CycleGANGenerator, _cyclegan_generator_leaves),
+               (gan.PatchGANDiscriminator, _patchgan_leaves))
+    for cls, walk in walkers:
+        if isinstance(model, cls):
+            return list(walk(model))
+    raise TypeError(f"no GAN layout for {type(model).__name__}")
+
+
+def gan_from_flax(variables: Mapping, model) -> dict:
+    """flax variables of the reference's ``DCGANGenerator``,
+    ``DCGANDiscriminator``, ``CycleGANGenerator`` or
+    ``PatchGANDiscriminator`` → ``model``'s ``state_dict`` (numpy);
+    strict both ways."""
+    return _from_flax(gan_leaves(model), variables)
+
+
+def gan_to_flax(state_dict: Mapping, model) -> dict:
+    """The inverse of :func:`gan_from_flax`."""
+    return _to_flax(gan_leaves(model), state_dict)
+
+
+def load_gan(model, variables: Mapping) -> None:
+    """Copy flax ``variables`` into a GAN ``model`` (strict both ways)."""
+    import torch
+
+    sd = gan_from_flax(variables, model)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)

@@ -4,7 +4,9 @@ Port of ``deep_vision_tpu/core/checkpoint.py`` without Orbax: a
 checkpoint is ``<directory>/<step>/checkpoint.pt``, one ``torch.save`` of
 ``TrainState.save_dict()`` (parameters and buffers, momentum, step,
 bad_steps, rng) plus host extras (epoch, scheduler and logger state), so
-a resumed run continues the LR schedule and metric history.  A save goes
+a resumed run continues the LR schedule and metric history.
+``save_tree``/``restore_tree`` do the same for ``{name: TrainState}``,
+the adversarial trainer's networks, in one file.  A save goes
 to a temporary directory first and is renamed into place, so a reader
 never sees a partial checkpoint.  Orbax checkpoints of the JAX package
 are not read.
@@ -48,10 +50,21 @@ class Checkpointer:
              extras: dict | None = None) -> str:
         """Write checkpoint ``step`` (replacing one of that step) and drop
         all but the newest ``max_to_keep``."""
+        return self._write(step, {"state": state.save_dict(),
+                                  "extras": extras or {}})
+
+    def save_tree(self, step: int, states: dict,
+                  extras: dict | None = None) -> str:
+        """:meth:`save` for ``{name: TrainState}`` (the adversarial
+        trainer's networks), as atomic as one state."""
+        return self._write(step, {
+            "states": {k: v.save_dict() for k, v in states.items()},
+            "extras": extras or {}})
+
+    def _write(self, step: int, payload: dict) -> str:
         tmp = tempfile.mkdtemp(prefix=f".{step}-", dir=self.directory)
         try:
-            torch.save({"state": state.save_dict(), "extras": extras or {}},
-                       os.path.join(tmp, FILENAME))
+            torch.save(payload, os.path.join(tmp, FILENAME))
             final = os.path.join(self.directory, str(step))
             shutil.rmtree(final, ignore_errors=True)
             os.replace(tmp, final)
@@ -77,3 +90,15 @@ class Checkpointer:
         """Load checkpoint ``step`` (default: the latest) into ``state``."""
         payload = self.load(step)
         return state.load_dict(payload["state"]), dict(payload["extras"])
+
+    def restore_tree(self, states: dict, step: int | None = None
+                     ) -> tuple[dict, dict]:
+        """Load a :meth:`save_tree` checkpoint into ``states`` (the same
+        names, strictly)."""
+        payload = self.load(step)
+        saved = payload["states"]
+        if set(saved) != set(states):
+            raise KeyError(f"checkpoint holds {sorted(saved)}, not "
+                           f"{sorted(states)}")
+        return ({k: v.load_dict(saved[k]) for k, v in states.items()},
+                dict(payload["extras"]))

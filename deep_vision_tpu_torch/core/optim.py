@@ -25,7 +25,10 @@ device tensor (the role of optax's ``inject_hyperparams``), so a
 scheduler changes it between epochs, and the divergence guard
 (``core/state.py``) selects the result on a device flag with no host
 sync: a skipped step leaves parameters, moments and Adam's count ``t``
-as they were, as the reference keeps its old ``opt_state``.
+as they were, as the reference keeps its old ``opt_state``.  A step is
+``propose`` (the new values, nothing written) then ``commit`` (written
+where the flag holds), so a guard may decide on the proposed
+parameters themselves, as the adversarial trainer's joint guard does.
 """
 
 from __future__ import annotations
@@ -119,12 +122,29 @@ class _Optimizer:
                 updates[i] = u
         return updates
 
-    def _apply(self, updates: list[torch.Tensor], ok: torch.Tensor) -> None:
-        """``p = p − lr·u`` where ``ok``; the old ``p`` elsewhere."""
-        steps = torch._foreach_mul(updates, self.lr)
-        new = torch._foreach_sub(self.params, steps)
-        for p, n in zip(self.params, new):
-            torch.where(ok, n, p, out=p)
+    def _stepped(self, updates: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``p − lr·u``."""
+        return torch._foreach_sub(self.params,
+                                  torch._foreach_mul(updates, self.lr))
+
+    @torch.no_grad()
+    def step(self, grads: list[torch.Tensor], ok: torch.Tensor) -> None:
+        """Apply one update where the 0-d bool device tensor ``ok`` holds;
+        where it does not, parameters and optimizer state keep their
+        values."""
+        self.commit(self.propose(grads), ok)
+
+    @staticmethod
+    @torch.no_grad()
+    def commit(proposal: list, ok: torch.Tensor) -> None:
+        """Write a :meth:`propose` result where ``ok`` holds."""
+        for old, new in proposal:
+            for o, n in zip(old, new):
+                torch.where(ok, n, o, out=o)
+
+    def proposed_params(self, proposal: list) -> list[torch.Tensor]:
+        """The new parameters of a :meth:`propose` result."""
+        return proposal[0][1]
 
 
 class SGD(_Optimizer):
@@ -135,15 +155,12 @@ class SGD(_Optimizer):
         self.momentum = [torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], ok: torch.Tensor) -> None:
-        """Apply one update where the 0-d bool device tensor ``ok`` holds;
-        where it does not, parameters and momentum keep their values."""
+    def propose(self, grads: list[torch.Tensor]) -> list:
+        """``[(old, new)]`` lists: parameters first, then momentum."""
         d = self._with_decay(self._clipped(grads))
         bufs = torch._foreach_mul(self.momentum, self.cfg.momentum)
         torch._foreach_add_(bufs, d)
-        self._apply(bufs, ok)
-        for b, n in zip(self.momentum, bufs):
-            torch.where(ok, n, b, out=b)
+        return [(self.params, self._stepped(bufs)), (self.momentum, bufs)]
 
     def state_dict(self) -> dict:
         return {"momentum": dict(zip(self.names, self.momentum)),
@@ -167,9 +184,8 @@ class Adam(_Optimizer):
         self.count = torch.zeros((), dtype=torch.int32, device=self.lr.device)
 
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], ok: torch.Tensor) -> None:
-        """One update where ``ok`` holds; where it does not, parameters,
-        ``mu``, ``nu`` and the count keep their values."""
+    def propose(self, grads: list[torch.Tensor]) -> list:
+        """``[(old, new)]`` lists: parameters, ``mu``, ``nu``, count."""
         cfg = self.cfg
         g = self._clipped(grads)
         mu = torch._foreach_mul(g, 1.0 - cfg.b1)
@@ -187,11 +203,8 @@ class Adam(_Optimizer):
         torch._foreach_add_(denom, cfg.eps)
         u = torch._foreach_div(mu, bc1)
         torch._foreach_div_(u, denom)
-        self._apply(self._with_decay(u), ok)
-        for old, new in ((self.mu, mu), (self.nu, nu)):
-            for o, n in zip(old, new):
-                torch.where(ok, n, o, out=o)
-        torch.where(ok, count, self.count, out=self.count)
+        return [(self.params, self._stepped(self._with_decay(u))),
+                (self.mu, mu), (self.nu, nu), ([self.count], [count])]
 
     def state_dict(self) -> dict:
         return {"mu": dict(zip(self.names, self.mu)),
@@ -220,9 +233,8 @@ class RMSprop(_Optimizer):
         self.trace = [torch.zeros_like(p) for p in self.params]
 
     @torch.no_grad()
-    def step(self, grads: list[torch.Tensor], ok: torch.Tensor) -> None:
-        """One update where ``ok`` holds; where it does not, parameters,
-        ``nu`` and the trace keep their values."""
+    def propose(self, grads: list[torch.Tensor]) -> list:
+        """``[(old, new)]`` lists: parameters, ``nu``, the trace."""
         cfg = self.cfg
         g = self._clipped(grads)
         nu = torch._foreach_mul(g, g)
@@ -234,12 +246,8 @@ class RMSprop(_Optimizer):
         torch._foreach_mul_(u, self.lr)
         trace = torch._foreach_mul(self.trace, cfg.momentum)
         trace = torch._foreach_add(u, trace)
-        new = torch._foreach_sub(self.params, trace)
-        for p, n in zip(self.params, new):
-            torch.where(ok, n, p, out=p)
-        for old, upd in ((self.nu, nu), (self.trace, trace)):
-            for o, n in zip(old, upd):
-                torch.where(ok, n, o, out=o)
+        return [(self.params, torch._foreach_sub(self.params, trace)),
+                (self.nu, nu), (self.trace, trace)]
 
     def state_dict(self) -> dict:
         return {"nu": dict(zip(self.names, self.nu)),

@@ -28,8 +28,15 @@ def params_digest(model: torch.nn.Module) -> str:
     return h.hexdigest()
 
 
-def serving_input_shape(cfg) -> tuple:
-    """Per-example NHWC input shape ``(H, W, C)`` for ``cfg``."""
+def serving_input_shape(cfg, model=None) -> tuple:
+    """Per-example input shape for ``cfg``: NHWC ``(H, W, C)``, but
+    ``(latent_dim,)`` for the latent-in DCGAN generator (``gan_dcgan``),
+    whose Dense kernel is sized by its latent and not by an image.  Pass
+    ``model`` when one is already built."""
+    if getattr(cfg, "task", "") == "gan_dcgan":
+        if model is None:
+            model = cfg.model()
+        return (int(getattr(model, "latent_dim", 100)),)
     return (cfg.image_size, cfg.image_size, cfg.channels)
 
 
@@ -37,12 +44,14 @@ def import_weights(model, variables) -> None:
     """Copy a flax variables tree into ``model`` with the importer of
     its family: ResNet V1, the classifier zoo (LeNet-5 and its tiers,
     AlexNet, VGG, Inception V1/V3, MobileNet V1, ShuffleNet V1, ResNet-50
-    V2), YOLOv3, CenterNet or StackedHourglass; any other class raises
-    and names it.  Every importer is strict: a tree of another family
+    V2), YOLOv3, CenterNet, StackedHourglass, or a GAN network (the
+    DCGAN and CycleGAN generators and discriminators); any other class
+    raises and names it.  Every importer is strict: a tree of another family
     raises ``KeyError``."""
     from deep_vision_tpu_torch import convert
     from deep_vision_tpu_torch.models.centernet import CenterNet
     from deep_vision_tpu_torch.models.common import Classifier
+    from deep_vision_tpu_torch.models.gan import GANModel
     from deep_vision_tpu_torch.models.hourglass import StackedHourglass
     from deep_vision_tpu_torch.models.resnet import ResNet
     from deep_vision_tpu_torch.models.yolo import YoloV3
@@ -54,7 +63,8 @@ def import_weights(model, variables) -> None:
                  (Classifier, convert.load_classifier),
                  (YoloV3, convert.load_yolo),
                  (CenterNet, convert.load_centernet),
-                 (StackedHourglass, convert.load_stacked_hourglass))
+                 (StackedHourglass, convert.load_stacked_hourglass),
+                 (GANModel, convert.load_gan))
     for cls, load in importers:
         if isinstance(model, cls):
             load(model, variables)

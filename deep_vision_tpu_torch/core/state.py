@@ -90,7 +90,16 @@ class TrainState:
         step counter advances either way, so the per-step rng never
         repeats."""
         ok = torch.isfinite(loss) & all_finite(grads)
-        self.opt.step(grads, ok)
+        self.commit(self.opt.propose(grads), ok, stats_before)
+
+    @torch.no_grad()
+    def commit(self, proposal: list, ok: torch.Tensor,
+               stats_before: list[torch.Tensor]) -> None:
+        """Write the optimizer's ``proposal`` where ``ok`` holds; where it
+        does not, restore the running statistics to ``stats_before`` and
+        count a bad step (the reference's ``keep_if``).  The step counter
+        advances either way."""
+        self.opt.commit(proposal, ok)
         for s, old in zip(self.running_stats, stats_before):
             torch.where(ok, s, old, out=s)
         self.bad_steps += (~ok).to(torch.int32)

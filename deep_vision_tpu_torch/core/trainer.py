@@ -85,6 +85,24 @@ def to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
+def log_input_stats(logger: MetricLogger, step: int, stats: dict,
+                    epoch: int) -> None:
+    """Log and print an epoch's input block (``DevicePrefetcher``
+    stats), for both trainers."""
+    if not stats or not stats.get("batches"):
+        return
+    logger.log_input_block(step, stats)
+    prod = stats.get("producer_ms", {})
+    n = max(1, stats["batches"])
+    print(f"[input] epoch {epoch} stall {stats['input_stall_frac']:.1%} "
+          f"h2d {stats['h2d_bytes_per_step'] / 1e6:.2f} MB/step "
+          f"prep {prod.get('prep_wait', 0.0) / n:.1f} "
+          f"assemble {prod.get('assemble', 0.0) / n:.1f} "
+          f"h2d {prod.get('h2d', 0.0) / n:.1f} ms/batch "
+          f"(pinned alloc {stats['pool']['allocated']} "
+          f"reuse {stats['pool']['reused']})", flush=True)
+
+
 class Trainer:
     """Single-model, single-optimizer trainer (classification and YOLO
     detection)."""
@@ -250,18 +268,7 @@ class Trainer:
         return self._prefetcher
 
     def _log_input_stats(self, step: int, stats: dict, epoch: int):
-        if not stats or not stats.get("batches"):
-            return
-        self.logger.log_input_block(step, stats)
-        prod = stats.get("producer_ms", {})
-        n = max(1, stats["batches"])
-        print(f"[input] epoch {epoch} stall {stats['input_stall_frac']:.1%} "
-              f"h2d {stats['h2d_bytes_per_step'] / 1e6:.2f} MB/step "
-              f"prep {prod.get('prep_wait', 0.0) / n:.1f} "
-              f"assemble {prod.get('assemble', 0.0) / n:.1f} "
-              f"h2d {prod.get('h2d', 0.0) / n:.1f} ms/batch "
-              f"(pinned alloc {stats['pool']['allocated']} "
-              f"reuse {stats['pool']['reused']})", flush=True)
+        log_input_stats(self.logger, step, stats, epoch)
 
     def _log_metrics(self, step: int, metrics: dict) -> dict:
         m = {k: float(v) for k, v in metrics.items()}

@@ -16,8 +16,11 @@ keys are torchvision's.  Conventions, as in the reference:
   ``var`` are the running statistics.  In training mode (``.train()``)
   they are the batch's, with flax's numerics (float32 ``E[x]`` and
   ``max(E[x²] − E[x]², 0)``), and the running statistics move as
-  ``0.9·running + 0.1·batch`` with the BIASED batch variance, as flax's
-  ``BatchNorm(momentum=0.9)`` does.
+  ``m·running + (1 − m)·batch`` with the BIASED batch variance, as flax's
+  ``BatchNorm(momentum=m)`` does: ``m`` is 0.9 where the reference sets
+  it, flax's default 0.99 in the GAN family.  A training forward whose
+  statistics the reference discards (``update_stats`` False) normalizes
+  by the batch and leaves the running statistics alone.
 
 The classifier zoo's pieces: ``ConvBN`` (groups, flax "SAME" or
 symmetric padding, the BatchNorm's eps), ``local_response_norm``,
@@ -25,6 +28,13 @@ symmetric padding, the BatchNorm's eps), ``local_response_norm``,
 every step, flax's "SAME" max and average pools, ``reset_weights`` (the
 reference's inits by layer) and the ``Classifier`` and
 ``SequentialClassifier`` bases.
+
+``ConvTranspose2d`` is flax's ``ConvTranspose`` (``transpose_kernel``
+False): a correlation of the stride-dilated input with the kernel as
+stored, with ``lax``'s transposed "SAME" padding.  Its weight is kept
+``(out, in, kH, kW)``, the layout of that correlation, so the int8
+serving scale runs along dim 0 (the output channels) as for every other
+kernel.
 """
 
 from __future__ import annotations
@@ -124,21 +134,59 @@ class Conv2d(nn.Conv2d):
                         padding, 1, self.groups)
 
 
+def conv_transpose_same_pad(kernel: int, stride: int) -> tuple[int, int]:
+    """``lax.conv_transpose``'s "SAME" padding (before, after) of the
+    stride-dilated input: ``k + s − 2`` in all, ``k − 1`` before when
+    ``s > k − 1``, else half of it rounded up."""
+    total = kernel + stride - 2
+    before = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+    return before, total - before
+
+
+class ConvTranspose2d(Conv2d):
+    """flax ``ConvTranspose(padding="SAME", transpose_kernel=False,
+    use_bias=False)``: output ``size·stride``, computed by ``F.conv_transpose2d`` with the
+    stored kernel flipped in both spatial axes and its two channel axes
+    swapped.  ``conv_transpose2d`` pads the dilated input by ``k − 1 −
+    padding`` on both sides (plus ``output_padding`` after); where flax
+    pads less after than before, the extra last rows and columns are
+    cropped."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 stride: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__(in_ch, out_ch, kernel, 1, 0, dtype, init="lecun")
+        before, after = conv_transpose_same_pad(kernel, stride)
+        self.transpose_stride = stride
+        self.transpose_padding = kernel - 1 - before
+        self.output_pad = max(after - before, 0)
+        self.crop = max(before - after, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        w = resident_weight(self, dt).flip(2, 3).transpose(0, 1)
+        y = F.conv_transpose2d(x.to(dt), w, None, self.transpose_stride,
+                               self.transpose_padding, self.output_pad)
+        if self.crop:
+            y = y[:, :, :y.shape[2] - self.crop, :y.shape[3] - self.crop]
+        return y
+
+
 class Linear(nn.Linear):
-    """Dense layer computing in ``dtype``."""
+    """Dense layer computing in ``dtype``; bias-free when not ``bias``."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), resident_weight(self, dt),
-                        self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), resident_weight(self, dt), bias)
 
 
-#: flax's BatchNorm momentum: running = MOMENTUM·running + (1−MOMENTUM)·batch
+#: the reference's BatchNorm momentum where it sets one:
+#: running = MOMENTUM·running + (1−MOMENTUM)·batch
 BN_MOMENTUM = 0.9
 
 
@@ -186,22 +234,28 @@ class _TrainBatchNorm(torch.autograd.Function):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with the reference's (flax's) formula and rounding: batch
-    statistics in training mode, running statistics in eval mode."""
+    statistics in training mode, running statistics in eval mode.
+    ``momentum`` is flax's (the running statistics' share kept); a
+    training forward with ``update_stats`` False leaves them alone."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
-                 eps: float = 1e-5):
-        super().__init__(features, eps=eps, momentum=0.1)
+                 eps: float = 1e-5, momentum: float = BN_MOMENTUM):
+        super().__init__(features, eps=eps, momentum=1.0 - momentum)
         self.compute_dtype = dtype
+        self.flax_momentum = momentum
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             y, mean, var = _TrainBatchNorm.apply(
                 x, self.weight, self.bias, self.eps, self.compute_dtype)
-            with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                        + (1.0 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                       + (1.0 - BN_MOMENTUM) * var)
+            if self.update_stats:
+                m = self.flax_momentum
+                with torch.no_grad():
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1.0 - m) * var)
             return y
         shape = (1, -1, 1, 1)
         mul = torch.rsqrt(self.running_var + self.eps) * \
@@ -279,17 +333,22 @@ class Dropout(nn.Module):
         self.rate = float(rate)
         self.generator: torch.Generator | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        """``keep`` (bool, ``x``'s shape), when given, is the mask itself
+        and no draw is made."""
         if not self.training or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        if self.generator is None:
-            raise RuntimeError("a training forward through Dropout needs a "
-                               "generator: call set_dropout_generator")
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep_prob
+        if keep is None:
+            if self.generator is None:
+                raise RuntimeError("a training forward through Dropout "
+                                   "needs a generator: call "
+                                   "set_dropout_generator")
+            keep = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                             device=x.device))
 

@@ -12,6 +12,10 @@
     python -m deep_vision_tpu_torch.obs.profile -m hourglass104 --train
     python -m deep_vision_tpu_torch.obs.profile -m inception3 --train
         # or any classifier: vgg16, mobilenet1, lenet5, resnet50_modern...
+    python -m deep_vision_tpu_torch.obs.profile -m dcgan --train
+    python -m deep_vision_tpu_torch.obs.profile -m cyclegan --train
+    python -m deep_vision_tpu_torch.obs.profile -m dcgan \\
+        --infer-dtype float32 --bucket 32     # or -m cyclegan (uint8 wire)
 
 Prints one JSON object: the wall time per forward (or per train step;
 host clock around synchronised calls), the device busy time per call
@@ -33,8 +37,13 @@ classifier (through ``train_ingest``, or for a grayscale one the MNIST
 normalize); for YOLOv3 and CenterNet the seeded synthetic scenes of
 ``data/detection.py`` (1-3 boxes an image), for the stacked hourglass
 the seeded synthetic poses of ``data/pose.py``, un-augmented, with
-their encoded labels.  Where the profiler records no device time, those
-fields are null.
+their encoded labels.  A GAN recipe (``dcgan``, ``cyclegan``) profiles
+one adversarial step (``core/adversarial.py``) at its batch on seeded
+uint8 images (MNIST-sized noise, or the synthetic unpaired domains at
+its size), CycleGAN's with valid pooled fakes; its generate bucket
+takes seeded latents (DCGAN's float32 wire) or uint8 images, and its
+``epilogue`` group is the uint8 encode.  Where the profiler records no
+device time, those fields are null.
 """
 
 from __future__ import annotations
@@ -126,8 +135,11 @@ def profile_bucket(sm, bucket: int, iters: int = 5, top: int = 12) -> dict:
     forward's groups and ``epilogue``."""
     fn = sm.compile_bucket(bucket)
     gen = torch.Generator().manual_seed(0)
-    x = torch.randint(0, 256, (bucket, *sm.input_shape), generator=gen,
-                      dtype=torch.uint8).to(sm.device)
+    shape = (bucket, *sm.input_shape)
+    x = torch.randn(shape, generator=gen) \
+        if sm.wire_torch_dtype.is_floating_point else \
+        torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8)
+    x = x.to(sm.device)
     rep = {"bucket": bucket,
            **_profiled(lambda: fn(x), sm.device, iters, top, "forward")}
     post = sm.workload.make_epilogue(sm)
@@ -149,12 +161,55 @@ def profile_bucket(sm, bucket: int, iters: int = 5, top: int = 12) -> dict:
 
 def profile_train_step(trainer, state, batch: dict, iters: int = 3,
                        top: int = 12) -> dict:
-    """Profile ``iters`` of ``trainer``'s train steps on ``batch``."""
+    """Profile ``iters`` of ``trainer``'s train steps on ``batch``
+    (``state``: a TrainState, or the adversarial trainer's dict)."""
     def step():
         trainer.train_step(state, batch)
 
-    return {"batch": len(batch["image"]),
+    return {"batch": len(next(iter(batch.values()))),
             **_profiled(step, trainer.device, iters, top, "step")}
+
+
+def _gan_train_main(cfg, device) -> dict:
+    """One adversarial step of ``cfg`` (``dcgan`` or ``cyclegan``) at its
+    batch on a seeded uint8 batch on the device."""
+    import tempfile
+
+    import numpy as np
+
+    from deep_vision_tpu_torch.core.adversarial import AdversarialTrainer
+    from deep_vision_tpu_torch.core.trainer import to_device
+    from deep_vision_tpu_torch.data.gan import synthetic_unpaired
+    from deep_vision_tpu_torch.models import gan
+    from deep_vision_tpu_torch.ops.preprocess import make_gan_preprocess
+    from deep_vision_tpu_torch.tasks.gan import CycleGANTask, DCGANTask
+
+    dtype = torch.bfloat16 if cfg.half_precision else torch.float32
+    rng = np.random.default_rng(0)
+    if cfg.task == "gan_dcgan":
+        task = DCGANTask(lambda: gan.DCGANGenerator(dtype=dtype),
+                         lambda: gan.DCGANDiscriminator(dtype=dtype),
+                         opt=cfg.optimizer)
+        batch = {"image": rng.integers(0, 256, (cfg.batch_size, 28, 28, 1),
+                                       dtype=np.uint8)}
+    else:
+        task = CycleGANTask(lambda: gan.CycleGANGenerator(dtype=dtype),
+                            lambda: gan.PatchGANDiscriminator(dtype=dtype),
+                            opt=cfg.optimizer)
+        a, b = synthetic_unpaired(2 * cfg.batch_size, cfg.image_size,
+                                  device_normalize=True)
+        fakes = (a[cfg.batch_size:].astype(np.float32) / 127.5 - 1.0,
+                 b[cfg.batch_size:].astype(np.float32) / 127.5 - 1.0)
+        task.host_update({"fake_a2b": torch.from_numpy(fakes[1]),
+                          "fake_b2a": torch.from_numpy(fakes[0])})
+        batch = task.host_prepare({"image_a": a[:cfg.batch_size],
+                                   "image_b": b[:cfg.batch_size]})
+    with tempfile.TemporaryDirectory() as work:
+        trainer = AdversarialTrainer(cfg, task, workdir=work,
+                                     preprocess_fn=make_gan_preprocess(),
+                                     device=device)
+        states = trainer.init_states()
+        return profile_train_step(trainer, states, to_device(batch, device))
 
 
 def _classification_batch(cfg):
@@ -234,6 +289,8 @@ def _train_main(args, device) -> dict:
     from deep_vision_tpu_torch.core.trainer import Trainer, to_device
 
     cfg = get_config(args.model)
+    if str(cfg.task).startswith("gan_"):
+        return _gan_train_main(cfg, device)
     batch, task, preprocess_fn = TRAIN_BATCHES[cfg.task](cfg)
     batch = to_device(batch, device)
     with tempfile.TemporaryDirectory() as work:

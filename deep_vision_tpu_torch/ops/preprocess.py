@@ -4,7 +4,8 @@ detection batches.
 
 Port of ``deep_vision_tpu/ops/preprocess.py`` (the serving prologues,
 ``jitter_normalize``, ``make_imagenet_preprocess``,
-``make_mnist_preprocess`` and ``make_scale_preprocess``).  Each function
+``make_mnist_preprocess``, ``make_scale_preprocess`` and
+``make_gan_preprocess``).  Each function
 takes and returns NHWC tensors, the JAX package's layout.
 """
 
@@ -192,5 +193,24 @@ def make_scale_preprocess():
             return batch
         return {**batch, "image": img.to(torch.float32)
                 / device_scalar(255.0, img.device)}
+
+    return fn
+
+
+def make_gan_preprocess():
+    """The adversarial trainer's ``preprocess_fn(batch, generator,
+    train)`` for the GAN tasks: every uint8 ``image*`` key (``image``,
+    ``image_a``, ``image_b``) becomes ``x/127.5 − 1`` in float32, as
+    :func:`serve_normalize`'s "gan" kind divides (by a device tensor);
+    float keys (host-scaled images, pooled fakes) and the others pass
+    through untouched."""
+
+    def fn(batch: dict, generator: torch.Generator | None,
+           train: bool) -> dict:
+        out = dict(batch)
+        for key, val in batch.items():
+            if key.startswith("image") and val.dtype == torch.uint8:
+                out[key] = serve_normalize(val, "gan")
+        return out
 
     return fn

@@ -23,6 +23,13 @@ Routes (JSON in, JSON out):
     POST /v1/pose      {"pixels", "model"?, "deadline_ms"?} → {"model",
                         "space": "heatmap", "keypoints": [{x, y,
                         score}]}, in heatmap pixels; the same errors.
+    POST /v1/generate  a latent-in model (DCGAN): {"seed"?: int (default
+                        0) | "latent": [latent_dim floats], "model"?,
+                        "deadline_ms"?}; an image-in model (CycleGAN):
+                        {"pixels", ...} → {"model", "image": {"b64",
+                        "shape", "dtype": "uint8"}}, the image's bytes
+                        (HWC, 0-255) in base64; the same errors, and a
+                        bad seed or latent answers 400.
 
 A verb that is not the model's workload answers 400 and names the right
 route; an unknown route answers 404 with the supported verbs.
@@ -146,7 +153,12 @@ class _Handler(BaseHTTPRequestHandler):
         if model.workload.verb != verb:
             raise ServeError(400, f"'{model.name}' is a {model.task} "
                                   f"model; use /v1/{model.workload.verb}")
-        x = decode_pixels(body, model)
+        try:
+            x = model.workload.decode(body, model)
+        except ValueError as e:
+            raise ServeError(400, str(e)) from e
+        if x is None:
+            x = decode_pixels(body, model)
         if self._span is not None:
             self._span.mark("decode")
         deadline_ms = body.get("deadline_ms", model.workload.slo.deadline_ms)

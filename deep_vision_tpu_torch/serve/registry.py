@@ -25,8 +25,11 @@ parameters once at load and computes in bf16; "int8" calibrates and
 quantizes the weights at load (``serve/quant.py``) and, on the uint8
 wire, runs the ``serve_ingest`` kernel as the prologue.  Floating
 outputs are float32 whatever the compute dtype.  The workload's epilogue
-(``serve/workloads.py``: the detect decode, the pose decode) runs after
-that cast, on the device, inside the same callable.
+(``serve/workloads.py``: the detect decode, the pose decode, generate's
+uint8 encode) runs after that cast, on the device, inside the same
+callable.  The workload also sets a model's input: a latent-in
+generator (DCGAN) takes ``(latent_dim,)`` float32 whatever wire was
+asked.
 """
 
 from __future__ import annotations
@@ -69,6 +72,9 @@ class ServingModel:
         self.wire_dtype = np.dtype(str(wire_dtype))
         self.wire_torch_dtype = WIRE_DTYPES[str(wire_dtype)]
         self.infer_dtype = str(infer_dtype)
+        #: the dtype the epilogue hands the D2H copy when it is not the
+        #: forward's float32 (generate: uint8)
+        self.output_wire: str | None = None
         #: where the weights came from (None = seeded random init) and
         #: their byte digest (core/restore.py)
         self.weights: str | None = None
@@ -116,6 +122,7 @@ class ServingModel:
                 "input_shape": list(self.input_shape),
                 "num_classes": self.num_classes,
                 "wire_dtype": str(self.wire_dtype),
+                "output_wire": self.output_wire,
                 "infer_dtype": self.infer_dtype,
                 "device": str(self.device),
                 "weights": self.weights,
@@ -129,14 +136,17 @@ class CheckpointServingModel(ServingModel):
                  wire_dtype: str = "float32", infer_dtype: str = "float32",
                  calib_batches: int = 2, calib_dir: str | None = None,
                  device=None):
-        from deep_vision_tpu_torch.core.restore import serving_input_shape
         from deep_vision_tpu_torch.ops.preprocess import serve_preprocess_kind
 
+        # the workload owns the input codec: a latent-in generator takes
+        # a (latent_dim,) float32 vector whatever wire was asked
+        wl = workload_for_task(cfg.task)
         super().__init__(name, task=cfg.task,
-                         input_shape=serving_input_shape(cfg),
+                         input_shape=wl.serving_input_shape(cfg, model),
                          num_classes=cfg.num_classes,
-                         wire_dtype=wire_dtype, infer_dtype=infer_dtype,
-                         device=device)
+                         wire_dtype=wl.wire_dtype_for(cfg, str(wire_dtype)),
+                         infer_dtype=infer_dtype, device=device)
+        self.output_wire = wl.output_wire(cfg)
         self.preprocess_kind = serve_preprocess_kind(cfg.task, cfg.channels)
         #: int8 calibration (None outside int8)
         self.quant = None

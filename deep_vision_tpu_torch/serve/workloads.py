@@ -1,14 +1,16 @@
 """Workload adapters: what the serving tier knows per model kind.
 
-Port of the classify, detect and pose verbs of
-``deep_vision_tpu/serve/workloads.py``: the ``SLO`` service class, the
-``Workload`` base, ``ClassifyWorkload`` (dense-logits rows →
+Port of ``deep_vision_tpu/serve/workloads.py``: the ``SLO`` service
+class, the ``Workload`` base, ``ClassifyWorkload`` (dense-logits rows →
 ``{"model", "top": [{class, prob, logit}]}``), ``DetectWorkload`` (both
 detection families behind ``/v1/detect``, decoded on the device by an
-epilogue fused after the forward) and ``PoseWorkload`` (the stacked
+epilogue fused after the forward), ``PoseWorkload`` (the stacked
 hourglass behind ``/v1/pose``, its last stack's heatmaps decoded to
-keypoints on the device).  Generate, classify's cascade top-k epilogue,
-and the shadow ``agree`` rules wait for later slices.
+keypoints on the device) and ``GenerateWorkload`` (the GAN generators
+behind ``/v1/generate``: a latent or a seed in for DCGAN, an image in
+for CycleGAN, uint8 pixels out).  Classify's cascade top-k epilogue,
+the shadow ``agree`` rules and the response cache wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -35,6 +37,27 @@ class Workload:
 
     verb = ""
     slo = SLO("interactive", deadline_ms=30_000.0, max_queue=256)
+
+    def serving_input_shape(self, cfg, model=None) -> tuple:
+        """One request's input shape (``core/restore.py``)."""
+        from deep_vision_tpu_torch.core.restore import serving_input_shape
+
+        return serving_input_shape(cfg, model)
+
+    def wire_dtype_for(self, cfg, requested: str) -> str:
+        """The input wire a model of ``cfg`` takes: the requested one."""
+        return requested
+
+    def output_wire(self, cfg) -> str | None:
+        """The dtype the epilogue hands the D2H copy, when it is not the
+        forward's float32 (None)."""
+        return None
+
+    def decode(self, body: dict, model):
+        """The workload's own request decode (one input in the wire
+        dtype), or None for the generic ``pixels`` decode.  A bad body
+        raises ``ValueError`` (answered 400)."""
+        return None
 
     def make_epilogue(self, model):
         """A transform of the forward's float32 outputs run on the
@@ -214,10 +237,87 @@ class PoseWorkload(Workload):
                      "score": float(sc[j])} for j in range(kp.shape[0])]}
 
 
+class GenerateWorkload(Workload):
+    """The GAN generators.  DCGAN takes a latent (``latent``, a list of
+    ``latent_dim`` floats, or ``seed``, an int drawn as
+    ``default_rng(seed).standard_normal``, 0 by default) on a float32
+    wire whatever was asked; CycleGAN takes ``pixels`` on the requested
+    wire (uint8 scaled to [-1, 1] on the device by the plain "gan"
+    prologue: ``serve_ingest`` has no "gan" family).  The epilogue turns
+    the [-1, 1] float32 image into uint8 on the device, so the D2H copy
+    moves one byte a pixel, and the answer is its bytes in base64."""
+
+    verb = "generate"
+    #: a generative batch holds the card far longer than a classify
+    #: batch: a longer deadline, a shorter queue
+    slo = SLO("batchy", deadline_ms=60_000.0, max_queue=64)
+
+    def wire_dtype_for(self, cfg, requested: str) -> str:
+        """A latent-in model (DCGAN) takes float32: a uint8 latent means
+        nothing."""
+        if getattr(cfg, "task", "") == "gan_dcgan":
+            return "float32"
+        return requested
+
+    def output_wire(self, cfg) -> str | None:
+        return "uint8"
+
+    def decode(self, body: dict, model):
+        """A latent-in model's input from ``latent`` or ``seed``; None
+        (the pixels decode) for an image-in model."""
+        if len(model.input_shape) != 1:
+            return None
+        z = body.get("latent")
+        if z is None:
+            seed = body.get("seed", 0)
+            try:
+                seed = int(seed)
+            except (TypeError, ValueError) as e:
+                raise ValueError(f"bad seed: {seed!r}") from e
+            rng = np.random.default_rng(seed)
+            return rng.standard_normal(model.input_shape).astype(np.float32)
+        try:
+            x = np.asarray(z, np.float32)
+        except (ValueError, TypeError, OverflowError) as e:
+            raise ValueError(f"bad latent payload: {e}") from e
+        if x.shape != model.input_shape:
+            raise ValueError(
+                f"latent shape {list(x.shape)} != model input "
+                f"{list(model.input_shape)}")
+        if not np.isfinite(x).all():
+            raise ValueError("latent contains non-finite values (NaN/Inf)")
+        return x
+
+    def make_epilogue(self, model):
+        """[-1, 1] float32 → ``clip(round((x + 1)·127.5), 0, 255)`` uint8
+        (round half to even, as ``jnp.round``); None when the model's
+        ``output_wire`` is float32."""
+        if getattr(model, "output_wire", "uint8") == "float32":
+            return None
+        import torch
+
+        def post(out):
+            return torch.clamp(torch.round((out + 1.0) * 127.5),
+                               0.0, 255.0).to(torch.uint8)
+
+        return post
+
+    def respond(self, model, body: dict, row) -> dict:
+        import base64
+
+        img = np.ascontiguousarray(np.asarray(row))
+        return {"model": model.name,
+                "image": {"b64": base64.b64encode(img.tobytes()).decode(
+                              "ascii"),
+                          "shape": list(img.shape),
+                          "dtype": str(img.dtype)}}
+
+
 WORKLOADS = {w.verb: w for w in (ClassifyWorkload(), DetectWorkload(),
-                                 PoseWorkload())}
+                                 PoseWorkload(), GenerateWorkload())}
 _BY_TASK = {"classification": "classify", "detection": "detect",
-            "centernet": "detect", "pose": "pose"}
+            "centernet": "detect", "pose": "pose",
+            "gan_dcgan": "generate", "gan_cyclegan": "generate"}
 
 
 def workload_for_task(task: str) -> Workload:

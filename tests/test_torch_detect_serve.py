@@ -316,9 +316,13 @@ def test_http_detect_and_mismatched_verbs(served, tmp_path):
         status, body = _post(srv.port, "/v1/pose",
                              {"model": clf.name, "pixels": []})
         assert status == 400 and "/v1/classify" in body["error"]
-        status, body = _post(srv.port, "/v1/generate", {"pixels": []})
+        status, body = _post(srv.port, "/v1/generate",
+                             {"model": sm.name, "pixels": []})
+        assert status == 400 and "/v1/detect" in body["error"]
+        status, body = _post(srv.port, "/v1/frobnicate", {"pixels": []})
         assert status == 404
-        assert body["supported_verbs"] == ["classify", "detect", "pose"]
+        assert body["supported_verbs"] == ["classify", "detect", "generate",
+                                           "pose"]
         status, models = _get(srv.port, "/v1/models")
         desc = models["models"][sm.name]["model"]
         assert desc["workload"] == "detect"

@@ -311,12 +311,12 @@ def test_cli_refuses_centernet(tmp_path, monkeypatch):
         cli.main(["-m", "centernet", "--synthetic", "--workdir",
                   str(tmp_path)])
     assert not os.listdir(tmp_path)
-    port_config.register_config("torch_port_gan_stub")(
+    port_config.register_config("torch_port_unported_stub")(
         lambda: port_config.TrainConfig(
-            name="torch_port_gan_stub", model=lambda: YoloV3(3),
-            task="gan_dcgan"))
+            name="torch_port_unported_stub", model=lambda: YoloV3(3),
+            task="segmentation"))
     with pytest.raises(NotImplementedError, match="centernet"):
-        cli.main(["-m", "torch_port_gan_stub", "--synthetic",
+        cli.main(["-m", "torch_port_unported_stub", "--synthetic",
                   "--workdir", str(tmp_path), "--device", "cpu"])
 
 

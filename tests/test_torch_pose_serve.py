@@ -239,9 +239,13 @@ def test_http_pose_and_mismatched_verbs(toy16):
                                   "pixels": x[0].tolist()})
             assert status == 400 and f"/v1/{right}" in body["error"], \
                 (verb, model.name, body)
-        status, body = _post(srv.port, "/v1/generate", {"pixels": []})
+        status, body = _post(srv.port, "/v1/generate",
+                             {"model": sm.name, "pixels": []})
+        assert status == 400 and "/v1/pose" in body["error"]
+        status, body = _post(srv.port, "/v1/frobnicate", {"pixels": []})
         assert status == 404
-        assert body["supported_verbs"] == ["classify", "detect", "pose"]
+        assert body["supported_verbs"] == ["classify", "detect", "generate",
+                                           "pose"]
         _, models = _get(srv.port, "/v1/models")
         desc = models["models"][sm.name]["model"]
         assert desc["workload"] == "pose" and "detect" not in desc

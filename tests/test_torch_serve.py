@@ -184,11 +184,12 @@ def test_http_healthz_models_and_errors(server):
     assert _post(srv.port, "/v1/classify", {"pixels": [[1, 2]]})[0] == 400
     assert _post(srv.port, "/v1/classify", {"image_b64": "AA=="})[0] == 501
     assert _post(srv.port, "/v1/classify", {})[0] == 400
-    # a classifier on the detect or pose verb: 400 naming its own route
-    for verb in ("detect", "pose"):
+    # a classifier on the detect, pose or generate verb: 400 naming its
+    # own route
+    for verb in ("detect", "pose", "generate"):
         status, body, _ = _post(srv.port, f"/v1/{verb}", {"pixels": []})
         assert status == 400 and "/v1/classify" in body["error"]
-    assert _post(srv.port, "/v1/generate", {"pixels": []})[0] == 404
+    assert _post(srv.port, "/v1/frobnicate", {"pixels": []})[0] == 404
     assert _get(srv.port, "/v1/nope")[0] == 404
 
 
