@@ -209,7 +209,11 @@ Phases, each of which must pass:
               optimizer state (RMSprop's nu and trace, Adam's moments and
               count), finite losses, no bad step, one ``train_ingest``
               launch an inception3 step; step ms, img/s, input stall,
-              peak memory;
+              peak memory; then ``cli.serve -m lenet5 --workdir`` on
+              the workdir ``cli.train`` wrote serves the weights of its
+              preferred checkpoint bit for bit, and 32 /v1/classify
+              answers equal a direct plain-ingest call at one of the
+              buckets, one ``serve_ingest`` launch a batch;
 19. zoo step checks — one float32 step of full-width mobilenet1
               (RMSprop, depthwise convs, BN) and inception1 (SGD, LRN, two
               aux heads, three dropouts) at 128², batch 8, on the card and
@@ -269,17 +273,68 @@ Phases, each of which must pass:
               Prints forward and epilogue ms per bucket, the client p50
               and the concurrent img/s.
 
-Before the last line it prints ``{"kernels": [...]}`` (one entry per
+25. faults — ResNet-50 int8 on the uint8 wire through ``cli/serve.py``
+              with ``--workdir`` (a port checkpoint of seeded weights,
+              non-zero BN scales, written as ``cli.train`` writes it):
+              with ``--faults compute:poison:nth=5 --fault-seed 0`` and a
+              20 ms window, 2 sequential and 30 concurrent
+              ``/v1/classify`` requests: exactly one answers 500
+              "quarantined: poison", the other 31 answer 200 equal to a
+              direct plain-ingest call at one of the buckets within twice
+              the card's own bucket spread ("unit" control failing),
+              quarantined 1, one batch failure, at least 3 retry
+              executions, ``serve_ingest`` launches equal to the executed
+              batches (pipelined and retried), ``/metrics`` parses, and
+              ``/v1/stats`` shows the MFU of bucket 32 in (0, 1] from
+              ``flop_counter`` FLOPs after 4 full batches.  Then a server
+              with ``batcher:die:times=1`` restarts its batcher once and
+              serves 8 requests, healthz 200; one with
+              ``d2h:hang:hang_s=30:after=2:times=1`` fails the third batch with
+              504 within its exec timeout (printed beside the time it
+              took) and serves the fourth;
+26. plane   — ``--models resnet50,yolov3_coco --workdir W`` int8 on the
+              uint8 wire, ``--hbm-budget-mb`` halfway between the larger
+              model's weight bytes and their sum: 3 rounds of sequential
+              requests alternating the models (each switch evicts one and
+              re-admits the other, then a repeat hits): every answer
+              bit-identical to that model's bucket-1 answer when loaded
+              alone; ``memory_allocated`` unmoved by a hit, equal every
+              round while the same model is resident, and the two
+              resident states apart by the two models' weight bytes
+              (512-byte blocks) within 4 MiB of allocator slack; no
+              bucket callable rebuilt; launches = batches.  A
+              hot reload of a new step (step 1's classifier bias moved
+              by 0.25 + seeded 1e-3 noise) under 4 closed-loop clients
+              reaches ACTIVE v2 through shadow (10 top-1 comparisons) and
+              canary (8 requests) with every client answer 200; answers
+              then match direct plain-ingest calls on step 2's weights
+              and ``/v1/models`` shows its digest; a step 3 with a NaN in
+              the classifier's weight matrix and a step 4 with one in its
+              bias (the shadow phase turned off for them) are each rolled
+              back by the canary's error-rate gate, v2 stays active and
+              answers finite; steps 4 and 3 truncated then make a fresh
+              ``-m resnet50 --workdir`` boot serve step 2 with
+              ``restore_fallback``.
+
+It prints ``{"phase_seconds": {...}}``, the wall seconds each phase
+took, and before the last line ``{"kernels": [...]}`` (one entry per
 ported kernel: launches on its own path, max error, kernel / plain /
 library times at the path's main shape, and the bound), and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero with no
 result line; so does a machine without CUDA or a directory without the
 package.
+
+    python3 chip_smoke.py --phase-times-of DIR
+
+runs the ``chip_smoke.py`` of another checkout in ``DIR`` (an earlier
+commit unpacked with ``git archive``) with its phases timed the same
+way, so that two commits' phase times can be held side by side.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import json
 import math
 import os
@@ -428,6 +483,26 @@ GENERATE_MODELS = (("dcgan", "uint8", "float32"),
                    ("cyclegan", "uint8", "int8"))
 #: one padded image's D2H bytes: the uint8 image
 GENERATE_ROW_BYTES = {"dcgan": 28 * 28 * 1, "cyclegan": 256 * 256 * 3}
+#: the fault plane on ResNet-50 int8 served from a port checkpoint: the
+#: 6th submitted request is poisoned; 2 sequential then 30 concurrent
+#: requests in a 20 ms batching window, so the poison shares its cohort
+POISON_SPEC = "compute:poison:nth=5"
+#: the third batch hangs once (without times=1 every later batch would)
+HANG_SPEC = "d2h:hang:hang_s=30:after=2:times=1"
+FAULT_N_SEQ, FAULT_N_CONC = 2, 30
+#: the model control plane: two models whose int8 weights together
+#: exceed the weight-cache budget, 3 rounds of alternating sequential
+#: requests (a miss then a hit each), the reload's clients on 32 images
+#: with a decided top-1, and how far the two resident states'
+#: ``memory_allocated`` may differ from the two models' weight bytes in
+#: 512-byte blocks: the caching allocator leaves a large block the tail
+#: of its segment when that tail is under 1 MiB (1.6-1.7 MB measured on
+#: an H100 80GB HBM3 at 700 W)
+PLANE_MODELS = (MODEL, "yolov3_coco")
+PLANE_ROUNDS, PLANE_CLIENT_IMAGES = 3, 32
+PLANE_BODY = {"classify": {"top_k": 5},
+              "detect": {"score_threshold": DETECT_FLOOR}}
+PLANE_MEM_SLACK = 4 * 2**20
 
 
 def log(msg: str) -> None:
@@ -2541,11 +2616,72 @@ def phase_zoo_training() -> dict:
     return out
 
 
+def serve_trained_workdir(name: str, work: str) -> dict:
+    """``cli.serve -m name --workdir work`` (float32, uint8 wire) on the
+    card over the workdir ``cli.train`` wrote: the served model holds
+    the weights of the checkpoint the workdir's preference order names
+    (``checkpoints_best`` first, its newest complete step) bit for bit,
+    and 8 sequential then 24 concurrent /v1/classify answers equal a
+    direct plain-ingest call at one of the buckets; one ``serve_ingest``
+    launch a batch."""
+    import torch
+
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+    from deep_vision_tpu_torch.core.restore import (
+        CHECKPOINT_DIRS,
+        checkpoint_weights,
+    )
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    sub, step = next((sub, Checkpointer(os.path.join(work, sub))
+                      .all_steps()[-1]) for sub in CHECKPOINT_DIRS
+                     if os.path.isdir(os.path.join(work, sub)))
+    want = checkpoint_weights(Checkpointer(os.path.join(work, sub))
+                              .load(step))
+    engine, server = boot_cli([
+        "-m", name, "--workdir", work, "--wire-dtype", "uint8",
+        "--infer-dtype", "float32", "--port", "0", "--device", "cuda",
+        "--max-batch", str(max(BUCKETS)),
+        "--buckets", ",".join(map(str, BUCKETS)), "--warmup"])
+    sm = engine.model
+    imgs = np.random.RandomState(5).randint(
+        0, 256, (N_SEQ + N_CONC, *sm.input_shape), np.uint8)
+    bodies = [json.dumps({"pixels": im.tolist(), "top_k": 5}).encode()
+              for im in imgs]
+    try:
+        got = sm._model.state_dict()
+        same = sorted(got) == sorted(want) and all(
+            torch.equal(got[k].cpu(), want[k]) for k in want)
+        serve_ingest.launches = 0
+        replies = [post(server.port, b) for b in bodies[:N_SEQ]]
+        with concurrent.futures.ThreadPoolExecutor(N_CONC) as pool:
+            replies += list(pool.map(lambda b: post(server.port, b),
+                                     bodies[N_SEQ:]))
+        launches = serve_ingest.launches
+        batches = engine.stats()["batches"]
+    finally:
+        server.shutdown()
+        engine.stop(drain_deadline=10.0)
+    check(sm.restored_step == step and same,
+          f"{name} served step {sm.restored_step}, not the weights of "
+          f"{sub} step {step} (equal: {same})")
+    check(launches == batches > 0, f"{name} from its workdir: serve_ingest "
+          f"launched {launches} times for {batches} batches")
+    out = {"checkpoints": sub, "step": step, "launches": launches,
+           "batches": batches}
+    out.update(hold_answers(f"{name} from its cli.train workdir", sm, imgs,
+                            replies, {"top_k": 5}, classify_diff,
+                            control="unit"))
+    log(f"{name} served from its cli.train workdir: {json.dumps(out)}")
+    return out
+
+
 def phase_lenet_training() -> dict:
     """cli.train for lenet5 (float32, batch 64, Adam) on seeded idx-ubyte
     files at MNIST's own size (60,000 train, 10,000 test images of
     28×28), 2 epochs and a resumed third: exact resume of the weights
-    and Adam's moments and count."""
+    and Adam's moments and count; then ``cli.serve --workdir`` serves
+    what it wrote."""
     from deep_vision_tpu_torch.data import mnist
 
     steps = MNIST_TRAIN // 64
@@ -2560,6 +2696,7 @@ def phase_lenet_training() -> dict:
                             rng.integers(0, 256, (n, 28, 28), np.uint8),
                             rng.integers(0, 10, n).astype(np.uint8))
         out, series = train_and_resume("lenet5", data, work, 0, steps)
+        out["served"] = serve_trained_workdir("lenet5", work)
     out.update(val_loss=series["val_loss"][-1][1],
                val_top1=series["val_top1"][-1][1])
     check(math.isfinite(out["val_loss"]), "lenet5: non-finite val loss")
@@ -3351,11 +3488,687 @@ def phase_generate_serving() -> dict:
     return out
 
 
+def write_checkpoint(workdir: str, step: int, model) -> str:
+    """``model``'s weights as step ``step`` of a port training run under
+    ``workdir``, as ``cli.train`` writes it (``Checkpointer`` over a
+    ``TrainState``: ``<workdir>/checkpoints/<step>/checkpoint.pt``)."""
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+    from deep_vision_tpu_torch.core.optim import (
+        OptimizerConfig,
+        build_optimizer,
+    )
+    from deep_vision_tpu_torch.core.state import TrainState
+
+    state = TrainState(model, build_optimizer(OptimizerConfig(), model), 0)
+    return Checkpointer(os.path.join(workdir, "checkpoints")).save(
+        step, state, extras={"epoch": step})
+
+
+def seeded_classifier(seed: int):
+    """ResNet-50 at full width from the seed, with non-zero BatchNorm
+    scales and a seeded classifier bias (as ``seeded_weights``)."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+
+    gen = torch.Generator().manual_seed(seed)
+    model = get_config(MODEL).model().reset_parameters(gen)
+    nonzero_bn_(model, gen)
+    with torch.no_grad():
+        model.fc.bias.normal_(0.0, 0.1, generator=gen)
+    return model
+
+
+def boot_cli(argv: list) -> tuple:
+    """``cli/serve.py``'s ``build_server`` on ``argv``, HTTP started."""
+    from deep_vision_tpu_torch.cli import serve as cli
+
+    engine, server = cli.build_server(cli.build_parser().parse_args(argv))
+    server.start_background()
+    return engine, server
+
+
+def post_any(port: int, body: bytes, path: str = "/v1/classify"
+             ) -> tuple[int, dict, float]:
+    """:func:`post` that returns an error status with its body instead of
+    raising."""
+    try:
+        return post(port, body, path)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), math.nan
+
+
+def get_url(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        blob = r.read()
+        return r.status, blob
+
+
+def drive(port: int, bodies: list, n_seq: int, path: str = "/v1/classify"
+          ) -> list:
+    """``n_seq`` sequential requests, then the rest concurrently."""
+    replies = [post_any(port, b, path) for b in bodies[:n_seq]]
+    with concurrent.futures.ThreadPoolExecutor(len(bodies) - n_seq) as pool:
+        replies += list(pool.map(lambda b: post_any(port, b, path),
+                                 bodies[n_seq:]))
+    return replies
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text → {series with labels: value}; raises on a line
+    that is not a comment or ``name{labels} value``."""
+    line_re = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})?) (\S+)$")
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = line_re.match(line)
+        check(m is not None, f"/metrics line does not parse: {line!r}")
+        out[m.group(1)] = float(m.group(3))
+    return out
+
+
+def wait_for(cond, timeout: float = 10.0) -> bool:
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        if cond():
+            return True
+        time.sleep(0.01)
+    return cond()
+
+
+def fault_server_args(workdir: str, *extra) -> list:
+    return ["-m", MODEL, "--workdir", workdir, "--wire-dtype", "uint8",
+            "--infer-dtype", "int8", "--port", "0", "--device", "cuda",
+            "--max-batch", str(max(BUCKETS)),
+            "--buckets", ",".join(map(str, BUCKETS)), *extra]
+
+
+def poison_run(workdir: str, card_line: str) -> dict:
+    """The poison server: one quarantined request, 31 served within the
+    serving bound, launches = executed batches, /metrics parsing, and the
+    MFU at bucket 32."""
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    t0 = time.monotonic()
+    engine, server = boot_cli(fault_server_args(
+        workdir, "--warmup", "--max-wait-ms", "20",
+        "--faults", POISON_SPEC, "--fault-seed", "0"))
+    boot_s = time.monotonic() - t0
+    sm = engine.model
+    n = FAULT_N_SEQ + FAULT_N_CONC
+    imgs = np.random.RandomState(5).randint(
+        0, 256, (n, *sm.input_shape), np.uint8)
+    body = {"top_k": 5}
+    bodies = [json.dumps(dict(body, pixels=im.tolist())).encode()
+              for im in imgs]
+    try:
+        check(sm.restored_step == 1 and not sm.restore_fallback,
+              f"served step {sm.restored_step}, not the workdir's step 1")
+        serve_ingest.launches = 0
+        replies = drive(server.port, bodies, FAULT_N_SEQ)
+        launches = serve_ingest.launches
+        stats = engine.stats()
+        _, text = get_url(server.port, "/metrics")
+        series = parse_metrics(text.decode())
+        # full batches for the bucket-32 MFU, straight into the engine
+        futs = [engine.submit(im) for im in np.concatenate([imgs] * 4)]
+        check(all(isinstance(f.result(120), np.ndarray) for f in futs),
+              "a bucket-32 batch was not served")
+        _, blob = get_url(server.port, "/v1/stats")
+        mfu = json.loads(blob)[MODEL]["mfu"]
+    finally:
+        server.shutdown()
+        engine.stop(drain_deadline=10.0)
+    health = stats["health"]
+    bad = [i for i, r in enumerate(replies) if r[0] != 200]
+    check(len(bad) == 1, f"{len(bad)} requests failed, not 1: "
+                         f"{[replies[i][:2] for i in bad]}")
+    q = bad[0]
+    check(replies[q][0] == 500 and replies[q][1]["error"].startswith(
+        "quarantined: poison"), f"the poisoned request answered "
+                                f"{replies[q][:2]}")
+    check(health["quarantined"] == 1 and health["batch_failures"] == 1
+          and health["retry_executions"] >= 3,
+          f"quarantined {health['quarantined']}, failures "
+          f"{health['batch_failures']}, retries "
+          f"{health['retry_executions']}")
+    check(launches == stats["batches"] > 0,
+          f"serve_ingest launched {launches} times for {stats['batches']} "
+          f"executed batches (pipelined + retry executions)")
+    keep = [i for i in range(n) if i != q]
+    held = hold_answers(MODEL, sm, imgs[keep], [replies[i] for i in keep],
+                        body, classify_diff, control="unit")
+    check(series.get(f'dvt_serve_quarantined_total{{model="{MODEL}"}}')
+          == 1.0, "/metrics does not count the quarantine")
+    m32 = mfu["mfu_by_bucket"].get("32")
+    log(f"serving MFU at bucket 32: {m32} ({mfu['flops_source']}, "
+        f"{mfu['flops_by_bucket']['32']} FLOPs a batch, peak "
+        f"{mfu['peak_flops_per_s']}) on {card_line}")
+    check(m32 is not None and 0 < m32 <= 1 and
+          mfu["flops_source"] == "flop_counter",
+          f"bucket-32 MFU {m32} ({mfu['flops_source']})")
+    lat = sorted(r[2] for i, r in enumerate(replies) if i != q)
+    return {"boot_s": boot_s, "quarantined_index": q,
+            "launches": launches, "batches": stats["batches"],
+            "retry_executions": health["retry_executions"],
+            "retry_seconds": health["retry_seconds"],
+            "batch_failures": health["batch_failures"],
+            "client_p50_ms": lat[len(lat) // 2] * 1e3,
+            "poisoned_request_ms": replies[q][2] * 1e3
+            if not math.isnan(replies[q][2]) else None,
+            "metrics_series": len(series), "mfu": mfu, **held}
+
+
+def restart_run(workdir: str) -> dict:
+    """A batcher killed once is restarted by the watchdog; every request
+    is answered and /v1/healthz reads 200 after the restart."""
+    engine, server = boot_cli(fault_server_args(
+        workdir, "--faults", "batcher:die:times=1"))
+    try:
+        check(wait_for(lambda: engine.health.watchdog_restarts >= 1),
+              "the watchdog never restarted the killed batcher")
+        bodies = [json.dumps({"pixels": im.tolist()}).encode()
+                  for im in np.random.RandomState(6).randint(
+                      0, 256, (8, *engine.model.input_shape), np.uint8)]
+        replies = drive(server.port, bodies, 4)
+        status, blob = get_url(server.port, "/v1/healthz")
+        rep = engine.health_report()
+    finally:
+        server.shutdown()
+        engine.stop(drain_deadline=10.0)
+    check(all(r[0] == 200 for r in replies),
+          f"after the restart: {[r[0] for r in replies]}")
+    check(status == 200 and rep["watchdog_restarts"] == 1
+          and rep["batcher_alive"],
+          f"healthz {status}, restarts {rep['watchdog_restarts']}")
+    return {"watchdog_restarts": rep["watchdog_restarts"],
+            "healthz_after": status, "requests": len(replies)}
+
+
+def hang_run(workdir: str) -> dict:
+    """The third batch hangs in the D2H stage for 30 s: the watchdog
+    fails it at its exec timeout (504), then the server serves again."""
+    engine, server = boot_cli(fault_server_args(
+        workdir, "--faults", HANG_SPEC))
+    body = json.dumps({"pixels": np.random.RandomState(7).randint(
+        0, 256, engine.model.input_shape).tolist()}).encode()
+    try:
+        first = [post_any(server.port, body) for _ in range(2)]
+        limit = engine.exec_timeout_s(1)
+        t0 = time.monotonic()
+        hung = post_any(server.port, body)
+        failed_after = time.monotonic() - t0
+        after = post_any(server.port, body)
+        timeouts = engine.exec_timeouts
+    finally:
+        server.shutdown()
+        engine.stop(drain_deadline=10.0)
+    log(f"hang: exec timeout {limit:.3f} s, the hung batch failed after "
+        f"{failed_after:.3f} s with {hung[0]}")
+    check([r[0] for r in first] == [200, 200] and after[0] == 200,
+          f"around the hang: {[r[0] for r in first]}, {after[0]}")
+    check(hung[0] == 504 and timeouts == 1 and
+          limit <= failed_after < limit + 2.0,
+          f"the hung batch answered {hung[:2]} after {failed_after} s "
+          f"(limit {limit} s, {timeouts} timeouts)")
+    return {"exec_timeout_s": limit, "failed_after_s": failed_after,
+            "status": hung[0]}
+
+
+def phase_faults(card_line: str) -> dict:
+    """ResNet-50 int8 from a port checkpoint under the fault plane:
+    poison → quarantine, a killed batcher restarted, a hung batch failed
+    at its exec timeout, /metrics and the bucket-32 MFU."""
+    import torch
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        workdir = os.path.join(tmp, MODEL)
+        write_checkpoint(workdir, 1, seeded_classifier(0))
+        out = {"poison": poison_run(workdir, card_line)}
+        log(f"faults, poison: {json.dumps(out['poison'])}")
+        out["restart"] = restart_run(workdir)
+        out["hang"] = hang_run(workdir)
+        log(f"faults, restart and hang: {json.dumps(out['restart'])} "
+            f"{json.dumps(out['hang'])}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def rounded_bytes(sm) -> int:
+    """The device bytes the caching allocator gives ``sm``'s weights:
+    each tensor rounded up to its 512-byte block."""
+    return sum(-(-t.numel() * t.element_size() // 512) * 512
+               for t in sm._tensors())
+
+
+def plane_reference(workdir: str) -> dict:
+    """Each plane model loaded alone (no cache, nothing evicted): its
+    weight bytes and its bucket-1 answers to seeded images, the
+    reference the plane's answers must equal bit for bit; its evict and
+    re-admit times (and the same answer after 6 cycles); and 32 images
+    whose ResNet-50 top-1 the direct call decides (the reload's
+    clients)."""
+    import torch
+
+    from deep_vision_tpu_torch.serve.registry import ModelRegistry
+
+    out = {}
+    for seed, name in enumerate(PLANE_MODELS):
+        sm = ModelRegistry().load_checkpoint(
+            name, workdir=os.path.join(workdir, name), wire_dtype="uint8",
+            infer_dtype="int8", device="cuda")
+        imgs = np.random.RandomState(30 + seed).randint(
+            0, 256, (PLANE_ROUNDS, *sm.input_shape), np.uint8)
+        fn = sm.compile_bucket(1)
+        body = PLANE_BODY[sm.workload.verb]
+        answers = []
+        for im in imgs:
+            out_ = fn(im[None])
+            row = out_[0].cpu().numpy() if isinstance(out_, torch.Tensor) \
+                else {k: v[0].cpu().numpy() for k, v in out_.items()}
+            answers.append(json.loads(json.dumps(
+                sm.workload.respond(sm, body, row))))
+        # evict and re-admit timed on the host clock around a
+        # synchronize: the first spill copies to pinned host memory,
+        # later ones only drop the device storage
+        t0 = time.perf_counter()
+        sm.spill_weights()
+        first_spill_ms = (time.perf_counter() - t0) * 1e3
+        evict_ms, readmit_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sm.admit_weights()
+            torch.cuda.synchronize()
+            readmit_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            sm.spill_weights()
+            torch.cuda.synchronize()
+            evict_ms.append((time.perf_counter() - t0) * 1e3)
+        sm.admit_weights()
+        again = fn(imgs[:1])
+        row = again[0].cpu().numpy() if isinstance(again, torch.Tensor) \
+            else {k: v[0].cpu().numpy() for k, v in again.items()}
+        check(json.loads(json.dumps(sm.workload.respond(sm, body, row)))
+              == answers[0], f"{name} answers otherwise after 6 evictions")
+        out[name] = {"bytes": sm.param_bytes(), "rounded": rounded_bytes(sm),
+                     "tensors": len(sm._tensors()),
+                     "first_spill_ms": first_spill_ms,
+                     "evict_ms": sorted(evict_ms),
+                     "readmit_ms": sorted(readmit_ms),
+                     "images": imgs, "answers": answers,
+                     "path": f"/v1/models/{name}/{sm.workload.verb}"}
+        log(f"{name}: {out[name]['bytes']} B in {out[name]['tensors']} "
+            f"tensors, first spill {first_spill_ms:.3f} ms, evict "
+            f"{sorted(evict_ms)} ms, re-admit {sorted(readmit_ms)} ms")
+        if name == MODEL:
+            out["decided"], _ = decided_images(sm, PLANE_CLIENT_IMAGES)
+        del sm, fn
+        torch.cuda.empty_cache()
+    return out
+
+
+class Clients:
+    """Closed-loop HTTP clients; every status they got is kept."""
+
+    def __init__(self, port: int, path: str, bodies: list, n: int = 4):
+        import threading
+
+        self.stop = threading.Event()
+        self.replies: list = []
+        self.threads = [threading.Thread(
+            target=self._run, args=(port, path, bodies[i::n]), daemon=True)
+            for i in range(n)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, port, path, bodies):
+        k = 0
+        while not self.stop.is_set():
+            self.replies.append(post_any(port, bodies[k % len(bodies)],
+                                         path))
+            k += 1
+
+    def finish(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(300)
+            check(not t.is_alive(), "a client never returned")
+
+
+def eviction_run(plane, port: int, ref: dict) -> dict:
+    """Alternating sequential requests: each switch evicts one model and
+    re-admits the other; the answers bit-identical to the reference,
+    ``memory_allocated`` following the cache, no callable rebuilt,
+    launches = batches."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    engines = {n: plane.active_engine(n) for n in PLANE_MODELS}
+    cache = plane.cache
+    bodies = {n: [json.dumps(dict(PLANE_BODY[engines[n].model.workload
+                                             .verb],
+                                  pixels=im.tolist())).encode()
+                  for im in ref[n]["images"]] for n in PLANE_MODELS}
+    other = {PLANE_MODELS[0]: PLANE_MODELS[1],
+             PLANE_MODELS[1]: PLANE_MODELS[0]}
+    # one request each first: an engine stream's first cuBLAS call keeps
+    # a workspace allocated for that stream, which is no weight movement
+    primed = []
+    for n in PLANE_MODELS:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        status, reply, _ = post_any(port, bodies[n][0], ref[n]["path"])
+        check(status == 200 and reply == ref[n]["answers"][0],
+              f"{n}: the priming request answered {status} otherwise")
+        torch.cuda.synchronize()
+        primed.append(torch.cuda.memory_allocated() - before
+                      - ref[n]["rounded"] + ref[other[n]]["rounded"])
+    log(f"plane eviction: priming requests moved memory_allocated by "
+        f"{primed} B beyond the weights")
+    compiles = {n: e.compiles for n, e in engines.items()}
+    batches = {n: e.stats()["batches"] for n, e in engines.items()}
+    evictions0 = cache.stats()["evictions"]
+    serve_ingest.launches = 0
+    lat = {"miss": {n: [] for n in PLANE_MODELS},
+           "hit": {n: [] for n in PLANE_MODELS}}
+    mem = []
+    for i in range(PLANE_ROUNDS):
+        for n in PLANE_MODELS:
+            for kind in ("miss", "hit"):
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                status, reply, secs = post_any(port, bodies[n][i],
+                                               ref[n]["path"])
+                torch.cuda.synchronize()
+                after = torch.cuda.memory_allocated()
+                check(status == 200 and reply == ref[n]["answers"][i],
+                      f"{n} image {i} ({kind}): {status}, not the answer "
+                      f"before any eviction")
+                check(cache.resident_models() == [n],
+                      f"resident {cache.resident_models()} after {n}")
+                lat[kind][n].append(secs * 1e3)
+                mem.append((n, kind, after - before, after))
+    launches = serve_ingest.launches
+    ran = sum(e.stats()["batches"] - batches[n] for n, e in engines.items())
+    st = cache.stats()
+    check(launches == ran, f"serve_ingest launched {launches} times for "
+                           f"{ran} batches")
+    check({n: e.compiles for n, e in engines.items()} == compiles,
+          "a bucket callable was rebuilt across eviction")
+    check(st["evictions"] - evictions0 >= 2 * PLANE_ROUNDS - 1,
+          f"only {st['evictions'] - evictions0} evictions")
+    # a hit moves nothing; each model resident reads the same
+    # memory_allocated every round (the evicted storage is freed); and
+    # the two resident states differ by the two models' weight bytes,
+    # up to the caching allocator's slack
+    log(f"plane eviction: memory_allocated (model, request, change, "
+        f"value): {mem}")
+    check(all(d == 0 for _, kind, d, _ in mem if kind == "hit"),
+          "a hit moved memory_allocated")
+    resident = {n: {a for m, _, _, a in mem if m == n}
+                for n in PLANE_MODELS}
+    check(all(len(v) == 1 for v in resident.values()),
+          f"memory_allocated differs between rounds: {resident}")
+    a, b = (resident[n].pop() for n in PLANE_MODELS)
+    worst = abs((b - a) - (ref[PLANE_MODELS[1]]["rounded"]
+                           - ref[PLANE_MODELS[0]]["rounded"]))
+    check(worst <= PLANE_MEM_SLACK,
+          f"the resident states differ by {b - a} B, {worst} B off the "
+          f"weights' bytes")
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    return {"launches": launches, "batches": ran,
+            "evictions": st["evictions"] - evictions0,
+            "admits": st["admits"], "spilled_bytes_total":
+            st["spilled_bytes_total"], "bytes": {n: ref[n]["bytes"]
+                                                 for n in PLANE_MODELS},
+            "max_memory_error_bytes": worst,
+            "priming_extra_bytes": primed,
+            "miss_ms_median": {n: med(v) for n, v in lat["miss"].items()},
+            "hit_ms_median": {n: med(v) for n, v in lat["hit"].items()},
+            "readmit_ms_median": {n: med(lat["miss"][n]) - med(lat["hit"][n])
+                                  for n in PLANE_MODELS}}
+
+
+def reload_run(plane, port: int, workdir: str, ref: dict, step: int,
+               model) -> dict:
+    """Write ``model`` as step ``step`` and reload it under 4 closed-loop
+    clients on ResNet-50; returns the lifecycle's numbers."""
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    write_checkpoint(os.path.join(workdir, MODEL), step, model)
+    bodies = [json.dumps({"pixels": im.tolist(), "top_k": 5}).encode()
+              for im in ref["decided"]]
+    batches0 = sum(mv.engine.stats()["batches"]
+                   for mv in plane.versions(MODEL))
+    serve_ingest.launches = 0
+    clients = Clients(port, ref[MODEL]["path"], bodies)
+    try:
+        t0 = time.monotonic()
+        status, out, _ = post_any(port, json.dumps({"wait": True}).encode(),
+                                  f"/v1/models/{MODEL}/reload")
+        reload_s = time.monotonic() - t0
+    finally:
+        clients.finish()
+    launches = serve_ingest.launches
+    ran = sum(mv.engine.stats()["batches"]
+              for mv in plane.versions(MODEL)) - batches0
+    # the new version's engine ran every bucket once at warmup
+    check(launches == ran + len(BUCKETS),
+          f"serve_ingest launched {launches} times for {ran} batches and "
+          f"{len(BUCKETS)} warmup calls")
+    check(status == 200 and out.get("status") == "done",
+          f"reload answered {status} {out}")
+    codes = [r[0] for r in clients.replies]
+    return {"version": out["version"], "reload_s": reload_s,
+            "client_requests": len(codes),
+            "client_statuses": sorted(set(codes)),
+            "client_replies": clients.replies,
+            "launches": launches, "batches": ran}
+
+
+def nan_rollback(plane, port: int, workdir: str, ref: dict, step: int,
+                 model, imgs) -> dict:
+    """Reload ResNet-50 to ``model``, which holds a NaN, under 4 clients:
+    the canary's error-rate gate retires it, version 2 stays active and
+    answers finite logits after."""
+    run = reload_run(plane, port, workdir, ref, step, model)
+    v = run.pop("version")
+    replies = run.pop("client_replies")
+    log(f"plane NaN reload (step {step}): {json.dumps(v)} "
+        f"{json.dumps(run)}")
+    check(v["state"] == "retired" and "canary error rate" in
+          (v["state_reason"] or ""), f"the NaN step {step}: {v}")
+    check(plane.stats()["models"][MODEL]["active_version"] == 2,
+          f"the rollback of step {step} did not keep version 2")
+    finite = drive(port, [json.dumps({"pixels": im.tolist(), "top_k": 5}
+                                     ).encode() for im in imgs],
+                   2, ref[MODEL]["path"])
+    check(all(r[0] == 200 and all(math.isfinite(t["logit"])
+                                  for t in r[1]["top"]) for r in finite),
+          f"answers after the rollback of step {step} are not finite")
+    return dict(run, state_reason=v["state_reason"], canary=v["canary"],
+                nan_answers_during_canary=sum(
+                    1 for r in replies if r[0] == 200 and not all(
+                        math.isfinite(t["logit"]) for t in r[1]["top"])))
+
+
+def phase_plane() -> dict:
+    """``--models resnet50,yolov3_coco`` with a weight-cache budget
+    between the larger model's bytes and their sum: eviction and
+    readmission, a hot reload through shadow and canary under 4 clients,
+    NaN candidates rolled back by the canary gate, torn newest
+    checkpoints falling back at a fresh boot."""
+    import torch
+
+    from deep_vision_tpu_torch.core.restore import params_digest
+    from deep_vision_tpu_torch.serve.models import CanaryPolicy
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as workdir:
+        step1 = seeded_classifier(1)
+        write_checkpoint(os.path.join(workdir, MODEL), 1, step1)
+        write_checkpoint(os.path.join(workdir, "yolov3_coco"), 1,
+                         seeded_model("yolov3_coco", 2))
+        ref = plane_reference(workdir)
+        sizes = [ref[n]["bytes"] for n in PLANE_MODELS]
+        budget_mb = (max(sizes) + sum(sizes)) / 2 / 2**20
+        timing = {n: {k: ref[n][k] for k in ("tensors", "first_spill_ms",
+                                             "evict_ms", "readmit_ms")}
+                  for n in PLANE_MODELS}
+        t0 = time.monotonic()
+        plane, server = boot_cli([
+            "--models", ",".join(PLANE_MODELS), "--workdir", workdir,
+            "--wire-dtype", "uint8", "--infer-dtype", "int8", "--warmup",
+            "--port", "0", "--device", "cuda",
+            "--max-batch", str(max(BUCKETS)),
+            "--buckets", ",".join(map(str, BUCKETS)),
+            "--hbm-budget-mb", f"{budget_mb:.6f}",
+            "--canary-frac", "0.25", "--canary-min-requests", "8",
+            "--shadow-frac", "0.5", "--phase-timeout-s", "120"])
+        out = {"boot_s": time.monotonic() - t0, "budget_mb": budget_mb,
+               "weights_alone": timing}
+        try:
+            cache = plane.cache.stats()
+            check({n: cache["models"][n]["bytes"] for n in PLANE_MODELS}
+                  == dict(zip(PLANE_MODELS, sizes))
+                  and max(sizes) < cache["budget_bytes"] < sum(sizes),
+                  f"cache {cache} for weights of {sizes} B")
+            out["eviction"] = eviction_run(plane, server.port, ref)
+            log(f"plane eviction: {json.dumps(out['eviction'])}")
+            # a new step: step 1 with the classifier bias moved (every
+            # logit moves; top-1 stays on the decided images, which the
+            # shadow's top-1 agreement gate reads)
+            step2 = seeded_classifier(1)
+            gen = torch.Generator().manual_seed(3)
+            with torch.no_grad():
+                step2.fc.bias.add_(0.25 + 1e-3 * torch.randn(
+                    step2.fc.bias.shape, generator=gen))
+            run = reload_run(plane, server.port, workdir, ref, 2, step2)
+            v = run.pop("version")
+            replies = run.pop("client_replies")
+            log(f"plane reload to step 2: {json.dumps(v)} "
+                f"{json.dumps(run)}")
+            check(v["state"] == "active" and v["version"] == 2
+                  and v["step"] == 2, f"step 2 reached {v}")
+            check(v.get("shadow", {}).get("compared", 0) >= 10
+                  and v.get("canary", {}).get("requests", 0) >= 8,
+                  f"no shadow or canary on the way: {v}")
+            check(run["client_statuses"] == [200],
+                  f"clients lost requests: {run['client_statuses']}")
+            _, blob = get_url(server.port, "/v1/models")
+            listing = json.loads(blob)["models"][MODEL]
+            check(listing["active_version"] == 2 and
+                  listing["model"]["params_digest"] == params_digest(step2),
+                  f"/v1/models shows {listing['model']['params_digest']}")
+            sm2 = plane.resolve(MODEL)
+            imgs = ref["decided"][:N_SEQ]
+            after = drive(server.port, [json.dumps(
+                {"pixels": im.tolist(), "top_k": 5}).encode()
+                for im in imgs], 2, ref[MODEL]["path"])
+            with sm2.weights_in_use():  # direct calls read the weights
+                run.update(hold_answers(f"{MODEL} v2", sm2, imgs, after,
+                                        {"top_k": 5}, classify_diff,
+                                        control="unit"))
+            out["reload"] = dict(run, shadow=v["shadow"],
+                                 canary=v["canary"])
+            # NaN candidates, one in the classifier's weight matrix
+            # (int8 codes 0 and a NaN scale for its channel) and one in
+            # its bias (kept in float32); these reloads skip the shadow
+            # phase, whose top-1 gate would catch them first, so the
+            # canary's error-rate gate is the one exercised
+            plane.policy = CanaryPolicy(canary_frac=0.25, min_requests=8,
+                                        phase_timeout_s=120.0)
+            out["nan_rollback"] = {}
+            for step, where in ((3, "weight"), (4, "bias")):
+                bad = copy.deepcopy(step2)
+                with torch.no_grad():
+                    getattr(bad.fc, where).view(-1)[0] = float("nan")
+                out["nan_rollback"][where] = nan_rollback(
+                    plane, server.port, workdir, ref, step, bad, imgs)
+        finally:
+            server.shutdown()
+            plane.stop(drain_deadline=10.0)
+        # torn newest steps (both NaN candidates): a fresh boot falls
+        # back past them to step 2
+        for step in (4, 3):
+            path = os.path.join(workdir, MODEL, "checkpoints", str(step),
+                                "checkpoint.pt")
+            with open(path, "r+b") as f:
+                f.truncate(os.path.getsize(path) // 2)
+        del plane, server
+        torch.cuda.empty_cache()
+        engine, server = boot_cli(fault_server_args(
+            os.path.join(workdir, MODEL)))
+        try:
+            reply = post_any(server.port, json.dumps(
+                {"pixels": ref["decided"][0].tolist()}).encode())
+            _, blob = get_url(server.port, "/v1/models")
+            described = json.loads(blob)["models"][MODEL]["model"]
+        finally:
+            server.shutdown()
+            engine.stop(drain_deadline=10.0)
+        check(described["restored_step"] == 2 and
+              described["restore_fallback"] is True and reply[0] == 200,
+              f"the torn boot served {described['restored_step']} "
+              f"(fallback {described['restore_fallback']}): {reply[0]}")
+        out["torn"] = {"restored_step": 2, "restore_fallback": True}
+        torch.cuda.empty_cache()
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
+
+
+def time_phases(module) -> dict:
+    """Wrap every ``phase_*`` function of ``module`` so that the wall
+    seconds of its calls add up under its name; returns that dict, which
+    fills as the phases run."""
+    seconds: dict[str, float] = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) \
+                    + time.monotonic() - t0
+        return run
+
+    for name in [n for n in vars(module) if n.startswith("phase_")]:
+        setattr(module, name, timed(name[len("phase_"):],
+                                    getattr(module, name)))
+    return seconds
+
+
+def phase_times_of(path: str) -> int:
+    """Run the ``chip_smoke.py`` of another checkout at ``path`` (an
+    earlier commit unpacked with ``git archive``) with its phases timed
+    as this script times its own, and print its seconds a phase."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "other_chip_smoke", os.path.join(path, "chip_smoke.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    seconds = time_phases(other)
+    rc = other.main()
+    print(json.dumps({"phase_seconds_of": path, "rc": rc,
+                      "phase_seconds": seconds}), flush=True)
+    return rc
 
 
 def main() -> int:
@@ -3376,6 +4189,7 @@ def main() -> int:
     from deep_vision_tpu_torch.core.device import configure_precision
 
     configure_precision()  # float32 comparisons without TF32
+    seconds = time_phases(sys.modules[__name__])
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     build_s = phase_build()
@@ -3407,6 +4221,9 @@ def main() -> int:
         gan_check[name] = phase_gan_step_check(name)
         torch.cuda.empty_cache()
     generate = phase_generate_serving()
+    card_line = card()
+    faults = phase_faults(card_line)
+    plane = phase_plane()
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
@@ -3415,8 +4232,14 @@ def main() -> int:
                f"pose_{POSE_MODEL}": pose["launches"],
                **{f"classify_{m}": classify[m]["launches"]
                   for m, _, _ in CLASSIFY_MODELS},
+               "classify_lenet5_workdir": lenet["served"]["launches"],
                **{f"generate_{k}": row["launches"]
-                  for k, row in generate.items()}}
+                  for k, row in generate.items()},
+               "faults_resnet50": faults["poison"]["launches"],
+               "plane_eviction": plane["eviction"]["launches"],
+               "plane_reload": plane["reload"]["launches"],
+               **{f"plane_nan_{k}": row["launches"]
+                  for k, row in plane["nan_rollback"].items()}}
     zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
@@ -3496,7 +4319,10 @@ def main() -> int:
     print(json.dumps({"gan_training": gan_train}), flush=True)
     print(json.dumps({"gan_step_check": gan_check}), flush=True)
     print(json.dumps({"generate_serving": generate}), flush=True)
-    print(card(), flush=True)
+    print(json.dumps({"faults": faults}), flush=True)
+    print(json.dumps({"plane": plane}), flush=True)
+    print(json.dumps({"phase_seconds": seconds}), flush=True)
+    print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3505,4 +4331,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase-times-of":
+        sys.exit(phase_times_of(sys.argv[2]))
     sys.exit(main())

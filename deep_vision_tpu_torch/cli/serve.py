@@ -1,9 +1,14 @@
 """Dynamic-batching inference server on one GPU.
 
     python -m deep_vision_tpu_torch.cli.serve -m resnet50 \\
-        [--weights w.npz] --wire-dtype uint8 --infer-dtype int8 \\
-        --port 8000 --max-batch 32 [--buckets 1,8,32] --warmup \\
-        [--device cuda]
+        [--workdir runs/r50 | --weights w.npz] --wire-dtype uint8 \\
+        --infer-dtype int8 --port 8000 --max-batch 32 [--buckets 1,8,32] \\
+        --warmup [--device cuda] [--faults 'compute:poison:nth=5' \\
+        --fault-seed 0] [--response-cache-mb 64] [--qos SPEC]
+    python -m deep_vision_tpu_torch.cli.serve \\
+        --models resnet50,yolov3_coco --workdir runs --hbm-budget-mb 80 \\
+        --canary-frac 0.25 --shadow-frac 0.5 --wire-dtype uint8 \\
+        --infer-dtype int8 --warmup
     python -m deep_vision_tpu_torch.cli.serve -m yolov3_coco \\
         [--weights w.npz] --wire-dtype uint8 --infer-dtype int8 \\
         [--detect-decode device] [--detect-topk 100] \\
@@ -24,10 +29,22 @@ uint8 image in base64: ``dcgan`` from ``{"seed": N}`` or ``{"latent":
 [100 floats]}`` (its wire is float32 whatever ``--wire-dtype`` says),
 ``cyclegan`` from ``{"pixels"}`` (the other domain's image).
 
+``--workdir`` serves what ``cli.train`` wrote there: the newest complete
+checkpoint, falling back past a torn one (``core/restore.py``).
 ``--weights`` is an ``.npz`` of the reference's flax variables tree
-(keys joined by ``/``, see ``convert.py``); without it the model is a
-seeded random init.  Port of ``deep_vision_tpu/cli/serve.py``
-(``build_server``, ``main``) for one model on one device.
+(keys joined by ``/``, see ``convert.py``); with neither the model is a
+seeded random init.  ``--models a,b`` serves several models from
+``<workdir>/<name>`` through the model control plane
+(``serve/models.py``): a weight cache over device bytes
+(``--hbm-budget-mb``), and ``POST /v1/models/<name>/reload`` rolls a new
+checkpoint out through shadow and canary phases without a restart.
+Every engine runs under the fault plane's supervision (watchdog
+restarts, exec-timeout fast-fail, bisect-retry; ``--faults`` injects).
+
+Port of ``deep_vision_tpu/cli/serve.py`` (``build_server``,
+``_build_plane_server``, ``main``) on one device; the replica, mesh,
+cascade, deploy-watcher, batch-tier and brownout flags wait for their
+slices.
 """
 
 from __future__ import annotations
@@ -39,20 +56,24 @@ from deep_vision_tpu_torch.core.device import (
     resolve_device,
 )
 
-#: batch drain window and admission bound (the reference's defaults)
-MAX_WAIT_MS = 5.0
-MAX_QUEUE = 256
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="deep_vision_tpu_torch dynamic-batching inference "
                     "server")
-    p.add_argument("-m", "--model", required=True,
+    p.add_argument("-m", "--model", default=None,
                    help="config name, e.g. resnet50")
-    p.add_argument("--weights", default=None,
-                   help=".npz of the flax variables tree (keys joined by "
-                        "'/'); omitted = seeded random init")
+    p.add_argument("--models", default=None,
+                   help="comma-separated config names served together "
+                        "through the model control plane, each from "
+                        "<--workdir>/<name>")
+    src = p.add_mutually_exclusive_group()
+    src.add_argument("--workdir", default=None,
+                     help="training workdir: serve its newest complete "
+                          "checkpoint (with --models: the parent of one "
+                          "workdir per model)")
+    src.add_argument("--weights", default=None,
+                     help=".npz of the flax variables tree (keys joined "
+                          "by '/'); with neither, a seeded random init")
     p.add_argument("--wire-dtype", choices=("uint8", "float32"),
                    default="uint8",
                    help="client wire format: uint8 = raw 0-255 pixels "
@@ -63,16 +84,89 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compute dtype; int8 quantizes the weights at load "
                         "and, on the uint8 wire, runs the serve_ingest "
                         "CUDA kernel")
+    p.add_argument("--calib-batches", type=int, default=2,
+                   help="int8: calibration batches")
+    p.add_argument("--calib-dir", default=None,
+                   help="int8: held-out calibration images (.npy/.npz); "
+                        "omitted = deterministic synthetic batches")
     p.add_argument("--port", type=int, default=8000,
                    help="0 = pick a free port")
     p.add_argument("--max-batch", type=int, default=32)
+    p.add_argument("--max-wait-ms", type=float, default=5.0,
+                   help="batch drain window")
     p.add_argument("--buckets", default=None,
                    help="comma-separated batch buckets (default: powers of "
                         "two up to --max-batch)")
+    p.add_argument("--max-queue", type=int, default=256,
+                   help="admission queue bound (capped by the workload's "
+                        "SLO class)")
+    p.add_argument("--pipeline-depth", type=int, default=2,
+                   help="dispatched-but-undrained batches (1 = "
+                        "synchronous)")
     p.add_argument("--warmup", action="store_true",
                    help="build and run every bucket before taking traffic")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    # -- fault plane and supervision --
+    p.add_argument("--faults", default=None,
+                   help="fault-injection spec stage:mode[:k=v]...[;...], "
+                        "e.g. 'compute:poison:nth=5' (default: the "
+                        "DVT_SERVE_FAULTS environment variable)")
+    p.add_argument("--fault-seed", type=int, default=0)
+    p.add_argument("--watchdog-interval-ms", type=float, default=50.0,
+                   help="watchdog period (0 disables it)")
+    p.add_argument("--restart-budget", type=int, default=3,
+                   help="thread restarts before the engine is sticky DEAD")
+    p.add_argument("--exec-timeout-k", type=float, default=10.0,
+                   help="a batch in flight longer than k × its bucket's "
+                        "exec EWMA is failed fast")
+    p.add_argument("--exec-timeout-min-s", type=float, default=2.0,
+                   help="the exec timeout's floor")
+    p.add_argument("--retry-budget", type=int, default=16,
+                   help="bisect-retry executions per failed cohort")
+    p.add_argument("--degraded-after", type=int, default=1,
+                   help="consecutive batch failures before DEGRADED")
+    p.add_argument("--dead-after", type=int, default=5,
+                   help="consecutive batch failures before DEAD")
+    # -- model control plane (--models) --
+    p.add_argument("--hbm-budget-mb", type=float, default=0.0,
+                   help="weight-cache budget in MiB of device memory "
+                        "(0 = unbounded)")
+    p.add_argument("--canary-frac", type=float, default=0.1,
+                   help="share of live traffic a reload's candidate takes")
+    p.add_argument("--canary-min-requests", type=int, default=20,
+                   help="canary answers needed before promotion")
+    p.add_argument("--canary-max-error-rate", type=float, default=0.0,
+                   help="canary error-rate gate")
+    p.add_argument("--canary-max-p99-ratio", type=float, default=3.0,
+                   help="canary p99 over the active's p99 gate")
+    p.add_argument("--shadow-frac", type=float, default=0.0,
+                   help="share of live requests duplicated onto the "
+                        "candidate before its canary (0 = no shadow)")
+    p.add_argument("--phase-timeout-s", type=float, default=30.0,
+                   help="a shadow or canary phase that cannot fill its "
+                        "quota within this rolls back")
+    p.add_argument("--drain-deadline", type=float, default=5.0,
+                   help="seconds admitted work may take to finish at "
+                        "shutdown")
+    # -- front end --
+    p.add_argument("--max-body-mb", type=float, default=32.0,
+                   help="request body cap (413 beyond it)")
+    p.add_argument("--socket-timeout-s", type=float, default=30.0,
+                   help="per-connection socket timeout (0 = none)")
+    p.add_argument("--qos", default=None,
+                   help="per-tenant QoS classes keyed by the X-DVT-Tenant "
+                        "header, e.g. 'premium:rate=0,shed_at=1.0;"
+                        "best_effort:rate=50,burst=10,shed_at=0.5;"
+                        "default=best_effort'")
+    p.add_argument("--response-cache-mb", type=float, default=0.0,
+                   help="content-addressed response cache size (0 = off)")
+    p.add_argument("--trace-ring", type=int, default=256,
+                   help="finished request traces kept for /v1/traces")
+    p.add_argument("--slow-trace-ms", type=float, default=250.0,
+                   help="log one line for each request slower than this")
+    p.add_argument("--no-trace", action="store_true",
+                   help="turn request tracing off")
     # -- detect decode: detection models only --
     p.add_argument("--detect-decode", choices=("device", "host"),
                    default="device",
@@ -112,62 +206,184 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _detect_knobs(args) -> dict:
+    return {"detect_decode": args.detect_decode,
+            "detect_topk": args.detect_topk,
+            "detect_score_threshold": args.detect_score_threshold,
+            "detect_iou_threshold": args.detect_iou_threshold,
+            "detect_soft_nms": args.detect_soft_nms,
+            "detect_soft_sigma": args.detect_soft_sigma,
+            "detect_max_per_class": args.detect_max_per_class}
+
+
+def _engine_kwargs(args) -> dict:
+    """The engine settings every model (and every reloaded version)
+    shares: batching, supervision, faults and the trace ring."""
+    from deep_vision_tpu_torch.obs.trace import Tracer
+    from deep_vision_tpu_torch.serve.faults import FaultPlane
+
+    return dict(
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        buckets=[int(b) for b in args.buckets.split(",")]
+        if args.buckets else None,
+        pipeline_depth=args.pipeline_depth,
+        # None → the engine reads DVT_SERVE_FAULTS
+        faults=FaultPlane(args.faults, args.fault_seed)
+        if args.faults else None,
+        watchdog_interval_s=args.watchdog_interval_ms / 1e3,
+        restart_budget=args.restart_budget,
+        exec_timeout_k=args.exec_timeout_k,
+        exec_timeout_min_s=args.exec_timeout_min_s,
+        retry_budget=args.retry_budget,
+        degraded_after=args.degraded_after, dead_after=args.dead_after,
+        tracer=Tracer(ring=args.trace_ring, slow_ms=args.slow_trace_ms,
+                      enabled=not args.no_trace))
+
+
+def _server(args, registry, engines: dict, tracer, plane=None):
+    from deep_vision_tpu_torch.serve.admission import TenantQoS
+    from deep_vision_tpu_torch.serve.cache import ResponseCache
+    from deep_vision_tpu_torch.serve.http import ServeServer
+
+    return ServeServer(
+        registry, engines, port=args.port,
+        max_body_bytes=int(args.max_body_mb * 2**20),
+        socket_timeout_s=args.socket_timeout_s
+        if args.socket_timeout_s > 0 else None,
+        tracer=tracer, plane=plane,
+        response_cache=ResponseCache(int(args.response_cache_mb * 2**20))
+        if args.response_cache_mb > 0 else None,
+        qos=TenantQoS.parse(args.qos) if args.qos else None)
+
+
 def build_server(args):
     """argparse namespace → (engine, ServeServer), the engine started
-    (and warmed up with ``--warmup``)."""
+    (and warmed up with ``--warmup``); with ``--models``, (the model
+    control plane, ServeServer)."""
     from deep_vision_tpu_torch.serve.admission import AdmissionController
     from deep_vision_tpu_torch.serve.engine import BatchingEngine
-    from deep_vision_tpu_torch.serve.http import ServeServer
     from deep_vision_tpu_torch.serve.registry import ModelRegistry
 
+    if bool(args.model) == bool(args.models):
+        raise ValueError("give one of -m/--model and --models")
     device = resolve_device(args.device)
     configure_precision()
     registry = ModelRegistry()
+    if args.models:
+        return _build_plane_server(args, registry, device)
     sm = registry.load_checkpoint(args.model, args.weights,
                                   wire_dtype=args.wire_dtype,
                                   infer_dtype=args.infer_dtype,
-                                  device=device,
-                                  detect_decode=args.detect_decode,
-                                  detect_topk=args.detect_topk,
-                                  detect_score_threshold=(
-                                      args.detect_score_threshold),
-                                  detect_iou_threshold=(
-                                      args.detect_iou_threshold),
-                                  detect_soft_nms=args.detect_soft_nms,
-                                  detect_soft_sigma=args.detect_soft_sigma,
-                                  detect_max_per_class=(
-                                      args.detect_max_per_class))
-    buckets = [int(b) for b in args.buckets.split(",")] if args.buckets \
-        else None
+                                  calib_batches=args.calib_batches,
+                                  calib_dir=args.calib_dir,
+                                  device=device, workdir=args.workdir,
+                                  **_detect_knobs(args))
+    kwargs = _engine_kwargs(args)
     engine = BatchingEngine(
-        sm, max_batch=args.max_batch, max_wait_ms=MAX_WAIT_MS,
-        buckets=buckets,
-        admission=AdmissionController(
-            max_queue=sm.workload.slo.bound_queue(MAX_QUEUE),
-            max_wait_ms=MAX_WAIT_MS))
+        sm, admission=AdmissionController(
+            max_queue=sm.workload.slo.bound_queue(args.max_queue),
+            max_wait_ms=args.max_wait_ms), **kwargs)
     engine.start()
     if args.warmup:
         print(f"[serve] warming {engine.buckets} ...", flush=True)
         engine.warmup()
-    server = ServeServer(registry, {sm.name: engine}, port=args.port)
-    return engine, server
+    return engine, _server(args, registry, {sm.name: engine},
+                           kwargs["tracer"])
+
+
+def _build_plane_server(args, registry, device):
+    """``--models a,b`` → (ModelControlPlane, ServeServer): each model
+    restores from ``<workdir>/<name>``, every engine (a reloaded
+    version's too) comes from one factory, and one admission controller
+    per model name carries its exec EWMAs over a reload."""
+    import os
+
+    from deep_vision_tpu_torch.serve.admission import AdmissionController
+    from deep_vision_tpu_torch.serve.engine import BatchingEngine
+    from deep_vision_tpu_torch.serve.models import (
+        CanaryPolicy,
+        ModelControlPlane,
+        WeightCache,
+    )
+
+    names = [s.strip() for s in args.models.split(",") if s.strip()]
+    if not names:
+        raise ValueError("--models needs at least one config name")
+    if args.weights:
+        raise ValueError("--models serves workdirs (<--workdir>/<name>); "
+                         "--weights names one model's npz")
+    if not args.workdir:
+        raise ValueError("--models needs --workdir (one subdirectory per "
+                         "model)")
+    kwargs = _engine_kwargs(args)
+    admissions: dict = {}
+
+    def admission_for(name: str) -> AdmissionController:
+        adm = admissions.get(name)
+        if adm is None:
+            adm = admissions[name] = AdmissionController(
+                max_queue=registry.get(name).workload.slo.bound_queue(
+                    args.max_queue),
+                max_wait_ms=args.max_wait_ms, name=name)
+        return adm
+
+    def engine_factory(model):
+        return BatchingEngine(model, admission=admission_for(model.name),
+                              **kwargs)
+
+    plane = ModelControlPlane(
+        registry, engine_factory,
+        cache=WeightCache(int(args.hbm_budget_mb * 2**20)),
+        policy=CanaryPolicy(canary_frac=args.canary_frac,
+                            min_requests=args.canary_min_requests,
+                            max_error_rate=args.canary_max_error_rate,
+                            max_p99_ratio=args.canary_max_p99_ratio,
+                            shadow_frac=args.shadow_frac,
+                            phase_timeout_s=args.phase_timeout_s))
+    for name in names:
+        workdir = os.path.join(args.workdir, name)
+        sm = registry.load_checkpoint(
+            name, wire_dtype=args.wire_dtype, infer_dtype=args.infer_dtype,
+            calib_batches=args.calib_batches, calib_dir=args.calib_dir,
+            device=device, workdir=workdir, **_detect_knobs(args))
+        plane.deploy(sm, workdir=workdir)
+    if args.warmup:
+        for name, eng in plane.active_engines().items():
+            print(f"[serve] warming {name} {eng.buckets} ...", flush=True)
+        plane.warmup()
+    return plane, _server(args, registry, plane.active_engines(),
+                          kwargs["tracer"], plane=plane)
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    if bool(args.model) == bool(args.models):
+        p.error("give one of -m/--model and --models")
     engine, server = build_server(args)
     sm = engine.model
-    print(f"[serve] {sm.name} on {sm.device}: wire={sm.wire_dtype} "
+    served = args.models or sm.name
+    print(f"[serve] {served} on {sm.device}: wire={sm.wire_dtype} "
           f"infer={sm.infer_dtype} buckets={engine.buckets} — "
           f"http://{server.host}:{server.port}/v1/{sm.workload.verb}",
           flush=True)
+    if args.models:
+        print(f"[serve] model control plane (hbm_budget="
+              f"{args.hbm_budget_mb or 'unbounded'}"
+              f"{'MiB' if args.hbm_budget_mb else ''}, canary_frac="
+              f"{args.canary_frac}, shadow_frac={args.shadow_frac}) — "
+              f"reload: curl -XPOST http://{server.host}:{server.port}"
+              f"/v1/models/<name>/reload", flush=True)
+    if engine.faults.enabled:
+        print(f"[serve] FAULT INJECTION ACTIVE: '{engine.faults.spec}' "
+              f"(seed {engine.faults.seed})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         print("[serve] shutting down")
     finally:
         server.shutdown()
-        engine.stop(drain_deadline=10.0)
+        engine.stop(drain_deadline=args.drain_deadline)
     return 0
 
 

@@ -1,8 +1,8 @@
-"""Metrics: the training logger, latency quantiles, throughput and
-step timing.
+"""Metrics: the training logger, latency quantiles, throughput, step
+timing and the Prometheus text renderer.
 
 Copies of ``MetricLogger`` (``metrics.jsonl``, no TensorBoard writer),
-``LatencyHistogram`` and ``ThroughputMeter`` from
+``LatencyHistogram``, ``PromText`` and ``ThroughputMeter`` from
 ``deep_vision_tpu/core/metrics.py``, plus ``StepTimer``.
 """
 
@@ -167,6 +167,100 @@ class LatencyHistogram:
                 "p99_ms": self.quantile(0.99) * 1e3,
                 "mean_ms": self.mean * 1e3,
                 "count": self.total}
+
+    def state_dict(self) -> dict:
+        return {"edges": list(self.edges), "counts": list(self.counts),
+                "total": self.total, "sum": self.sum}
+
+
+def _prom_num(v) -> str:
+    """Prometheus sample/edge value formatting: integers stay integral,
+    floats use repr (deterministic, full precision: bucket ``le`` labels
+    must be byte-identical across scrapes or the series forks)."""
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    f = float(v)
+    return str(int(f)) if f.is_integer() and abs(f) < 1e15 else repr(f)
+
+
+def _prom_escape(v: str) -> str:
+    return v.replace("\\", r"\\").replace('"', r'\"').replace("\n", r"\n")
+
+
+class PromText:
+    """Prometheus text-exposition (format 0.0.4) renderer, stdlib only.
+
+    The serving ``/metrics`` endpoint feeds the engines' stats dicts
+    through this: the dicts stay the source of truth, this renders a
+    snapshot.  ``histogram`` renders a ``LatencyHistogram.state_dict`` as
+    cumulative ``le`` buckets (``counts[0]``, the underflow bin, folds
+    into the first edge; ``+Inf`` is the total), plus ``_sum`` and
+    ``_count``, every edge always emitted so the bucket series stay
+    stable across scrapes."""
+
+    def __init__(self):
+        self._lines: list[str] = []
+        self._typed: set[str] = set()
+
+    def _meta(self, name: str, typ: str, help_: str):
+        if name in self._typed:
+            return
+        self._typed.add(name)
+        if help_:
+            self._lines.append(f"# HELP {name} {help_}")
+        self._lines.append(f"# TYPE {name} {typ}")
+
+    @staticmethod
+    def _labels(labels: dict | None) -> str:
+        if not labels:
+            return ""
+        inner = ",".join(f'{k}="{_prom_escape(str(v))}"'
+                         for k, v in sorted(labels.items()))
+        return "{" + inner + "}"
+
+    def sample(self, name: str, value, labels: dict | None = None, *,
+               typ: str = "gauge", help: str = ""):
+        """One sample line; a ``None`` value is skipped (an unknown gauge
+        is absent, never a fabricated 0)."""
+        if value is None:
+            return
+        self._meta(name, typ, help)
+        self._lines.append(f"{name}{self._labels(labels)} "
+                           f"{_prom_num(value)}")
+
+    def counter(self, name: str, value, labels: dict | None = None,
+                help: str = ""):
+        self.sample(name, value, labels, typ="counter", help=help)
+
+    def gauge(self, name: str, value, labels: dict | None = None,
+              help: str = ""):
+        self.sample(name, value, labels, typ="gauge", help=help)
+
+    def histogram(self, name: str, state: dict,
+                  labels: dict | None = None, help: str = ""):
+        """Cumulative buckets from a ``LatencyHistogram.state_dict``
+        (``le`` in seconds)."""
+        self._meta(name, "histogram", help)
+        labels = dict(labels or {})
+        edges, counts = state["edges"], state["counts"]
+        cum = 0
+        for i, edge in enumerate(edges):
+            cum += counts[i]
+            self._lines.append(
+                f"{name}_bucket"
+                f"{self._labels({**labels, 'le': _prom_num(edge)})} {cum}")
+        total = int(state["total"])
+        self._lines.append(
+            f"{name}_bucket{self._labels({**labels, 'le': '+Inf'})} "
+            f"{total}")
+        self._lines.append(f"{name}_sum{self._labels(labels)} "
+                           f"{_prom_num(float(state['sum']))}")
+        self._lines.append(f"{name}_count{self._labels(labels)} {total}")
+
+    def render(self) -> str:
+        return "\n".join(self._lines) + "\n"
 
 
 class ThroughputMeter:

@@ -1,18 +1,40 @@
 """Weights → a serving-ready model, shared by every inference surface.
 
 Port of ``deep_vision_tpu/core/restore.py`` (``params_digest``,
-``serving_input_shape``, ``load_state``).  Orbax checkpoints are not read
-here: the port loads a ``--weights`` ``.npz`` archive of the reference's
-flax variables tree (``convert.py``, through the importer of the model's
-family), or, with no weights, builds a seeded random init and says so
-with a warning, as the reference does when no checkpoint exists.
+``serving_input_shape``, ``checkpoint_fingerprint``, ``load_state``).
+Weights come from one of three places:
+
+  * a training workdir (``workdir=``): the port's own checkpoints
+    (``core/checkpoint.py``, ``<workdir>/checkpoints[_best]/<step>/
+    checkpoint.pt``), the newest complete step first, falling back past a
+    step whose file fails to load, as the reference falls back past a
+    corrupt Orbax step.  Orbax checkpoints of the JAX package are not
+    read;
+  * a ``--weights`` ``.npz`` archive of the reference's flax variables
+    tree (``convert.py``, through the importer of the model's family);
+  * neither: a seeded random init, with a warning, as the reference does
+    when no checkpoint exists.
+
+The port trains no params EMA, so a workdir always serves the trained
+weights themselves (``info["ema"]`` says so).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 
 import torch
+
+from deep_vision_tpu_torch.core.checkpoint import FILENAME
+
+#: checkpoint sources in the order a workdir is searched (the reference's)
+CHECKPOINT_DIRS = ("checkpoints_best", "checkpoints")
+#: which network of an adversarial checkpoint (``save_tree``) is served:
+#: DCGAN's generator, CycleGAN's A→B generator
+GENERATOR_NAMES = ("generator", "gen_a2b")
+#: ``info["ema"]``: what a workdir's served weights are
+NO_EMA = "none: the port trains no params EMA; the trained weights serve"
 
 
 def params_digest(model: torch.nn.Module) -> str:
@@ -73,26 +95,129 @@ def import_weights(model, variables) -> None:
                     f"have {[cls.__name__ for cls, _ in importers]}")
 
 
-def load_state(cfg, weights: str | None = None, *, log=print,
-               info: dict | None = None):
+def _complete_step_dir(path: str) -> bool:
+    """A step directory counts once its checkpoint file is in it: a save
+    writes a ``.<step>-*`` temporary directory and renames it into
+    place, so a save in progress never shows a numeric name."""
+    return os.path.isfile(os.path.join(path, FILENAME))
+
+
+def _durable_steps(d: str) -> list[tuple[int, float]]:
+    """``(step, step dir mtime)`` of every complete step under ``d``."""
+    out = []
+    try:
+        with os.scandir(d) as it:
+            entries = list(it)
+    except OSError:
+        return out
+    for ent in entries:
+        if not ent.name.isdigit():
+            continue
+        try:
+            if not ent.is_dir(follow_symlinks=False) \
+                    or not _complete_step_dir(ent.path):
+                continue
+            out.append((int(ent.name), ent.stat().st_mtime))
+        except OSError:
+            continue  # torn down mid-scan: not durable
+    return sorted(out)
+
+
+def checkpoint_fingerprint(workdir: str) -> dict:
+    """Filesystem-only "new step published?" probe: the newest complete
+    step under ``checkpoints_best``/``checkpoints`` (the order
+    :func:`load_state` searches), its directory and the step directory's
+    mtime; no checkpoint bytes are read.  ``{"step": None, "dir": None,
+    "mtime": None}`` for a workdir with no complete checkpoint."""
+    for sub in CHECKPOINT_DIRS:
+        d = os.path.join(workdir, sub)
+        steps = _durable_steps(d) if os.path.isdir(d) else []
+        if steps:
+            step, mtime = steps[-1]
+            return {"step": step, "dir": d, "mtime": mtime}
+    return {"step": None, "dir": None, "mtime": None}
+
+
+def checkpoint_weights(payload: dict) -> dict:
+    """The served network's ``state_dict`` from a checkpoint payload: a
+    trainer's ``{"state"}``, or an adversarial trainer's ``{"states"}``
+    (its generator, ``GENERATOR_NAMES``)."""
+    if "state" in payload:
+        return payload["state"]["model"]
+    states = payload.get("states") or {}
+    for name in GENERATOR_NAMES:
+        if name in states:
+            return states[name]["model"]
+    raise KeyError(f"checkpoint holds no servable network (keys "
+                   f"{sorted(payload)}, networks {sorted(states)})")
+
+
+def _restore_workdir(cfg, workdir: str, log, tag: str, info: dict):
+    """The newest restorable step under ``workdir``, or None."""
+    for sub in CHECKPOINT_DIRS:
+        d = os.path.join(workdir, sub)
+        if not os.path.isdir(d):
+            continue
+        steps = [s for s, _ in reversed(_durable_steps(d))]
+        for step in steps:
+            step_dir = os.path.join(d, str(step))
+            try:
+                payload = torch.load(os.path.join(step_dir, FILENAME),
+                                     map_location="cpu", weights_only=True)
+                model = cfg.model()
+                model.load_state_dict(checkpoint_weights(payload),
+                                      strict=True)
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except Exception as e:  # noqa: BLE001 — a corrupt or partial step
+                log(f"[{tag}] WARNING: checkpoint step {step} under {d} "
+                    f"failed to restore ({type(e).__name__}: {e}); "
+                    f"falling back to the previous retained step")
+                continue
+            fallback = step != steps[0]
+            info.update({"step": step, "dir": d, "fallback": fallback,
+                         "mtime": os.path.getmtime(step_dir)})
+            log(f"[{tag}] restored from {d} step {step}"
+                + (" [FALLBACK: newer step was corrupt]" if fallback
+                   else ""))
+            return model
+        if steps:
+            log(f"[{tag}] WARNING: every retained checkpoint under {d} "
+                f"failed to restore; trying the next source")
+    return None
+
+
+def load_state(cfg, weights: str | None = None, *, workdir: str | None = None,
+               log=print, tag: str = "restore", info: dict | None = None):
     """Build ``cfg``'s model on the CPU in eval mode with its weights.
 
-    ``weights`` is a ``.npz`` of the flax variables tree; None gives a
-    random init from ``torch.Generator().manual_seed(cfg.seed)`` with a
-    warning.  ``info`` (optional dict) receives ``weights`` (the path or
-    None) and ``digest`` (:func:`params_digest`)."""
+    ``weights`` is a ``.npz`` of the flax variables tree; ``workdir`` a
+    training workdir of the port (see the module docstring); with
+    neither, or a workdir with no restorable checkpoint, a random init
+    from ``torch.Generator().manual_seed(cfg.seed)`` with a warning.
+    ``info`` (optional dict) receives ``weights`` (the npz path or None),
+    ``step`` (the step restored, None otherwise), ``dir``, ``fallback``
+    (True when a step older than the newest was restored), ``mtime`` (the
+    step directory's), ``ema`` and ``digest`` (:func:`params_digest`)."""
     from deep_vision_tpu_torch import convert
 
     if info is None:
         info = {}
-    model = cfg.model()
+    info.update({"weights": weights or None, "step": None, "dir": None,
+                 "fallback": False, "mtime": None, "ema": NO_EMA})
+    model = None
     if weights:
+        model = cfg.model()
         import_weights(model, convert.load_npz(weights))
-        log(f"[restore] loaded weights from {weights}")
-    else:
+        log(f"[{tag}] loaded weights from {weights}")
+    elif workdir:
+        model = _restore_workdir(cfg, workdir, log, tag, info)
+    if model is None:
+        model = cfg.model()
         model.reset_parameters(torch.Generator().manual_seed(cfg.seed))
-        log(f"[restore] WARNING: no weights given, using random init "
+        what = "restorable checkpoint" if workdir else "weights given"
+        log(f"[{tag}] WARNING: no {what}, using random init "
             f"(seed {cfg.seed})")
     model.eval()
-    info.update({"weights": weights or None, "digest": params_digest(model)})
+    info["digest"] = params_digest(model)
     return model

@@ -4,7 +4,8 @@ channel statistics.
 Copies of ``deep_vision_tpu/data/transforms.py``'s uint8 half
 (``rescale``, ``random_horizontal_flip``, ``random_crop``,
 ``center_crop``, ``train_transform_u8``, ``eval_transform_u8``,
-``imagenet_resize_for``), and the torch bilinear resizes that detection
+``imagenet_resize_for``) and of ``normalize`` and ``eval_transform``
+(the float32 serving wire's ``image_b64`` decode), and the torch bilinear resizes that detection
 and pose use on every machine (``resize_u8``, ``resize_square_u8``,
 ``rescale_u8``).  All functions take and return HWC uint8 numpy
 arrays on the host; randomness comes from an explicit
@@ -104,6 +105,23 @@ def eval_transform_u8(img: np.ndarray, size: int = 224,
                       resize: int = 256) -> np.ndarray:
     """Rescale → CenterCrop, uint8 (a view, as train_transform_u8)."""
     return center_crop(rescale(img, resize), size)
+
+
+def normalize(img: np.ndarray, mean=IMAGENET_MEAN, std=IMAGENET_STD
+              ) -> np.ndarray:
+    """[0,1] float32 HWC → standardized; an image still in the uint8
+    range (max above 1.5) is scaled by 1/255 first, as the reference
+    does."""
+    x = img.astype(np.float32)
+    if x.max() > 1.5:
+        x = x / 255.0
+    return (x - mean) / std
+
+
+def eval_transform(img: np.ndarray, size: int = 224, resize: int = 256
+                   ) -> np.ndarray:
+    """Rescale → CenterCrop → Normalize, float32 out."""
+    return normalize(eval_transform_u8(img, size, resize))
 
 
 def resize_u8(img: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -146,6 +146,11 @@ class Tracer:
         if slow:
             event(_log, "slow_request", **d)
 
+    def recent(self, n: int = 32) -> list[dict]:
+        """The newest ``n`` finished traces, oldest first."""
+        with self._lock:
+            return list(self.ring)[-max(0, int(n)):]
+
     def summary(self) -> dict:
         with self._lock:
             return {"enabled": self.enabled,

@@ -1,8 +1,9 @@
 """Admission control: shed doomed work at the door, not after the queue.
 
 Copy of ``deep_vision_tpu/serve/admission.py`` (``Shed``,
-``AdmissionController``) for one engine; the replica divisor and the
-per-tenant QoS classes wait for later slices.
+``AdmissionController``, ``QoSClass``, ``TenantQoS``); the replica
+divisors (``set_free_replicas``, ``set_live_replicas``) wait for the
+replicas slice.
 
 Two bounds, both checked at submit time (and deadlines re-checked at
 batch-formation time, so a request that expired while queued is dropped
@@ -30,6 +31,7 @@ import dataclasses
 import threading
 import time
 
+from deep_vision_tpu_torch.core.metrics import LatencyHistogram
 from deep_vision_tpu_torch.obs.log import event, get_logger
 
 _log = get_logger("dvt.serve.admission")
@@ -49,7 +51,7 @@ class Shed:
     work the estimator will shed again.  Shutdown sheds carry no hint
     (this server is going away)."""
 
-    reason: str   # "queue_full" | "deadline" | "shutdown"
+    reason: str   # "queue_full" | "deadline" | "shutdown" | "quota" | "priority"
     detail: str = ""
     retry_after_s: float | None = None
 
@@ -58,10 +60,16 @@ class Shed:
 
 
 class AdmissionController:
-    """Queue-depth and deadline-feasibility admission for one engine."""
+    """Queue-depth and deadline-feasibility admission for one engine.
+
+    ``name`` tags the controller with the model it accounts for: the
+    control plane (serve/models.py) shares ONE controller across every
+    version of one model name, so the per-bucket EWMAs and the
+    admitted/shed counters survive a hot reload."""
 
     def __init__(self, max_queue: int = 256, max_wait_ms: float = 5.0,
-                 ewma_alpha: float = 0.2):
+                 ewma_alpha: float = 0.2, name: str | None = None):
+        self.name = name
         self.max_queue = max_queue
         self._max_wait_s = max_wait_ms / 1e3
         self._alpha = ewma_alpha
@@ -103,6 +111,14 @@ class AdmissionController:
             if e is None:
                 e = self._exec_ewma_s or 0.0
             return self._max_wait_s + (1 + max(0, inflight)) * e
+
+    def bucket_ewma_s(self, bucket: int | None = None) -> float | None:
+        """Raw exec EWMA for ``bucket`` (global fallback, None before
+        any batch has run): the watchdog's exec-timeout base."""
+        with self._lock:
+            e = self._bucket_ewma_s.get(bucket) if bucket is not None \
+                else None
+            return e if e is not None else self._exec_ewma_s
 
     def admit(self, queue_depth: int, deadline: float | None,
               now: float | None = None, bucket: int | None = None,
@@ -163,11 +179,186 @@ class AdmissionController:
 
     def stats(self) -> dict:
         with self._lock:
-            return {"shed_queue_full": self.shed_queue_full,
-                    "shed_deadline": self.shed_deadline,
-                    "admitted": self.admitted,
-                    "exec_ewma_ms": (self._exec_ewma_s or 0.0) * 1e3,
-                    "exec_ewma_ms_by_bucket": {
-                        str(b): round(v * 1e3, 3)
-                        for b, v in sorted(self._bucket_ewma_s.items())},
-                    "max_queue": self.max_queue}
+            out = {"shed_queue_full": self.shed_queue_full,
+                   "shed_deadline": self.shed_deadline,
+                   "admitted": self.admitted,
+                   "exec_ewma_ms": (self._exec_ewma_s or 0.0) * 1e3,
+                   "exec_ewma_ms_by_bucket": {
+                       str(b): round(v * 1e3, 3)
+                       for b, v in sorted(self._bucket_ewma_s.items())},
+                   "max_queue": self.max_queue}
+        if self.name is not None:
+            out["name"] = self.name
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Per-tenant QoS: priority classes, token-bucket quotas, weighted shedding
+# ---------------------------------------------------------------------------
+
+TENANT_HEADER = "X-DVT-Tenant"
+
+DEFAULT_QOS_SPEC = ("premium:rate=0,shed_at=1.0;"
+                    "standard:rate=200,burst=50,shed_at=0.8;"
+                    "best_effort:rate=50,burst=10,shed_at=0.5;"
+                    "default=standard")
+
+
+@dataclasses.dataclass
+class QoSClass:
+    """One priority class.
+
+    ``rate``/``burst`` parameterize each member tenant's token bucket
+    (requests/second sustained, requests of headroom); ``rate=0`` means
+    unmetered.  ``shed_at`` is the weighted-shedding knee: the fraction
+    of engine queue capacity beyond which this class's cache-missing
+    requests are shed pre-engine, so under pressure best-effort
+    (shed_at 0.5) absorbs the 429s half a queue before premium
+    (shed_at 1.0) loses anything.  ``always_big`` is the cascade
+    premium knob: parsed and reported here, read once the cascade slice
+    is ported (its members then bypass the cheap front tier)."""
+
+    name: str
+    rate: float = 0.0
+    burst: float = 1.0
+    shed_at: float = 1.0
+    tenants: tuple = ()
+    always_big: bool = False
+
+
+class TenantQoS:
+    """Maps the ``X-DVT-Tenant`` header to a priority class and applies
+    two independent controls at the edge:
+
+      quota     a per-tenant token bucket (class rate/burst), checked
+                BEFORE the response cache — a tenant over quota is 429'd
+                even for cached answers, otherwise a hot payload would
+                make quotas unenforceable.
+      priority  deterministic weighted shedding on engine queue
+                pressure, checked only on a cache MISS just before the
+                engine — pressure = queue_depth / max_queue, and a class
+                is shed when pressure ≥ its ``shed_at``.  Cache hits
+                bypass this (they cost no engine capacity).
+
+    Spec grammar (``--qos``):
+        ``premium:rate=0,shed_at=1.0,tenants=acme|bigco;``
+        ``best_effort:rate=20,burst=5,shed_at=0.5;default=best_effort``
+    ``tenants=`` pins named tenants to a class; everything else lands in
+    the ``default=`` class (first class declared if omitted);
+    ``always_big=1`` marks the class as cascade-premium (read once the
+    cascade slice is ported)."""
+
+    def __init__(self, classes: list, default: str):
+        if not classes:
+            raise ValueError("QoS spec declares no classes")
+        self.classes = {c.name: c for c in classes}
+        if default not in self.classes:
+            raise ValueError(f"QoS default class {default!r} not declared")
+        self.default = default
+        self._tenant_class = {t: c.name for c in classes
+                              for t in c.tenants}
+        self._lock = threading.Lock()
+        # tenant → [tokens, last_refill_monotonic]  guarded-by: _lock
+        self._buckets: dict[str, list] = {}
+        # class → counters/histogram  guarded-by: _lock
+        self._served = {c.name: 0 for c in classes}
+        self._shed_quota = {c.name: 0 for c in classes}
+        self._shed_priority = {c.name: 0 for c in classes}
+        self._cache_hits = {c.name: 0 for c in classes}
+        self._latency = {c.name: LatencyHistogram() for c in classes}
+
+    @classmethod
+    def parse(cls, spec: str) -> "TenantQoS":
+        classes, default = [], None
+        for part in filter(None, (p.strip() for p in spec.split(";"))):
+            if part.startswith("default="):
+                default = part[len("default="):].strip()
+                continue
+            name, _, opts = part.partition(":")
+            kw: dict = {"name": name.strip()}
+            for opt in filter(None, (o.strip() for o in opts.split(","))):
+                k, _, v = opt.partition("=")
+                k = k.strip()
+                if k == "tenants":
+                    kw["tenants"] = tuple(
+                        t for t in v.strip().split("|") if t)
+                elif k in ("rate", "burst", "shed_at"):
+                    kw[k] = float(v)
+                elif k == "always_big":
+                    kw["always_big"] = v.strip().lower() \
+                        not in ("", "0", "false", "no")
+                else:
+                    raise ValueError(f"unknown QoS option {k!r} in "
+                                     f"{part!r}")
+            classes.append(QoSClass(**kw))
+        return cls(classes, default or (classes[0].name if classes
+                                        else ""))
+
+    def class_of(self, tenant: str) -> QoSClass:
+        return self.classes[self._tenant_class.get(tenant, self.default)]
+
+    def check_quota(self, tenant: str,
+                    now: float | None = None) -> Shed | None:
+        """Token-bucket admission for one request from ``tenant``.
+        None = within quota (one token consumed)."""
+        cls = self.class_of(tenant)
+        if cls.rate <= 0:
+            return None  # unmetered class
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            bucket = self._buckets.get(tenant)
+            if bucket is None:
+                bucket = [cls.burst, now]
+                self._buckets[tenant] = bucket
+            tokens = min(cls.burst,
+                         bucket[0] + cls.rate * (now - bucket[1]))
+            bucket[1] = now
+            if tokens >= 1.0:
+                bucket[0] = tokens - 1.0
+                return None
+            bucket[0] = tokens
+            self._shed_quota[cls.name] += 1
+            wait_s = (1.0 - tokens) / cls.rate
+        return Shed("quota",
+                    f"tenant {tenant!r} ({cls.name}) over "
+                    f"{cls.rate:g} req/s quota",
+                    retry_after_s=wait_s)
+
+    def check_pressure(self, tenant: str, queue_depth: int,
+                       max_queue: int) -> Shed | None:
+        """Weighted shedding on a cache miss: shed this class once
+        engine queue pressure (``queue_depth / max_queue``) crosses its
+        knee.  The brownout slice adds its pressure floor here."""
+        cls = self.class_of(tenant)
+        pressure = queue_depth / max_queue if max_queue > 0 else 0.0
+        if pressure < cls.shed_at:
+            return None
+        with self._lock:
+            self._shed_priority[cls.name] += 1
+        return Shed("priority",
+                    f"{cls.name} sheds at {cls.shed_at:g} queue "
+                    f"pressure (now {pressure:.2f})",
+                    retry_after_s=1.0)
+
+    def record_served(self, tenant: str, seconds: float,
+                      cache_hit: bool = False):
+        cls = self.class_of(tenant)
+        with self._lock:
+            self._served[cls.name] += 1
+            if cache_hit:
+                self._cache_hits[cls.name] += 1
+            self._latency[cls.name].record(seconds)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {name: {
+                        "rate": c.rate, "burst": c.burst,
+                        "shed_at": c.shed_at,
+                        "always_big": c.always_big,
+                        "served": self._served[name],
+                        "shed_quota": self._shed_quota[name],
+                        "shed_priority": self._shed_priority[name],
+                        "cache_hits": self._cache_hits[name],
+                        "latency": self._latency[name].percentiles(),
+                        "default": name == self.default}
+                    for name, c in self.classes.items()}

@@ -1,16 +1,26 @@
 """Engine health: heartbeats + an explicit OK → DEGRADED → DEAD machine.
 
-Copy of ``deep_vision_tpu/serve/health.py`` without the watchdog's
-restart accounting (the watchdog waits for a later slice).
+Copy of ``deep_vision_tpu/serve/health.py``.  The port serves one engine
+a model version (replicas come in a later slice).
+
+Production model servers treat deep health as first-class (Clipper,
+NSDI'17: supervised containers behind health probes); a static 200 from
+``/v1/healthz`` tells a load balancer nothing when the batcher thread is
+dead and every future parks forever.  ``EngineHealth`` is the one place
+the engine's failure signals converge:
 
   * **heartbeats** — the batcher and drainer publish a timestamp every
-    loop iteration (a dict store, no lock: GIL-atomic); the health
-    report reads the age.
+    loop iteration (a dict store, no lock: GIL-atomic); the watchdog and
+    the health report read the age.
   * **state machine** — ``record_failure`` counts consecutive batch
     failures: ``>= degraded_after`` → DEGRADED, ``>= dead_after`` →
-    DEAD; any successful batch resets to OK.
-  * **healthz semantics** — ``/v1/healthz`` returns 503 while an engine
-    is DEGRADED or DEAD, and 200 again once a batch succeeds.
+    DEAD; any successful batch resets to OK.  ``force_dead`` (restart
+    budget exhausted) is sticky — only an operator restart revives it.
+  * **healthz semantics** — ``/v1/healthz`` returns 503 while any
+    engine *cannot serve* (DEGRADED or DEAD), and 200 again once it can.
+
+The failure *counters* live on the engine (retries, quarantines,
+timeouts — they're batch-plumbing); the *verdict* lives here.
 """
 
 from __future__ import annotations
@@ -33,9 +43,13 @@ class EngineHealth:
         self.consecutive_failures = 0  # guarded-by: _lock
         self.failures = 0  # guarded-by: _lock
         self.successes = 0  # guarded-by: _lock
+        self.watchdog_restarts = 0  # guarded-by: _lock
         self.last_success_at: float | None = None  # guarded-by: _lock
         self.last_failure_at: float | None = None  # guarded-by: _lock
         self.dead_reason: str | None = None  # guarded-by: _lock
+        self._forced_dead = False  # guarded-by: _lock
+
+    # -- heartbeats --------------------------------------------------------
 
     def beat(self, name: str):
         self._beats[name] = time.monotonic()  # GIL-atomic store, no lock
@@ -47,12 +61,16 @@ class EngineHealth:
             return None
         return (now if now is not None else time.monotonic()) - t
 
+    # -- state machine -----------------------------------------------------
+
     def record_failure(self, now: float | None = None):
         with self._lock:
             self.failures += 1
             self.consecutive_failures += 1
             self.last_failure_at = now if now is not None \
                 else time.monotonic()
+            if self._forced_dead:
+                return
             if self.consecutive_failures >= self.dead_after:
                 self.state = DEAD
                 self.dead_reason = (f"{self.consecutive_failures} "
@@ -66,15 +84,30 @@ class EngineHealth:
             self.consecutive_failures = 0
             self.last_success_at = now if now is not None \
                 else time.monotonic()
-            self.state = OK
-            self.dead_reason = None
+            if not self._forced_dead:
+                self.state = OK
+                self.dead_reason = None
+
+    def record_restart(self):
+        with self._lock:
+            self.watchdog_restarts += 1
+
+    def force_dead(self, reason: str):
+        """Sticky DEAD (restart budget exhausted): traffic can't revive
+        it — only an operator stop()/start() cycle (``revive``)."""
+        with self._lock:
+            self.state = DEAD
+            self.dead_reason = reason
+            self._forced_dead = True
 
     def revive(self):
-        """Back to OK (an engine ``start()`` after a ``stop()``)."""
         with self._lock:
+            self._forced_dead = False
             self.state = OK
             self.dead_reason = None
             self.consecutive_failures = 0
+
+    # -- observability -----------------------------------------------------
 
     def report(self, now: float | None = None) -> dict:
         now = time.monotonic() if now is None else now
@@ -83,6 +116,7 @@ class EngineHealth:
                    "consecutive_failures": self.consecutive_failures,
                    "failures": self.failures,
                    "successes": self.successes,
+                   "watchdog_restarts": self.watchdog_restarts,
                    "dead_reason": self.dead_reason}
         out["heartbeat_age_s"] = {
             name: round(age, 4) for name in list(self._beats)

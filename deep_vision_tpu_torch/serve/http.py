@@ -1,57 +1,79 @@
-"""Stdlib HTTP front-end for the batching engine (thread per request).
+"""Stdlib HTTP front-end for the batching engines (thread per request).
 
 Port of the ``edge=False`` path of ``deep_vision_tpu/serve/http.py``.
 Routes (JSON in, JSON out):
 
     GET  /v1/healthz   per-engine health (thread liveness, heartbeat
-                       ages, the OK → DEGRADED → DEAD state); 503 when
-                       any engine cannot serve
-    GET  /v1/stats     per-model engine stats, plus ``kernels``: the
-                       launch count of each hand-written kernel
-    GET  /v1/models    ``describe()`` of every served model
-    POST /v1/classify  {"pixels": [[...]], "model"?, "deadline_ms"?,
-                        "top_k"?} → {"model", "top": [{class, prob,
-                        logit}]}.  A shed answers 429 (with
-                        ``Retry-After`` when the estimate is known), a
-                        bad payload 400, ``image_b64`` 501 (no image
-                        decoder on this server).  ``?debug=1`` attaches
-                        the request's trace.
-    POST /v1/detect    {"pixels", "model"?, "deadline_ms"?,
-                        "score_threshold"?} → {"model", "num_detections",
-                        "detections": [{box, score, class}]}, boxes
-                        normalized xyxy; the same errors as classify.
-    POST /v1/pose      {"pixels", "model"?, "deadline_ms"?} → {"model",
-                        "space": "heatmap", "keypoints": [{x, y,
-                        score}]}, in heatmap pixels; the same errors.
-    POST /v1/generate  a latent-in model (DCGAN): {"seed"?: int (default
-                        0) | "latent": [latent_dim floats], "model"?,
-                        "deadline_ms"?}; an image-in model (CycleGAN):
-                        {"pixels", ...} → {"model", "image": {"b64",
-                        "shape", "dtype": "uint8"}}, the image's bytes
-                        (HWC, 0-255) in base64; the same errors, and a
-                        bad seed or latent answers 400.
+                       ages, last-batch age, failures, retries,
+                       quarantines, watchdog restarts, the OK →
+                       DEGRADED → DEAD state); 503 while any engine
+                       cannot serve, and while draining; 200 again after
+                       recovery
+    GET  /v1/stats     per-model engine stats (or the control plane's
+                       ``{"models", "cache", "plane"}`` shape), the
+                       ``response_cache`` and ``qos`` blocks when those
+                       are on, and ``kernels``: the launch count of each
+                       hand-written kernel
+    GET  /metrics      Prometheus text (format 0.0.4) of the same stats
+    GET  /v1/traces    the newest finished request traces (``?n=``) and
+                       the tracer's summary
+    GET  /v1/models    ``describe()`` of every served model, or the
+                       plane's version table
+    POST /v1/classify | /v1/detect | /v1/pose | /v1/generate
+                       {"pixels" | "image_b64", "model"?,
+                        "deadline_ms"?, ...}: the workload's answer
+                       (serve/workloads.py).  A shed answers 429 (with
+                       ``Retry-After`` when the estimate is known), a
+                       quarantined request 500, a batch failed at its
+                       exec timeout 504, a bad payload 400,
+                       ``image_b64`` 501 when PIL is missing.
+                       ``?debug=1`` attaches the request's trace
+    POST /v1/models/{name}/classify | /detect | /pose | /generate
+                       the same with the model named in the path (a body
+                       "model" must agree, else 400)
+    POST /v1/models/{name}/reload | /promote | /rollback
+                       the plane's lifecycle (503 without a plane; 409
+                       when refused or in progress): reload {"force"?,
+                       "wait"?} starts the load → shadow → canary walk
+    POST /v1/drain     healthz flips to 503 "draining" at once, then
+                       every engine finishes its admitted work
+                       (``stop(drain_deadline=)``, body
+                       {"drain_deadline_s"?: 10}) before the 200 reply
 
 A verb that is not the model's workload answers 400 and names the right
-route; an unknown route answers 404 with the supported verbs.
+route; an unknown route answers 404 with the supported verbs (the
+``/v1/deploy``, ``/v1/jobs`` and ``/v1/brownout`` routes wait for their
+slices).  Bodies over ``max_body_bytes`` answer 413 before any buffer
+is allocated; a client that stalls mid-body gets 408.  Two optional
+front-end services hook the inference path: a content-addressed
+response cache (``serve/cache.py``) and per-tenant QoS (the
+``X-DVT-Tenant`` header, ``serve/admission.py TenantQoS``): the quota
+is checked before the cache, the queue-pressure knee on cache misses
+only.
 """
 
 from __future__ import annotations
 
+import base64
+import io
 import json
 import math
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs
 
 import numpy as np
 
 from deep_vision_tpu_torch.obs.trace import REQUEST_ID_HEADER, new_request_id
-from deep_vision_tpu_torch.serve.admission import Shed
-from deep_vision_tpu_torch.serve.workloads import WORKLOADS
+from deep_vision_tpu_torch.serve.admission import TENANT_HEADER, Shed
+from deep_vision_tpu_torch.serve.cache import ResponseCache, payload_digest
+from deep_vision_tpu_torch.serve.faults import Quarantined
+from deep_vision_tpu_torch.serve.workloads import LIFECYCLE_VERBS, WORKLOADS
 
 #: request body cap (a 224×224×3 uint8 image is ~0.6 MB of JSON) and the
 #: per-connection socket timeout
-MAX_BODY_BYTES = 32 * 2**20
+DEFAULT_MAX_BODY_BYTES = 32 * 2**20
 SOCKET_TIMEOUT_S = 30.0
 
 
@@ -64,7 +86,14 @@ class ServeError(Exception):
 
 
 def decode_pixels(body: dict, model) -> np.ndarray:
-    """Body → one (H, W, C) input in the model's WIRE dtype."""
+    """Body → one (H, W, C) input in the model's WIRE dtype.
+
+    ``pixels`` decode straight to the wire dtype.  ``image_b64`` is an
+    encoded image decoded with PIL and resized in integer space as the
+    reference does: MNIST geometry for one channel (resize to size−4,
+    pad 2), ``eval_transform_u8`` for classifiers, a square resize
+    otherwise; a float32 wire then normalizes on the host like the
+    reference.  Without PIL it answers 501."""
     wire = np.dtype(model.wire_dtype)
     if "pixels" in body:
         try:
@@ -82,9 +111,52 @@ def decode_pixels(body: dict, model) -> np.ndarray:
                                   "(NaN/Inf)")
         return x
     if "image_b64" in body:
-        raise ServeError(501, "image_b64 needs an image decoder on the "
-                              "server; send preprocessed 'pixels'")
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ServeError(501, "image_b64 needs PIL on the server; "
+                                  "send preprocessed 'pixels'") from e
+        try:
+            img = Image.open(io.BytesIO(base64.b64decode(
+                body["image_b64"])))
+            img.load()
+        except (ValueError, TypeError, OSError) as e:
+            raise ServeError(400, f"bad image_b64 payload: {e}") from e
+        return _decode_image(img, model, wire)
     raise ServeError(400, "body needs 'pixels' or 'image_b64'")
+
+
+def _decode_image(img, model, wire: np.dtype) -> np.ndarray:
+    size = model.input_shape[0]
+    if model.input_shape[-1] == 1:
+        # grayscale models (LeNet): MNIST geometry in uint8
+        arr = np.asarray(img.convert("L").resize((size - 4, size - 4)))
+        u8 = np.pad(arr, 2)[:size, :size, None]
+        if wire.kind == "u":
+            return u8  # the device prologue scales and standardizes
+        from deep_vision_tpu_torch.data.mnist import preprocess
+
+        return preprocess(arr[None])[0][:size, :size]
+    arr = np.asarray(img.convert("RGB"))
+    if model.task == "classification":
+        from deep_vision_tpu_torch.data.transforms import (
+            eval_transform,
+            eval_transform_u8,
+            imagenet_resize_for,
+        )
+
+        if wire.kind == "u":
+            return np.ascontiguousarray(eval_transform_u8(
+                arr, size, imagenet_resize_for(size)))
+        return eval_transform(arr, size, imagenet_resize_for(size))
+    from deep_vision_tpu_torch.data.transforms import resize_bilinear
+
+    u8 = resize_bilinear(arr, size, size)
+    if wire.kind == "u":
+        return np.asarray(u8, np.uint8)
+    if str(model.task).startswith("gan_"):
+        return u8.astype(np.float32) / 127.5 - 1.0
+    return u8.astype(np.float32) / 255.0
 
 
 def kernel_launches() -> dict:
@@ -94,14 +166,216 @@ def kernel_launches() -> dict:
     return {"serve_ingest": serve_ingest.launches}
 
 
+def render_serve_metrics(stats: dict) -> str:
+    """Serve stats → Prometheus text, both shapes: ``{model: engine
+    stats}`` or the plane's ``{"models": {name: {"engine", "versions"}},
+    "cache", "plane"}`` (which adds ``dvt_serve_model_up`` per version
+    and the ``dvt_serve_weight_cache_*`` series).  The stats dicts stay
+    the single source of truth."""
+    from deep_vision_tpu_torch.core.metrics import PromText
+
+    p = PromText()
+    _render_front_metrics(p, stats)
+    if not isinstance(stats.get("models"), dict):
+        for name, s in stats.items():
+            if name not in _FRONT_BLOCKS:
+                _render_engine_metrics(p, name, s)
+        return p.render()
+    for name, entry in stats["models"].items():
+        if isinstance(entry.get("engine"), dict):
+            _render_engine_metrics(p, name, entry["engine"])
+        for v in entry.get("versions", []):
+            p.gauge("dvt_serve_model_up",
+                    1 if v.get("state") in ("active", "canary",
+                                            "shadow") else 0,
+                    {"model": name, "version": str(v.get("version")),
+                     "state": str(v.get("state"))},
+                    help="1 while this model version takes traffic")
+    cache = stats.get("cache")
+    if isinstance(cache, dict):
+        p.gauge("dvt_serve_weight_cache_budget_bytes",
+                cache.get("budget_bytes"), {},
+                help="Device byte budget (0 = unbounded)")
+        p.gauge("dvt_serve_weight_cache_resident_bytes",
+                cache.get("resident_bytes"), {},
+                help="Bytes of model weights resident on device")
+        p.counter("dvt_serve_weight_cache_hits_total", cache.get("hits"),
+                  {}, help="Batch launches finding weights resident")
+        p.counter("dvt_serve_weight_cache_misses_total",
+                  cache.get("misses"), {},
+                  help="Launches that had to re-admit weights")
+        p.counter("dvt_serve_weight_cache_evictions_total",
+                  cache.get("evictions"), {},
+                  help="LRU evictions (weights spilled to host)")
+        p.counter("dvt_serve_weight_cache_admits_total",
+                  cache.get("admits"), {},
+                  help="Host→device weight re-admissions")
+        p.counter("dvt_serve_weight_cache_spilled_bytes_total",
+                  cache.get("spilled_bytes_total"), {},
+                  help="Bytes D2H-copied at first eviction")
+        for mname, ent in (cache.get("models") or {}).items():
+            p.gauge("dvt_serve_weight_cache_resident",
+                    1 if ent.get("resident") else 0, {"model": mname},
+                    help="1 while this model's weights are on device")
+    plane = stats.get("plane")
+    if isinstance(plane, dict):
+        p.counter("dvt_serve_reloads_total", plane.get("reloads"), {},
+                  help="Reload lifecycles started")
+        p.counter("dvt_serve_promotions_total", plane.get("promotions"),
+                  {}, help="Versions auto- or operator-promoted")
+        p.counter("dvt_serve_rollbacks_total", plane.get("rollbacks"), {},
+                  help="Versions rolled back by gates or operator")
+        p.counter("dvt_serve_reload_resubmitted_total",
+                  plane.get("resubmitted"), {},
+                  help="Requests transparently resubmitted across a "
+                       "version swap")
+        p.counter("dvt_serve_reverts_total", plane.get("reverts"), {},
+                  help="One-command reverts to a prior promoted version")
+    return p.render()
+
+
+#: front-end stats blocks beside the per-model entries
+_FRONT_BLOCKS = ("response_cache", "qos", "kernels")
+
+
+def _render_front_metrics(p, stats: dict) -> None:
+    """The response cache's, per-tenant-class QoS and kernel series."""
+    rcache = stats.get("response_cache")
+    if isinstance(rcache, dict):
+        p.counter("dvt_serve_cache_hits_total", rcache.get("hits"), {},
+                  help="Inference answers served from the response cache")
+        p.counter("dvt_serve_cache_misses_total", rcache.get("misses"),
+                  {}, help="Cacheable lookups that missed")
+        p.counter("dvt_serve_cache_evictions_total",
+                  rcache.get("evictions"), {},
+                  help="LRU evictions from the response cache")
+        p.counter("dvt_serve_cache_insertions_total",
+                  rcache.get("insertions"), {},
+                  help="Responses inserted into the cache")
+        p.gauge("dvt_serve_cache_bytes", rcache.get("bytes"), {},
+                help="Bytes of cached serialized responses")
+        p.gauge("dvt_serve_cache_entries", rcache.get("entries"), {},
+                help="Entries in the response cache")
+    qos = stats.get("qos")
+    if isinstance(qos, dict):
+        for cls, q in qos.items():
+            lab = {"class": cls}
+            p.counter("dvt_serve_tenant_served_total", q.get("served"),
+                      lab, help="Requests served per tenant class")
+            p.counter("dvt_serve_tenant_shed_total", q.get("shed_quota"),
+                      {**lab, "reason": "quota"},
+                      help="Requests shed by tenant QoS")
+            p.counter("dvt_serve_tenant_shed_total",
+                      q.get("shed_priority"),
+                      {**lab, "reason": "priority"})
+            p.counter("dvt_serve_tenant_cache_hits_total",
+                      q.get("cache_hits"), lab,
+                      help="Cache hits per tenant class")
+            lat = q.get("latency") or {}
+            for k in ("p50_ms", "p95_ms", "p99_ms"):
+                p.gauge("dvt_serve_tenant_latency_seconds",
+                        (lat.get(k) or 0.0) / 1e3,
+                        {**lab, "quantile": k[1:-3]},
+                        help="Per-class request latency quantiles")
+    for kernel, n in (stats.get("kernels") or {}).items():
+        p.counter("dvt_serve_kernel_launches_total", n, {"kernel": kernel},
+                  help="Launches of each hand-written CUDA kernel")
+
+
+def _render_engine_metrics(p, name: str, s: dict) -> None:
+    """One engine's dvt_serve_* series (both shapes)."""
+    lab = {"model": name}
+    p.gauge("dvt_serve_weight_hbm_bytes", s.get("weight_hbm_bytes"), lab,
+            help="Byte footprint of the served weights on the device "
+                 "(int8 models report the quantized size)")
+    p.counter("dvt_serve_requests_submitted_total", s["submitted"], lab,
+              help="Requests entering submit (incl. shed)")
+    p.counter("dvt_serve_requests_served_total", s["served"], lab,
+              help="Requests served a model output")
+    p.counter("dvt_serve_batches_total", s["batches"], lab,
+              help="Executed batches (incl. retry executions)")
+    p.counter("dvt_serve_compiles_total", s["compiles"], lab,
+              help="Bucket callables built")
+    p.counter("dvt_serve_padded_images_total", s["padded_images"], lab,
+              help="Pad rows executed beyond live requests")
+    p.gauge("dvt_serve_queue_depth", s["queue_depth"], lab,
+            help="Requests queued awaiting batch formation")
+    adm = s.get("admission", {})
+    h = s.get("health", {})
+    p.counter("dvt_serve_shed_total", adm.get("shed_queue_full"),
+              {**lab, "reason": "queue_full"},
+              help="Requests shed at admission or formation")
+    p.counter("dvt_serve_shed_total", adm.get("shed_deadline"),
+              {**lab, "reason": "deadline"})
+    p.counter("dvt_serve_shed_total", h.get("shed_shutdown"),
+              {**lab, "reason": "shutdown"})
+    p.counter("dvt_serve_batch_failures_total", h.get("batch_failures"),
+              lab, help="Dispatched/drained cohorts that raised")
+    p.counter("dvt_serve_retry_executions_total",
+              h.get("retry_executions"), lab,
+              help="Bisect-retry sub-cohort executions")
+    p.counter("dvt_serve_quarantined_total", h.get("quarantined"), lab,
+              help="Requests isolated as poison")
+    p.counter("dvt_serve_exec_timeouts_total", h.get("exec_timeouts"),
+              lab, help="In-flight windows fast-failed by the watchdog")
+    p.counter("dvt_serve_watchdog_restarts_total",
+              h.get("watchdog_restarts"), lab,
+              help="Worker-thread restarts by supervision")
+    p.gauge("dvt_serve_up", 1 if h.get("can_serve") else 0, lab,
+            help="1 while this engine can serve (healthz 200)")
+    pipe = s.get("pipeline", {})
+    p.gauge("dvt_serve_inflight", pipe.get("inflight"), lab,
+            help="Dispatched-but-undrained batches")
+    p.gauge("dvt_serve_occupancy", pipe.get("occupancy"), lab,
+            help="Compute duty cycle over the trailing window")
+    p.counter("dvt_serve_h2d_transfers_total", pipe.get("h2d_transfers"),
+              lab, help="Staged-batch host-to-device transfers")
+    p.counter("dvt_serve_h2d_bytes_total", pipe.get("h2d_bytes"), lab,
+              help="Wire-format bytes shipped to the device")
+    wl = s.get("workload")
+    p.counter("dvt_serve_d2h_bytes_total", pipe.get("d2h_bytes"),
+              {**lab, "workload": wl} if wl else lab,
+              help="Output bytes copied back to the host")
+    for b, ms in (adm.get("exec_ewma_ms_by_bucket") or {}).items():
+        p.gauge("dvt_serve_exec_ewma_seconds", ms / 1e3,
+                {**lab, "bucket": b}, help="Per-bucket batch execution EWMA")
+    p.gauge("dvt_serve_img_per_sec", s.get("img_per_sec"), lab,
+            help="Served images per second (post-warmup)")
+    if "latency_hist" in s:
+        p.histogram("dvt_serve_request_latency_seconds", s["latency_hist"],
+                    lab, help="Submit-to-result latency")
+    mfu = s.get("mfu") or {}
+    p.gauge("dvt_serve_mfu", mfu.get("serving_mfu"), lab,
+            help="Model FLOPs utilization of the compute stage (counted "
+                 "FLOPs / measured compute time / peak)")
+    p.counter("dvt_serve_compute_seconds_total", mfu.get("compute_s"), lab,
+              help="Measured device-occupancy seconds")
+    p.counter("dvt_serve_flops_total", mfu.get("flops_total"), lab,
+              help="Counted FLOPs executed")
+    tr = s.get("trace") or {}
+    p.counter("dvt_serve_traces_started_total", tr.get("started"), lab,
+              help="Spans started")
+    p.counter("dvt_serve_traces_finished_total", tr.get("finished"), lab,
+              help="Spans sealed into the ring")
+    p.counter("dvt_serve_slow_traces_total", tr.get("slow_sampled"), lab,
+              help="Traces over the slow-request threshold")
+    for stage, secs in (tr.get("stage_s_total") or {}).items():
+        p.counter("dvt_serve_stage_seconds_total", secs,
+                  {**lab, "stage": stage},
+                  help="Cumulative per-stage span time")
+
+
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     _rid = None
     _span = None
+    _raw_body = None  # raw payload bytes: the cache's content address
+    _cache_hit = False
 
     def setup(self):
-        # a timeout mid-body raises TimeoutError in do_POST (answered 408)
-        self.timeout = SOCKET_TIMEOUT_S
+        # a timeout on the request line closes the connection; one
+        # mid-body raises TimeoutError in do_POST (answered 408)
+        self.timeout = self.server.socket_timeout_s
         super().setup()
 
     def log_message(self, fmt, *args):
@@ -109,9 +383,13 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _reply(self, status: int, payload: dict,
                headers: dict | None = None):
-        blob = json.dumps(payload).encode()
+        self._reply_raw(status, json.dumps(payload).encode(),
+                        "application/json", headers)
+
+    def _reply_raw(self, status: int, blob: bytes, ctype: str,
+                   headers: dict | None = None):
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(blob)))
         if self._rid is not None:
             self.send_header(REQUEST_ID_HEADER, self._rid)
@@ -124,46 +402,139 @@ class _Handler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length") or 0)
         if length <= 0:
             raise ServeError(400, "empty body")
-        cap = MAX_BODY_BYTES
+        cap = self.server.max_body_bytes
         if length > cap:
             # reject BEFORE reading an attacker-sized body; the unread
             # body would desync keep-alive, so close the connection
             self.close_connection = True
             raise ServeError(413, f"body of {length} bytes exceeds the "
                                   f"{cap}-byte cap")
+        raw = self._raw_body = self.rfile.read(length)
         try:
-            body = json.loads(self.rfile.read(length))
+            body = json.loads(raw)
         except json.JSONDecodeError as e:
             raise ServeError(400, f"bad JSON: {e}") from e
         if not isinstance(body, dict):
             raise ServeError(400, "body must be a JSON object")
         return body
 
-    def _engine(self, body: dict):
+    def _optional_body(self) -> dict:
+        length = int(self.headers.get("Content-Length") or 0)
+        return self._body() if length > 0 else {}
+
+    def _engine(self, body: dict, path_model: str | None = None):
+        """The target model and its engine: the PATH name wins (a body
+        "model" must agree); the plane's routing table answers when one
+        is wired.  A miss answers 404 with ``KeyError.args[0]``."""
+        name = body.get("model")
+        if path_model is not None:
+            if name is not None and name != path_model:
+                raise ServeError(400, f"body model '{name}' contradicts "
+                                      f"path model '{path_model}'")
+            name = path_model
+        plane = self.server.plane
         try:
-            model = self.server.registry.get(body.get("model"))
+            if plane is not None:
+                model = plane.resolve(name)
+                return model, plane.active_engine(model.name)
+            model = self.server.registry.get(name)
         except KeyError as e:
             raise ServeError(404, e.args[0]) from e
         return model, self.server.engines[model.name]
 
-    def _infer(self, verb: str, body: dict, debug: bool) -> dict:
-        model, engine = self._engine(body)
-        # the verb names the workload; the model's task must serve it,
-        # checked before the request costs a batch slot
-        if model.workload.verb != verb:
-            raise ServeError(400, f"'{model.name}' is a {model.task} "
-                                  f"model; use /v1/{model.workload.verb}")
+    @staticmethod
+    def _shed_429(shed: Shed) -> ServeError:
+        headers = None
+        if shed.retry_after_s:
+            headers = {"Retry-After": max(1, math.ceil(shed.retry_after_s))}
+        return ServeError(429, f"shed: {shed.reason} {shed.detail}",
+                          headers=headers)
+
+    def _infer_row(self, model, engine, body: dict):
+        """decode → engine (or the plane's routing) → one row."""
+        wl = model.workload
+        if engine.faults.enabled:
+            engine.faults.inject("decode")
         try:
-            x = model.workload.decode(body, model)
+            x = wl.decode(body, model)
         except ValueError as e:
             raise ServeError(400, str(e)) from e
         if x is None:
             x = decode_pixels(body, model)
         if self._span is not None:
             self._span.mark("decode")
-        deadline_ms = body.get("deadline_ms", model.workload.slo.deadline_ms)
         try:
-            deadline_ms = float(deadline_ms)
+            deadline_ms = float(body.get("deadline_ms",
+                                         wl.slo.deadline_ms))
+        except (TypeError, ValueError) as e:
+            raise ServeError(400, f"bad deadline_ms: {e}") from e
+        plane = self.server.plane
+        try:
+            if plane is not None:
+                # canary/shadow splits and cross-version resubmission
+                # happen behind this call
+                result = plane.infer(model.name, x, deadline_ms=deadline_ms,
+                                     span=self._span)
+            else:
+                result = engine.infer(x, deadline_ms=deadline_ms,
+                                      span=self._span)
+        except TimeoutError as e:
+            # a batch the watchdog failed at its exec timeout (or a wait
+            # past the handler's own limit): the server, not the client,
+            # timed out
+            raise ServeError(504, f"{type(e).__name__}: {e}") from e
+        if isinstance(result, Shed):
+            raise self._shed_429(result)
+        if isinstance(result, Quarantined):
+            raise ServeError(
+                500, f"quarantined: {result.reason} {result.detail}")
+        return result
+
+    def _infer_route(self, verb: str, body: dict, path_model: str | None,
+                     debug: bool) -> bytes:
+        """The inference POST path → the serialized 200 body.  Order:
+        tenant quota (before the cache, so a hot payload cannot make
+        quotas unenforceable) → response-cache lookup → queue-pressure
+        shedding (misses only) → engine → cache insert (200s only, and
+        not while a canary may have answered)."""
+        span = self._span
+        qos = self.server.qos
+        tenant = ""
+        t0 = time.monotonic()
+        if qos is not None:
+            tenant = self.headers.get(TENANT_HEADER) or ""
+            shed = qos.check_quota(tenant)
+            if shed is not None:
+                raise self._shed_429(shed)
+        model, engine = self._engine(body, path_model)
+        # the verb names the workload; the model's task must serve it,
+        # checked before the request costs a cache entry or a batch slot
+        if model.workload.verb != verb:
+            raise ServeError(400, f"'{model.name}' is a {model.task} "
+                                  f"model; use /v1/{model.workload.verb}")
+        wl = model.workload
+        cache = self.server.response_cache
+        key = None
+        if cache is not None and not debug and model.params_digest:
+            key = ResponseCache.key(f"/v1/{verb}", model.name,
+                                    model.params_digest,
+                                    str(model.wire_dtype), model.infer_dtype,
+                                    payload_digest(self._raw_body))
+            blob = cache.get(key)
+            if blob is not None:
+                self._cache_hit = True
+                if span is not None:
+                    span.mark("cache_hit")
+                if qos is not None:
+                    qos.record_served(tenant, time.monotonic() - t0,
+                                      cache_hit=True)
+                return blob
+        if qos is not None:
+            shed = qos.check_pressure(tenant, engine.queue_depth,
+                                      engine.admission.max_queue)
+            if shed is not None:
+                raise self._shed_429(shed)
+        try:
             params = {}
             if verb == "classify":
                 params = {"top_k": int(body.get("top_k", 5))}
@@ -171,41 +542,75 @@ class _Handler(BaseHTTPRequestHandler):
                 params = {"score_threshold": float(body["score_threshold"])}
         except (TypeError, ValueError) as e:
             raise ServeError(400, f"bad request parameter: {e}") from e
-        result = engine.infer(x, deadline_ms=deadline_ms, span=self._span)
-        if isinstance(result, Shed):
-            headers = None
-            if result.retry_after_s:
-                headers = {"Retry-After":
-                           max(1, math.ceil(result.retry_after_s))}
-            raise ServeError(429, f"shed: {result.reason} {result.detail}",
-                             headers=headers)
-        payload = model.workload.respond(model, params, result)
-        if self._span is not None:
-            self._span.mark("respond")
+        payload = wl.respond(model, params,
+                             self._infer_row(model, engine, body))
+        if span is not None:
+            span.mark("respond")
             if debug:
-                payload["trace"] = self._span.to_dict()
-        return payload
+                payload["trace"] = span.to_dict()
+        blob = json.dumps(payload).encode()
+        plane = self.server.plane
+        if key is not None and wl.cacheable(len(blob)) and not (
+                plane is not None and plane.canary_active(model.name)):
+            # during a canary window this answer may be the candidate's:
+            # filed under the active digest it would poison the cache
+            cache.put(key, blob)
+        if qos is not None:
+            qos.record_served(tenant, time.monotonic() - t0)
+        return blob
+
+    def _stats(self) -> dict:
+        srv = self.server
+        if srv.plane is not None:
+            stats = srv.plane.stats()
+        else:
+            stats = {name: eng.stats() for name, eng in srv.engines.items()}
+        if srv.response_cache is not None:
+            stats["response_cache"] = srv.response_cache.stats()
+        if srv.qos is not None:
+            stats["qos"] = srv.qos.stats()
+        stats["kernels"] = kernel_launches()
+        return stats
 
     def do_GET(self):
-        path = self.path.partition("?")[0]
-        engines = self.server.engines
+        path, _, query = self.path.partition("?")
+        srv = self.server
         if path == "/v1/healthz":
+            if srv.draining:
+                # draining outranks engine health: traffic must move
+                # away BEFORE the engines finish their in-flight work
+                self._reply(503, {"status": "draining",
+                                  "models": srv.registry.names()})
+                return
+            engines = srv.plane.active_engines() \
+                if srv.plane is not None else srv.engines
             reports = {name: eng.health_report()
                        for name, eng in engines.items()}
             healthy = all(r["can_serve"] for r in reports.values())
             self._reply(200 if healthy else 503,
                         {"status": "ok" if healthy else "unhealthy",
-                         "models": self.server.registry.names(),
+                         "models": srv.registry.names(),
                          "engines": reports})
         elif path == "/v1/stats":
-            stats = {name: eng.stats() for name, eng in engines.items()}
-            stats["kernels"] = kernel_launches()
-            self._reply(200, stats)
+            self._reply(200, self._stats())
+        elif path == "/metrics":
+            self._reply_raw(200, render_serve_metrics(self._stats()).encode(),
+                            "text/plain; version=0.0.4; charset=utf-8")
         elif path == "/v1/models":
-            reg = self.server.registry
+            if srv.plane is not None:
+                self._reply(200, {"models": srv.plane.models()})
+                return
             self._reply(200, {"models": {
-                name: {"model": reg.get(name).describe()}
-                for name in reg.names()}})
+                name: {"model": srv.registry.get(name).describe()}
+                for name in srv.registry.names()}})
+        elif path == "/v1/traces":
+            try:
+                n = int(parse_qs(query).get("n", ["32"])[0])
+            except ValueError:
+                self._reply(400, {"error": "n must be an integer"})
+                return
+            self._reply(200, {"traces": srv.tracer.recent(n),
+                              "summary": srv.tracer.summary()})
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
@@ -215,14 +620,31 @@ class _Handler(BaseHTTPRequestHandler):
         self._rid = self.headers.get(REQUEST_ID_HEADER) or new_request_id()
         tracer = self.server.tracer
         span = self._span = tracer.start(self._rid, origin="recv")
+        self._cache_hit = False
+        self._raw_body = None
         try:
-            verb = path[len("/v1/"):] if path.startswith("/v1/") else ""
+            if path == "/v1/drain":
+                self._reply(200, self._drain())
+                return
+            path_model, verb = None, None
+            parts = path.split("/")
+            if len(parts) == 5 and parts[1] == "v1" \
+                    and parts[2] == "models":
+                path_model, verb = parts[3], parts[4]
+                if verb in LIFECYCLE_VERBS:
+                    self._reply(*self._lifecycle(path_model, verb))
+                    return
+            elif len(parts) == 3 and parts[1] == "v1":
+                verb = parts[2]
             if verb not in WORKLOADS:
-                self._body()  # consistent 400 on empty/oversized bodies
+                self._body()  # consistent 400/413 on empty/oversized bodies
                 self._reply(404, {"error": f"no route {self.path}",
                                   "supported_verbs": sorted(WORKLOADS)})
                 return
-            self._reply(200, self._infer(verb, self._body(), debug))
+            blob = self._infer_route(verb, self._body(), path_model, debug)
+            self._reply_raw(200, blob, "application/json",
+                            {"X-DVT-Cache": "hit"} if self._cache_hit
+                            else None)
         except ServeError as e:
             self._reply(e.status, {"error": str(e)}, headers=e.headers)
         except TimeoutError:
@@ -236,18 +658,75 @@ class _Handler(BaseHTTPRequestHandler):
             self._span = None
             self._rid = None
 
+    def _drain(self) -> dict:
+        """Flip healthz to draining, then finish admitted work.  The
+        flag flips BEFORE any engine stops, so probes see 503 while
+        in-flight requests complete; a second drain is a no-op reply."""
+        try:
+            deadline = float(self._optional_body().get("drain_deadline_s",
+                                                       10.0))
+        except (TypeError, ValueError) as e:
+            raise ServeError(400, f"bad drain_deadline_s: {e}") from e
+        srv = self.server
+        with srv.drain_lock:
+            already = srv.draining
+            srv.draining = True
+            if not already:
+                if srv.plane is not None:
+                    # every version, and any reload worker in flight
+                    srv.plane.stop(drain_deadline=deadline)
+                else:
+                    for eng in srv.engines.values():
+                        eng.stop(drain_deadline=deadline)
+        return {"status": "draining", "already_draining": already,
+                "drain_deadline_s": deadline}
+
+    def _lifecycle(self, name: str, verb: str) -> tuple:
+        """POST /v1/models/<name>/reload|promote|rollback → (status,
+        payload); these need the control plane."""
+        plane = self.server.plane
+        if plane is None:
+            return 503, {"error": f"/v1/models/{name}/{verb} needs the "
+                                  f"model control plane (cli.serve "
+                                  f"--models ...)"}
+        body = self._optional_body()
+        try:
+            if verb == "reload":
+                out = plane.reload(name, force=bool(body.get("force", False)),
+                                   wait=bool(body.get("wait", False)))
+            elif verb == "promote":
+                out = plane.promote(name)
+            else:
+                out = plane.rollback(name)
+        except KeyError as e:
+            return 404, {"error": e.args[0]}
+        return (409 if out.get("status") in ("refused", "in_progress")
+                else 200), out
+
 
 class ServeServer:
-    """HTTP front-end wired to a registry + one engine per model."""
+    """HTTP front-end wired to a registry + one engine per model, or to
+    the model control plane (``plane``; ``engines`` is then the plane's
+    boot-time active engines, used only for the tracer)."""
 
     def __init__(self, registry, engines: dict, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0,
+                 max_body_bytes: int = DEFAULT_MAX_BODY_BYTES,
+                 socket_timeout_s: float | None = SOCKET_TIMEOUT_S,
+                 tracer=None, plane=None, response_cache=None, qos=None):
         self.httpd = ThreadingHTTPServer((host, port), _Handler)
         self.httpd.daemon_threads = True
         self.httpd.registry = registry
         self.httpd.engines = engines
-        # handler spans land in the first engine's trace ring
-        self.httpd.tracer = next(iter(engines.values())).tracer
+        self.httpd.plane = plane
+        self.httpd.max_body_bytes = int(max_body_bytes)
+        self.httpd.socket_timeout_s = socket_timeout_s
+        self.httpd.response_cache = response_cache
+        self.httpd.qos = qos
+        self.httpd.draining = False
+        self.httpd.drain_lock = threading.Lock()
+        # handler spans land in the engines' shared trace ring
+        self.httpd.tracer = tracer or next(iter(engines.values())).tracer
         self._thread: threading.Thread | None = None
 
     @property

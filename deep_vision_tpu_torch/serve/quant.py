@@ -61,15 +61,24 @@ def quantize_tensor(w) -> tuple:
 
     Float tensors of rank ≥ 2 become int8 with a float32 ``(out,)`` scale
     per dim-0 channel; everything else passes through with a 0-d
-    identity scale.  All-zero channels get scale 1.0 (exact zeros)."""
+    identity scale.  All-zero channels get scale 1.0 (exact zeros).
+
+    A channel holding a NaN or an infinity gets codes 0 and a NaN scale,
+    so its outputs are NaN as the float model's would be, and output
+    validation and the canary see them.  The reference gives such a
+    channel scale 1.0 and finite codes, which hides the bad weight."""
     a = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) \
         else np.asarray(w)
     if a.ndim >= 2 and a.dtype.kind == "f":
         a32 = a.astype(np.float32)
         absmax = np.max(np.abs(a32), axis=tuple(range(1, a.ndim)))
-        scale = np.where(absmax > 0.0, absmax / 127.0, 1.0).astype(np.float32)
+        finite = np.isfinite(absmax)
+        scale = np.where(absmax > 0.0, absmax / 127.0, 1.0)
+        scale = np.where(finite, scale, 1.0).astype(np.float32)
         bshape = (-1,) + (1,) * (a.ndim - 1)
         q = np.clip(np.rint(a32 / scale.reshape(bshape)), -127.0, 127.0)
+        q = np.where(finite.reshape(bshape), q, 0.0)
+        scale[~finite] = np.nan
         return q.astype(np.int8), scale
     return a, np.asarray(1.0, np.float32)
 

@@ -1,9 +1,12 @@
 """Model registry: name → ServingModel with per-bucket forward callables.
 
 Port of ``deep_vision_tpu/serve/registry.py`` (``ServingModel``,
-``CheckpointServingModel``, ``ModelRegistry.load_checkpoint/get``).  The
+``CheckpointServingModel``, ``ModelRegistry`` with versions).  The
 engine asks ``compile_bucket(b)`` for a callable that takes a padded
-batch of exactly ``b`` inputs; the model decides how it runs.
+batch of exactly ``b`` inputs; the model decides how it runs.  A model
+loads from a training workdir (``load_checkpoint(name, workdir=...)``,
+the newest complete step, ``core/restore.py``), a ``.npz`` of the
+reference's flax tree, or a seeded random init.
 
 Execution contract (what the engine relies on):
 
@@ -16,7 +19,15 @@ Execution contract (what the engine relies on):
     workload epilogue's dict (device-decoded detections, whose
     ``classes`` are int32, or keypoints); the engine copies each leaf to
     the host once per batch;
-  * it runs eagerly (CUDA graphs per bucket come in a later slice).
+  * it runs eagerly (CUDA graphs per bucket come in a later slice);
+  * it reads the model's weights through ``weights_in_use``: under the
+    control plane's ``WeightCache`` (serve/models.py) the weights may
+    have been evicted to a host copy since the callable was built, and
+    are re-admitted into fresh device storage on the caller's stream
+    before the forward, so no callable is ever rebuilt for residency;
+  * it carries ``cost_flops`` and ``flops_source``: the bucket's FLOPs
+    (one image's, counted once a model by ``obs/mfu.py``, times the
+    bucket), the serving-MFU numerator.
 
 Wire and compute dtypes: a uint8 wire ships raw 0–255 pixels and the
 callable normalizes them on the device; a float32 wire ships
@@ -33,6 +44,9 @@ asked.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -75,11 +89,33 @@ class ServingModel:
         #: the dtype the epilogue hands the D2H copy when it is not the
         #: forward's float32 (generate: uint8)
         self.output_wire: str | None = None
-        #: where the weights came from (None = seeded random init) and
-        #: their byte digest (core/restore.py)
+        #: where the weights came from: an npz (``weights``) or a
+        #: workdir's checkpoint step (``restored_step``, None for random
+        #: init, with ``restore_fallback`` when a newer step was torn and
+        #: the step directory's ``restored_mtime``), and their byte
+        #: digest (core/restore.py)
         self.weights: str | None = None
+        self.restored_step: int | None = None
+        self.restore_fallback = False
+        self.restored_mtime: float | None = None
         self.params_digest: str | None = None
+        #: version number under the control plane (serve/models.py)
+        self.serve_version: int | None = None
         self._model: torch.nn.Module | None = None
+        # weight residency (serve/models.py WeightCache): the cache that
+        # manages this model, the host copy of every parameter and
+        # buffer once spilled, whether the device copy is live, the
+        # event a readmit's copies end at, and every CUDA stream that
+        # ran this model (their work must finish before an evicted
+        # storage is reused: record_stream)
+        self._cache = None
+        self._host_weights: list[torch.Tensor] | None = None
+        self._resident = True
+        self._weights_ready = None
+        self._streams: dict[int, torch.cuda.Stream] = {}
+        self._residency_lock = threading.Lock()
+        # (FLOPs of one image, source), counted at the first bucket built
+        self._image_flops: tuple[float | None, str] | None = None
         # detection decode knobs (serve/workloads.py DetectWorkload),
         # read when a bucket callable is built: "device" runs decode →
         # score floor → top-k → class-wise NMS inside the callable, so
@@ -100,12 +136,96 @@ class ServingModel:
         raise NotImplementedError
 
     def param_bytes(self) -> int:
-        """Bytes of the resident weights and buffers: for int8 models the
-        int8 codes plus float32 scales, biases and BN statistics."""
+        """Bytes the weights and buffers take on the device when
+        resident: for int8 models the int8 codes plus float32 scales,
+        biases and BN statistics.  The weight cache's unit."""
         if self._model is None:
             return 0
         return int(sum(t.numel() * t.element_size()
                        for t in self._model.state_dict().values()))
+
+    # -- weight residency ----------------------------------------------------
+
+    def _tensors(self) -> list[torch.Tensor]:
+        return list(self._model.parameters()) + list(self._model.buffers())
+
+    def spill_weights(self) -> int:
+        """Point every parameter and buffer at its host copy (made on the
+        first spill, pinned on CUDA, and kept: the weights never change
+        after load) and drop the device storage.  Storage that a stream
+        which ran this model may still read is handed back to the
+        caching allocator only after that stream's queued work
+        (``record_stream``).  Returns the bytes newly copied to the
+        host (0 after the first spill)."""
+        tensors = self._tensors()
+        copied = 0
+        on_cuda = self.device.type == "cuda"
+        if self._host_weights is None:
+            if on_cuda:
+                torch.cuda.synchronize(self.device)  # every writer done
+            self._host_weights = [
+                torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                                    device="cpu", pin_memory=on_cuda
+                                    ).copy_(t) for t in tensors]
+            copied = sum(t.numel() * t.element_size() for t in tensors)
+        streams = list(self._streams.values()) if on_cuda else []
+        for t, host in zip(tensors, self._host_weights):
+            for s in streams:
+                t.data.record_stream(s)
+            t.data = host
+        self._resident = False
+        self._weights_ready = None
+        return copied
+
+    def admit_weights(self) -> None:
+        """Copy the host copy into fresh device storage on the caller's
+        current stream (``non_blocking``: the copies queue ahead of the
+        forward on that stream; other streams wait on
+        ``_weights_ready``).  A failed allocation raises: the model never
+        serves from host weights."""
+        on_cuda = self.device.type == "cuda"
+        for t, host in zip(self._tensors(), self._host_weights):
+            dev = torch.empty_strided(host.size(), host.stride(),
+                                      dtype=host.dtype, device=self.device)
+            dev.copy_(host, non_blocking=on_cuda)
+            t.data = dev
+        if on_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+            self._weights_ready = ready
+        self._resident = True
+
+    def release_device_weights(self) -> None:
+        """Free the device copy of a retired version's weights (they stay
+        on the host): versions kept for observability cost host RAM,
+        never device memory.  A later call re-admits them."""
+        with self._residency_lock:
+            if self._model is not None and self._resident:
+                self.spill_weights()
+
+    @contextlib.contextmanager
+    def weights_in_use(self):
+        """The weights resident on the device for the duration of one
+        launch: admitted through the cache (which will not evict them
+        until the block exits) or re-admitted after a release, and the
+        current stream made to wait for a readmit's copies."""
+        cache = self._cache
+        pinned = cache is not None and cache.pin(self)
+        if not pinned and not self._resident:
+            with self._residency_lock:
+                if not self._resident:
+                    self.admit_weights()
+        try:
+            if self.device.type == "cuda":
+                stream = torch.cuda.current_stream(self.device)
+                self._streams.setdefault(stream.cuda_stream, stream)
+                ready = self._weights_ready
+                if ready is not None:
+                    stream.wait_event(ready)
+            yield
+        finally:
+            if pinned:
+                cache.unpin(self)
 
     def describe(self) -> dict:
         d = {}
@@ -126,7 +246,11 @@ class ServingModel:
                 "infer_dtype": self.infer_dtype,
                 "device": str(self.device),
                 "weights": self.weights,
-                "params_digest": self.params_digest}
+                "restored_step": self.restored_step,
+                "restore_fallback": self.restore_fallback,
+                "restored_mtime": self.restored_mtime,
+                "params_digest": self.params_digest,
+                "version": self.serve_version}
 
 
 class CheckpointServingModel(ServingModel):
@@ -146,6 +270,10 @@ class CheckpointServingModel(ServingModel):
                          num_classes=cfg.num_classes,
                          wire_dtype=wl.wire_dtype_for(cfg, str(wire_dtype)),
                          infer_dtype=infer_dtype, device=device)
+        self.cfg = cfg
+        #: calibration provenance, reused when a reload recalibrates
+        self.calib_batches = int(calib_batches)
+        self.calib_dir = calib_dir
         self.output_wire = wl.output_wire(cfg)
         self.preprocess_kind = serve_preprocess_kind(cfg.task, cfg.channels)
         #: int8 calibration (None outside int8)
@@ -176,6 +304,38 @@ class CheckpointServingModel(ServingModel):
                               param_bytes=self.param_bytes(),
                               ingest="serve_ingest")
         return d
+
+    def _bucket_flops(self, batch: int) -> tuple[float | None, str]:
+        """(FLOPs of bucket ``batch``, their source).  The model's FLOPs
+        are counted once, on one zero image of what the model itself
+        takes, and scaled by the batch: the convolutions and matmuls
+        ``FlopCounterMode`` counts are linear in it.  The ingest is left
+        out (it launches the serve_ingest kernel, and its few operations
+        an element are no FLOPs a peak is quoted in).  The first
+        ``FlopCounterMode`` of a process also pays for torch's lazy
+        imports behind it (seconds, once a process, at the first bucket
+        built)."""
+        from deep_vision_tpu_torch.obs.mfu import (
+            bucket_flops,
+            params_flops_lower_bound,
+        )
+
+        if self._image_flops is None:
+            feed = torch.bfloat16 if self.infer_dtype == "bfloat16" \
+                else torch.float32
+            image = torch.zeros((1, *self.input_shape), dtype=feed,
+                                device=self.device)
+            try:
+                with self.weights_in_use():
+                    self._image_flops = (bucket_flops(self._model, image),
+                                         "flop_counter")
+            except Exception:  # noqa: BLE001 — the count is best effort; the fallback is labelled
+                self._image_flops = (None, "params_lower_bound")
+        per_image, source = self._image_flops
+        if per_image is None:
+            return params_flops_lower_bound(self._model, batch), \
+                "params_lower_bound"
+        return per_image * batch, source
 
     def compile_bucket(self, batch: int, epilogue: bool = True):
         """The callable of bucket ``batch``; ``epilogue=False`` leaves
@@ -214,6 +374,7 @@ class CheckpointServingModel(ServingModel):
         shape = (batch, *self.input_shape)
         device = self.device
         wire_np = self.wire_dtype
+        owner = self
 
         def call(x):
             if not isinstance(x, torch.Tensor):
@@ -222,19 +383,38 @@ class CheckpointServingModel(ServingModel):
                 raise ValueError(f"bucket {batch} of '{self.name}' takes "
                                  f"{wire} {list(shape)}, got {x.dtype} "
                                  f"{list(x.shape)}")
-            with torch.inference_mode():
+            with owner.weights_in_use(), torch.inference_mode():
                 return finish(forward(x.to(device, non_blocking=True)))
 
+        call.cost_flops, call.flops_source = owner._bucket_flops(batch)
         return call
 
 
 class ModelRegistry:
     def __init__(self):
         self._models: dict[str, ServingModel] = {}
+        # name → version → ServingModel: the control plane publishes
+        # each promoted version here, so ``get(name, version=N)``
+        # answers for any retained version
+        self._versions: dict[str, dict[int, ServingModel]] = {}
 
-    def add(self, model: ServingModel) -> ServingModel:
+    def add(self, model: ServingModel,
+            version: int | None = None) -> ServingModel:
         self._models[model.name] = model
+        if version is None:
+            version = model.serve_version
+        if version is not None:
+            self._versions.setdefault(model.name, {})[int(version)] = model
         return model
+
+    def remove_version(self, name: str, version: int) -> None:
+        """Forget one retained version (the plane prunes retired versions
+        past its retain window, so these refs don't pin them)."""
+        table = self._versions.get(name)
+        if table is not None:
+            table.pop(int(version), None)
+            if not table:
+                self._versions.pop(name, None)
 
     def load_checkpoint(self, config_name: str, weights: str | None = None,
                         name: str | None = None,
@@ -243,6 +423,7 @@ class ModelRegistry:
                         calib_batches: int = 2,
                         calib_dir: str | None = None,
                         device=None,
+                        workdir: str | None = None,
                         detect_decode: str = "device",
                         detect_topk: int = 100,
                         detect_score_threshold: float = 0.05,
@@ -251,8 +432,9 @@ class ModelRegistry:
                         detect_soft_sigma: float = 0.5,
                         detect_max_per_class: int = 0) -> ServingModel:
         """Build ``config_name``'s model with ``weights`` (a flax-layout
-        ``.npz``; None = seeded random init) and serve it on ``device``
-        (default cuda).  ``wire_dtype``/``infer_dtype`` as in the module
+        ``.npz``), or from ``workdir`` (a training workdir of the port:
+        its newest restorable checkpoint), or a seeded random init with
+        neither, and serve it on ``device`` (default cuda).  ``wire_dtype``/``infer_dtype`` as in the module
         docstring; int8 calibrates on ``calib_batches`` batches from
         ``calib_dir`` (deterministic synthetic data when None).
 
@@ -275,14 +457,14 @@ class ModelRegistry:
         device = resolve_device(device)  # fail before any model work
         cfg = get_config(config_name)
         info: dict = {}
-        model = load_state(cfg, weights, info=info)
+        model = load_state(cfg, weights, workdir=workdir, tag="serve",
+                           info=info)
         sm = CheckpointServingModel(name or config_name, cfg, model,
                                     wire_dtype=wire_dtype,
                                     infer_dtype=infer_dtype,
                                     calib_batches=calib_batches,
                                     calib_dir=calib_dir, device=device)
-        sm.weights = info["weights"]
-        sm.params_digest = info["digest"]
+        stamp_restore(sm, info)
         sm.detect_decode = str(detect_decode)
         sm.detect_topk = int(detect_topk)
         sm.detect_score_threshold = float(detect_score_threshold)
@@ -292,16 +474,35 @@ class ModelRegistry:
         sm.detect_max_per_class = int(detect_max_per_class)
         return self.add(sm)
 
-    def get(self, name: str | None = None) -> ServingModel:
+    def get(self, name: str | None = None,
+            version: int | None = None) -> ServingModel:
+        """The model ``name`` (required when more than one is served), or
+        its retained ``version``; a miss raises ``KeyError`` whose
+        ``args[0]`` is the message."""
         if name is None:
             if len(self._models) != 1:
                 raise KeyError(
                     f"model name required (serving {sorted(self._models)})")
-            return next(iter(self._models.values()))
+            name = next(iter(self._models))
         if name not in self._models:
             raise KeyError(f"unknown model '{name}'; "
                            f"serving {sorted(self._models)}")
+        if version is not None:
+            table = self._versions.get(name, {})
+            if int(version) not in table:
+                raise KeyError(f"model '{name}' has no version {version}; "
+                               f"versions {sorted(table)}")
+            return table[int(version)]
         return self._models[name]
 
     def names(self) -> list[str]:
         return sorted(self._models)
+
+
+def stamp_restore(sm: ServingModel, info: dict) -> None:
+    """Copy ``load_state``'s ``info`` onto the serving model."""
+    sm.weights = info["weights"]
+    sm.restored_step = info["step"]
+    sm.restore_fallback = bool(info["fallback"])
+    sm.restored_mtime = info["mtime"]
+    sm.params_digest = info["digest"]

@@ -8,9 +8,10 @@ epilogue fused after the forward), ``PoseWorkload`` (the stacked
 hourglass behind ``/v1/pose``, its last stack's heatmaps decoded to
 keypoints on the device) and ``GenerateWorkload`` (the GAN generators
 behind ``/v1/generate``: a latent or a seed in for DCGAN, an image in
-for CycleGAN, uint8 pixels out).  Classify's cascade top-k epilogue,
-the shadow ``agree`` rules and the response cache wait for later
-slices.
+for CycleGAN, uint8 pixels out).  Each verb also owns its shadow
+``agree`` rule (the control plane's shadow phase, serve/models.py) and
+its response-cache size guard (``cacheable``).  Classify's cascade
+top-k epilogue and the cascade rules wait for the cascade slice.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ class Workload:
 
     verb = ""
     slo = SLO("interactive", deadline_ms=30_000.0, max_queue=256)
+    #: the largest serialized 200 answer the response cache takes
+    cacheable_bytes = 256 * 1024
 
     def serving_input_shape(self, cfg, model=None) -> tuple:
         """One request's input shape (``core/restore.py``)."""
@@ -67,6 +70,16 @@ class Workload:
     def respond(self, model, body: dict, row) -> dict:
         raise NotImplementedError
 
+    def cacheable(self, nbytes: int) -> bool:
+        """Whether a serialized 200 of ``nbytes`` may enter the response
+        cache: the per-workload size guard."""
+        return int(nbytes) <= self.cacheable_bytes
+
+    def agree(self, primary_row, shadow_row):
+        """Shadow agreement verdict: True/False, or None when the rows
+        are not comparable (counted as discarded)."""
+        return None
+
 
 class ClassifyWorkload(Workload):
     verb = "classify"
@@ -93,6 +106,14 @@ class ClassifyWorkload(Workload):
                 "top": [{"class": int(c), "prob": float(probs[c]),
                          "logit": float(logits[c])} for c in top]}
 
+    def agree(self, primary_row, shadow_row):
+        """Top-1 equality; None when either row has no top-1."""
+        p, _ = self.top1(primary_row)
+        s, _ = self.top1(shadow_row)
+        if p is None or s is None:
+            return None
+        return p == s
+
 
 class DetectWorkload(Workload):
     """YOLOv3 (three-scale heads) and CenterNet (heatmap peaks) behind
@@ -108,6 +129,12 @@ class DetectWorkload(Workload):
 
     verb = "detect"
     slo = SLO("interactive", deadline_ms=30_000.0, max_queue=256)
+    #: shadow agreement (the mAP proxy): greedy same-class pairing at
+    #: IoU ≥ ``iou_match`` over the valid rows of both sides; agreement
+    #: is matched / max(n_primary, n_shadow) and must reach
+    #: ``min_match_frac``
+    iou_match = 0.5
+    min_match_frac = 0.6
     #: the response threshold when the client sends none
     default_score_threshold = 0.3
 
@@ -207,6 +234,63 @@ class DetectWorkload(Workload):
                      "score": float(scores[j]),
                      "class": int(classes[j])} for j in keep]}
 
+    @staticmethod
+    def _agree_rows(row):
+        """(valid boxes, valid classes) of a device-decoded row, or None
+        when the row is not one (a Shed or Quarantined, a dense
+        host-decode row, a foreign shape)."""
+        if not isinstance(row, dict):
+            return None
+        try:
+            b = np.asarray(row["boxes"], np.float32)
+            s = np.asarray(row["scores"], np.float32).reshape(-1)
+            c = np.asarray(row["classes"]).reshape(-1).astype(np.int64)
+            v = np.asarray(row["valid"], np.float32).reshape(-1)
+        except (KeyError, TypeError, ValueError):
+            return None
+        if b.ndim != 2 or b.shape[-1] != 4 or b.shape[0] != v.shape[0] \
+                or s.shape[0] != v.shape[0] or c.shape[0] != v.shape[0]:
+            return None
+        keep = v > 0
+        return b[keep], c[keep]
+
+    def agree(self, primary_row, shadow_row):
+        """Greedy IoU ≥ 0.5 class-matched pairing in primary score order
+        (rows arrive score-sorted), then the matched fraction over
+        max(n_primary, n_shadow) against ``min_match_frac``.  Both empty
+        agree; rows that are not device-decoded are not comparable."""
+        p = self._agree_rows(primary_row)
+        s = self._agree_rows(shadow_row)
+        if p is None or s is None:
+            return None
+        pb, pc = p
+        sb, sc = s
+        n_p, n_s = len(pb), len(sb)
+        if n_p == 0 and n_s == 0:
+            return True
+        if n_p == 0 or n_s == 0:
+            return False
+        taken = np.zeros(n_s, bool)
+        matched = 0
+        for i in range(n_p):
+            cand = np.nonzero(~taken & (sc == pc[i]))[0]
+            if not len(cand):
+                continue
+            lo = np.maximum(pb[i, :2], sb[cand, :2])
+            hi = np.minimum(pb[i, 2:], sb[cand, 2:])
+            wh = np.maximum(hi - lo, 0.0)
+            inter = wh[:, 0] * wh[:, 1]
+            area_p = max(float((pb[i, 2] - pb[i, 0])
+                               * (pb[i, 3] - pb[i, 1])), 0.0)
+            area_s = np.maximum(sb[cand, 2] - sb[cand, 0], 0.0) * \
+                np.maximum(sb[cand, 3] - sb[cand, 1], 0.0)
+            iou = inter / np.maximum(area_p + area_s - inter, 1e-9)
+            j = int(np.argmax(iou))
+            if iou[j] >= self.iou_match:
+                taken[cand[j]] = True
+                matched += 1
+        return matched / max(n_p, n_s) >= self.min_match_frac
+
 
 class PoseWorkload(Workload):
     """Keypoints of one person an image.  The epilogue decodes the last
@@ -218,6 +302,10 @@ class PoseWorkload(Workload):
 
     verb = "pose"
     slo = SLO("interactive", deadline_ms=30_000.0, max_queue=256)
+    #: shadow agreement: the share of keypoints within ``pck_px``
+    #: heatmap pixels that must match
+    pck_px = 2.0
+    pck_min_frac = 0.8
 
     def make_epilogue(self, model):
         from deep_vision_tpu_torch.tasks.pose import decode_heatmaps
@@ -236,6 +324,20 @@ class PoseWorkload(Workload):
                     {"x": float(kp[j, 0]), "y": float(kp[j, 1]),
                      "score": float(sc[j])} for j in range(kp.shape[0])]}
 
+    def agree(self, primary_row, shadow_row):
+        """PCK-style: at least ``pck_min_frac`` of the keypoints within
+        ``pck_px``; None for rows that are not pose rows."""
+        try:
+            pk = np.asarray(primary_row["keypoints"])
+            sk = np.asarray(shadow_row["keypoints"])
+        except (TypeError, KeyError, IndexError):
+            return None
+        if pk.shape != sk.shape or pk.ndim < 2:
+            return None
+        d = np.linalg.norm(pk.astype(np.float32) - sk.astype(np.float32),
+                           axis=-1)
+        return float((d <= self.pck_px).mean()) >= self.pck_min_frac
+
 
 class GenerateWorkload(Workload):
     """The GAN generators.  DCGAN takes a latent (``latent``, a list of
@@ -251,6 +353,8 @@ class GenerateWorkload(Workload):
     #: a generative batch holds the card far longer than a classify
     #: batch: a longer deadline, a shorter queue
     slo = SLO("batchy", deadline_ms=60_000.0, max_queue=64)
+    #: a CycleGAN answer is a 256²×3 image in base64
+    cacheable_bytes = 2 * 2**20
 
     def wire_dtype_for(self, cfg, requested: str) -> str:
         """A latent-in model (DCGAN) takes float32: a uint8 latent means
@@ -312,9 +416,30 @@ class GenerateWorkload(Workload):
                           "shape": list(img.shape),
                           "dtype": str(img.dtype)}}
 
+    def agree(self, primary_row, shadow_row):
+        """Byte equality of the two uint8 images (by digest); None when
+        either is not an image array."""
+        import hashlib
+
+        comparable = (isinstance(primary_row, np.ndarray)
+                      and isinstance(shadow_row, np.ndarray)
+                      and primary_row.shape == shadow_row.shape
+                      and primary_row.dtype == shadow_row.dtype)
+        if not comparable:
+            return None
+
+        def dig(a):
+            return hashlib.blake2b(np.ascontiguousarray(a).tobytes(),
+                                   digest_size=8).hexdigest()
+
+        return dig(primary_row) == dig(shadow_row)
+
 
 WORKLOADS = {w.verb: w for w in (ClassifyWorkload(), DetectWorkload(),
                                  PoseWorkload(), GenerateWorkload())}
+#: operator lifecycle verbs on /v1/models/{name}/<verb>, not inference
+#: verbs
+LIFECYCLE_VERBS = ("reload", "promote", "rollback")
 _BY_TASK = {"classification": "classify", "detection": "detect",
             "centernet": "detect", "pose": "pose",
             "gan_dcgan": "generate", "gan_cyclegan": "generate"}

@@ -33,7 +33,8 @@ def test_every_module_imports_with_jax_blocked():
                 "zoo.centernet", "tasks.pose", "data.pose", "zoo.pose",
                 "models.lenet", "models.alexnet", "models.vgg",
                 "models.inception", "models.mobilenet", "models.shufflenet",
-                "zoo.classifiers", "zoo.lenet", "data.mnist"):
+                "zoo.classifiers", "zoo.lenet", "data.mnist",
+                "serve.faults", "serve.models", "serve.cache", "obs.mfu"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
