@@ -314,7 +314,43 @@ Phases, each of which must pass:
               back by the canary's error-rate gate, v2 stays active and
               answers finite; steps 4 and 3 truncated then make a fresh
               ``-m resnet50 --workdir`` boot serve step 2 with
-              ``restore_fallback``.
+              ``restore_fallback``;
+27. fleet   — ResNet-50 int8 on the uint8 wire from a port checkpoint,
+              served by ``ReplicatedEngine(devices=[cuda:0, cuda:0])``
+              (two replicas on the one card, each its own weight copy and
+              stream) behind the HTTP front end, warmed on its router
+              thread: 16 sequential and 48 concurrent ``/v1/classify``
+              requests with the launch count set to 0 just before and
+              read just after, every answer 200 and bit-identical to the
+              single engine's (the model's own bucket callable) at one of
+              the buckets, both replicas routed, launches = batches, a
+              "unit" ingest control failing on most rows; replica 1
+              forced DEAD 24 requests into 96 concurrent ones: none lost,
+              every answer again bit-identical at a bucket, an evacuation
+              (timed from the kill), healthz 200 "degraded"; both DEAD:
+              healthz 503 and a request shed (429); revived, a third
+              replica added on cuda:0 and removed with a 10 s drain
+              deadline under 4 closed-loop clients: every answer 200,
+              ``memory_allocated`` (idle, cuBLAS's per-stream workspaces
+              dropped) back within 4 MiB of its value before the add;
+              the autoscaler on the real engine reads finite signals and
+              a forced-pressure tick without a spare device counts one
+              ``scale_errors`` and starts its cooldown.  Information
+              only: a single engine and the fleet on a closed loop of
+              192 requests, in turns;
+28. deploy  — ``--models resnet50 --watch --watch-interval-s 0.5
+              --gate-dir`` (32 seeded uint8 .npy, label-free agreement
+              gate) over HTTP under 4 closed-loop clients: a step 2 (the
+              classifier bias moved by 0.25) passes the gate after at
+              least two polls and reaches ACTIVE through shadow (10
+              comparisons) and canary (8 requests); a step 3 with a NaN
+              in the classifier's weight matrix fails the gate
+              (``gate_failed``), starts no reload, v2 keeps serving; every
+              client answer 200; ``POST /v1/deploy/resnet50/revert``
+              restores v1, whose sequential answers equal v1's before bit
+              for bit; ``GET /v1/deploy/resnet50/history`` lists the six
+              records in order, and again after a restart on the same
+              workdir (step 3 removed first).
 
 It prints ``{"phase_seconds": {...}}``, the wall seconds each phase
 took, and before the last line ``{"kernels": [...]}`` (one entry per
@@ -503,6 +539,16 @@ PLANE_ROUNDS, PLANE_CLIENT_IMAGES = 3, 32
 PLANE_BODY = {"classify": {"top_k": 5},
               "detect": {"score_threshold": DETECT_FLOOR}}
 PLANE_MEM_SLACK = 4 * 2**20
+#: the replicated engine: ResNet-50 int8 on two replicas of one card, 16
+#: sequential then 48 concurrent requests, 96 concurrent while replica 1
+#: is forced DEAD, 4 closed-loop clients across an add and a remove, and
+#: the closed-loop batch the single engine and the fleet are timed on
+FLEET_DEVICE = "cuda:0"
+FLEET_N_SEQ, FLEET_N_CONC, FLEET_DEAD_N = 16, 48, 96
+FLEET_TIMED_N, FLEET_TIMED_ROUNDS = 192, 2
+#: the deploy loop: 32 seeded uint8 gate images, the watcher's poll
+#: interval, and how long a rollout may take on the card
+DEPLOY_GATE_IMAGES, DEPLOY_POLL_S, DEPLOY_TIMEOUT_S = 32, 0.5, 300.0
 
 
 def log(msg: str) -> None:
@@ -4125,6 +4171,444 @@ def phase_plane() -> dict:
     return out
 
 
+def bucket_answers(sm, imgs: np.ndarray, body: dict,
+                   kind: str | None = None) -> dict:
+    """bucket → each image's answer (JSON round-tripped) from a direct
+    call at that bucket: the model's own bucket callable (the single
+    engine's, through ``serve_ingest``), or with ``kind`` the PLAIN
+    ingest of that kind (a control)."""
+    import torch
+
+    out = {}
+    for b in BUCKETS:
+        if kind is not None:
+            rows = direct_rows(sm, imgs, b, kind)
+        else:
+            fn, rows = sm.compile_bucket(b), []
+            for i in range(0, len(imgs), b):
+                batch = np.zeros((b, *sm.input_shape), np.uint8)
+                batch[:len(imgs[i:i + b])] = imgs[i:i + b]
+                logits = fn(batch)
+                torch.cuda.synchronize()
+                rows += list(logits.cpu().numpy()[:len(imgs[i:i + b])])
+        out[b] = [json.loads(json.dumps(sm.workload.respond(sm, body, r)))
+                  for r in rows]
+    return out
+
+
+def exact_buckets(replies, refs: dict) -> tuple[list, list]:
+    """For each reply, the buckets whose direct answer it equals bit for
+    bit (JSON equality: the same top-5 classes and float32 logits);
+    returns those lists and the faults (a non-200, or no bucket)."""
+    faults, hits = [], []
+    for i, (status, got, _) in enumerate(replies):
+        if status != 200:
+            faults.append(f"request {i}: HTTP {status} {got}")
+            hits.append([])
+            continue
+        hits.append([b for b, rows in refs.items() if rows[i] == got])
+        if not hits[-1]:
+            faults.append(f"request {i}: equal to no bucket's answer")
+    return hits, faults
+
+
+def closed_loop_img_s(engine, imgs) -> float:
+    """Submit every image at once and wait for all: images a second."""
+    t0 = time.perf_counter()
+    futs = [engine.submit(im) for im in imgs]
+    for f in futs:
+        check(isinstance(f.result(120), np.ndarray), "a timed request "
+              "was not served")
+    return len(imgs) / (time.perf_counter() - t0)
+
+
+def memory_idle(clear_workspaces: bool) -> int:
+    """``memory_allocated`` with nothing in flight; with
+    ``clear_workspaces`` the per-(thread, stream) cuBLAS workspaces are
+    dropped first (a stream's first GEMM allocates one, and it outlives
+    the stream's engine: library state, not weights)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if clear_workspaces:
+        torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def phase_fleet() -> dict:
+    """ResNet-50 int8 on the uint8 wire from a port checkpoint, served by
+    ``ReplicatedEngine(devices=[cuda:0, cuda:0])`` behind the HTTP front
+    end: answers bit-identical to the single engine's at a bucket, both
+    replicas routed, launches = batches; replica 1 forced DEAD under
+    load; both DEAD; a replica added and removed under load with the
+    memory given back; the autoscaler on the real engine."""
+    import threading
+
+    import torch
+
+    from deep_vision_tpu_torch.deploy import ReplicaAutoscaler
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+    from deep_vision_tpu_torch.serve.admission import AdmissionController
+    from deep_vision_tpu_torch.serve.engine import BatchingEngine
+    from deep_vision_tpu_torch.serve.http import ServeServer
+    from deep_vision_tpu_torch.serve.registry import ModelRegistry
+    from deep_vision_tpu_torch.serve.replicas import ReplicatedEngine
+
+    body = {"top_k": 5}
+    out: dict = {}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        workdir = os.path.join(tmp, MODEL)
+        write_checkpoint(workdir, 1, seeded_classifier(4))
+        registry = ModelRegistry()
+        sm = registry.load_checkpoint(MODEL, workdir=workdir,
+                                      wire_dtype="uint8",
+                                      infer_dtype="int8",
+                                      device=FLEET_DEVICE)
+        t0 = time.monotonic()
+        engine = ReplicatedEngine(
+            sm, devices=[FLEET_DEVICE] * 2, buckets=list(BUCKETS),
+            admission=AdmissionController(max_queue=1024),
+            watchdog_interval_s=0.05).start()
+        engine.warmup()
+        out["build_and_warm_s"] = time.monotonic() - t0
+        server = ServeServer(registry, {MODEL: engine}, port=0
+                             ).start_background()
+        port = server.port
+        try:
+            imgs = np.random.RandomState(40).randint(
+                0, 256, (FLEET_DEAD_N, *sm.input_shape), np.uint8)
+            refs = bucket_answers(sm, imgs, body)
+            bodies = [json.dumps({"pixels": im.tolist(), **body}).encode()
+                      for im in imgs]
+            n = FLEET_N_SEQ + FLEET_N_CONC
+            batches0 = engine.stats()["batches"]
+            routed0 = list(engine.routed_batches)
+            serve_ingest.launches = 0
+            replies = drive(port, bodies[:n], FLEET_N_SEQ)
+            launches = serve_ingest.launches
+            st = engine.stats()
+            ran = st["batches"] - batches0
+            routed = [a - b for a, b in zip(engine.routed_batches, routed0)]
+            hits, faults = exact_buckets(replies, refs)
+            check(not faults, f"fleet answers: {faults[:5]}")
+            check(all(r > 0 for r in routed), f"routed batches {routed}")
+            check(launches == ran, f"serve_ingest launched {launches} "
+                                   f"times for {ran} batches")
+            control = exact_buckets(replies, bucket_answers(
+                sm, imgs[:n], body, kind="unit"))[1]
+            check(2 * len(control) > n, "the fleet answer check passed "
+                                        "against a 'unit' ingest")
+            out["serve"] = {
+                "requests": n, "batches": ran, "launches": launches,
+                "routed_batches": routed,
+                "answers_by_bucket": {str(b): sum(b in h for h in hits)
+                                      for b in BUCKETS},
+                "control_faults": len(control)}
+            log(f"fleet: {json.dumps(out['serve'])}")
+
+            # replica 1 DEAD under 96 concurrent requests, 24 requests
+            # in; the supervisor's evacuation timed from the kill
+            ev0 = engine.evacuations
+            done = threading.Event()
+            evac_ms: list = []
+
+            def kill():
+                while engine.submitted < st["submitted"] + 24 \
+                        and not done.is_set():
+                    time.sleep(0.001)
+                t_kill = time.monotonic()
+                engine.replicas[1].health.force_dead("chip smoke kill")
+                while engine.evacuations == ev0 \
+                        and time.monotonic() < t_kill + 10.0:
+                    time.sleep(0.0005)
+                evac_ms.append((time.monotonic() - t_kill) * 1e3)
+
+            killer = threading.Thread(target=kill, daemon=True)
+            killer.start()
+            try:
+                dead_replies = drive(port, bodies, 0)
+            finally:
+                done.set()
+                killer.join(60)
+            check(bool(evac_ms) and engine.evacuations > ev0,
+                  "no evacuation after replica 1 died")
+            hits, faults = exact_buckets(dead_replies, refs)
+            check(not faults, f"answers with replica 1 DEAD: {faults[:5]}")
+            status, health = get_url(port, "/v1/healthz")
+            health = json.loads(health)
+            rep = health["engines"][MODEL]
+            check(status == 200 and rep["state"] == "degraded"
+                  and rep["replicas"]["1"]["state"] == "dead",
+                  f"healthz {status} {rep['state']} with replica 1 DEAD")
+            engine.replicas[0].health.force_dead("chip smoke kill")
+            try:
+                get_url(port, "/v1/healthz")
+                all_dead = 200
+            except urllib.error.HTTPError as e:
+                all_dead = e.code
+            shed = post_any(port, bodies[0])
+            check(all_dead == 503 and shed[0] == 429,
+                  f"all DEAD: healthz {all_dead}, request {shed[0]}")
+            st = engine.stats()
+            out["dead"] = {
+                "requests": len(dead_replies), "lost": 0,
+                "evacuations": st["routing"]["evacuations"],
+                "rescued_requests": st["routing"]["rescued_requests"],
+                "answers_by_bucket": {str(b): sum(b in h for h in hits)
+                                      for b in BUCKETS},
+                "healthz_one_dead": status, "healthz_all_dead": all_dead,
+                "all_dead_request": shed[0],
+                "kill_to_evacuation_ms": evac_ms[0],
+                "shed_all_dead": st["routing"]["shed_all_dead"]}
+            log(f"fleet, replica DEAD: {json.dumps(out['dead'])}")
+            for r in engine.replicas:
+                r.health.revive()
+            check(wait_for(lambda: engine.health_report()["state"] == "ok",
+                           10.0), "the revived fleet is not ok")
+
+            # a replica added and removed under 4 clients
+            mem_before = {k: memory_idle(k) for k in (False, True)}
+            clients = Clients(port, "/v1/classify", bodies)
+            try:
+                t0 = time.monotonic()
+                i = engine.add_replica(FLEET_DEVICE)
+                add_s = time.monotonic() - t0
+                check(wait_for(lambda: engine.routed_batches[i] >= 3, 60.0),
+                      f"the added replica routed {engine.routed_batches[i]}"
+                      f" batches")
+                t0 = time.monotonic()
+                engine.remove_replica(i, drain_deadline=10.0)
+                remove_s = time.monotonic() - t0
+                time.sleep(0.5)
+            finally:
+                clients.finish()
+            codes = sorted({r[0] for r in clients.replies})
+            check(codes == [200], f"clients across add/remove: {codes}")
+            mem_after = {k: memory_idle(k) for k in (False, True)}
+            delta = mem_after[True] - mem_before[True]
+            check(abs(delta) <= PLANE_MEM_SLACK,
+                  f"memory_allocated moved by {delta} B across an added "
+                  f"and removed replica")
+            out["elastic"] = {
+                "added": i, "add_s": add_s, "remove_s": remove_s,
+                "routed_to_added": engine.routed_batches[i],
+                "client_requests": len(clients.replies),
+                "weight_bytes": sm.param_bytes(),
+                "memory_delta_bytes": delta,
+                # idle bytes of cuBLAS workspaces, before the add and
+                # after the remove
+                "cublas_workspace_bytes": [
+                    mem_before[False] - mem_before[True],
+                    mem_after[False] - mem_after[True]]}
+            log(f"fleet, add and remove: {json.dumps(out['elastic'])}")
+
+            # the autoscaler on the real engine: finite signals; forced
+            # pressure with no spare device costs one error and a
+            # cooldown
+            scaler = ReplicaAutoscaler(engine, min_replicas=1,
+                                       max_replicas=3, up_window=1,
+                                       cooldown_s=60.0)
+            sig = scaler.signals()
+            check(all(math.isfinite(sig[k]) for k in
+                      ("pressure_ms", "exec_ewma_ms", "occupancy")),
+                  f"autoscaler signals {sig}")
+            scaler.signals = lambda: dict(
+                ReplicaAutoscaler.signals(scaler), pressure_ms=1e6)
+            first, second = scaler.tick(), scaler.tick()
+            check(first is None and second is None
+                  and scaler.scale_errors == 1 and scaler.ticks == 2,
+                  f"forced pressure without a spare device: "
+                  f"{scaler.stats()}")
+            out["autoscaler"] = {"signals": sig,
+                                 "scale_errors": scaler.scale_errors,
+                                 "live": engine.live_replicas()}
+
+            # information only: a single engine and the 2-replica fleet
+            # on the same closed-loop batch, in turns
+            single = BatchingEngine(sm, buckets=list(BUCKETS),
+                                    admission=AdmissionController(
+                                        max_queue=1024)).start()
+            try:
+                single.warmup()
+                timed = imgs[np.arange(FLEET_TIMED_N) % len(imgs)]
+                rates = {"single": [], "fleet": []}
+                for _ in range(FLEET_TIMED_ROUNDS):
+                    for name, eng in (("single", single),
+                                      ("fleet", engine),
+                                      ("fleet", engine),
+                                      ("single", single)):
+                        rates[name].append(closed_loop_img_s(eng, timed))
+            finally:
+                single.stop()
+            out["img_per_s"] = rates
+            log(f"fleet img/s (closed loop of {FLEET_TIMED_N}, in turns): "
+                f"{json.dumps(rates)}")
+        finally:
+            server.shutdown()
+            engine.stop(drain_deadline=10.0)
+        del engine, sm
+        torch.cuda.empty_cache()
+    return out
+
+
+def history_outcomes(port: int) -> list:
+    _, blob = get_url(port, f"/v1/deploy/{MODEL}/history")
+    return [e["outcome"] for e in json.loads(blob)["entries"]]
+
+
+def sequential_answers(port: int, bodies: list) -> list:
+    """One request at a time: each forms a bucket-1 batch alone."""
+    out = []
+    for b in bodies:
+        status, reply, _ = post_any(port, b)
+        check(status == 200, f"a sequential request answered {status}")
+        out.append(reply)
+    return out
+
+
+def phase_deploy() -> dict:
+    """``--models resnet50 --watch --gate-dir`` over HTTP under 4
+    closed-loop clients: a new step rolls out through the gate, shadow
+    and canary; a NaN step is refused by the gate; a revert restores
+    v1's answers; the ledger survives a restart."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    size = get_config(MODEL).image_size
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as workdir:
+        mdir = os.path.join(workdir, MODEL)
+        step1 = seeded_classifier(1)
+        write_checkpoint(mdir, 1, step1)
+        gate_dir = os.path.join(workdir, "holdout")
+        os.makedirs(gate_dir)
+        rng = np.random.RandomState(50)
+        for k in range(DEPLOY_GATE_IMAGES):
+            np.save(os.path.join(gate_dir, f"img_{k:02d}.npy"),
+                    rng.randint(0, 256, (size, size, 3), np.uint8))
+        argv = ["--models", MODEL, "--workdir", workdir,
+                "--wire-dtype", "uint8", "--infer-dtype", "int8",
+                "--port", "0", "--device", FLEET_DEVICE,
+                "--max-batch", str(max(BUCKETS)),
+                "--buckets", ",".join(map(str, BUCKETS)),
+                "--watch", "--watch-interval-s", str(DEPLOY_POLL_S),
+                "--gate-dir", gate_dir, "--canary-frac", "0.25",
+                "--canary-min-requests", "8", "--shadow-frac", "0.5",
+                "--phase-timeout-s", "120"]
+        t0 = time.monotonic()
+        plane, server = boot_cli(argv + ["--warmup"])
+        out["boot_s"] = time.monotonic() - t0
+        port = server.port
+        deploy = server.httpd.deploy
+        try:
+            # step 2 moves every logit by the same 0.25, so the shadow's
+            # top-1 agreement holds on any image
+            imgs = np.random.RandomState(51).randint(
+                0, 256, (16, size, size, 3), np.uint8)
+            bodies = [json.dumps({"pixels": im.tolist(), "top_k": 5}
+                                 ).encode() for im in imgs]
+            v1 = sequential_answers(port, bodies[:4])
+            serve_ingest.launches = 0
+            clients = Clients(port, f"/v1/models/{MODEL}/classify", bodies)
+            try:
+                # step 2: the classifier bias moved (every logit moves,
+                # top-1 stays) rolls out on its own
+                step2 = copy.deepcopy(step1)
+                with torch.no_grad():
+                    step2.fc.bias.add_(0.25)
+                polls0 = deploy.watcher.stats()["polls"]
+                t0 = time.monotonic()
+                write_checkpoint(mdir, 2, step2)
+                check(wait_for(lambda: deploy.watcher.stats()["deploys"]
+                               >= 1, DEPLOY_TIMEOUT_S),
+                      f"step 2 never deployed: {deploy.stats()}")
+                rollout_s = time.monotonic() - t0
+                polls = deploy.watcher.stats()["polls"] - polls0
+                version = plane.models()[MODEL]["versions"][-1]
+                check(version["state"] == "active" and version["step"] == 2
+                      and version.get("shadow", {}).get("compared", 0)
+                      >= 10 and version.get("canary", {}).get(
+                          "requests", 0) >= 8 and polls >= 2,
+                      f"step 2 reached {version} after {polls} polls")
+                # step 3: a NaN in the classifier's weight matrix
+                reloads = plane.stats()["plane"]["reloads"]
+                step3 = copy.deepcopy(step2)
+                with torch.no_grad():
+                    step3.fc.weight.view(-1)[0] = float("nan")
+                t0 = time.monotonic()
+                write_checkpoint(mdir, 3, step3)
+                check(wait_for(lambda: deploy.watcher.stats()
+                               ["gate_failures"] >= 1, DEPLOY_TIMEOUT_S),
+                      f"the NaN step was never gated: {deploy.stats()}")
+                refuse_s = time.monotonic() - t0
+                time.sleep(2 * DEPLOY_POLL_S)
+                check(plane.stats()["plane"]["reloads"] == reloads
+                      and plane.active_version(MODEL).version == 2,
+                      "the NaN step started a reload or displaced v2")
+            finally:
+                clients.finish()
+            codes = sorted({r[0] for r in clients.replies})
+            check(codes == [200], f"clients across the rollout: {codes}")
+            launches = serve_ingest.launches
+            v2 = sequential_answers(port, bodies[:4])
+            check(v2 != v1, "step 2 answers as step 1")
+            t0 = time.monotonic()
+            status, rv, _ = post_any(port, b"{}",
+                                     f"/v1/deploy/{MODEL}/revert")
+            revert_s = time.monotonic() - t0
+            check(status == 200 and rv["status"] == "reverted"
+                  and rv["restores"] == 1, f"revert: {status} {rv}")
+            check(sequential_answers(port, bodies[:4]) == v1,
+                  "the reverted version answers otherwise than v1")
+            outcomes = history_outcomes(port)
+            want = ["candidate", "gate_passed", "promoted", "candidate",
+                    "gate_failed", "reverted"]
+            check(outcomes == want, f"ledger {outcomes}")
+            entries = deploy.history.entries(MODEL)
+            gate = next(e["gate"] for e in entries
+                        if e["outcome"] == "gate_failed")
+            ts = {e["outcome"]: e["ts"] for e in entries[:3]}
+            out.update({
+                "rollout_s": rollout_s, "polls_to_deploy": polls,
+                "gate_pass_to_active_s": ts["promoted"] - ts["gate_passed"],
+                "candidate_to_gate_s": ts["gate_passed"] - ts["candidate"],
+                "shadow": version["shadow"], "canary": version["canary"],
+                "nan_refused_s": refuse_s, "nan_gate": gate,
+                "revert_s": revert_s, "client_requests": len(clients.replies),
+                "launches": launches, "ledger": outcomes})
+            log(f"deploy: {json.dumps(out)}")
+        finally:
+            deploy.stop()
+            server.shutdown()
+            plane.stop(drain_deadline=10.0)
+        # a restart on the same workdir (the refused step taken away by
+        # its operator) reads the same ledger back
+        import shutil
+
+        shutil.rmtree(os.path.join(mdir, "checkpoints", "3"))
+        del plane, server
+        torch.cuda.empty_cache()
+        plane, server = boot_cli(argv)
+        try:
+            again = history_outcomes(server.port)
+        finally:
+            server.httpd.deploy.stop()
+            server.shutdown()
+            plane.stop(drain_deadline=10.0)
+        check(again == outcomes, f"ledger after a restart {again}")
+        out["ledger_after_restart"] = again
+        del plane, server
+        torch.cuda.empty_cache()
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4163,6 +4647,9 @@ def phase_times_of(path: str) -> int:
     spec = importlib.util.spec_from_file_location(
         "other_chip_smoke", os.path.join(path, "chip_smoke.py"))
     other = importlib.util.module_from_spec(spec)
+    # registered before it runs: its main() may time its own phases
+    # through sys.modules[__name__]
+    sys.modules[spec.name] = other
     spec.loader.exec_module(other)
     seconds = time_phases(other)
     rc = other.main()
@@ -4224,6 +4711,8 @@ def main() -> int:
     card_line = card()
     faults = phase_faults(card_line)
     plane = phase_plane()
+    fleet = phase_fleet()
+    deploy = phase_deploy()
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
@@ -4239,7 +4728,9 @@ def main() -> int:
                "plane_eviction": plane["eviction"]["launches"],
                "plane_reload": plane["reload"]["launches"],
                **{f"plane_nan_{k}": row["launches"]
-                  for k, row in plane["nan_rollback"].items()}}
+                  for k, row in plane["nan_rollback"].items()},
+               "fleet_resnet50": fleet["serve"]["launches"],
+               "deploy_resnet50": deploy["launches"]}
     zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
@@ -4321,6 +4812,8 @@ def main() -> int:
     print(json.dumps({"generate_serving": generate}), flush=True)
     print(json.dumps({"faults": faults}), flush=True)
     print(json.dumps({"plane": plane}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"deploy": deploy}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,6 +9,12 @@
         --models resnet50,yolov3_coco --workdir runs --hbm-budget-mb 80 \\
         --canary-frac 0.25 --shadow-frac 0.5 --wire-dtype uint8 \\
         --infer-dtype int8 --warmup
+    python -m deep_vision_tpu_torch.cli.serve -m resnet50 \\
+        --serve-devices 0 --wire-dtype uint8 --infer-dtype int8 --warmup
+    python -m deep_vision_tpu_torch.cli.serve --models resnet50 \\
+        --workdir runs --watch --watch-interval-s 2 --gate-dir holdout \\
+        --min-replicas 1 --max-replicas 4 --wire-dtype uint8 \\
+        --infer-dtype int8 --warmup
     python -m deep_vision_tpu_torch.cli.serve -m yolov3_coco \\
         [--weights w.npz] --wire-dtype uint8 --infer-dtype int8 \\
         [--detect-decode device] [--detect-topk 100] \\
@@ -41,10 +47,22 @@ checkpoint out through shadow and canary phases without a restart.
 Every engine runs under the fault plane's supervision (watchdog
 restarts, exec-timeout fast-fail, bisect-retry; ``--faults`` injects).
 
+``--serve-devices N`` replicates each engine over the first N local
+GPUs behind one queue (0 = all; ``serve/replicas.py``); with ``--device
+cpu`` it builds N CPU replicas.  Two replicas on ONE card are built
+through the API (``ReplicatedEngine(devices=[cuda:0, cuda:0])`` or
+``add_replica(device="cuda:0")``): asking for more devices than the
+machine has is an error, never a silent reuse.  With ``--models``,
+``--watch`` polls each ``<workdir>/<name>`` for new checkpoints, gates
+them on held-out data (``--gate-dir``) and rolls passing ones out
+through shadow and canary; ``--min-replicas``/``--max-replicas`` put an
+autoscaler on each model's replica count; both keep an append-only
+ledger under ``<workdir>/_deploy`` (``GET /v1/deploy/<name>/history``,
+``POST /v1/deploy/<name>/revert``).
+
 Port of ``deep_vision_tpu/cli/serve.py`` (``build_server``,
-``_build_plane_server``, ``main``) on one device; the replica, mesh,
-cascade, deploy-watcher, batch-tier and brownout flags wait for their
-slices.
+``_build_plane_server``, ``main``); the mesh, cascade, batch-tier and
+brownout flags wait for their slices.
 """
 
 from __future__ import annotations
@@ -107,6 +125,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="build and run every bucket before taking traffic")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--serve-devices", type=int, default=1,
+                   help="replicate the engine over this many local GPUs "
+                        "behind one queue (0 = all; default 1 = one "
+                        "engine); each replica holds its own copy of the "
+                        "weights, batches route to the least-loaded one")
     # -- fault plane and supervision --
     p.add_argument("--faults", default=None,
                    help="fault-injection spec stage:mode[:k=v]...[;...], "
@@ -146,6 +169,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--phase-timeout-s", type=float, default=30.0,
                    help="a shadow or canary phase that cannot fill its "
                         "quota within this rolls back")
+    # -- continuous deploy pipeline (--models) --
+    p.add_argument("--watch", action="store_true",
+                   help="watch each model's <workdir>/<name> for new "
+                        "checkpoints (debounced across two polls), gate "
+                        "them on held-out data and roll passing ones "
+                        "through shadow/canary/promote (--models only)")
+    p.add_argument("--watch-interval-s", type=float, default=2.0,
+                   help="checkpoint-fingerprint poll interval")
+    p.add_argument("--gate-dir", default=None,
+                   help="held-out set of the deploy accuracy gate: uint8 "
+                        "*.npy images (HWC or NHWC) and an optional "
+                        "labels.txt (one int per image); without labels "
+                        "the gate scores top-1 agreement with the active "
+                        "version; default: deterministic synthetic "
+                        "batches (NaN screen and agreement only)")
+    p.add_argument("--gate-min-agreement", type=float, default=0.8,
+                   help="label-free gate: least candidate-vs-active top-1 "
+                        "agreement to deploy")
+    p.add_argument("--min-replicas", type=int, default=0,
+                   help="boot each model's engine with this many "
+                        "replicas, the autoscaler's floor (0 = use "
+                        "--serve-devices; --models only)")
+    p.add_argument("--max-replicas", type=int, default=0,
+                   help="autoscale replicas up to this ceiling on queue "
+                        "pressure and back down to --min-replicas when "
+                        "idle (0 disables autoscaling; --models only)")
     p.add_argument("--drain-deadline", type=float, default=5.0,
                    help="seconds admitted work may take to finish at "
                         "shutdown")
@@ -240,7 +289,18 @@ def _engine_kwargs(args) -> dict:
                       enabled=not args.no_trace))
 
 
-def _server(args, registry, engines: dict, tracer, plane=None):
+def _replica_devices(device, n: int) -> list:
+    """``n`` replica devices: the first ``n`` local GPUs (0 = all), or
+    ``n`` CPU replicas on the CPU."""
+    from deep_vision_tpu_torch.serve.replicas import local_devices
+
+    if device.type == "cpu":
+        return [device] * max(1, n)
+    return local_devices(n or None)
+
+
+def _server(args, registry, engines: dict, tracer, plane=None,
+            deploy=None):
     from deep_vision_tpu_torch.serve.admission import TenantQoS
     from deep_vision_tpu_torch.serve.cache import ResponseCache
     from deep_vision_tpu_torch.serve.http import ServeServer
@@ -250,7 +310,7 @@ def _server(args, registry, engines: dict, tracer, plane=None):
         max_body_bytes=int(args.max_body_mb * 2**20),
         socket_timeout_s=args.socket_timeout_s
         if args.socket_timeout_s > 0 else None,
-        tracer=tracer, plane=plane,
+        tracer=tracer, plane=plane, deploy=deploy,
         response_cache=ResponseCache(int(args.response_cache_mb * 2**20))
         if args.response_cache_mb > 0 else None,
         qos=TenantQoS.parse(args.qos) if args.qos else None)
@@ -263,6 +323,7 @@ def build_server(args):
     from deep_vision_tpu_torch.serve.admission import AdmissionController
     from deep_vision_tpu_torch.serve.engine import BatchingEngine
     from deep_vision_tpu_torch.serve.registry import ModelRegistry
+    from deep_vision_tpu_torch.serve.replicas import ReplicatedEngine
 
     if bool(args.model) == bool(args.models):
         raise ValueError("give one of -m/--model and --models")
@@ -271,6 +332,13 @@ def build_server(args):
     registry = ModelRegistry()
     if args.models:
         return _build_plane_server(args, registry, device)
+    if args.watch or args.max_replicas:
+        raise ValueError("--watch / --max-replicas need the model control "
+                         "plane (--models ...): the deploy pipeline rolls "
+                         "candidates through its version table")
+    # fail on a device count the machine lacks before any model work
+    devices = _replica_devices(device, args.serve_devices) \
+        if args.serve_devices != 1 else None
     sm = registry.load_checkpoint(args.model, args.weights,
                                   wire_dtype=args.wire_dtype,
                                   infer_dtype=args.infer_dtype,
@@ -279,10 +347,14 @@ def build_server(args):
                                   device=device, workdir=args.workdir,
                                   **_detect_knobs(args))
     kwargs = _engine_kwargs(args)
-    engine = BatchingEngine(
-        sm, admission=AdmissionController(
-            max_queue=sm.workload.slo.bound_queue(args.max_queue),
-            max_wait_ms=args.max_wait_ms), **kwargs)
+    admission = AdmissionController(
+        max_queue=sm.workload.slo.bound_queue(args.max_queue),
+        max_wait_ms=args.max_wait_ms)
+    if devices is not None and len(devices) > 1:
+        engine = ReplicatedEngine(sm, devices=devices, admission=admission,
+                                  **kwargs)
+    else:
+        engine = BatchingEngine(sm, admission=admission, **kwargs)
     engine.start()
     if args.warmup:
         print(f"[serve] warming {engine.buckets} ...", flush=True)
@@ -295,7 +367,8 @@ def _build_plane_server(args, registry, device):
     """``--models a,b`` → (ModelControlPlane, ServeServer): each model
     restores from ``<workdir>/<name>``, every engine (a reloaded
     version's too) comes from one factory, and one admission controller
-    per model name carries its exec EWMAs over a reload."""
+    per model name carries its exec EWMAs over a reload.  ``--watch``
+    and ``--max-replicas`` add the deploy pipeline."""
     import os
 
     from deep_vision_tpu_torch.serve.admission import AdmissionController
@@ -305,6 +378,7 @@ def _build_plane_server(args, registry, device):
         ModelControlPlane,
         WeightCache,
     )
+    from deep_vision_tpu_torch.serve.replicas import ReplicatedEngine
 
     names = [s.strip() for s in args.models.split(",") if s.strip()]
     if not names:
@@ -315,6 +389,23 @@ def _build_plane_server(args, registry, device):
     if not args.workdir:
         raise ValueError("--models needs --workdir (one subdirectory per "
                          "model)")
+    min_replicas, max_replicas = args.min_replicas, args.max_replicas
+    if max_replicas and not min_replicas:
+        min_replicas = 1
+    if max_replicas and max_replicas < min_replicas:
+        raise ValueError(f"--max-replicas {max_replicas} < "
+                         f"--min-replicas {min_replicas}")
+    if min_replicas:
+        if args.serve_devices != 1:
+            raise ValueError("--min-replicas and --serve-devices both set "
+                             "the replica floor; use one")
+        # the autoscaler needs the elastic engine even at one replica
+        devices = _replica_devices(device, min_replicas)
+    else:
+        devices = _replica_devices(device, args.serve_devices) \
+            if args.serve_devices != 1 else None
+    replicated = devices is not None and (len(devices) > 1
+                                          or max_replicas > 1)
     kwargs = _engine_kwargs(args)
     admissions: dict = {}
 
@@ -328,6 +419,10 @@ def _build_plane_server(args, registry, device):
         return adm
 
     def engine_factory(model):
+        if replicated:
+            return ReplicatedEngine(model, devices=devices,
+                                    admission=admission_for(model.name),
+                                    **kwargs)
         return BatchingEngine(model, admission=admission_for(model.name),
                               **kwargs)
 
@@ -351,8 +446,49 @@ def _build_plane_server(args, registry, device):
         for name, eng in plane.active_engines().items():
             print(f"[serve] warming {name} {eng.buckets} ...", flush=True)
         plane.warmup()
+    pipeline = None
+    if args.watch or max_replicas > min_replicas:
+        pipeline = _deploy_pipeline(args, plane, names, min_replicas,
+                                    max_replicas)
+        pipeline.start()
     return plane, _server(args, registry, plane.active_engines(),
-                          kwargs["tracer"], plane=plane)
+                          kwargs["tracer"], plane=plane, deploy=pipeline)
+
+
+def _deploy_pipeline(args, plane, names, min_replicas: int,
+                     max_replicas: int):
+    """The ledger under ``<workdir>/_deploy``, with ``--watch``'s
+    checkpoint watcher and accuracy gate and, when ``--max-replicas``
+    exceeds the floor, one autoscaler a model."""
+    import os
+
+    from deep_vision_tpu_torch.deploy import (
+        AccuracyGate,
+        CheckpointWatcher,
+        DeploymentHistory,
+        DeployPipeline,
+        ReplicaAutoscaler,
+    )
+
+    history = DeploymentHistory(os.path.join(args.workdir, "_deploy"))
+    watcher = None
+    if args.watch:
+        watcher = CheckpointWatcher(
+            plane, history, interval_s=args.watch_interval_s,
+            gate=AccuracyGate(gate_dir=args.gate_dir,
+                              min_agreement=args.gate_min_agreement))
+        for name in names:
+            watcher.watch(name)
+    autoscalers = {}
+    if max_replicas > min_replicas:
+        for name in names:
+            # resolved per tick: a hot reload swaps the active engine
+            autoscalers[name] = ReplicaAutoscaler(
+                lambda name=name: plane.active_engine(name), name=name,
+                min_replicas=min_replicas, max_replicas=max_replicas,
+                history=history)
+    return DeployPipeline(plane, history=history, watcher=watcher,
+                          autoscalers=autoscalers or None)
 
 
 def main(argv=None):
@@ -374,6 +510,24 @@ def main(argv=None):
               f"{args.canary_frac}, shadow_frac={args.shadow_frac}) — "
               f"reload: curl -XPOST http://{server.host}:{server.port}"
               f"/v1/models/<name>/reload", flush=True)
+    deploy = server.httpd.deploy
+    if deploy is not None:
+        bits = []
+        if deploy.watcher is not None:
+            bits.append(f"watch every {args.watch_interval_s}s, gate="
+                        f"{args.gate_dir or 'synthetic'}")
+        if deploy.autoscalers:
+            bits.append(f"autoscale {args.min_replicas or 1}.."
+                        f"{args.max_replicas} replicas")
+        print(f"[serve] deploy pipeline: {'; '.join(bits)} — history: "
+              f"curl http://{server.host}:{server.port}"
+              f"/v1/deploy/<name>/history", flush=True)
+    engines = engine.active_engines() if args.models else {sm.name: engine}
+    for name, eng in engines.items():
+        if hasattr(eng, "replicas"):
+            print(f"[serve] {name}: {len(eng.replicas)} replicas on "
+                  + ", ".join(r.model.placement_desc()
+                              for r in eng.replicas), flush=True)
     if engine.faults.enabled:
         print(f"[serve] FAULT INJECTION ACTIVE: '{engine.faults.spec}' "
               f"(seed {engine.faults.seed})", flush=True)
@@ -382,6 +536,10 @@ def main(argv=None):
     except KeyboardInterrupt:
         print("[serve] shutting down")
     finally:
+        if deploy is not None:
+            # the watcher and autoscalers stop BEFORE the engines drain:
+            # no scale action or rollout races the shutdown
+            deploy.stop()
         server.shutdown()
         engine.stop(drain_deadline=args.drain_deadline)
     return 0

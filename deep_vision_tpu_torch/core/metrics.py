@@ -172,6 +172,16 @@ class LatencyHistogram:
         return {"edges": list(self.edges), "counts": list(self.counts),
                 "total": self.total, "sum": self.sum}
 
+    def merge(self, d: dict) -> "LatencyHistogram":
+        """Sum another histogram's ``state_dict`` into this one (a
+        replicated engine's fleet latency)."""
+        if list(d["edges"]) != self.edges:
+            raise ValueError("cannot merge histograms with different bins")
+        self.counts = [a + b for a, b in zip(self.counts, d["counts"])]
+        self.total += int(d["total"])
+        self.sum += float(d["sum"])
+        return self
+
 
 def _prom_num(v) -> str:
     """Prometheus sample/edge value formatting: integers stay integral,

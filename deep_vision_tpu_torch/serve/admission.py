@@ -1,9 +1,8 @@
 """Admission control: shed doomed work at the door, not after the queue.
 
 Copy of ``deep_vision_tpu/serve/admission.py`` (``Shed``,
-``AdmissionController``, ``QoSClass``, ``TenantQoS``); the replica
-divisors (``set_free_replicas``, ``set_live_replicas``) wait for the
-replicas slice.
+``AdmissionController`` with its replica divisors, ``QoSClass``,
+``TenantQoS``).
 
 Two bounds, both checked at submit time (and deadlines re-checked at
 batch-formation time, so a request that expired while queued is dropped
@@ -75,6 +74,14 @@ class AdmissionController:
         self._alpha = ewma_alpha
         self._exec_ewma_s: float | None = None      # all-bucket fallback
         self._bucket_ewma_s: dict[int, float] = {}  # bucket → EWMA
+        # replicas able to absorb work right now: an int, or a zero-arg
+        # callable the ReplicatedEngine wires to its routing mask (DEAD
+        # replicas drop out of the divisor as they drop out of routing;
+        # replicas added/removed at runtime move it the same way)
+        self._free_replicas = 1
+        # provisioned replicas (DEAD included) — the /v1/stats capacity
+        # gauge; None falls back to the free-replica divisor
+        self._live_replicas = None
         self._lock = threading.Lock()
         self.shed_queue_full = 0  # guarded-by: _lock
         self.shed_deadline = 0  # guarded-by: _lock
@@ -99,18 +106,48 @@ class AdmissionController:
                 self._bucket_ewma_s[bucket] = seconds if prev is None \
                     else prev + self._alpha * (seconds - prev)
 
+    def set_free_replicas(self, provider):
+        """Wire the replica divisor: an int, or a zero-arg callable
+        returning the count of replicas currently routable (≥ 1 is
+        enforced at read time so a fully-DEAD set stays finite)."""
+        self._free_replicas = provider
+
+    def _replica_divisor(self) -> int:
+        # resolved OUTSIDE self._lock: the callable may read engine state
+        n = self._free_replicas() if callable(self._free_replicas) \
+            else self._free_replicas
+        return max(1, int(n))
+
+    def set_live_replicas(self, provider):
+        """Wire the provisioned-replica gauge (int or zero-arg
+        callable): how many replicas exist right now, DEAD included —
+        what the autoscaler changes.  Unset, it mirrors the free-replica
+        divisor (a single engine is one replica either way)."""
+        self._live_replicas = provider
+
+    def _live_count(self) -> int:
+        p = self._live_replicas
+        if p is None:
+            return self._replica_divisor()
+        n = p() if callable(p) else p
+        return max(0, int(n))
+
     def estimated_service_s(self, bucket: int | None = None,
                             inflight: int = 0) -> float:
         """Worst-case time-to-result for a request admitted right now: a
         full drain window, one execution of the bucket it will likely
         run in (global EWMA until that bucket has history), plus one
-        more execution per batch already in the pipeline ahead of it."""
+        more execution per batch already in the pipeline ahead of it.
+        With N free replicas the outstanding executions drain N-wide,
+        so the exec term divides by N (the drain window doesn't — batch
+        formation is one shared queue either way)."""
+        n = self._replica_divisor()
         with self._lock:
             e = self._bucket_ewma_s.get(bucket) if bucket is not None \
                 else None
             if e is None:
                 e = self._exec_ewma_s or 0.0
-            return self._max_wait_s + (1 + max(0, inflight)) * e
+            return self._max_wait_s + ((1 + max(0, inflight)) * e) / n
 
     def bucket_ewma_s(self, bucket: int | None = None) -> float | None:
         """Raw exec EWMA for ``bucket`` (global fallback, None before
@@ -178,6 +215,8 @@ class AdmissionController:
         return None
 
     def stats(self) -> dict:
+        n = self._replica_divisor()  # outside the lock, see above
+        live = self._live_count()
         with self._lock:
             out = {"shed_queue_full": self.shed_queue_full,
                    "shed_deadline": self.shed_deadline,
@@ -186,6 +225,8 @@ class AdmissionController:
                    "exec_ewma_ms_by_bucket": {
                        str(b): round(v * 1e3, 3)
                        for b, v in sorted(self._bucket_ewma_s.items())},
+                   "free_replicas": n,
+                   "live_replicas": live,
                    "max_queue": self.max_queue}
         if self.name is not None:
             out["name"] = self.name

@@ -53,6 +53,13 @@ Supervision, as in the reference engine:
     ``Shed("shutdown")``; ``stop(drain_deadline=)`` finishes admitted
     work first.
 
+Replica mode (``serve/replicas.py``): with ``external_batcher=True`` no
+batcher thread runs here; the ``ReplicatedEngine``'s router forms the
+cohorts and hands each to ``dispatch_cohort``, so the router thread is
+the one that launches on this engine's stream, and a ``rescue`` hook is
+offered the still-pending requests of a fast-failed window before they
+get their ``TimeoutError``.
+
 CUDA specifics: every launch (pipelined or retry) enters the engine's
 stream itself, so a thread the watchdog restarts queues its work on that
 stream like the one it replaces (the current stream is per thread in
@@ -67,7 +74,7 @@ import queue
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future
+from concurrent.futures import Future, InvalidStateError
 
 import numpy as np
 import torch
@@ -130,6 +137,20 @@ def power_of_two_buckets(max_batch: int) -> list[int]:
         b *= 2
     buckets.append(max_batch)
     return buckets
+
+
+def _resolve(fut: Future, value=None, error: BaseException | None = None):
+    """Resolve ``fut`` unless something else already did: a replica's
+    late drain may race the rescue that re-homed its cohort."""
+    if fut.done():
+        return
+    try:
+        if error is not None:
+            fut.set_exception(error)
+        else:
+            fut.set_result(value)
+    except InvalidStateError:
+        pass  # resolved between the check and the set
 
 
 class _Request:
@@ -252,6 +273,8 @@ class BatchingEngine:
                  retry_backoff_ms: float = 2.0,
                  retry_backoff_max_ms: float = 100.0,
                  degraded_after: int = 1, dead_after: int = 5,
+                 external_batcher: bool = False,
+                 rescue=None,
                  tracer: Tracer | None = None,
                  validate_outputs: bool | None = None):
         self.model = model
@@ -287,6 +310,15 @@ class BatchingEngine:
         self.retry_backoff_max_ms = retry_backoff_max_ms
         self._validate = self.faults.enabled \
             if validate_outputs is None else bool(validate_outputs)
+        # replica mode: the ReplicatedEngine owns the queue and batch
+        # formation and feeds formed cohorts through dispatch_cohort();
+        # no batcher thread runs here and the watchdog supervises only
+        # the drainer
+        self.external_batcher = bool(external_batcher)
+        # rescue(requests, err) -> bool: offered the still-pending
+        # requests of a fast-failed in-flight window BEFORE they get
+        # their TimeoutError; True = another replica took them over
+        self._rescue = rescue
         self._queue: queue.Queue[_Request] = queue.Queue()
         self._executables: dict = {}
         self._lock = threading.Lock()
@@ -342,10 +374,11 @@ class BatchingEngine:
                 # weights were written on the default stream
                 self._stream.wait_stream(
                     torch.cuda.current_stream(self.device))
-            self._thread = threading.Thread(
-                target=self._loop, name=f"batcher-{self.model.name}",
-                daemon=True)
-            self._thread.start()
+            if not self.external_batcher:
+                self._thread = threading.Thread(
+                    target=self._loop, name=f"batcher-{self.model.name}",
+                    daemon=True)
+                self._thread.start()
             if self.pipeline_depth > 1:
                 self._drainer = threading.Thread(
                     target=self._drain_loop,
@@ -408,16 +441,23 @@ class BatchingEngine:
         """Build and run every bucket once before traffic (the first
         CUDA call of a shape selects its convolution algorithms).  They
         run on the batcher thread and stream (``_Warm``), where traffic
-        will run, so the engine must be started."""
+        will run, so the engine must be started.  A replica has no
+        batcher thread: its router warms it (``ReplicatedEngine.warmup``)."""
         if not self._accepting:
             raise RuntimeError("warmup needs a started engine")
+        if self.external_batcher:
+            raise RuntimeError("a replica is warmed by the thread that "
+                               "launches for it: ReplicatedEngine.warmup")
         warms = [_Warm(b) for b in buckets or self.buckets]
         for w in warms:
             self._queue.put(w)
         for w in warms:
             w.future.result(timeout)
 
-    def _run_warm(self, warm: _Warm):
+    def run_warm(self, warm: _Warm):
+        """Build bucket ``warm.bucket`` and run it once on zeros, on the
+        engine's stream and the calling thread (the batcher's, or the
+        router's for a replica); the outcome lands in ``warm.future``."""
         try:
             fn = self._compiled(warm.bucket)
             buf = self.staging.acquire(warm.bucket)
@@ -496,7 +536,7 @@ class BatchingEngine:
                 except queue.Empty:
                     continue
                 if isinstance(first, _Warm):
-                    self._run_warm(first)
+                    self.run_warm(first)
                     continue
                 if first.span is not None:
                     first.span.mark("queue_wait")
@@ -522,20 +562,30 @@ class BatchingEngine:
                         if req.span is not None:
                             req.span.mark("queue_wait")
                         batch.append(req)
-                    self._forming = len(batch)
-                    try:
-                        self._dispatch(batch)
-                    except Exception as e:  # noqa: BLE001 — deliver the failure to waiters, keep the batcher alive
-                        for req in batch:
-                            if not req.future.done():
-                                req.future.set_exception(e)
-                        self.health.record_failure()
+                    self.dispatch_cohort(batch)
                 finally:
                     self._forming = 0
                 if warm is not None:
-                    self._run_warm(warm)
+                    self.run_warm(warm)
         except KillThread:
             return  # injected death: the watchdog notices and restarts
+
+    def dispatch_cohort(self, batch: list[_Request]):
+        """Dispatch an already-formed cohort into this engine's pipeline.
+        The batcher calls it after its queue drain; in replica mode the
+        ``ReplicatedEngine``'s router calls it directly, and blocking
+        here while this replica's in-flight window is full is the
+        router's backpressure.  A failure is delivered to the cohort's
+        futures, never raised (a failed batch must not kill the calling
+        thread)."""
+        self._forming = max(self._forming, len(batch))
+        try:
+            self._dispatch(batch)
+        except Exception as e:  # noqa: BLE001 — deliver the failure to waiters, keep the caller alive
+            self._fail_requests(batch, e)
+            self.health.record_failure()
+        finally:
+            self._forming = 0
 
     def _bucket_for(self, n: int) -> int:
         for b in self.buckets:
@@ -770,9 +820,8 @@ class BatchingEngine:
                 # marked BEFORE resolving the future: the span's owner
                 # takes over at resolve
                 req.span.mark(stage)
-            if not req.future.done():
-                req.future.set_result(
-                    map_leaves(lambda a, i=i: a[i].copy(), host))
+            _resolve(req.future, map_leaves(lambda a, i=i: a[i].copy(),
+                                            host))
         self.health.record_success(t_done)
 
     @staticmethod
@@ -784,8 +833,7 @@ class BatchingEngine:
     @staticmethod
     def _fail_requests(requests: list[_Request], err: BaseException):
         for r in requests:
-            if not r.future.done():
-                r.future.set_exception(err)
+            _resolve(r.future, error=err)
 
     # -- batch-failure isolation (bisect-retry) ----------------------------
 
@@ -931,7 +979,8 @@ class BatchingEngine:
 
     def _watchdog_tick(self, now: float):
         t = self._thread
-        if t is not None and not t.is_alive():
+        if not self.external_batcher and t is not None \
+                and not t.is_alive():
             self._restart("batcher")
         d = self._drainer
         if self.pipeline_depth > 1 and d is not None and not d.is_alive():
@@ -997,7 +1046,18 @@ class BatchingEngine:
             for r in rec.requests:
                 if r.span is not None and not r.future.done():
                     r.span.note("exec_timeout", f"age {age_s * 1e3:.0f}ms")
-            self._fail_requests(rec.requests, err)
+            pending = [r for r in rec.requests if not r.future.done()]
+            if pending and self._rescue is not None:
+                # replica mode: offer the cohort to a healthy replica
+                # before failing anyone (serve/replicas.py bisect-retries
+                # it there); a rescue must never raise into the watchdog
+                try:
+                    if self._rescue(pending, err):
+                        continue
+                except Exception as e:  # noqa: BLE001 — rescue is best effort; deliver the timeout instead
+                    event(_log, "rescue_failed", model=self.model.name,
+                          error=f"{type(e).__name__}: {e}")
+            self._fail_requests(pending, err)
 
     # -- observability -----------------------------------------------------
 
@@ -1005,13 +1065,16 @@ class BatchingEngine:
         now = time.monotonic()
         rep = self.health.report(now)
         t, d = self._thread, self._drainer
-        rep["batcher_alive"] = bool(t is not None and t.is_alive())
+        # a replica has no batcher thread of its own
+        rep["batcher_alive"] = None if self.external_batcher else \
+            bool(t is not None and t.is_alive())
         rep["drainer_alive"] = bool(d is not None and d.is_alive()) \
             if self.pipeline_depth > 1 else None
         rep["accepting"] = self._accepting
         # what /v1/healthz keys 503 on
         rep["can_serve"] = rep["state"] == "ok"
         rep["device"] = str(self.device)
+        rep["placement"] = self.model.placement_desc()
         rep["param_shard_bytes"] = self.model.param_bytes()
         rep["hbm_headroom_bytes"] = device_hbm_headroom(self.device)
         with self._lock:
@@ -1044,6 +1107,14 @@ class BatchingEngine:
         self._prune_busy_locked(now)
         busy = sum(dt for _, dt in self._busy_events)
         return min(1.0, max(0.0, busy / self.occupancy_window_s))
+
+    def occupancy(self) -> float:
+        """Fraction of the trailing ``occupancy_window_s`` spent in batch
+        execution: the compute-stage duty cycle, the batchy-SLO
+        autoscaler's pressure signal (a saturated batchy engine shows
+        occupancy near 1 with an empty queue)."""
+        with self._lock:
+            return self._occupancy_locked(time.monotonic())
 
     def stats(self) -> dict:
         now = time.monotonic()

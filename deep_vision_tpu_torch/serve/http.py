@@ -6,17 +6,31 @@ Routes (JSON in, JSON out):
     GET  /v1/healthz   per-engine health (thread liveness, heartbeat
                        ages, last-batch age, failures, retries,
                        quarantines, watchdog restarts, the OK →
-                       DEGRADED → DEAD state); 503 while any engine
-                       cannot serve, and while draining; 200 again after
-                       recovery
+                       DEGRADED → DEAD state; a replicated engine's
+                       per-replica reports); 503 while any engine
+                       cannot serve (a replicated engine: only when
+                       every replica is DEAD), and while draining; 200
+                       again after recovery
     GET  /v1/stats     per-model engine stats (or the control plane's
-                       ``{"models", "cache", "plane"}`` shape), the
+                       ``{"models", "cache", "plane"}`` shape, with
+                       ``deploy`` when a deploy pipeline runs), the
                        ``response_cache`` and ``qos`` blocks when those
                        are on, and ``kernels``: the launch count of each
                        hand-written kernel
     GET  /metrics      Prometheus text (format 0.0.4) of the same stats
     GET  /v1/traces    the newest finished request traces (``?n=``) and
                        the tracer's summary
+    GET  /v1/deploy/{name}/history
+                       the append-only deployment ledger of one model
+                       (deploy/history.py), ``?n=`` caps the tail; 503
+                       without a deploy pipeline, 404 for an unknown
+                       model
+    POST /v1/deploy/{name}/revert
+                       one-command rollback to the previous promoted
+                       version, recorded in the ledger: 200 reverted,
+                       409 refused or a lifecycle in flight, 500 when
+                       the reverted version fails to boot, 503 without
+                       a deploy pipeline
     GET  /v1/models    ``describe()`` of every served model, or the
                        plane's version table
     POST /v1/classify | /v1/detect | /v1/pose | /v1/generate
@@ -42,8 +56,8 @@ Routes (JSON in, JSON out):
 
 A verb that is not the model's workload answers 400 and names the right
 route; an unknown route answers 404 with the supported verbs (the
-``/v1/deploy``, ``/v1/jobs`` and ``/v1/brownout`` routes wait for their
-slices).  Bodies over ``max_body_bytes`` answer 413 before any buffer
+``/v1/jobs`` and ``/v1/brownout`` routes wait for their slices).
+Bodies over ``max_body_bytes`` answer 413 before any buffer
 is allocated; a client that stalls mid-body gets 408.  Two optional
 front-end services hook the inference path: a content-addressed
 response cache (``serve/cache.py``) and per-tenant QoS (the
@@ -75,6 +89,10 @@ from deep_vision_tpu_torch.serve.workloads import LIFECYCLE_VERBS, WORKLOADS
 #: per-connection socket timeout
 DEFAULT_MAX_BODY_BYTES = 32 * 2**20
 SOCKET_TIMEOUT_S = 30.0
+#: the listening socket's accept backlog (the reference edge's): the
+#: socketserver default of 5 resets clients beyond it when dozens connect
+#: at once
+LISTEN_BACKLOG = 128
 
 
 class ServeError(Exception):
@@ -231,11 +249,52 @@ def render_serve_metrics(stats: dict) -> str:
                        "version swap")
         p.counter("dvt_serve_reverts_total", plane.get("reverts"), {},
                   help="One-command reverts to a prior promoted version")
+    dep = stats.get("deploy")
+    if isinstance(dep, dict):
+        _render_deploy_metrics(p, dep)
     return p.render()
 
 
 #: front-end stats blocks beside the per-model entries
 _FRONT_BLOCKS = ("response_cache", "qos", "kernels")
+
+
+def _render_deploy_metrics(p, dep: dict) -> None:
+    """The dvt_deploy_* series from ``DeployPipeline.stats()``."""
+    hist = dep.get("history") or {}
+    p.counter("dvt_deploy_history_records_total", hist.get("records"),
+              {}, help="Deployment-ledger records appended")
+    p.counter("dvt_deploy_history_write_errors_total",
+              hist.get("write_errors"), {},
+              help="Ledger appends that failed to reach disk")
+    w = dep.get("watcher")
+    if isinstance(w, dict):
+        p.counter("dvt_deploy_watcher_polls_total", w.get("polls"), {},
+                  help="Checkpoint-fingerprint polls")
+        p.counter("dvt_deploy_watcher_debounces_total",
+                  w.get("debounces"), {},
+                  help="Candidates held one interval for stability")
+        p.counter("dvt_deploy_deploys_total", w.get("deploys"), {},
+                  help="Watcher-initiated rollouts that promoted")
+        p.counter("dvt_deploy_gate_failures_total",
+                  w.get("gate_failures"), {},
+                  help="Candidates refused by the accuracy gate")
+    for mname, a in (dep.get("autoscale") or {}).items():
+        lab = {"model": mname}
+        p.counter("dvt_deploy_scale_ups_total", a.get("scale_ups"),
+                  lab, help="Autoscaler replica additions")
+        p.counter("dvt_deploy_scale_downs_total", a.get("scale_downs"),
+                  lab, help="Autoscaler replica drains")
+        p.counter("dvt_deploy_scale_errors_total",
+                  a.get("scale_errors"), lab,
+                  help="Scale actions that raised (cooldown consumed)")
+        p.gauge("dvt_deploy_pressure_ms", a.get("pressure_ms"), lab,
+                help="queue_depth × exec EWMA — the scale-up signal")
+        if a.get("occupancy") is not None:
+            p.gauge("dvt_deploy_occupancy", a.get("occupancy"), lab,
+                    help="Engine compute occupancy — the batchy-SLO "
+                         "scale-up signal (queue depth misses "
+                         "throughput saturation)")
 
 
 def _render_front_metrics(p, stats: dict) -> None:
@@ -300,6 +359,18 @@ def _render_engine_metrics(p, name: str, s: dict) -> None:
               help="Pad rows executed beyond live requests")
     p.gauge("dvt_serve_queue_depth", s["queue_depth"], lab,
             help="Requests queued awaiting batch formation")
+    routing = s.get("routing")
+    if isinstance(routing, dict):
+        p.gauge("dvt_serve_replicas", routing.get("replicas"), lab,
+                help="Replica slots ever provisioned (append-only)")
+        p.gauge("dvt_serve_live_replicas", routing.get("live_replicas"),
+                lab, help="Non-retired replicas (the elastic capacity)")
+        p.counter("dvt_serve_replicas_added_total",
+                  routing.get("replicas_added"), lab,
+                  help="Scale-up replica additions")
+        p.counter("dvt_serve_replicas_removed_total",
+                  routing.get("replicas_removed"), lab,
+                  help="Scale-down replica retirements")
     adm = s.get("admission", {})
     h = s.get("health", {})
     p.counter("dvt_serve_shed_total", adm.get("shed_queue_full"),
@@ -563,6 +634,8 @@ class _Handler(BaseHTTPRequestHandler):
         srv = self.server
         if srv.plane is not None:
             stats = srv.plane.stats()
+            if srv.deploy is not None:
+                stats["deploy"] = srv.deploy.stats()
         else:
             stats = {name: eng.stats() for name, eng in srv.engines.items()}
         if srv.response_cache is not None:
@@ -612,6 +685,12 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(200, {"traces": srv.tracer.recent(n),
                               "summary": srv.tracer.summary()})
         else:
+            parts = path.split("/")
+            if len(parts) == 5 and parts[1] == "v1" \
+                    and parts[2] == "deploy" and parts[4] == "history":
+                self._reply(*self._deploy_history(parts[3],
+                                                  parse_qs(query)))
+                return
             self._reply(404, {"error": f"no route {self.path}"})
 
     def do_POST(self):
@@ -634,6 +713,10 @@ class _Handler(BaseHTTPRequestHandler):
                 if verb in LIFECYCLE_VERBS:
                     self._reply(*self._lifecycle(path_model, verb))
                     return
+            elif len(parts) == 5 and parts[1] == "v1" \
+                    and parts[2] == "deploy" and parts[4] == "revert":
+                self._reply(*self._deploy_revert(parts[3]))
+                return
             elif len(parts) == 3 and parts[1] == "v1":
                 verb = parts[2]
             if verb not in WORKLOADS:
@@ -703,22 +786,66 @@ class _Handler(BaseHTTPRequestHandler):
         return (409 if out.get("status") in ("refused", "in_progress")
                 else 200), out
 
+    def _deploy_history(self, name: str, params: dict) -> tuple:
+        """GET /v1/deploy/<name>/history → (status, payload): the ledger
+        tail of one model, 503 without a deploy pipeline."""
+        deploy = self.server.deploy
+        if deploy is None:
+            return 503, {"error": f"/v1/deploy/{name}/history needs the "
+                                  f"deploy pipeline (cli.serve --watch "
+                                  f"or --max-replicas)"}
+        try:
+            n = int(params.get("n", ["0"])[0]) or None
+        except ValueError:
+            return 400, {"error": "n must be an integer"}
+        try:
+            entries = deploy.entries(name, n)
+        except KeyError as e:
+            return 404, {"error": e.args[0]}
+        return 200, {"model": name, "entries": entries}
+
+    def _deploy_revert(self, name: str) -> tuple:
+        """POST /v1/deploy/<name>/revert → (status, payload): reverted
+        200, a lifecycle in flight or nothing to revert to 409, a boot
+        failure 500."""
+        deploy = self.server.deploy
+        if deploy is None:
+            return 503, {"error": f"/v1/deploy/{name}/revert needs the "
+                                  f"deploy pipeline (cli.serve --watch "
+                                  f"or --max-replicas)"}
+        self._optional_body()  # drain: revert takes no parameters
+        try:
+            out = deploy.revert(name)
+        except KeyError as e:
+            return 404, {"error": e.args[0]}
+        status = out.get("status")
+        if status in ("refused", "in_progress"):
+            return 409, out
+        return (500 if status == "failed" else 200), out
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    request_queue_size = LISTEN_BACKLOG
+
 
 class ServeServer:
     """HTTP front-end wired to a registry + one engine per model, or to
     the model control plane (``plane``; ``engines`` is then the plane's
-    boot-time active engines, used only for the tracer)."""
+    boot-time active engines, used only for the tracer) and, with it,
+    the deploy pipeline (``deploy``: ledger, watcher, autoscalers)."""
 
     def __init__(self, registry, engines: dict, host: str = "127.0.0.1",
                  port: int = 0,
                  max_body_bytes: int = DEFAULT_MAX_BODY_BYTES,
                  socket_timeout_s: float | None = SOCKET_TIMEOUT_S,
-                 tracer=None, plane=None, response_cache=None, qos=None):
-        self.httpd = ThreadingHTTPServer((host, port), _Handler)
-        self.httpd.daemon_threads = True
+                 tracer=None, plane=None, response_cache=None, qos=None,
+                 deploy=None):
+        self.httpd = _HTTPServer((host, port), _Handler)
         self.httpd.registry = registry
         self.httpd.engines = engines
         self.httpd.plane = plane
+        self.httpd.deploy = deploy
         self.httpd.max_body_bytes = int(max_body_bytes)
         self.httpd.socket_timeout_s = socket_timeout_s
         self.httpd.response_cache = response_cache

@@ -33,6 +33,12 @@ new trainer checkpoint without a restart:
                      candidate and promotes or rolls back on the
                      ``CanaryPolicy`` gates (error rate, p99 ratio,
                      shadow agreement);
+  replicas           a version's engine may be a ``ReplicatedEngine``
+                     (serve/replicas.py): every replica's weight view
+                     is registered with the cache beside the version's
+                     own model, at deploy and at ``add_replica``, and
+                     gives its bytes back when the version retires or
+                     the replica is removed;
   zero downtime      the old version serves until the new one is
                      ACTIVE; promote swaps the routing table first and
                      only then drains the old engine
@@ -562,13 +568,13 @@ class ModelControlPlane:
             model.serve_version = mv.version
             versions.append(mv)
         try:
-            if self.cache is not None:
-                self.cache.register(model)
+            self._register(mv)
             if start:
                 engine.start()
         except Exception:  # noqa: BLE001 — cleanup only; re-raised to the boot caller
             with self._lock:
                 versions.remove(mv)  # failed boot leaves no table entry
+            self._unregister(mv)
             raise
         self.registry.add(model, version=mv.version)
         with self._lock:
@@ -599,6 +605,23 @@ class ModelControlPlane:
         if mv is None:
             raise KeyError(f"unknown model '{name}'; serving {names}")
         return mv.model
+
+    def active_version(self, name: str) -> ModelVersion:
+        """The ACTIVE ModelVersion for ``name`` (workdir, model and
+        engine in one handle): the deploy watcher's view."""
+        with self._lock:
+            mv = self._active.get(name)
+            names = sorted(self._active)
+        if mv is None:
+            raise KeyError(f"unknown model '{name}'; serving {names}")
+        return mv
+
+    def load_candidate(self, name: str):
+        """Load (but do NOT deploy) the newest checkpoint under
+        ``name``'s workdir as a fresh ServingModel, by the restore path
+        a reload takes: the deploy watcher's accuracy gate evaluates it
+        before anything enters the version table."""
+        return self._load_model(self.active_version(name))
 
     def active_engine(self, name: str):
         with self._lock:
@@ -873,8 +896,7 @@ class ModelControlPlane:
             versions.append(mv)
         v = mv.version
         try:
-            if self.cache is not None:
-                self.cache.register(sm)
+            self._register(mv)
             engine.start()
             # warm EVERY bucket before entering shadow/canary: a canary
             # request landing on a cold bucket would pay the compile,
@@ -886,8 +908,7 @@ class ModelControlPlane:
                 mv.state = FAILED
                 mv.state_reason = f"{type(e).__name__}: {e}"
             engine.stop()
-            if self.cache is not None:
-                self.cache.drop(sm)
+            self._unregister(mv)
             self._release_weights(mv)
             event(_log, "reload_failed", model=name, version=v,
                   error=mv.state_reason)
@@ -1046,10 +1067,33 @@ class ModelControlPlane:
         return True
 
     @staticmethod
-    def _release_weights(mv: ModelVersion):
-        """Free a drained version's device weight copy (its host copy
-        stays)."""
+    def _views(mv: ModelVersion) -> list:
+        """The replica weight views of ``mv``'s engine (none for a single
+        engine), retired slots included."""
+        return [rep.model for rep in getattr(mv.engine, "replicas", ())
+                if rep.model is not mv.model]
+
+    def _register(self, mv: ModelVersion):
+        """Put the version's weights, and every replica view's, under the
+        cache's budget."""
+        if self.cache is not None:
+            self.cache.register(mv.model)
+            for view in self._views(mv):
+                self.cache.register(view)
+
+    def _unregister(self, mv: ModelVersion):
+        if self.cache is not None:
+            self.cache.drop(mv.model)
+            for view in self._views(mv):
+                self.cache.drop(view)
+
+    @classmethod
+    def _release_weights(cls, mv: ModelVersion):
+        """Free a drained version's device weight copies (their host
+        copies stay): the model's own and every replica view's."""
         mv.model.release_device_weights()
+        for view in cls._views(mv):
+            view.release_device_weights()
 
     def _rollback(self, name: str, mv: ModelVersion, why: str) -> bool:
         """Guarded like ``_promote``: only a candidate still in its
@@ -1083,8 +1127,7 @@ class ModelControlPlane:
             if rolled_back or mv.state_reason is None:
                 mv.state_reason = reason
         mv.engine.stop(drain_deadline=5.0)
-        if self.cache is not None:
-            self.cache.drop(mv.model)
+        self._unregister(mv)
         self._release_weights(mv)
         with self._lock:
             mv.state = RETIRED
@@ -1176,8 +1219,7 @@ class ModelControlPlane:
             sm.serve_version = mv.version
             versions.append(mv)
         try:
-            if self.cache is not None:
-                self.cache.register(sm)
+            self._register(mv)
             engine.start()
             engine.warmup()  # no canary phase: warm before the swap
         except Exception as e:  # noqa: BLE001 — failed revert must not take the active down
@@ -1185,8 +1227,7 @@ class ModelControlPlane:
                 mv.state = FAILED
                 mv.state_reason = f"{type(e).__name__}: {e}"
             engine.stop()
-            if self.cache is not None:
-                self.cache.drop(sm)
+            self._unregister(mv)
             self._release_weights(mv)
             event(_log, "revert_failed", model=name, version=mv.version,
                   error=mv.state_reason)

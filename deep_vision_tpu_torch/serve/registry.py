@@ -29,6 +29,12 @@ Execution contract (what the engine relies on):
     (one image's, counted once a model by ``obs/mfu.py``, times the
     bucket), the serving-MFU numerator.
 
+Replicas (``serve/replicas.py``): ``for_device(device)`` is a per-device
+view of a checkpoint model that owns its own copy of the weights on
+``device``, made once when the replica is built, never per batch; its
+bucket callables run there.  Two views on one CUDA device hold two
+copies.  The base model is left as it was.
+
 Wire and compute dtypes: a uint8 wire ships raw 0–255 pixels and the
 callable normalizes them on the device; a float32 wire ships
 host-normalized pixels.  ``infer_dtype`` "bfloat16" casts the float
@@ -227,6 +233,11 @@ class ServingModel:
             if pinned:
                 cache.unpin(self)
 
+    def placement_desc(self) -> str:
+        """Where this model's weights and batches live (stats and
+        health name each replica's device with it)."""
+        return str(self.device)
+
     def describe(self) -> dict:
         d = {}
         if self.workload.verb == "detect":
@@ -304,6 +315,28 @@ class CheckpointServingModel(ServingModel):
                               param_bytes=self.param_bytes(),
                               ingest="serve_ingest")
         return d
+
+    def for_device(self, device) -> "CheckpointServingModel":
+        """A replica view on ``device``: the same metadata, calibration
+        and decode knobs, and its OWN copy of the network and its
+        weights there, copied from this model once, here.  The view
+        keeps its own residency state (its weights are registered with
+        the weight cache apart from this model's, and released apart:
+        ``release_device_weights``); this model is left untouched."""
+        import copy
+
+        device = resolve_device(device)
+        view = copy.copy(self)
+        view.device = device
+        view._host_weights = None
+        view._resident = True
+        view._weights_ready = None
+        view._streams = {}
+        view._residency_lock = threading.Lock()
+        view._cache = None  # registered by whoever budgets the replica
+        with self.weights_in_use(), torch.no_grad():
+            view._model = copy.deepcopy(self._model).to(device)
+        return view
 
     def _bucket_flops(self, batch: int) -> tuple[float | None, str]:
         """(FLOPs of bucket ``batch``, their source).  The model's FLOPs

@@ -34,7 +34,9 @@ def test_every_module_imports_with_jax_blocked():
                 "models.lenet", "models.alexnet", "models.vgg",
                 "models.inception", "models.mobilenet", "models.shufflenet",
                 "zoo.classifiers", "zoo.lenet", "data.mnist",
-                "serve.faults", "serve.models", "serve.cache", "obs.mfu"):
+                "serve.faults", "serve.models", "serve.cache", "obs.mfu",
+                "serve.replicas", "deploy.history", "deploy.watcher",
+                "deploy.autoscale"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
