@@ -350,7 +350,64 @@ Phases, each of which must pass:
               restores v1, whose sequential answers equal v1's before bit
               for bit; ``GET /v1/deploy/resnet50/history`` lists the six
               records in order, and again after a restart on the same
-              workdir (step 3 removed first).
+              workdir (step 3 removed first);
+29. cascade — ``--models resnet34,resnet50,resnet152 --cascade
+              resnet34:resnet50:resnet152 --cascade-quant-front`` from
+              port checkpoints of seeded weights, the uint8 wire, tier 0
+              int8 and the others bf16, clients addressing resnet152.
+              Seeded random ResNets almost never agree on top-1, so the
+              calibration is held to its machinery
+              (``--cascade-min-agreement 0``, sample period 3, 12
+              samples a hop): its escalation rate says nothing of a
+              trained cascade's economics.  8 sequential requests, all
+              ``X-DVT-Tier: big`` and equal to resnet152's own bucket
+              callable at one of the buckets; then 4 closed-loop
+              clients until dual-run calibration flips hop 0 to
+              ``front``, whose answers must equal resnet34's direct
+              call (top-5 classes, probabilities within twice the
+              card's own bucket-1-vs-32 spread) at one of the buckets,
+              with exactly 3·5·4 B of D2H a padded front image, while
+              the same answers held against resnet152's calls must fail
+              on most rows (a control); an always-big tenant stays on
+              ``big``; a reload of resnet34 under the clients resets hop
+              0 alone (the ledger's reset records), hop 1's sample
+              survives and then serves ``t1``; a reload of resnet50 (its
+              canary fed on its own route) resets hop 1 alone; every
+              client answer 200; ``serve_ingest`` launches = the tiers'
+              batches + the two reloads' warmups; tier errors 0; a new
+              router restores the live thresholds from ``_cascade`` and
+              refuses them once a tier's digest moved; the ladder pinned
+              over HTTP: L1 pauses samples, L2 serves ``front`` marked
+              ``X-DVT-Degraded`` to a standard tenant and ``big`` to a
+              premium one (hop 0's threshold raised by hand above every
+              confidence first); /metrics parses with the dvt_cascade_*
+              and dvt_brownout_* series; last, a front tier whose
+              callables raise after their forward (a control) counts
+              tier errors, every answer still 200 from big.  The detect
+              lane: ``yolov3_toy416:yolov3_coco``, both 416² int8, 8
+              sequential requests and 4 clients: every answer 200 with
+              its tier, a front answer's kept set equal to
+              yolov3_toy416's direct call at one of the buckets,
+              launches = batches, tier errors 0.  Information only:
+              client p50 by tier and the escalation rate;
+30. brownout — ``--models resnet50`` int8, one image a batch under a
+              ``compute:latency:delay_ms=40`` fault, ``--brownout``
+              (L1/L2/L3 at 20/60/240 ms of queue pressure, 25 ms ticks,
+              3-tick release, 0.2 s cooldown), ``--qos`` premium
+              (``shed_at=1.0``, always-big) and standard (0.5), a 64 MB
+              response cache: 8 closed-loop standard clients take the
+              ladder to L2 or more, premium requests meanwhile answer
+              200, and once the clients stop and their last requests are
+              answered the ladder walks back to L0 one level at a time,
+              from L2 or more (polled every 2 ms); pinned at L2 then
+              L3 under the clients, premium answers 200 at both and
+              standard 200 at L2, 429 at L3; a reload to a step 2, then
+              at L2 a payload answered before the reload answers the
+              retired version's bytes from the cache with
+              ``X-DVT-Degraded: 1``, and at L0 the new version's; no
+              5xx anywhere; launches = batches + the reload's warmup;
+              /metrics parses.  Information only: engage and release
+              seconds, premium p50 under the clients at L2 and L3.
 
 It prints ``{"phase_seconds": {...}}``, the wall seconds each phase
 took, and before the last line ``{"kernels": [...]}`` (one entry per
@@ -378,6 +435,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -549,6 +607,36 @@ FLEET_TIMED_N, FLEET_TIMED_ROUNDS = 192, 2
 #: the deploy loop: 32 seeded uint8 gate images, the watcher's poll
 #: interval, and how long a rollout may take on the card
 DEPLOY_GATE_IMAGES, DEPLOY_POLL_S, DEPLOY_TIMEOUT_S = 32, 0.5, 300.0
+#: the cascade: three ImageNet ResNets at 224² on the uint8 wire
+#: (clients address the last), tier 0 int8 (``--cascade-quant-front``),
+#: the others bf16, a top-5 epilogue on the non-final tiers; and the
+#: detect lane, both tiers 416² int8.  Seeded random tiers almost never
+#: agree on top-1, so calibration is held to its machinery: any observed
+#: agreement qualifies (``--cascade-min-agreement 0``) and the samples
+#: are few.  16 seeded images, 8 sequential requests, then 4 closed-loop
+#: clients; a tenant of the "premium" class is always-big
+CASCADE_TIERS = ("resnet34", "resnet50", "resnet152")
+CASCADE_DETECT = ("yolov3_toy416", "yolov3_coco")
+CASCADE_TOPK, CASCADE_SAMPLE_PERIOD = 5, 3
+CASCADE_MIN_SAMPLE, CASCADE_DETECT_MIN_SAMPLE = 12, 6
+CASCADE_IMAGES, CASCADE_SEQ, CASCADE_CLIENTS = 16, 8, 4
+CASCADE_TIMEOUT_S = 120.0
+CASCADE_QOS = ("premium:rate=0,shed_at=1.0,always_big=1,tenants=acme;"
+               "standard:rate=0,shed_at=0.5;default=standard")
+PREMIUM = {"X-DVT-Tenant": "acme"}
+#: the brownout episode: ResNet-50 int8 one image a batch under a 40 ms
+#: compute latency fault, so 8 closed-loop clients queue ~8 × 40 ms; a
+#: shed client retries after 20 ms (its Retry-After says 1 s); the load
+#: is held 4 s past L2 (2 s in the parse-first control); the ladder's
+#: thresholds and windows at that time scale
+BROWNOUT_HERD, BROWNOUT_RETRY_S = 8, 0.02
+BROWNOUT_EPISODE_S, BROWNOUT_CONTROL_S = 4.0, 2.0
+BROWNOUT_FAULT = "compute:latency:delay_ms=40"
+BROWNOUT_FLAGS = ["--brownout", "--brownout-interval-ms", "25",
+                  "--brownout-l1-ms", "20", "--brownout-l2-ms", "60",
+                  "--brownout-l3-ms", "240", "--brownout-shed-rate", "0.9",
+                  "--brownout-down-window", "3", "--brownout-cooldown-s",
+                  "0.2"]
 
 
 def log(msg: str) -> None:
@@ -3550,15 +3638,16 @@ def write_checkpoint(workdir: str, step: int, model) -> str:
         step, state, extras={"epoch": step})
 
 
-def seeded_classifier(seed: int):
-    """ResNet-50 at full width from the seed, with non-zero BatchNorm
-    scales and a seeded classifier bias (as ``seeded_weights``)."""
+def seeded_classifier(seed: int, name: str = MODEL):
+    """ResNet-50 (or the ImageNet ResNet ``name``) at full width from the
+    seed, with non-zero BatchNorm scales and a seeded classifier bias (as
+    ``seeded_weights``)."""
     import torch
 
     from deep_vision_tpu_torch.core.config import get_config
 
     gen = torch.Generator().manual_seed(seed)
-    model = get_config(MODEL).model().reset_parameters(gen)
+    model = get_config(name).model().reset_parameters(gen)
     nonzero_bn_(model, gen)
     with torch.no_grad():
         model.fc.bias.normal_(0.0, 0.1, generator=gen)
@@ -3574,14 +3663,36 @@ def boot_cli(argv: list) -> tuple:
     return engine, server
 
 
+def post_h(port: int, body: bytes, path: str, headers: dict | None = None
+           ) -> tuple[int, bytes, dict, float]:
+    """POST one pre-encoded body → (status, raw answer, headers, seconds);
+    an error status comes back with its body, not raised."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.monotonic()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read(), dict(r.headers), \
+                time.monotonic() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers), time.monotonic() - t0
+
+
 def post_any(port: int, body: bytes, path: str = "/v1/classify"
              ) -> tuple[int, dict, float]:
     """:func:`post` that returns an error status with its body instead of
-    raising."""
-    try:
-        return post(port, body, path)
-    except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read()), math.nan
+    raising (and NaN seconds)."""
+    status, blob, _, s = post_h(port, body, path)
+    return status, json.loads(blob), s if status < 400 else math.nan
+
+
+def force_level(port: int, level: int | None) -> None:
+    """Pin the brownout ladder at ``level`` (None hands it back)."""
+    status, blob, _, _ = post_h(port, json.dumps({"force": level}).encode(),
+                                "/v1/brownout")
+    check(status == 200 and json.loads(blob)["forced"] == level,
+          f"POST /v1/brownout {level}: {status}")
 
 
 def get_url(port: int, path: str):
@@ -3857,32 +3968,65 @@ def plane_reference(workdir: str) -> dict:
     return out
 
 
+def tier_reply(i: int, reply) -> dict:
+    """One answer of image ``i`` with its status, tier and degraded
+    headers, JSON body and seconds."""
+    status, blob, headers, s = reply
+    return {"i": i, "status": status, "body": json.loads(blob),
+            "tier": headers.get("X-DVT-Tier"),
+            "degraded": headers.get("X-DVT-Degraded"), "s": s}
+
+
 class Clients:
-    """Closed-loop HTTP clients; every status they got is kept."""
+    """Closed-loop clients over ``bodies`` (thread k takes images k, k+n,
+    ...), every answer kept as :func:`tier_reply`; ``unique`` appends a
+    per-request field to each body, so no two requests share a cache
+    key.  A shed client retries after ``retry_s``, whatever its
+    Retry-After says.  A transport failure is a lost request:
+    :meth:`finish` fails on any."""
 
-    def __init__(self, port: int, path: str, bodies: list, n: int = 4):
-        import threading
-
+    def __init__(self, port: int, path: str, bodies: list, n: int = 4,
+                 headers: dict | None = None, unique: bool = False,
+                 retry_s: float = 0.0):
         self.stop = threading.Event()
         self.replies: list = []
+        self.errors: list = []
         self.threads = [threading.Thread(
-            target=self._run, args=(port, path, bodies[i::n]), daemon=True)
-            for i in range(n)]
+            target=self._run, args=(port, path, bodies, headers, unique,
+                                    retry_s, list(range(i, len(bodies), n))),
+            daemon=True) for i in range(n)]
         for t in self.threads:
             t.start()
 
-    def _run(self, port, path, bodies):
+    def _run(self, port, path, bodies, headers, unique, retry_s, idxs):
         k = 0
         while not self.stop.is_set():
-            self.replies.append(post_any(port, bodies[k % len(bodies)],
-                                         path))
+            i = idxs[k % len(idxs)]
+            body = bodies[i]
+            if unique:
+                body = body[:-1] + f', "n": {k}}}'.encode()
             k += 1
+            try:
+                r = tier_reply(i, post_h(port, body, path, headers))
+            except Exception as e:  # noqa: BLE001 — a transport failure is a lost request
+                self.errors.append(repr(e))
+                continue
+            self.replies.append(r)
+            if r["status"] == 429:
+                time.sleep(retry_s)
 
     def finish(self):
+        """Stop and join the clients; unless the caller is already
+        failing, fail on a client that never returned or a lost
+        request."""
         self.stop.set()
         for t in self.threads:
             t.join(300)
-            check(not t.is_alive(), "a client never returned")
+        if sys.exc_info()[0] is None:
+            check(not any(t.is_alive() for t in self.threads),
+                  "a client never returned")
+            check(not self.errors, f"{len(self.errors)} lost requests: "
+                                   f"{self.errors[:3]}")
 
 
 def eviction_run(plane, port: int, ref: dict) -> dict:
@@ -4012,7 +4156,7 @@ def reload_run(plane, port: int, workdir: str, ref: dict, step: int,
           f"{len(BUCKETS)} warmup calls")
     check(status == 200 and out.get("status") == "done",
           f"reload answered {status} {out}")
-    codes = [r[0] for r in clients.replies]
+    codes = [r["status"] for r in clients.replies]
     return {"version": out["version"], "reload_s": reload_s,
             "client_requests": len(codes),
             "client_statuses": sorted(set(codes)),
@@ -4042,8 +4186,9 @@ def nan_rollback(plane, port: int, workdir: str, ref: dict, step: int,
           f"answers after the rollback of step {step} are not finite")
     return dict(run, state_reason=v["state_reason"], canary=v["canary"],
                 nan_answers_during_canary=sum(
-                    1 for r in replies if r[0] == 200 and not all(
-                        math.isfinite(t["logit"]) for t in r[1]["top"])))
+                    1 for r in replies if r["status"] == 200 and not all(
+                        math.isfinite(t["logit"])
+                        for t in r["body"]["top"])))
 
 
 def phase_plane() -> dict:
@@ -4175,9 +4320,11 @@ def bucket_answers(sm, imgs: np.ndarray, body: dict,
                    kind: str | None = None) -> dict:
     """bucket → each image's answer (JSON round-tripped) from a direct
     call at that bucket: the model's own bucket callable (the single
-    engine's, through ``serve_ingest``), or with ``kind`` the PLAIN
-    ingest of that kind (a control)."""
+    engine's, through ``serve_ingest``, its epilogue included), or with
+    ``kind`` the PLAIN ingest of that kind (a control)."""
     import torch
+
+    from deep_vision_tpu_torch.serve.engine import map_leaves
 
     out = {}
     for b in BUCKETS:
@@ -4186,11 +4333,13 @@ def bucket_answers(sm, imgs: np.ndarray, body: dict,
         else:
             fn, rows = sm.compile_bucket(b), []
             for i in range(0, len(imgs), b):
+                chunk = imgs[i:i + b]
                 batch = np.zeros((b, *sm.input_shape), np.uint8)
-                batch[:len(imgs[i:i + b])] = imgs[i:i + b]
-                logits = fn(batch)
+                batch[:len(chunk)] = chunk
+                res = map_leaves(lambda t: t.cpu().numpy(), fn(batch))
                 torch.cuda.synchronize()
-                rows += list(logits.cpu().numpy()[:len(imgs[i:i + b])])
+                rows += [map_leaves(lambda a, j=j: a[j], res)
+                         for j in range(len(chunk))]
         out[b] = [json.loads(json.dumps(sm.workload.respond(sm, body, r)))
                   for r in rows]
     return out
@@ -4385,7 +4534,7 @@ def phase_fleet() -> dict:
                 time.sleep(0.5)
             finally:
                 clients.finish()
-            codes = sorted({r[0] for r in clients.replies})
+            codes = sorted({r["status"] for r in clients.replies})
             check(codes == [200], f"clients across add/remove: {codes}")
             mem_after = {k: memory_idle(k) for k in (False, True)}
             delta = mem_after[True] - mem_before[True]
@@ -4554,7 +4703,7 @@ def phase_deploy() -> dict:
                       "the NaN step started a reload or displaced v2")
             finally:
                 clients.finish()
-            codes = sorted({r[0] for r in clients.replies})
+            codes = sorted({r["status"] for r in clients.replies})
             check(codes == [200], f"clients across the rollout: {codes}")
             launches = serve_ingest.launches
             v2 = sequential_answers(port, bodies[:4])
@@ -4604,6 +4753,754 @@ def phase_deploy() -> dict:
             plane.stop(drain_deadline=10.0)
         check(again == outcomes, f"ledger after a restart {again}")
         out["ledger_after_restart"] = again
+        del plane, server
+        torch.cuda.empty_cache()
+    return out
+
+
+def prob_spread(refs: dict) -> float:
+    """The card's own spread of a top-K answer's probabilities between
+    the smallest bucket and the largest (1 and 32), over the entries
+    whose class agrees."""
+    spread = 0.0
+    for a, b in zip(refs[min(refs)], refs[max(refs)]):
+        for x, y in zip(a["top"], b["top"]):
+            if x["class"] == y["class"]:
+                spread = max(spread, abs(x["prob"] - y["prob"]))
+    return spread
+
+
+def topk_bucket(got: list, refs: dict, i: int, bound: float):
+    """The first bucket whose direct answer for image ``i`` has the same
+    top-K classes as ``got`` and probabilities within ``bound``."""
+    for b, rows in refs.items():
+        want = rows[i]["top"]
+        if [t["class"] for t in want] == [t["class"] for t in got] and \
+                max(abs(x["prob"] - y["prob"])
+                    for x, y in zip(got, want)) <= bound:
+            return b
+    return None
+
+
+def tier_batches(plane, names) -> int:
+    """Executed batches summed over every version of every tier."""
+    return sum(mv.engine.stats()["batches"] for n in names
+               for mv in plane.versions(n))
+
+
+def settled_launches(plane, names, batches0: int, extra: int = 0
+                     ) -> tuple[int, int]:
+    """``serve_ingest``'s launches and the tiers' executed batches since
+    ``batches0``, read once they agree (launches = batches + ``extra``)
+    or 30 s have passed: a dual-run sample's big-tier batch may still be
+    running after its client's answer came back from the front."""
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    def read():
+        return serve_ingest.launches, tier_batches(plane, names) - batches0
+
+    def agree():
+        launches, ran = read()
+        return launches == ran + extra
+
+    wait_for(agree, 30.0)
+    return read()
+
+
+def p50_ms(seconds: list):
+    return sorted(seconds)[len(seconds) // 2] * 1e3 if seconds else None
+
+
+def reload_under(port: int, plane, name: str, step: int, feed: list,
+                 path: str) -> float:
+    """``POST /v1/models/<name>/reload`` (force) while closed-loop
+    clients run; ``feed`` bodies go one by one to ``path``, each made
+    unique (a cache hit would starve the canary), until version ``step``
+    is active.  Returns its seconds."""
+    t0 = time.monotonic()
+    status, blob, _, _ = post_h(port, json.dumps({"force": True}).encode(),
+                                f"/v1/models/{name}/reload")
+    check(status == 200 and json.loads(blob)["status"] == "reloading",
+          f"reload {name}: {status} {blob[:200]}")
+    k = 0
+    while plane.active_version(name).version != step:
+        check(time.monotonic() - t0 < CASCADE_TIMEOUT_S,
+              f"{name} never reached version {step}: "
+              f"{plane.versions(name)[-1].describe()}")
+        if feed:
+            r = post_h(port, feed[k % len(feed)][:-1]
+                       + f', "feed": {k}}}'.encode(), path)
+            check(r[0] == 200, f"{name}'s own route answered {r[0]}")
+            k += 1
+        else:
+            time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+def ledger_resets(root: str) -> list:
+    """The reset records of the cascade's ledger, as (model, hop)."""
+    out = []
+    for path in os.listdir(root):
+        with open(os.path.join(root, path), encoding="utf-8") as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec["event"] == "reset":
+                    out.append((rec["model"], rec.get("hop")))
+    return out
+
+
+class DigestPlane:
+    """The plane as a restarted router sees it, with tier ``changed``'s
+    params digest moved (its weights changed while the router was down)
+    or none (``None``).  It takes no version listener: the live router
+    alone keeps the ledger."""
+
+    def __init__(self, plane, changed: str):
+        self.plane, self.changed = plane, changed
+
+    def add_version_listener(self, fn):
+        pass
+
+    def resolve(self, name):
+        import types
+
+        m = self.plane.resolve(name)
+        return types.SimpleNamespace(
+            params_digest=m.params_digest + ("-new" if name == self.changed
+                                             else ""),
+            workload=m.workload)
+
+    def canary_active(self, name):
+        return False
+
+
+def cascade_classify(workdir: str, card_line: str) -> dict:
+    """The 3-tier ResNet cascade: calibration, always-big tenants,
+    reloads under load, the ledger across a restart, launches, the
+    brownout hooks with the router attached, and the controls."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+    from deep_vision_tpu_torch.serve.cascade import CascadeRouter
+
+    front, mid, big = CASCADE_TIERS
+    for seed, name in enumerate(CASCADE_TIERS):
+        write_checkpoint(os.path.join(workdir, name), 1,
+                         seeded_classifier(70 + seed, name))
+    t0 = time.monotonic()
+    plane, server = boot_cli([
+        "--models", ",".join(CASCADE_TIERS), "--workdir", workdir,
+        "--cascade", ":".join(CASCADE_TIERS), "--cascade-quant-front",
+        "--cascade-min-agreement", "0",
+        "--cascade-sample-period", str(CASCADE_SAMPLE_PERIOD),
+        "--cascade-min-sample", str(CASCADE_MIN_SAMPLE),
+        "--cascade-topk", str(CASCADE_TOPK),
+        "--wire-dtype", "uint8", "--infer-dtype", "bfloat16",
+        "--port", "0", "--device", "cuda",
+        "--max-batch", str(max(BUCKETS)),
+        "--buckets", ",".join(map(str, BUCKETS)),
+        "--canary-frac", "0.5", "--canary-min-requests", "4",
+        "--canary-max-p99-ratio", "50", "--phase-timeout-s", "120",
+        "--qos", CASCADE_QOS, "--brownout", "--brownout-force", "0",
+        "--warmup"])
+    out: dict = {"card": card_line, "boot_s": time.monotonic() - t0}
+    port = server.port
+    router = server.httpd.cascade
+    path = f"/v1/models/{big}/classify"
+    body = {"top_k": CASCADE_TOPK}
+    try:
+        fsm, bsm = plane.resolve(front), plane.resolve(big)
+        check(fsm.infer_dtype == "int8" and fsm.cascade_topk == CASCADE_TOPK
+              and plane.resolve(mid).cascade_topk == CASCADE_TOPK
+              and bsm.cascade_topk == 0,
+              "a tier's dtype or epilogue is not the cascade's")
+        imgs = np.random.RandomState(71).randint(
+            0, 256, (CASCADE_IMAGES, *bsm.input_shape), np.uint8)
+        bodies = [json.dumps(dict(body, pixels=im.tolist())).encode()
+                  for im in imgs]
+        # the direct calls the answers are held against, made before the
+        # launch count is set to 0
+        big_refs = bucket_answers(bsm, imgs, body)
+        front_refs = bucket_answers(fsm, imgs, body)
+        spread = prob_spread(front_refs)
+        fengine = plane.active_engine(front)
+        f0 = fengine.stats()
+        batches0 = tier_batches(plane, CASCADE_TIERS)
+        serve_ingest.launches = 0
+
+        # before calibration: every answer big, equal to a bucket call
+        seq = [tier_reply(i, post_h(port, bodies[i], path))
+               for i in range(CASCADE_SEQ)]
+        for r in seq:
+            check(r["status"] == 200 and r["tier"] == "big"
+                  and any(rows[r["i"]] == r["body"]
+                          for rows in big_refs.values()),
+                  f"uncalibrated answer {r['i']}: {r['status']} "
+                  f"{r['tier']}, equal to no bucket call of {big}")
+        check(not any(h["calibrated"] for h in router.stats()["hops"]),
+              "a hop calibrated within the first requests")
+
+        # calibration under closed-loop clients: hop 0 flips to "front"
+        clients = Clients(port, path, bodies, n=CASCADE_CLIENTS)
+        try:
+            t0 = time.monotonic()
+            check(wait_for(lambda: router.hops[0].threshold is not None
+                           and sum(r["tier"] == "front" for r in
+                                   list(clients.replies)) >= 8,
+                           CASCADE_TIMEOUT_S),
+                  f"hop 0 never served: {router.stats()['served']}")
+            out["calibrate_s"] = time.monotonic() - t0
+        finally:
+            clients.finish()
+        f1 = fengine.stats()
+        before = clients.replies  # the first front weights' answers
+        forced = [tier_reply(i, post_h(port, bodies[i], path, PREMIUM))
+                  for i in range(4)]
+        check(all(r["status"] == 200 and r["tier"] == "big"
+                  for r in forced), "an always-big tenant left big")
+        # the ledger across a restart (at rest, every record of the
+        # weights now served): a new router restores the live
+        # thresholds, and refuses them once a tier's digest moved
+        again = CascadeRouter(DigestPlane(plane, None), router.spec,
+                              root=router._root)
+        check([h.threshold for h in again.hops]
+              == [h.threshold for h in router.hops] and again.restored,
+              f"restored {[h.threshold for h in again.hops]}, live "
+              f"{[h.threshold for h in router.hops]}")
+        moved = CascadeRouter(DigestPlane(plane, big), router.spec,
+                              root=router._root)
+        check(not moved.restored and all(h.threshold is None
+                                         for h in moved.hops),
+              "a ledger of other weights was restored")
+        out["ledger"] = {"restored_thresholds": [h.threshold
+                                                 for h in again.hops],
+                         "rejected_after_digest_change": True}
+
+        clients = Clients(port, path, bodies, n=CASCADE_CLIENTS)
+        try:
+            # a reload of the front resets hop 0 alone; the traffic then
+            # escalated through calibrates hop 1 to serve "t1"
+            hop1 = router.hops[1].hist.stats()["samples"]
+            write_checkpoint(os.path.join(workdir, front), 2,
+                             seeded_classifier(80, front))
+            out["front_reload_s"] = reload_under(port, plane, front, 2,
+                                                 [], path)
+            check(wait_for(lambda: ledger_resets(router._root)
+                           == [(front, 0)]),
+                  f"resets after the front reload: "
+                  f"{ledger_resets(router._root)}")
+            check(router.hops[1].hist.stats()["samples"] >= hop1,
+                  "hop 1's sample did not survive the front reload")
+            check(wait_for(lambda: any(r["tier"] == "t1" for r in
+                                       list(clients.replies)),
+                           CASCADE_TIMEOUT_S),
+                  f"hop 1 never served: {router.stats()['hops']}")
+            check(wait_for(lambda: router.hops[0].threshold is not None,
+                           CASCADE_TIMEOUT_S), "hop 0 never recalibrated")
+            # a reload of the mid tier resets hop 1 alone (its canary is
+            # fed on its own route: a calibrated hop 0 lets little pass)
+            write_checkpoint(os.path.join(workdir, mid), 2,
+                             seeded_classifier(81, mid))
+            out["mid_reload_s"] = reload_under(
+                port, plane, mid, 2, bodies, f"/v1/models/{mid}/classify")
+            check(wait_for(lambda: ledger_resets(router._root)
+                           == [(front, 0), (mid, 1)]),
+                  f"resets after the mid reload: "
+                  f"{ledger_resets(router._root)}")
+            check(router.hops[0].threshold is not None,
+                  "the mid reload reset hop 0")
+        finally:
+            clients.finish()
+        launches, ran = settled_launches(plane, CASCADE_TIERS, batches0,
+                                         2 * len(BUCKETS))
+        replies = seq + before + forced + clients.replies
+        check(all(r["status"] == 200 for r in replies),
+              f"client statuses: {sorted({r['status'] for r in replies})}")
+        check(launches == ran + 2 * len(BUCKETS),
+              f"serve_ingest launched {launches} times for {ran} batches "
+              f"over the tiers and two reloads' {len(BUCKETS)} warmups")
+        st = router.stats()
+        check(st["escalated_error"] == 0,
+              f"{st['escalated_error']} tier errors on a healthy card")
+        check(st["served"]["front"] > 0 and st["served"]["t1"] > 0,
+              f"served {st['served']}")
+        # the first front version's answers against its direct calls,
+        # its D2H, and the control: the same answers against big's calls
+        fronts = [r for r in before if r["tier"] == "front"]
+        hits = [topk_bucket(r["body"]["top"], front_refs, r["i"],
+                            2 * spread) for r in fronts]
+        check(fronts and all(h is not None for h in hits),
+              f"{sum(h is None for h in hits)} of {len(fronts)} front "
+              f"answers equal to no direct call of {front}")
+        control = [r for r in fronts if not any(
+            rows[r["i"]]["top"] == r["body"]["top"]
+            for rows in big_refs.values())]
+        check(2 * len(control) > len(fronts),
+              f"front answers passed as {big}'s on "
+              f"{len(fronts) - len(control)} of {len(fronts)} rows")
+        copied = (f1["served"] - f0["served"]) \
+            + (f1["padded_images"] - f0["padded_images"])
+        d2h = f1["pipeline"]["d2h_bytes"] - f0["pipeline"]["d2h_bytes"]
+        check(copied > 0 and d2h == copied * 3 * CASCADE_TOPK * 4,
+              f"front D2H {d2h} B for {copied} padded images")
+        out.update({
+            "launches": launches, "batches": ran, "requests": len(replies),
+            "served": st["served"], "escalation_rate": st["escalation_rate"],
+            "escalated_lowconf": st["escalated_lowconf"],
+            "escalated_error": st["escalated_error"],
+            "samples": st["samples"], "calibrations": st["calibrations"],
+            "resets": st["resets"], "forced_big": st["forced_big"],
+            "thresholds": [h["threshold"] for h in st["hops"]],
+            "client_p50_ms_by_tier": {
+                t: p50_ms([r["s"] for r in before + clients.replies
+                           if r["tier"] == t])
+                for t in ("front", "t1", "big")},
+            "front_d2h_bytes_per_image": d2h / copied,
+            "front_prob_spread_b1_b32": spread,
+            "front_answers_checked": len(fronts),
+            "front_answers_by_bucket": {
+                str(b): sum(h == b for h in hits) for b in BUCKETS},
+            "control_front_vs_big_faults": len(control)})
+        out["ledger"]["resets"] = ledger_resets(router._root)
+        log(f"cascade: {json.dumps(out)}")
+        out["brownout"] = cascade_brownout(port, router, bodies, path)
+        out["control_epilogue_raises"] = epilogue_control(
+            plane, port, router, bodies, path)
+    finally:
+        server.httpd.brownout.stop()
+        server.shutdown()
+        plane.stop(drain_deadline=10.0)
+        del plane, server
+        torch.cuda.empty_cache()
+    return out
+
+
+def cascade_brownout(port: int, router, bodies: list, path: str) -> dict:
+    """The ladder pinned over HTTP with the router attached: L1 pauses
+    the dual-run samples; L2 serves a hop below its threshold as
+    ``front``, marked degraded, to a standard tenant and not to a
+    premium one.  Seeded weights put the front's confidences where the
+    calibrated threshold admits them, so the threshold is raised above
+    every confidence by hand first."""
+    st0 = router.stats()
+    force_level(port, 1)
+    l1 = [tier_reply(i, post_h(port, bodies[i], path))
+          for i in range(2 * CASCADE_SAMPLE_PERIOD)]
+    st1 = router.stats()
+    check(all(r["status"] == 200 for r in l1)
+          and st1["samples"] == st0["samples"]
+          and st1["samples_paused"] > st0["samples_paused"],
+          f"L1: samples {st0['samples']} → {st1['samples']}, paused "
+          f"{st0['samples_paused']} → {st1['samples_paused']}")
+    with router._lock:
+        router.hops[0].threshold = 2.0
+    force_level(port, 2)
+    std = tier_reply(0, post_h(port, bodies[0], path))
+    prem = tier_reply(0, post_h(port, bodies[0], path, PREMIUM))
+    check(std["status"] == 200 and std["tier"] == "front"
+          and std["degraded"] == "1", f"L2 standard: {std['tier']} "
+                                      f"{std['degraded']}")
+    check(prem["status"] == 200 and prem["tier"] == "big"
+          and prem["degraded"] is None, f"L2 premium: {prem['tier']} "
+                                        f"{prem['degraded']}")
+    force_level(port, 0)
+    _, blob = get_url(port, "/metrics")
+    series = parse_metrics(blob.decode())
+    for name in ("dvt_cascade_requests_total", "dvt_cascade_threshold",
+                 "dvt_cascade_samples_paused_total",
+                 "dvt_cascade_degraded_served_total",
+                 "dvt_brownout_level", "dvt_brownout_transitions_total"):
+        check(any(k.split("{")[0] == name for k in series),
+              f"/metrics lacks {name}")
+    st2 = router.stats()
+    return {"samples_paused": st1["samples_paused"]
+            - st0["samples_paused"],
+            "degraded_served": st2["degraded_served"],
+            "metrics_series": len(series)}
+
+
+def epilogue_control(plane, port: int, router, bodies: list,
+                     path: str) -> int:
+    """Control: with the front tier's callables raising after their
+    forward, its requests fail and the router escalates them as tier
+    errors (the count a healthy run holds at 0), every answer still
+    200 from big.  The front engine is left failed: this runs last."""
+    front = CASCADE_TIERS[0]
+    eng = plane.active_engine(front)
+
+    def raising(fn):
+        def call(x):
+            fn(x)
+            raise RuntimeError("control: the front tier's epilogue raised")
+        return call
+
+    for b, fn in list(eng._executables.items()):
+        eng._executables[b] = raising(fn)
+    err0 = router.stats()["escalated_error"]
+    replies = [tier_reply(i, post_h(port, bodies[i], path))
+               for i in range(2 * CASCADE_SAMPLE_PERIOD)]
+    errors = router.stats()["escalated_error"] - err0
+    check(errors > 0 and all(r["status"] == 200 and r["tier"] == "big"
+                             for r in replies),
+          f"a raising front: {errors} tier errors, "
+          f"{[(r['status'], r['tier']) for r in replies]}")
+    return errors
+
+
+def cascade_detect(workdir: str, card_line: str) -> dict:
+    """``yolov3_toy416:yolov3_coco``, both 416² int8 on the uint8 wire:
+    the front's escalation signal is its device-decoded rows; every
+    answer 200 with its tier; a front answer's kept set equals the
+    front's direct call at one of the buckets; launches = batches."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    front, big = CASCADE_DETECT
+    for seed, name in enumerate(CASCADE_DETECT):
+        write_checkpoint(os.path.join(workdir, name), 1,
+                         seeded_model(name, 90 + seed))
+    t0 = time.monotonic()
+    plane, server = boot_cli([
+        "--models", ",".join(CASCADE_DETECT), "--workdir", workdir,
+        "--cascade", ":".join(CASCADE_DETECT),
+        "--cascade-min-agreement", "0",
+        "--cascade-sample-period", str(CASCADE_SAMPLE_PERIOD),
+        "--cascade-min-sample", str(CASCADE_DETECT_MIN_SAMPLE),
+        "--wire-dtype", "uint8", "--infer-dtype", "int8",
+        "--port", "0", "--device", "cuda",
+        "--max-batch", str(max(BUCKETS)),
+        "--buckets", ",".join(map(str, BUCKETS)), "--warmup"])
+    out: dict = {"card": card_line, "boot_s": time.monotonic() - t0}
+    port = server.port
+    router = server.httpd.cascade
+    path = f"/v1/models/{big}/detect"
+    body = PLANE_BODY["detect"]
+    try:
+        fsm = plane.resolve(front)
+        imgs = np.random.RandomState(91).randint(
+            0, 256, (CASCADE_IMAGES, *fsm.input_shape), np.uint8)
+        bodies = [json.dumps(dict(body, pixels=im.tolist())).encode()
+                  for im in imgs]
+        refs = bucket_answers(fsm, imgs, body)
+        batches0 = tier_batches(plane, CASCADE_DETECT)
+        serve_ingest.launches = 0
+        seq = [tier_reply(i, post_h(port, bodies[i], path))
+               for i in range(CASCADE_SEQ)]
+        clients = Clients(port, path, bodies, n=CASCADE_CLIENTS)
+        try:
+            check(wait_for(lambda: sum(r["tier"] == "front" for r in
+                                       list(clients.replies)) >= 8,
+                           CASCADE_TIMEOUT_S),
+                  f"the detect front never served: "
+                  f"{router.stats()['served']}")
+        finally:
+            clients.finish()
+        launches, ran = settled_launches(plane, CASCADE_DETECT, batches0)
+        replies = seq + clients.replies
+        check(all(r["status"] == 200 and r["tier"] in ("front", "big")
+                  for r in replies),
+              f"detect cascade answers: "
+              f"{sorted({(r['status'], r['tier']) for r in replies})}")
+        check(launches == ran, f"serve_ingest launched {launches} times "
+                               f"for {ran} detect cascade batches")
+        fronts = [r for r in replies if r["tier"] == "front"]
+        kept = [next((b for b, rows in refs.items()
+                      if answer_diff(r["body"], rows[r["i"]])[0]), None)
+                for r in fronts]
+        check(all(b is not None for b in kept),
+              f"{sum(b is None for b in kept)} of {len(fronts)} front "
+              f"detect answers kept another set than {front}'s calls")
+        st = router.stats()
+        check(st["escalated_error"] == 0,
+              f"{st['escalated_error']} detect tier errors")
+        out.update({
+            "tiers": list(CASCADE_DETECT), "launches": launches,
+            "batches": ran, "requests": len(replies), "served": st["served"],
+            "escalation_rate": st["escalation_rate"],
+            "thresholds": [h["threshold"] for h in st["hops"]],
+            "front_detections": sum(r["body"]["num_detections"]
+                                    for r in fronts),
+            "front_answers_by_bucket": {str(b): sum(k == b for k in kept)
+                                        for b in BUCKETS},
+            "client_p50_ms_by_tier": {
+                t: p50_ms([r["s"] for r in clients.replies
+                           if r["tier"] == t]) for t in ("front", "big")}})
+    finally:
+        server.shutdown()
+        plane.stop(drain_deadline=10.0)
+        del plane, server
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cascade(card_line: str) -> dict:
+    """The model cascade: the 3-tier ResNet classify chain at full width
+    and the 416² detect lane."""
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as workdir:
+        out["classify"] = cascade_classify(workdir, card_line)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as workdir:
+        out["detect"] = cascade_detect(workdir, card_line)
+        log(f"cascade detect: {json.dumps(out['detect'])}")
+    return out
+
+
+def ladder_level(port: int) -> dict:
+    _, blob = get_url(port, "/v1/brownout")
+    return json.loads(blob)
+
+
+def herd_episode(port: int, bo, herd_path: str, path: str, herd: list,
+                 repeat: bytes, hold_s: float, walk_down: bool) -> dict:
+    """The brownout herd on ``herd_path`` and one premium client on
+    ``path`` until ``hold_s`` after the ladder reaches L2; with
+    ``walk_down``, until the moment it reads L2 or more again, and then
+    the levels on the way down to L0, polled far faster than a release
+    step (down_window ticks and the cooldown).  The requests in flight
+    at the stop may still raise the ladder (its engage is fast); a rise
+    after they are all answered is ``up_in_release``, and the release
+    is the walk after the last rise.  Every body carries the herd's
+    route, so no episode answers from another's cache entries."""
+    def tag(b):
+        return b[:-1] + f', "route": "{herd_path}"}}'.encode()
+
+    t0 = time.monotonic()
+    clients = Clients(port, herd_path, [tag(b) for b in herd],
+                      n=BROWNOUT_HERD, unique=True, retry_s=BROWNOUT_RETRY_S)
+    premium = Clients(port, path, [tag(repeat)], n=1, headers=PREMIUM,
+                      unique=True)
+    try:
+        check(wait_for(lambda: bo.level >= 2, 60.0),
+              f"the ladder never reached L2: {bo.stats()}")
+        engage_s = time.monotonic() - t0
+        time.sleep(hold_s)
+        if walk_down:
+            check(wait_for(lambda: bo.level >= 2, 30.0),
+                  f"the ladder left L2 for good: {bo.stats()}")
+        clients.stop.set()
+        premium.stop.set()
+        out = {"engage_s": engage_s, "overload_s": time.monotonic() - t0}
+        # the load has stopped once every request in flight is answered;
+        # until then the queue it left may still raise the ladder
+        t0 = time.monotonic()
+        drained = threading.Event()
+        drain_s = []
+
+        def drain():
+            for t in clients.threads + premium.threads:
+                t.join(60)
+            drain_s.append(time.monotonic() - t0)
+            drained.set()
+
+        threading.Thread(target=drain, daemon=True).start()
+        walk = [(bo.level, drained.is_set(), 0.0)]
+        while walk_down and not (drained.is_set() and walk[-1][0] == 0):
+            check(time.monotonic() - t0 < 60.0,
+                  f"the ladder never released: {walk}, {bo.stats()}")
+            level = bo.level
+            if level != walk[-1][0]:
+                walk.append((level, drained.is_set(),
+                             time.monotonic() - t0))
+            time.sleep(0.002)
+        if walk_down:
+            ups = [i for i in range(1, len(walk))
+                   if walk[i][0] > walk[i - 1][0]]
+            out.update({"drain_s": drain_s[0], "release_s": walk[-1][2],
+                        "walk_from_stop": [lv for lv, _, _ in walk],
+                        "walk_s": [s for _, _, s in walk],
+                        "release_walk": [lv for lv, _, _ in
+                                         walk[max(ups, default=0):]],
+                        "up_while_draining": sum(not walk[i][1]
+                                                 for i in ups),
+                        "up_in_release": sum(walk[i][1] for i in ups)})
+    finally:
+        clients.finish()
+        premium.finish()
+    seconds = [r["s"] for r in premium.replies]
+    return {**out, "standard_requests": len(clients.replies),
+            "standard_shed_429": sum(r["status"] == 429
+                                     for r in clients.replies),
+            "standard_statuses": sorted({r["status"]
+                                         for r in clients.replies}),
+            "premium_requests": len(premium.replies),
+            "premium_statuses": sorted({r["status"]
+                                        for r in premium.replies}),
+            "premium_p50_ms": p50_ms(seconds),
+            "premium_max_ms": 1e3 * max(seconds, default=math.nan),
+            "level_entries": bo.stats()["level_entries"]}
+
+
+def phase_brownout(card_line: str) -> dict:
+    """ResNet-50 int8 under ``--brownout``, ``--qos`` (premium and
+    standard) and a response cache: an overload episode engages the
+    ladder to L2 or more and releases it one level at a time; premium
+    never sees a 5xx (and the same herd on the parse-first route is
+    recorded beside it); at a forced L3 standard sheds and premium
+    answers; at L2 after a reload a repeated payload answers the retired
+    version's bytes, marked degraded; /metrics parses."""
+    import torch
+
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+    from deep_vision_tpu_torch.serve.http import decode_pixels
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    out: dict = {"card": card_line}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as workdir:
+        step1 = seeded_classifier(60)
+        write_checkpoint(os.path.join(workdir, MODEL), 1, step1)
+        t0 = time.monotonic()
+        plane, server = boot_cli([
+            "--models", MODEL, "--workdir", workdir, "--wire-dtype",
+            "uint8", "--infer-dtype", "int8", "--port", "0", "--device",
+            "cuda", "--max-batch", "1", "--buckets", "1",
+            "--faults", BROWNOUT_FAULT, "--qos", CASCADE_QOS,
+            "--response-cache-mb", "64", "--canary-frac", "1.0",
+            "--canary-min-requests", "2", "--canary-max-p99-ratio", "50",
+            "--phase-timeout-s", "120", *BROWNOUT_FLAGS, "--warmup"])
+        out["boot_s"] = time.monotonic() - t0
+        port = server.port
+        bo = server.httpd.brownout
+        path = f"/v1/models/{MODEL}/classify"
+        try:
+            rng = np.random.RandomState(61)
+            imgs = rng.randint(0, 256, (BROWNOUT_HERD + 1,
+                                        *plane.resolve(MODEL).input_shape),
+                               np.uint8)
+            bodies = [json.dumps({"pixels": im.tolist(), "top_k": 5}
+                                 ).encode() for im in imgs]
+            repeat, herd = bodies[-1], bodies[:-1]
+            batches0 = tier_batches(plane, [MODEL])
+            serve_ingest.launches = 0
+            first = post_h(port, repeat, path)
+            hit = post_h(port, repeat, path)
+            check(first[0] == 200 and hit[2].get("X-DVT-Cache") == "hit"
+                  and hit[1] == first[1], "the repeated payload missed")
+
+            # one herd body's JSON parse and pixel decode on the card
+            # host's interpreter: what the path form no longer spends on a
+            # request it sheds
+            parse_s, decode_s = [], []
+            for b in herd * 2:
+                t1 = time.perf_counter()
+                parsed = json.loads(b)
+                t2 = time.perf_counter()
+                decode_pixels(parsed, plane.resolve(MODEL))
+                parse_s.append(t2 - t1)
+                decode_s.append(time.perf_counter() - t2)
+            out["host_parse_ms"] = p50_ms(parse_s)
+            out["host_decode_ms"] = p50_ms(decode_s)
+            out["body_bytes"] = len(herd[0])
+
+            # an overload episode on the path form, which sheds before it
+            # parses: the ladder engages to L2 or more, premium sees no
+            # 5xx, and from L2 or more the ladder steps down to L0 one
+            # level at a time once the load stops
+            check(ladder_level(port)["level"] == 0, "the ladder is up idle")
+            ep = herd_episode(port, bo, path, path, herd, repeat,
+                              BROWNOUT_EPISODE_S, walk_down=True)
+            log(f"brownout episode: {json.dumps(ep)}")
+            walk = ep["release_walk"]
+            check(walk[0] >= 2 and len(walk) >= 3 and ep["up_in_release"] == 0
+                  and all(a - b == 1 for a, b in zip(walk, walk[1:])),
+                  f"the release went {walk} (from the stop "
+                  f"{ep['walk_from_stop']}), {ep['up_in_release']} up "
+                  f"once drained")
+            check(all(c in (200, 429) for c in ep["standard_statuses"]),
+                  f"standard during the episode: {ep['standard_statuses']}")
+            check(ep["premium_statuses"] == [200]
+                  and ep["premium_requests"] >= 2,
+                  f"premium during the episode: {ep['premium_requests']} "
+                  f"answers, {ep['premium_statuses']}")
+            out["episode"] = ep
+            # the recorded control: the same herd on /v1/classify, which
+            # names its model in the body and so parses before it sheds
+            # (the reference's order on every route); premium as above
+            out["control_parse_first"] = herd_episode(
+                port, bo, "/v1/classify", path, herd, repeat,
+                BROWNOUT_CONTROL_S, walk_down=False)
+            log(f"brownout control: {json.dumps(out['control_parse_first'])}")
+
+            # pinned L2 then L3 under the herd: premium's latency at each,
+            # and at L3 standard sheds while premium answers
+            clients = Clients(port, path, herd, n=BROWNOUT_HERD,
+                              unique=True, retry_s=BROWNOUT_RETRY_S)
+            pinned = {}
+            try:
+                for level in (2, 3):
+                    force_level(port, level)
+                    time.sleep(0.3)
+                    rs = [tier_reply(0, post_h(
+                        port, repeat[:-1] + f', "q": {level * 10 + k}}}'
+                        .encode(), path, PREMIUM)) for k in range(5)]
+                    std = [tier_reply(0, post_h(
+                        port, repeat[:-1] + f', "s": {level * 10 + k}}}'
+                        .encode(), path)) for k in range(3)]
+                    check(all(r["status"] == 200 for r in rs),
+                          f"premium at L{level}: "
+                          f"{[r['status'] for r in rs]}")
+                    want = 429 if level == 3 else 200
+                    check(all(r["status"] == want for r in std),
+                          f"standard at L{level}: "
+                          f"{[r['status'] for r in std]}")
+                    pinned[f"L{level}"] = {
+                        "premium_p50_ms": p50_ms([r["s"] for r in rs]),
+                        "standard_statuses": [r["status"] for r in std]}
+            finally:
+                clients.finish()
+            force_level(port, None)
+            check(wait_for(lambda: bo.level == 0, 60.0),
+                  f"the ladder never released after the pin: {bo.stats()}")
+            check(all(r["status"] in (200, 429) for r in clients.replies),
+                  "standard under the pinned levels saw an error")
+            out["pinned"] = pinned
+
+            # a reload, then at L2 the repeated payload answers the
+            # retired version's bytes, marked degraded
+            step2 = copy.deepcopy(step1)
+            with torch.no_grad():
+                step2.fc.bias.add_(0.25)
+            write_checkpoint(os.path.join(workdir, MODEL), 2, step2)
+            feed = [b[:-1] + b', "r": 1}' for b in herd]
+            out["reload_s"] = reload_under(port, plane, MODEL, 2, feed, path)
+            force_level(port, 2)
+            stale = post_h(port, repeat, path)
+            force_level(port, 0)
+            fresh = post_h(port, repeat, path)
+            force_level(port, None)
+            check(stale[0] == 200 and stale[2].get("X-DVT-Degraded") == "1"
+                  and stale[2].get("X-DVT-Cache") == "hit"
+                  and stale[1] == first[1],
+                  f"the stale answer: {stale[0]} {stale[2]}")
+            check(fresh[0] == 200 and "X-DVT-Degraded" not in fresh[2]
+                  and fresh[1] != first[1], "the answer at L0 after the "
+                                            "reload is not the new one")
+            launches = serve_ingest.launches
+            ran = tier_batches(plane, [MODEL]) - batches0
+            check(launches == ran + 1, f"serve_ingest launched {launches} "
+                                       f"times for {ran} batches and one "
+                                       f"reload warmup")
+            _, blob = get_url(port, "/metrics")
+            series = parse_metrics(blob.decode())
+            for name in ("dvt_brownout_level", "dvt_brownout_pressure_ms",
+                         "dvt_brownout_level_entries_total",
+                         "dvt_brownout_transitions_total",
+                         "dvt_serve_cache_stale_hits_total"):
+                check(any(k.split("{")[0] == name for k in series),
+                      f"/metrics lacks {name}")
+            rc = json.loads(get_url(port, "/v1/stats")[1])["response_cache"]
+            check(rc["stale_hits"] == 1, f"stale hits {rc['stale_hits']}")
+            out.update({"launches": launches, "batches": ran,
+                        "stale_hit": True, "ladder": bo.stats()})
+            log(f"brownout: {json.dumps(out)}")
+        finally:
+            bo.stop()
+            server.shutdown()
+            plane.stop(drain_deadline=10.0)
         del plane, server
         torch.cuda.empty_cache()
     return out
@@ -4713,6 +5610,8 @@ def main() -> int:
     plane = phase_plane()
     fleet = phase_fleet()
     deploy = phase_deploy()
+    cascade = phase_cascade(card_line)
+    brownout = phase_brownout(card_line)
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
@@ -4730,7 +5629,10 @@ def main() -> int:
                **{f"plane_nan_{k}": row["launches"]
                   for k, row in plane["nan_rollback"].items()},
                "fleet_resnet50": fleet["serve"]["launches"],
-               "deploy_resnet50": deploy["launches"]}
+               "deploy_resnet50": deploy["launches"],
+               "cascade_classify": cascade["classify"]["launches"],
+               "cascade_detect": cascade["detect"]["launches"],
+               "brownout_resnet50": brownout["launches"]}
     zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
@@ -4814,6 +5716,10 @@ def main() -> int:
     print(json.dumps({"plane": plane}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"deploy": deploy}), flush=True)
+    print(json.dumps({"cascade": cascade}), flush=True)
+    print(json.dumps({"brownout": dict(
+        brownout, with_cascade=cascade["classify"]["brownout"])}),
+        flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,6 +21,11 @@
         [--detect-score-threshold 0.05] [--detect-iou-threshold 0.5] \\
         [--detect-soft-nms off] [--detect-soft-sigma 0.5] \\
         [--detect-max-per-class 0]
+    python -m deep_vision_tpu_torch.cli.serve \\
+        --models resnet34,resnet50,resnet152 \\
+        --cascade resnet34:resnet50:resnet152 --cascade-quant-front \\
+        --workdir runs --wire-dtype uint8 --infer-dtype bfloat16 --warmup \\
+        [--brownout] [--qos SPEC] [--response-cache-mb 64]
     python -m deep_vision_tpu_torch.cli.serve -m hourglass104 \\
         [--weights w.npz] --wire-dtype uint8 --infer-dtype int8
     python -m deep_vision_tpu_torch.cli.serve -m dcgan [--weights w.npz]
@@ -60,9 +65,19 @@ autoscaler on each model's replica count; both keep an append-only
 ledger under ``<workdir>/_deploy`` (``GET /v1/deploy/<name>/history``,
 ``POST /v1/deploy/<name>/revert``).
 
+``--cascade t0:...:big`` (with ``--models``) routes requests addressed
+to the big model through the cheaper tiers first, each answering when
+its calibrated confidence threshold says it agrees with the big model
+(``serve/cascade.py``; ``X-DVT-Tier`` names the answering tier).
+``--brownout`` arms the overload ladder (``serve/brownout.py``): L1
+pauses calibration samples, shadow duplication and slow-trace logging,
+L2 serves degraded cascade answers and stale cache hits (marked
+``X-DVT-Degraded``), L3 sheds every QoS class but premium; ``POST
+/v1/brownout {"force": n}`` pins it.
+
 Port of ``deep_vision_tpu/cli/serve.py`` (``build_server``,
-``_build_plane_server``, ``main``); the mesh, cascade, batch-tier and
-brownout flags wait for their slices.
+``_build_plane_server``, ``main``); the mesh and batch-tier flags wait
+for their slices.
 """
 
 from __future__ import annotations
@@ -216,6 +231,76 @@ def build_parser() -> argparse.ArgumentParser:
                    help="log one line for each request slower than this")
     p.add_argument("--no-trace", action="store_true",
                    help="turn request tracing off")
+    # -- confidence-routed cascade (--models) --
+    p.add_argument("--cascade", default=None,
+                   help="'t0:t1:...:big': route classify/detect requests "
+                        "addressed to the BIG model through the cheaper "
+                        "tiers first, escalating past each hop whose "
+                        "confidence is below its threshold, calibrated "
+                        "from live tier-vs-big dual runs; every name must "
+                        "be in --models and share one verb (an "
+                        "uncalibrated hop escalates through: fully "
+                        "uncalibrated = all-big)")
+    p.add_argument("--cascade-min-agreement", type=float, default=0.98,
+                   help="calibration target: the smallest confidence "
+                        "whose measured tier-vs-big agreement (at and "
+                        "above it) still clears this")
+    p.add_argument("--cascade-sample-period", type=int, default=10,
+                   help="every N-th request reaching a hop dual-runs its "
+                        "tier and the big tier (the big answer is "
+                        "returned)")
+    p.add_argument("--cascade-min-sample", type=int, default=200,
+                   help="calibration samples a hop needs before any "
+                        "request may stop at it")
+    p.add_argument("--cascade-topk", type=int, default=5,
+                   help="K of the cheap tiers' fused top-K confidence "
+                        "epilogue (bounds top_k in their answers)")
+    p.add_argument("--cascade-quant-front", action="store_true",
+                   help="serve tier 0 with int8 weights: quantized at "
+                        "boot, calibrated on --calib-dir, else on the "
+                        "--gate-dir holdout, else on synthetic batches")
+    p.add_argument("--cascade-per-class", action="store_true",
+                   help="calibrate a per-class threshold axis at every "
+                        "hop")
+    p.add_argument("--cascade-class-min-sample", type=int, default=50,
+                   help="dual-run samples one class needs before its own "
+                        "threshold applies (below it: the pooled one)")
+    # -- overload brownout --
+    p.add_argument("--brownout", action="store_true",
+                   help="arm the brownout ladder: a controller polls "
+                        "queue pressure, engine occupancy and shed rate "
+                        "and steps L0→L3 (L1 sheds optional work: "
+                        "cascade samples, shadow duplication, slow-trace "
+                        "lines; L2 degrades quality: below-threshold "
+                        "cascade answers and stale cache hits, marked "
+                        "X-DVT-Degraded; L3 sheds every QoS class but "
+                        "premium)")
+    p.add_argument("--brownout-interval-ms", type=float, default=250.0,
+                   help="ladder evaluation tick")
+    p.add_argument("--brownout-l1-ms", type=float, default=50.0,
+                   help="queue pressure (depth × exec EWMA, ms) that "
+                        "votes for L1")
+    p.add_argument("--brownout-l2-ms", type=float, default=150.0,
+                   help="queue pressure that votes for L2")
+    p.add_argument("--brownout-l3-ms", type=float, default=400.0,
+                   help="queue pressure that votes for L3")
+    p.add_argument("--brownout-occupancy", type=float, default=0.97,
+                   help="engine occupancy at or above this votes for L1")
+    p.add_argument("--brownout-shed-rate", type=float, default=0.10,
+                   help="shed share of a tick at or above this votes for "
+                        "L1")
+    p.add_argument("--brownout-up-window", type=int, default=2,
+                   help="hot ticks in a row before the ladder engages "
+                        "(straight to the target level)")
+    p.add_argument("--brownout-down-window", type=int, default=8,
+                   help="cool ticks in a row before the ladder releases "
+                        "ONE level")
+    p.add_argument("--brownout-cooldown-s", type=float, default=2.0,
+                   help="least dwell after a transition before a release")
+    p.add_argument("--brownout-force", type=int, default=-1,
+                   help="pin the ladder at this level at boot (0..3; -1 = "
+                        "the signals decide; live: POST /v1/brownout "
+                        "{\"force\": N|null})")
     # -- detect decode: detection models only --
     p.add_argument("--detect-decode", choices=("device", "host"),
                    default="device",
@@ -299,8 +384,64 @@ def _replica_devices(device, n: int) -> list:
     return local_devices(n or None)
 
 
+def _brownout(args, engines_provider, tracer):
+    """``--brownout`` → a started BrownoutController, or None.  It polls
+    ``engines_provider()`` each tick (so a hot reload's new engine is
+    seen), and suppresses ``tracer``'s slow-request lines at L1+; the
+    caller wires it into the plane and the cascade."""
+    if not args.brownout:
+        return None
+    from deep_vision_tpu_torch.serve.brownout import BrownoutController
+
+    bc = BrownoutController(
+        engines_provider, interval_s=args.brownout_interval_ms / 1e3,
+        l1_pressure_ms=args.brownout_l1_ms,
+        l2_pressure_ms=args.brownout_l2_ms,
+        l3_pressure_ms=args.brownout_l3_ms,
+        occupancy_high=args.brownout_occupancy,
+        shed_rate_high=args.brownout_shed_rate,
+        up_window=args.brownout_up_window,
+        down_window=args.brownout_down_window,
+        cooldown_s=args.brownout_cooldown_s)
+    if args.brownout_force >= 0:
+        bc.force(args.brownout_force)
+    tracer.suppress_slow = lambda: bc.at_least(1)
+    return bc.start()
+
+
+def _cascade_spec(args, names: list):
+    """``--cascade`` → a CascadeSpec, checked before any checkpoint is
+    restored: every tier served, one workload verb, and a verb with a
+    cascade rule (classify and detect)."""
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.serve.cascade import CascadeSpec
+    from deep_vision_tpu_torch.serve.workloads import workload_for_task
+
+    spec = CascadeSpec.parse(
+        args.cascade, min_agreement=args.cascade_min_agreement,
+        sample_period=args.cascade_sample_period,
+        min_sample=args.cascade_min_sample, topk=args.cascade_topk,
+        per_class=args.cascade_per_class,
+        class_min_sample=args.cascade_class_min_sample)
+    for tier in spec.tiers:
+        if tier not in names:
+            raise ValueError(f"--cascade tier '{tier}' is not served; "
+                             f"--models must include every cascade tier "
+                             f"(got {names})")
+    verbs = {t: workload_for_task(get_config(t).task).verb
+             for t in spec.tiers}
+    if len(set(verbs.values())) > 1:
+        raise ValueError(f"--cascade tiers must share one workload verb, "
+                         f"got {verbs}")
+    if workload_for_task(get_config(spec.big).task).cascade_rule() is None:
+        raise ValueError(f"--cascade: the '{verbs[spec.big]}' workload "
+                         f"has no cascade rule (classify and detect "
+                         f"cascade)")
+    return spec
+
+
 def _server(args, registry, engines: dict, tracer, plane=None,
-            deploy=None):
+            deploy=None, cascade=None, brownout=None):
     from deep_vision_tpu_torch.serve.admission import TenantQoS
     from deep_vision_tpu_torch.serve.cache import ResponseCache
     from deep_vision_tpu_torch.serve.http import ServeServer
@@ -310,7 +451,8 @@ def _server(args, registry, engines: dict, tracer, plane=None,
         max_body_bytes=int(args.max_body_mb * 2**20),
         socket_timeout_s=args.socket_timeout_s
         if args.socket_timeout_s > 0 else None,
-        tracer=tracer, plane=plane, deploy=deploy,
+        tracer=tracer, plane=plane, deploy=deploy, cascade=cascade,
+        brownout=brownout,
         response_cache=ResponseCache(int(args.response_cache_mb * 2**20))
         if args.response_cache_mb > 0 else None,
         qos=TenantQoS.parse(args.qos) if args.qos else None)
@@ -336,6 +478,9 @@ def build_server(args):
         raise ValueError("--watch / --max-replicas need the model control "
                          "plane (--models ...): the deploy pipeline rolls "
                          "candidates through its version table")
+    if args.cascade:
+        raise ValueError("--cascade routes across the model control "
+                         "plane; use --models front,big")
     # fail on a device count the machine lacks before any model work
     devices = _replica_devices(device, args.serve_devices) \
         if args.serve_devices != 1 else None
@@ -359,8 +504,10 @@ def build_server(args):
     if args.warmup:
         print(f"[serve] warming {engine.buckets} ...", flush=True)
         engine.warmup()
-    return engine, _server(args, registry, {sm.name: engine},
-                           kwargs["tracer"])
+    engines = {sm.name: engine}
+    brownout = _brownout(args, lambda: engines.values(), kwargs["tracer"])
+    return engine, _server(args, registry, engines, kwargs["tracer"],
+                           brownout=brownout)
 
 
 def _build_plane_server(args, registry, device):
@@ -389,6 +536,7 @@ def _build_plane_server(args, registry, device):
     if not args.workdir:
         raise ValueError("--models needs --workdir (one subdirectory per "
                          "model)")
+    spec = _cascade_spec(args, names) if args.cascade else None
     min_replicas, max_replicas = args.min_replicas, args.max_replicas
     if max_replicas and not min_replicas:
         min_replicas = 1
@@ -437,11 +585,32 @@ def _build_plane_server(args, registry, device):
                             phase_timeout_s=args.phase_timeout_s))
     for name in names:
         workdir = os.path.join(args.workdir, name)
+        # every NON-FINAL cascade tier fuses the confidence epilogue (a
+        # classify tier; detect rows already carry the signal); the big
+        # tier keeps its dense rows, so an escalated answer is exactly a
+        # big-only answer
+        cascade_topk = spec.topk if spec is not None \
+            and name in spec.tiers and name != spec.big else 0
+        infer_dtype, calib_dir = args.infer_dtype, args.calib_dir
+        if spec is not None and args.cascade_quant_front \
+                and name == spec.front:
+            # tier 0 int8-resident, calibrated on --calib-dir, else the
+            # --gate-dir holdout, else synthetic batches
+            infer_dtype, calib_dir = "int8", calib_dir or args.gate_dir
         sm = registry.load_checkpoint(
-            name, wire_dtype=args.wire_dtype, infer_dtype=args.infer_dtype,
-            calib_batches=args.calib_batches, calib_dir=args.calib_dir,
-            device=device, workdir=workdir, **_detect_knobs(args))
+            name, wire_dtype=args.wire_dtype, infer_dtype=infer_dtype,
+            calib_batches=args.calib_batches, calib_dir=calib_dir,
+            device=device, workdir=workdir, cascade_topk=cascade_topk,
+            **_detect_knobs(args))
         plane.deploy(sm, workdir=workdir)
+    cascade = None
+    if spec is not None:
+        from deep_vision_tpu_torch.serve.cascade import CascadeRouter
+
+        # built after the boot deploys (its listener needs only later
+        # swaps); the ledger restores a restarted server's calibration
+        cascade = CascadeRouter(plane, spec, root=os.path.join(
+            args.workdir, "_cascade"))
     if args.warmup:
         for name, eng in plane.active_engines().items():
             print(f"[serve] warming {name} {eng.buckets} ...", flush=True)
@@ -451,8 +620,15 @@ def _build_plane_server(args, registry, device):
         pipeline = _deploy_pipeline(args, plane, names, min_replicas,
                                     max_replicas)
         pipeline.start()
+    brownout = _brownout(args, lambda: plane.active_engines().values(),
+                         kwargs["tracer"])
+    if brownout is not None:
+        plane.brownout = brownout  # L1+: pause shadow duplication
+        if cascade is not None:
+            cascade.brownout = brownout  # L1 sample pause, L2 degrade
     return plane, _server(args, registry, plane.active_engines(),
-                          kwargs["tracer"], plane=plane, deploy=pipeline)
+                          kwargs["tracer"], plane=plane, deploy=pipeline,
+                          cascade=cascade, brownout=brownout)
 
 
 def _deploy_pipeline(args, plane, names, min_replicas: int,
@@ -496,6 +672,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     if bool(args.model) == bool(args.models):
         p.error("give one of -m/--model and --models")
+    if args.cascade and not args.models:
+        p.error("--cascade routes across the multi-model plane; use "
+                "--models front,big")
     engine, server = build_server(args)
     sm = engine.model
     served = args.models or sm.name
@@ -528,6 +707,23 @@ def main(argv=None):
             print(f"[serve] {name}: {len(eng.replicas)} replicas on "
                   + ", ".join(r.model.placement_desc()
                               for r in eng.replicas), flush=True)
+    cascade = server.httpd.cascade
+    if cascade is not None:
+        sp = cascade.spec
+        print(f"[serve] cascade: {' -> '.join(sp.tiers)}: requests for "
+              f"'{sp.big}' answer from the cheapest confident tier "
+              f"(min_agreement={sp.min_agreement}, sample_period="
+              f"{sp.sample_period}, min_sample={sp.min_sample}"
+              + (", per_class" if sp.per_class else "")
+              + (f", {sp.front} int8" if args.cascade_quant_front else "")
+              + ")", flush=True)
+    brownout = server.httpd.brownout
+    if brownout is not None:
+        print(f"[serve] brownout ladder armed: L1@{args.brownout_l1_ms:g}ms "
+              f"L2@{args.brownout_l2_ms:g}ms L3@{args.brownout_l3_ms:g}ms "
+              f"queue pressure — pin: curl -XPOST http://{server.host}:"
+              f"{server.port}/v1/brownout -d '{{\"force\": 2}}'",
+              flush=True)
     if engine.faults.enabled:
         print(f"[serve] FAULT INJECTION ACTIVE: '{engine.faults.spec}' "
               f"(seed {engine.faults.seed})", flush=True)
@@ -540,6 +736,8 @@ def main(argv=None):
             # the watcher and autoscalers stop BEFORE the engines drain:
             # no scale action or rollout races the shutdown
             deploy.stop()
+        if brownout is not None:
+            brownout.stop()
         server.shutdown()
         engine.stop(drain_deadline=args.drain_deadline)
     return 0

@@ -110,6 +110,12 @@ class Tracer:
         self.started = 0  # guarded-by: _lock
         self.finished = 0  # guarded-by: _lock
         self.slow_sampled = 0  # guarded-by: _lock
+        self.slow_suppressed = 0  # guarded-by: _lock
+        # optional zero-arg predicate: True drops the slow_request log
+        # line (the ring and stage sums still record).  The brownout L1
+        # hook (serve/brownout.py): under saturation EVERY request is
+        # slow, and one log line each would cost the overloaded process
+        self.suppress_slow = None
         # stage -> [total_s, samples]; guarded-by: _lock
         self._stage_s: dict[str, list] = {}
 
@@ -134,6 +140,12 @@ class Tracer:
         except Exception:  # noqa: BLE001 — observability must not throw
             return
         slow = self.slow_ms is not None and d["total_ms"] > self.slow_ms
+        suppress = False
+        if slow and self.suppress_slow is not None:
+            try:
+                suppress = bool(self.suppress_slow())
+            except Exception:  # noqa: BLE001 — observability must not throw
+                suppress = False
         with self._lock:
             self.finished += 1
             for stage, ms in d["stages"].items():
@@ -141,9 +153,12 @@ class Tracer:
                 agg[0] += ms / 1e3
                 agg[1] += 1
             if slow:
-                self.slow_sampled += 1
+                if suppress:
+                    self.slow_suppressed += 1
+                else:
+                    self.slow_sampled += 1
             self.ring.append(d)
-        if slow:
+        if slow and not suppress:
             event(_log, "slow_request", **d)
 
     def recent(self, n: int = 32) -> list[dict]:
@@ -157,6 +172,7 @@ class Tracer:
                     "started": self.started,
                     "finished": self.finished,
                     "slow_sampled": self.slow_sampled,
+                    "slow_suppressed": self.slow_suppressed,
                     "slow_ms": self.slow_ms,
                     "ring": len(self.ring),
                     "stage_ms_avg": {

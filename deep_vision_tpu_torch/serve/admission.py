@@ -256,8 +256,9 @@ class QoSClass:
     requests are shed pre-engine, so under pressure best-effort
     (shed_at 0.5) absorbs the 429s half a queue before premium
     (shed_at 1.0) loses anything.  ``always_big`` is the cascade
-    premium knob: parsed and reported here, read once the cascade slice
-    is ported (its members then bypass the cheap front tier)."""
+    premium knob: members of the class bypass the cascade's cheap tiers
+    and its brownout degradation (serve/cascade.py ``force_big``, set
+    by serve/http.py from the tenant's class)."""
 
     name: str
     rate: float = 0.0
@@ -286,8 +287,8 @@ class TenantQoS:
         ``best_effort:rate=20,burst=5,shed_at=0.5;default=best_effort``
     ``tenants=`` pins named tenants to a class; everything else lands in
     the ``default=`` class (first class declared if omitted);
-    ``always_big=1`` marks the class as cascade-premium (read once the
-    cascade slice is ported)."""
+    ``always_big=1`` marks the class as cascade-premium (its tenants'
+    requests go straight to the big tier, serve/cascade.py)."""
 
     def __init__(self, classes: list, default: str):
         if not classes:
@@ -366,12 +367,18 @@ class TenantQoS:
                     retry_after_s=wait_s)
 
     def check_pressure(self, tenant: str, queue_depth: int,
-                       max_queue: int) -> Shed | None:
+                       max_queue: int,
+                       floor: float = 0.0) -> Shed | None:
         """Weighted shedding on a cache miss: shed this class once
         engine queue pressure (``queue_depth / max_queue``) crosses its
-        knee.  The brownout slice adds its pressure floor here."""
+        knee.  ``floor`` bounds the pressure the knees see from below:
+        at brownout L3 (serve/brownout.py ``qos_pressure_floor``) it is
+        just under 1.0, so every class whose ``shed_at`` is below 1.0
+        sheds whatever the queue holds and premium (``shed_at=1.0``)
+        goes on."""
         cls = self.class_of(tenant)
         pressure = queue_depth / max_queue if max_queue > 0 else 0.0
+        pressure = max(pressure, float(floor))
         if pressure < cls.shed_at:
             return None
         with self._lock:

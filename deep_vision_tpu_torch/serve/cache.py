@@ -15,8 +15,16 @@ version's ``params_digest`` changes and every old key stops matching
 
 Not cached: shed (429) and quarantine or error answers (transient
 verdicts), debug-trace answers (the span is per request), and models
-without a ``params_digest``.  The brownout slice's stale lookup and the
-cascade slice's per-tier counters wait for those slices.
+without a ``params_digest``.
+
+Brownout L2 (serve/brownout.py) relaxes version purity on purpose:
+``get_stale`` answers an exact miss with the newest cached entry for
+the same (route, model, dtypes, payload) under ANY params version, a
+stale but well-formed answer rather than a 429 when the engine is
+saturated.  Only the HTTP layer at L2+ asks for it, and it marks such
+an answer ``X-DVT-Degraded``; every other lookup keeps the exact-version
+contract.  A cascaded model's inserts are counted by the tier that
+produced the answer (``insertions_by_tier``); the key stays tier-free.
 
 The store is a byte-bounded LRU (an ``OrderedDict`` under one leaf
 lock) of already-serialized JSON bodies, so a hit skips decode, engine
@@ -51,6 +59,14 @@ class ResponseCache:
         self.misses = 0  # guarded-by: _lock
         self.evictions = 0  # guarded-by: _lock
         self.insertions = 0  # guarded-by: _lock
+        # cascade provenance: inserts by the tier that produced the
+        # answer ("front", "t1", "big"); counters only, the KEY stays
+        # tier-free (keyed on the cascade's combined digest)
+        self.insertions_by_tier: dict = {}  # guarded-by: _lock
+        # version-free alias → the newest full key inserted for it (the
+        # brownout L2 stale path), pruned with its entry on eviction
+        self._stale: dict[tuple, tuple] = {}  # guarded-by: _lock
+        self.stale_hits = 0  # guarded-by: _lock
 
     @staticmethod
     def key(route: str, model: str, version_digest: str,
@@ -59,6 +75,11 @@ class ResponseCache:
         same payload apart."""
         return (route, model, version_digest, wire_dtype, infer_dtype,
                 body_digest)
+
+    @staticmethod
+    def _alias(key: tuple) -> tuple:
+        # the full key without the params digest (index 2)
+        return key[:2] + key[3:]
 
     def get(self, key: tuple) -> bytes | None:
         with self._lock:
@@ -70,7 +91,25 @@ class ResponseCache:
             self.hits += 1
             return blob
 
-    def put(self, key: tuple, blob: bytes):
+    def get_stale(self, key: tuple) -> bytes | None:
+        """The brownout L2 fallback after an exact ``get`` miss: the
+        newest entry for the same (route, model, dtypes, payload) under
+        another params version, or None when no other version answered
+        this payload.  The caller marks the answer degraded."""
+        alias = self._alias(key)
+        with self._lock:
+            full = self._stale.get(alias)
+            if full is None or full == key:
+                return None
+            blob = self._store.get(full)
+            if blob is None:
+                del self._stale[alias]  # the entry aged out of the LRU
+                return None
+            self._store.move_to_end(full)
+            self.stale_hits += 1
+            return blob
+
+    def put(self, key: tuple, blob: bytes, tier: str | None = None):
         size = len(blob)
         if size > self.max_bytes:
             return  # larger than the whole budget: not cacheable
@@ -81,10 +120,22 @@ class ResponseCache:
             self._store[key] = blob
             self._bytes += size
             self.insertions += 1
+            self._stale[self._alias(key)] = key
+            if tier:
+                self.insertions_by_tier[tier] = \
+                    self.insertions_by_tier.get(tier, 0) + 1
             while self._bytes > self.max_bytes:
-                _, victim = self._store.popitem(last=False)
+                vkey, victim = self._store.popitem(last=False)
                 self._bytes -= len(victim)
                 self.evictions += 1
+                if self._stale.get(self._alias(vkey)) == vkey:
+                    del self._stale[self._alias(vkey)]
+
+    def clear(self):
+        with self._lock:
+            self._store.clear()
+            self._stale.clear()
+            self._bytes = 0
 
     def stats(self) -> dict:
         with self._lock:
@@ -93,7 +144,9 @@ class ResponseCache:
                     "bytes": self._bytes,
                     "max_bytes": self.max_bytes,
                     "hits": self.hits,
+                    "stale_hits": self.stale_hits,
                     "misses": self.misses,
                     "hit_rate": self.hits / lookups if lookups else 0.0,
                     "evictions": self.evictions,
-                    "insertions": self.insertions}
+                    "insertions": self.insertions,
+                    "insertions_by_tier": dict(self.insertions_by_tier)}

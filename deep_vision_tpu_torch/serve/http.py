@@ -14,8 +14,9 @@ Routes (JSON in, JSON out):
     GET  /v1/stats     per-model engine stats (or the control plane's
                        ``{"models", "cache", "plane"}`` shape, with
                        ``deploy`` when a deploy pipeline runs), the
-                       ``response_cache`` and ``qos`` blocks when those
-                       are on, and ``kernels``: the launch count of each
+                       ``response_cache``, ``qos``, ``cascade`` and
+                       ``brownout`` blocks when those are on, and
+                       ``kernels``: the launch count of each
                        hand-written kernel
     GET  /metrics      Prometheus text (format 0.0.4) of the same stats
     GET  /v1/traces    the newest finished request traces (``?n=``) and
@@ -32,7 +33,13 @@ Routes (JSON in, JSON out):
                        the reverted version fails to boot, 503 without
                        a deploy pipeline
     GET  /v1/models    ``describe()`` of every served model, or the
-                       plane's version table
+                       plane's version table; a cascade member's entry
+                       carries a ``cascade`` block (chain, hop role,
+                       where its threshold came from)
+    GET  /v1/brownout  the brownout ladder's stats (503 without
+                       ``--brownout``)
+    POST /v1/brownout  {"force": 0..3 | null}: pin the ladder at a level,
+                       or hand it back to the signals; answers the stats
     POST /v1/classify | /v1/detect | /v1/pose | /v1/generate
                        {"pixels" | "image_b64", "model"?,
                         "deadline_ms"?, ...}: the workload's answer
@@ -56,14 +63,20 @@ Routes (JSON in, JSON out):
 
 A verb that is not the model's workload answers 400 and names the right
 route; an unknown route answers 404 with the supported verbs (the
-``/v1/jobs`` and ``/v1/brownout`` routes wait for their slices).
+``/v1/jobs`` routes wait for the batch tier).
 Bodies over ``max_body_bytes`` answer 413 before any buffer
 is allocated; a client that stalls mid-body gets 408.  Two optional
 front-end services hook the inference path: a content-addressed
 response cache (``serve/cache.py``) and per-tenant QoS (the
 ``X-DVT-Tenant`` header, ``serve/admission.py TenantQoS``): the quota
 is checked before the cache, the queue-pressure knee on cache misses
-only.
+only.  With a cascade (serve/cascade.py) a request addressed to the big
+tier's name goes through the router, its answer carries ``X-DVT-Tier``,
+and its cache key holds the combined digest of every tier.  With the
+brownout ladder (serve/brownout.py), L2 lets a cache miss answer from a
+retired version's entry and the cascade serve below a hop's threshold,
+both marked ``X-DVT-Degraded: 1``, and L3 floors the QoS queue pressure
+so that every class but premium sheds.
 """
 
 from __future__ import annotations
@@ -82,6 +95,8 @@ import numpy as np
 from deep_vision_tpu_torch.obs.trace import REQUEST_ID_HEADER, new_request_id
 from deep_vision_tpu_torch.serve.admission import TENANT_HEADER, Shed
 from deep_vision_tpu_torch.serve.cache import ResponseCache, payload_digest
+from deep_vision_tpu_torch.serve.cascade import base_tier as cascade_base_tier
+from deep_vision_tpu_torch.serve.cascade import is_degraded as cascade_degraded
 from deep_vision_tpu_torch.serve.faults import Quarantined
 from deep_vision_tpu_torch.serve.workloads import LIFECYCLE_VERBS, WORKLOADS
 
@@ -93,6 +108,12 @@ SOCKET_TIMEOUT_S = 30.0
 #: socketserver default of 5 resets clients beyond it when dozens connect
 #: at once
 LISTEN_BACKLOG = 128
+#: the cascade tier that produced a cascaded answer ("front", "t1", ...,
+#: "big"), on every cascaded 200
+TIER_HEADER = "X-DVT-Tier"
+#: "1" on an answer the brownout ladder degraded on purpose: a cascade
+#: tier's answer below its threshold, or a stale response-cache hit (L2)
+DEGRADED_HEADER = "X-DVT-Degraded"
 
 
 class ServeError(Exception):
@@ -194,6 +215,10 @@ def render_serve_metrics(stats: dict) -> str:
 
     p = PromText()
     _render_front_metrics(p, stats)
+    if isinstance(stats.get("cascade"), dict):
+        _render_cascade_metrics(p, stats["cascade"])
+    if isinstance(stats.get("brownout"), dict):
+        _render_brownout_metrics(p, stats["brownout"])
     if not isinstance(stats.get("models"), dict):
         for name, s in stats.items():
             if name not in _FRONT_BLOCKS:
@@ -256,7 +281,7 @@ def render_serve_metrics(stats: dict) -> str:
 
 
 #: front-end stats blocks beside the per-model entries
-_FRONT_BLOCKS = ("response_cache", "qos", "kernels")
+_FRONT_BLOCKS = ("response_cache", "qos", "kernels", "cascade", "brownout")
 
 
 def _render_deploy_metrics(p, dep: dict) -> None:
@@ -305,12 +330,23 @@ def _render_front_metrics(p, stats: dict) -> None:
                   help="Inference answers served from the response cache")
         p.counter("dvt_serve_cache_misses_total", rcache.get("misses"),
                   {}, help="Cacheable lookups that missed")
+        p.counter("dvt_serve_cache_stale_hits_total",
+                  rcache.get("stale_hits"), {},
+                  help="Brownout-L2 answers served from a retired "
+                       "params version (marked X-DVT-Degraded)")
         p.counter("dvt_serve_cache_evictions_total",
                   rcache.get("evictions"), {},
                   help="LRU evictions from the response cache")
         p.counter("dvt_serve_cache_insertions_total",
                   rcache.get("insertions"), {},
                   help="Responses inserted into the cache")
+        for tier, n in sorted(
+                (rcache.get("insertions_by_tier") or {}).items()):
+            p.counter("dvt_serve_cache_tier_insertions_total", n,
+                      {"tier": str(tier)},
+                      help="Cache inserts by the cascade tier that "
+                           "produced the answer (the key itself stays "
+                           "tier-agnostic)")
         p.gauge("dvt_serve_cache_bytes", rcache.get("bytes"), {},
                 help="Bytes of cached serialized responses")
         p.gauge("dvt_serve_cache_entries", rcache.get("entries"), {},
@@ -339,6 +375,129 @@ def _render_front_metrics(p, stats: dict) -> None:
     for kernel, n in (stats.get("kernels") or {}).items():
         p.counter("dvt_serve_kernel_launches_total", n, {"kernel": kernel},
                   help="Launches of each hand-written CUDA kernel")
+
+
+def _render_cascade_metrics(p, cas: dict) -> None:
+    """The dvt_cascade_* series from the reserved ``cascade`` stats
+    block (serve/cascade.py ``CascadeRouter.stats()``)."""
+    lab = {"front": str(cas.get("front")), "big": str(cas.get("big"))}
+    p.counter("dvt_cascade_escalations_total", cas.get("escalations"),
+              lab, help="Requests a cheap tier escalated down the "
+                        "chain (low confidence, tier errors, and "
+                        "deadline-exhausted escalations)")
+    for tier, n in sorted((cas.get("served") or {}).items()):
+        p.counter("dvt_cascade_requests_total", n,
+                  {**lab, "tier": tier},
+                  help="Cascade requests answered, by the tier that "
+                       "produced the answer")
+    p.gauge("dvt_cascade_escalation_rate", cas.get("escalation_rate"),
+            lab, help="Of requests the cheap tiers judged, the "
+                      "fraction escalated — the live "
+                      "cascade-economics gauge")
+    # per-HOP threshold/agreement/calibrated series: each hop
+    # calibrates tier-i-vs-big independently, so one scalar cannot
+    # describe an N-tier chain
+    for hop in (cas.get("hops") or []):
+        hlab = {**lab, "hop": str(hop.get("hop")),
+                "tier": str(hop.get("tier"))}
+        p.gauge("dvt_cascade_threshold", hop.get("threshold"), hlab,
+                help="Calibrated confidence threshold per hop (absent "
+                     "while uncalibrated — fail-closed, that hop "
+                     "escalates through)")
+        cls_thr = hop.get("class_thresholds") or {}
+        # None entries are fail-closed classes (measured-bad) — they
+        # have no threshold value to chart
+        vals = sorted(v for v in cls_thr.values() if v is not None)
+        if vals:
+            mid = vals[len(vals) // 2]
+            p.gauge("dvt_cascade_class_threshold_min", vals[0], hlab,
+                    help="Smallest per-class calibrated threshold at "
+                         "this hop (per-class axis active)")
+            p.gauge("dvt_cascade_class_threshold_median", mid, hlab,
+                    help="Median per-class calibrated threshold at "
+                         "this hop")
+            p.gauge("dvt_cascade_class_threshold_max", vals[-1], hlab,
+                    help="Largest per-class calibrated threshold at "
+                         "this hop")
+            p.gauge("dvt_cascade_class_thresholds", len(vals), hlab,
+                    help="Classes with their own calibrated threshold "
+                         "at this hop")
+        p.gauge("dvt_cascade_hop_agreement", hop.get("agreement"),
+                hlab, help="Tier-vs-big agreement over this hop's "
+                           "live calibration sample")
+        p.counter("dvt_cascade_hop_escalations_total",
+                  hop.get("escalations"), hlab,
+                  help="Requests this hop escalated onward")
+    p.gauge("dvt_cascade_calibrated",
+            1 if cas.get("calibrated") else 0, lab,
+            help="1 while hop 0 holds a calibrated threshold")
+    p.gauge("dvt_cascade_agreement", cas.get("agreement"), lab,
+            help="Hop-0 tier-vs-big agreement over the live "
+                 "calibration sample")
+    p.counter("dvt_cascade_calibration_samples_total",
+              cas.get("samples"), lab,
+              help="Dual-run calibration samples taken")
+    p.counter("dvt_cascade_forced_big_total", cas.get("forced_big"),
+              lab, help="Requests routed straight to the big tier for "
+                        "always-big QoS tenants")
+    p.counter("dvt_cascade_recalibrations_total", cas.get("resets"),
+              lab, help="Calibration drops after a tier version swap")
+    p.counter("dvt_cascade_samples_paused_total",
+              cas.get("samples_paused"), lab,
+              help="Dual-run calibration samples skipped at brownout "
+                   "L1+ (optional work shed first)")
+    p.counter("dvt_cascade_degraded_served_total",
+              cas.get("degraded_served"), lab,
+              help="Sub-threshold front answers forced at brownout L2 "
+                   "(marked X-DVT-Degraded)")
+    p.gauge("dvt_cascade_restored",
+            1 if cas.get("restored") else 0, lab,
+            help="1 when this boot's calibration was restored from "
+                 "the persisted ledger")
+    p.counter("dvt_cascade_ledger_write_errors_total",
+              cas.get("ledger_write_errors"), lab,
+              help="Calibration-ledger appends that failed to reach "
+                   "disk")
+    for tier, hist in (cas.get("latency_hist") or {}).items():
+        if hist:
+            p.histogram("dvt_cascade_latency_seconds", hist,
+                        {**lab, "tier": tier},
+                        help="End-to-end cascade request latency by "
+                             "answering tier (escalations land in "
+                             "'big' and include the front attempt)")
+
+
+def _render_brownout_metrics(p, bo: dict) -> None:
+    """The dvt_brownout_* series from the reserved ``brownout`` stats
+    block (serve/brownout.py ``BrownoutController.stats()``)."""
+    p.gauge("dvt_brownout_level", bo.get("level"), {},
+            help="Degradation ladder level: 0 normal, 1 shed-optional, "
+                 "2 degrade-quality, 3 hard-shed")
+    p.gauge("dvt_brownout_forced",
+            -1 if bo.get("forced") is None else bo.get("forced"), {},
+            help="Operator-pinned level (-1 = signals in control)")
+    p.counter("dvt_brownout_transitions_total",
+              bo.get("transitions_up"), {"direction": "up"},
+              help="Edge-triggered ladder level changes")
+    p.counter("dvt_brownout_transitions_total",
+              bo.get("transitions_down"), {"direction": "down"})
+    for lvl, n in sorted((bo.get("level_entries") or {}).items()):
+        p.counter("dvt_brownout_level_entries_total", n,
+                  {"level": str(lvl)},
+                  help="Times the ladder entered each level going up")
+    sig = bo.get("signals") or {}
+    p.gauge("dvt_brownout_pressure_ms", sig.get("pressure_ms"), {},
+            help="Max queue_depth x bucket exec EWMA across engines — "
+                 "the engage signal")
+    p.gauge("dvt_brownout_occupancy", sig.get("occupancy"), {},
+            help="Max engine compute duty cycle at the last tick")
+    p.gauge("dvt_brownout_shed_rate", sig.get("shed_rate"), {},
+            help="Admission sheds / offered over the last tick window")
+    p.counter("dvt_brownout_ticks_total", bo.get("ticks"), {},
+              help="Ladder decisions taken")
+    p.counter("dvt_brownout_signal_errors_total",
+              bo.get("signal_errors"), {},
+              help="Engine signal reads that raised mid-teardown")
 
 
 def _render_engine_metrics(p, name: str, s: dict) -> None:
@@ -430,6 +589,10 @@ def _render_engine_metrics(p, name: str, s: dict) -> None:
               help="Spans sealed into the ring")
     p.counter("dvt_serve_slow_traces_total", tr.get("slow_sampled"), lab,
               help="Traces over the slow-request threshold")
+    p.counter("dvt_serve_slow_suppressed_total",
+              tr.get("slow_suppressed"), lab,
+              help="Slow-trace emissions dropped at brownout L1+ "
+                   "(ring and stage sums still record)")
     for stage, secs in (tr.get("stage_s_total") or {}).items():
         p.counter("dvt_serve_stage_seconds_total", secs,
                   {**lab, "stage": stage},
@@ -440,8 +603,9 @@ class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     _rid = None
     _span = None
-    _raw_body = None  # raw payload bytes: the cache's content address
     _cache_hit = False
+    _tier = None  # the cascade tier that answered ("front", ..., "big")
+    _degraded = False  # True when the brownout ladder degraded the answer
 
     def setup(self):
         # a timeout on the request line closes the connection; one
@@ -470,6 +634,9 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(blob)
 
     def _body(self) -> dict:
+        return self._parse(self._read_body())
+
+    def _read_body(self) -> bytes:
         length = int(self.headers.get("Content-Length") or 0)
         if length <= 0:
             raise ServeError(400, "empty body")
@@ -480,7 +647,10 @@ class _Handler(BaseHTTPRequestHandler):
             self.close_connection = True
             raise ServeError(413, f"body of {length} bytes exceeds the "
                                   f"{cap}-byte cap")
-        raw = self._raw_body = self.rfile.read(length)
+        return self.rfile.read(length)
+
+    @staticmethod
+    def _parse(raw: bytes) -> dict:
         try:
             body = json.loads(raw)
         except json.JSONDecodeError as e:
@@ -493,16 +663,10 @@ class _Handler(BaseHTTPRequestHandler):
         length = int(self.headers.get("Content-Length") or 0)
         return self._body() if length > 0 else {}
 
-    def _engine(self, body: dict, path_model: str | None = None):
-        """The target model and its engine: the PATH name wins (a body
-        "model" must agree); the plane's routing table answers when one
-        is wired.  A miss answers 404 with ``KeyError.args[0]``."""
-        name = body.get("model")
-        if path_model is not None:
-            if name is not None and name != path_model:
-                raise ServeError(400, f"body model '{name}' contradicts "
-                                      f"path model '{path_model}'")
-            name = path_model
+    def _engine(self, name: str | None):
+        """The target model and its engine; the plane's routing table
+        answers when one is wired.  A miss answers 404 with
+        ``KeyError.args[0]``."""
         plane = self.server.plane
         try:
             if plane is not None:
@@ -540,8 +704,25 @@ class _Handler(BaseHTTPRequestHandler):
         except (TypeError, ValueError) as e:
             raise ServeError(400, f"bad deadline_ms: {e}") from e
         plane = self.server.plane
+        cascade = self.server.cascade
         try:
-            if plane is not None:
+            if cascade is not None and plane is not None \
+                    and cascade.serves(model.name):
+                # the cheapest confident tier answers; an escalation
+                # keeps what is left of the ORIGINAL deadline, and an
+                # always-big tenant skips the cheap tiers
+                qos = self.server.qos
+                force_big = qos is not None and qos.class_of(
+                    self.headers.get(TENANT_HEADER) or "").always_big
+                self._tier, result = cascade.infer(
+                    x, deadline_ms=deadline_ms, span=self._span,
+                    force_big=bool(force_big))
+                if cascade_degraded(self._tier):
+                    # brownout L2 served a tier below its threshold: the
+                    # header names the tier, the marker the caveat
+                    self._tier = cascade_base_tier(self._tier)
+                    self._degraded = True
+            elif plane is not None:
                 # canary/shadow splits and cross-version resubmission
                 # happen behind this call
                 result = plane.infer(model.name, x, deadline_ms=deadline_ms,
@@ -561,15 +742,27 @@ class _Handler(BaseHTTPRequestHandler):
                 500, f"quarantined: {result.reason} {result.detail}")
         return result
 
-    def _infer_route(self, verb: str, body: dict, path_model: str | None,
+    def _infer_route(self, verb: str, path_model: str | None,
                      debug: bool) -> bytes:
         """The inference POST path → the serialized 200 body.  Order:
         tenant quota (before the cache, so a hot payload cannot make
-        quotas unenforceable) → response-cache lookup → queue-pressure
-        shedding (misses only) → engine → cache insert (200s only, and
-        not while a canary may have answered)."""
+        quotas unenforceable) → response-cache lookup (at brownout L2 an
+        exact miss may answer from a retired version's entry) →
+        queue-pressure shedding (misses only; floored at L3) → engine or
+        cascade → cache insert (200s only, and not while a canary may
+        have answered).
+
+        The path form (``/v1/models/<name>/<verb>``) parses its JSON body
+        only once the request is admitted: the cache key is the raw
+        bytes' digest and the tenant is a header, so a hit or a shed
+        costs no parse of a pixel body, interpreter time that a herd of
+        shed clients would otherwise take from the admitted requests.
+        ``/v1/<verb>`` names its model in the body and parses first.  A departure from the reference, which parses
+        before the quota: a shed malformed body answers 429, not 400."""
         span = self._span
         qos = self.server.qos
+        bo = self.server.brownout
+        raw = self._read_body()
         tenant = ""
         t0 = time.monotonic()
         if qos is not None:
@@ -577,7 +770,9 @@ class _Handler(BaseHTTPRequestHandler):
             shed = qos.check_quota(tenant)
             if shed is not None:
                 raise self._shed_429(shed)
-        model, engine = self._engine(body, path_model)
+        body = self._parse(raw) if path_model is None else None
+        model, engine = self._engine(
+            path_model if body is None else body.get("model"))
         # the verb names the workload; the model's task must serve it,
         # checked before the request costs a cache entry or a batch slot
         if model.workload.verb != verb:
@@ -585,13 +780,26 @@ class _Handler(BaseHTTPRequestHandler):
                                   f"model; use /v1/{model.workload.verb}")
         wl = model.workload
         cache = self.server.response_cache
+        cascade = self.server.cascade
+        if cascade is not None and not cascade.serves(model.name):
+            cascade = None
+        # a cascaded model keys on the COMBINED digest of every tier: a
+        # hit is tier-free (any tier's answer meets the contract) and a
+        # reload of any tier invalidates
+        digest = cascade.params_digest() if cascade is not None \
+            else model.params_digest
         key = None
-        if cache is not None and not debug and model.params_digest:
-            key = ResponseCache.key(f"/v1/{verb}", model.name,
-                                    model.params_digest,
+        if cache is not None and not debug and digest:
+            key = ResponseCache.key(f"/v1/{verb}", model.name, digest,
                                     str(model.wire_dtype), model.infer_dtype,
-                                    payload_digest(self._raw_body))
+                                    payload_digest(raw))
             blob = cache.get(key)
+            if blob is None and bo is not None and bo.at_least(2):
+                # brownout L2: a miss may still have an answer under a
+                # PRIOR params version, stale but well-formed
+                blob = cache.get_stale(key)
+                if blob is not None:
+                    self._degraded = True
             if blob is not None:
                 self._cache_hit = True
                 if span is not None:
@@ -601,10 +809,18 @@ class _Handler(BaseHTTPRequestHandler):
                                       cache_hit=True)
                 return blob
         if qos is not None:
-            shed = qos.check_pressure(tenant, engine.queue_depth,
-                                      engine.admission.max_queue)
+            shed = qos.check_pressure(
+                tenant, engine.queue_depth, engine.admission.max_queue,
+                floor=bo.qos_pressure_floor() if bo is not None else 0.0)
             if shed is not None:
                 raise self._shed_429(shed)
+        if body is None:
+            body = self._parse(raw)
+            # the PATH name wins; a body "model" must agree with it
+            name = body.get("model")
+            if name is not None and name != path_model:
+                raise ServeError(400, f"body model '{name}' contradicts "
+                                      f"path model '{path_model}'")
         try:
             params = {}
             if verb == "classify":
@@ -621,11 +837,13 @@ class _Handler(BaseHTTPRequestHandler):
                 payload["trace"] = span.to_dict()
         blob = json.dumps(payload).encode()
         plane = self.server.plane
-        if key is not None and wl.cacheable(len(blob)) and not (
-                plane is not None and plane.canary_active(model.name)):
-            # during a canary window this answer may be the candidate's:
-            # filed under the active digest it would poison the cache
-            cache.put(key, blob)
+        # during a canary window this answer may be the candidate's (of
+        # any tier, for a cascade): filed under the active digest it
+        # would poison the cache
+        paused = cascade.canary_active() if cascade is not None else (
+            plane is not None and plane.canary_active(model.name))
+        if key is not None and wl.cacheable(len(blob)) and not paused:
+            cache.put(key, blob, tier=self._tier)
         if qos is not None:
             qos.record_served(tenant, time.monotonic() - t0)
         return blob
@@ -642,8 +860,23 @@ class _Handler(BaseHTTPRequestHandler):
             stats["response_cache"] = srv.response_cache.stats()
         if srv.qos is not None:
             stats["qos"] = srv.qos.stats()
+        if srv.brownout is not None:
+            stats["brownout"] = srv.brownout.stats()
+        if srv.cascade is not None:
+            stats["cascade"] = srv.cascade.stats()
         stats["kernels"] = kernel_launches()
         return stats
+
+    def _models_with_cascade(self, models: dict) -> dict:
+        """/v1/models entries, a cascade member's with the router's
+        ``cascade`` block (chain, hop role, threshold source)."""
+        cascade = self.server.cascade
+        if cascade is not None:
+            for name, entry in models.items():
+                block = cascade.describe_member(name)
+                if block is not None:
+                    entry["cascade"] = block
+        return models
 
     def do_GET(self):
         path, _, query = self.path.partition("?")
@@ -671,11 +904,19 @@ class _Handler(BaseHTTPRequestHandler):
                             "text/plain; version=0.0.4; charset=utf-8")
         elif path == "/v1/models":
             if srv.plane is not None:
-                self._reply(200, {"models": srv.plane.models()})
+                self._reply(200, {"models": self._models_with_cascade(
+                    srv.plane.models())})
                 return
-            self._reply(200, {"models": {
+            self._reply(200, {"models": self._models_with_cascade({
                 name: {"model": srv.registry.get(name).describe()}
-                for name in srv.registry.names()}})
+                for name in srv.registry.names()})})
+        elif path == "/v1/brownout":
+            if srv.brownout is None:
+                self._reply(503, {"error": "brownout controller is not "
+                                           "enabled (cli.serve "
+                                           "--brownout)"})
+                return
+            self._reply(200, srv.brownout.stats())
         elif path == "/v1/traces":
             try:
                 n = int(parse_qs(query).get("n", ["32"])[0])
@@ -700,11 +941,15 @@ class _Handler(BaseHTTPRequestHandler):
         tracer = self.server.tracer
         span = self._span = tracer.start(self._rid, origin="recv")
         self._cache_hit = False
-        self._raw_body = None
         try:
             if path == "/v1/drain":
                 self._reply(200, self._drain())
                 return
+            if path == "/v1/brownout":
+                self._reply(*self._brownout_post())
+                return
+            self._tier = None
+            self._degraded = False
             path_model, verb = None, None
             parts = path.split("/")
             if len(parts) == 5 and parts[1] == "v1" \
@@ -724,10 +969,15 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(404, {"error": f"no route {self.path}",
                                   "supported_verbs": sorted(WORKLOADS)})
                 return
-            blob = self._infer_route(verb, self._body(), path_model, debug)
-            self._reply_raw(200, blob, "application/json",
-                            {"X-DVT-Cache": "hit"} if self._cache_hit
-                            else None)
+            blob = self._infer_route(verb, path_model, debug)
+            headers = {}
+            if self._cache_hit:
+                headers["X-DVT-Cache"] = "hit"
+            if self._tier is not None:
+                headers[TIER_HEADER] = self._tier
+            if self._degraded:
+                headers[DEGRADED_HEADER] = "1"
+            self._reply_raw(200, blob, "application/json", headers or None)
         except ServeError as e:
             self._reply(e.status, {"error": str(e)}, headers=e.headers)
         except TimeoutError:
@@ -763,6 +1013,28 @@ class _Handler(BaseHTTPRequestHandler):
                         eng.stop(drain_deadline=deadline)
         return {"status": "draining", "already_draining": already,
                 "drain_deadline_s": deadline}
+
+    def _brownout_post(self) -> tuple:
+        """POST /v1/brownout → (status, payload): the operator override.
+        {"force": 0..3} pins the ladder at a level, {"force": null} hands
+        it back to the signals; the reply is the controller's stats."""
+        bo = self.server.brownout
+        if bo is None:
+            return 503, {"error": "brownout controller is not enabled "
+                                  "(cli.serve --brownout)"}
+        body = self._body()
+        if "force" not in body:
+            raise ServeError(400, "body needs 'force': 0..3 to pin the "
+                                  "ladder, null to release")
+        force = body["force"]
+        if force is not None:
+            try:
+                force = int(force)
+            except (TypeError, ValueError) as e:
+                raise ServeError(
+                    400, f"bad force level: {body['force']!r}") from e
+        bo.force(force)
+        return 200, bo.stats()
 
     def _lifecycle(self, name: str, verb: str) -> tuple:
         """POST /v1/models/<name>/reload|promote|rollback → (status,
@@ -833,19 +1105,23 @@ class ServeServer:
     """HTTP front-end wired to a registry + one engine per model, or to
     the model control plane (``plane``; ``engines`` is then the plane's
     boot-time active engines, used only for the tracer) and, with it,
-    the deploy pipeline (``deploy``: ledger, watcher, autoscalers)."""
+    the deploy pipeline (``deploy``: ledger, watcher, autoscalers) and
+    the cascade router (``cascade``).  ``brownout`` is the ladder the
+    request path probes (stale cache hits, the L3 QoS floor)."""
 
     def __init__(self, registry, engines: dict, host: str = "127.0.0.1",
                  port: int = 0,
                  max_body_bytes: int = DEFAULT_MAX_BODY_BYTES,
                  socket_timeout_s: float | None = SOCKET_TIMEOUT_S,
                  tracer=None, plane=None, response_cache=None, qos=None,
-                 deploy=None):
+                 deploy=None, cascade=None, brownout=None):
         self.httpd = _HTTPServer((host, port), _Handler)
         self.httpd.registry = registry
         self.httpd.engines = engines
         self.httpd.plane = plane
         self.httpd.deploy = deploy
+        self.httpd.cascade = cascade
+        self.httpd.brownout = brownout
         self.httpd.max_body_bytes = int(max_body_bytes)
         self.httpd.socket_timeout_s = socket_timeout_s
         self.httpd.response_cache = response_cache

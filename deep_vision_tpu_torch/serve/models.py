@@ -334,8 +334,7 @@ class ModelVersion:
 
 class AgreementHistogram:
     """Tier-vs-big agreement per tier-confidence bucket: one cascade
-    hop's calibration sample (the cascade router that feeds it comes in
-    the cascade slice).
+    hop's calibration sample (serve/cascade.py feeds it).
 
     Fixed bins over [0, 1): sample i lands in
     ``floor(conf * bins)`` and records whether the cheap tier's answer
@@ -541,6 +540,10 @@ class ModelControlPlane:
         self._shadow: dict[str, tuple] = {}  # guarded-by: _lock
         self._counter: dict[str, int] = {}  # guarded-by: _lock
         self._reloading: dict[str, threading.Thread] = {}  # guarded-by: _lock
+        # fns called as fn(name) after a version swap of name (deploy,
+        # promote, and through promote revert): the cascade's
+        # recalibration hook; mutated under _lock, snapshotted to fire
+        self._version_listeners: list = []  # guarded-by: _lock
         self._lock = threading.Lock()
         self._stopping = threading.Event()
         self.reloads = 0  # guarded-by: _lock
@@ -548,6 +551,31 @@ class ModelControlPlane:
         self.rollbacks = 0  # guarded-by: _lock
         self.reverts = 0  # guarded-by: _lock
         self.resubmitted = 0  # guarded-by: _lock
+        # optional BrownoutController (serve/brownout.py): at L1+ the
+        # shadow duplicate is optional work and pauses (the shadow phase
+        # compares more slowly); read racily, None = off
+        self.brownout = None
+        self.shadow_paused = 0  # guarded-by: _lock
+
+    def add_version_listener(self, fn):
+        """Register ``fn(name)`` to fire after any version swap of
+        ``name`` (deploy, promote, and through promote a revert).  The
+        cascade router drops a hop's calibration with it the moment a
+        tier's weights change."""
+        with self._lock:
+            self._version_listeners.append(fn)
+
+    def _fire_version_listeners(self, name: str):
+        # snapshot, then call OUTSIDE _lock: a listener may call back
+        # into the plane (resolve, canary_active)
+        with self._lock:
+            listeners = list(self._version_listeners)
+        for fn in listeners:
+            try:
+                fn(name)
+            except Exception as e:  # noqa: BLE001 — a listener must not break a deploy
+                event(_log, "version_listener_error", model=name,
+                      error=f"{type(e).__name__}: {e}")
 
     # -- deployment --------------------------------------------------------
 
@@ -584,6 +612,7 @@ class ModelControlPlane:
             mv.was_active = True
         if old is not None:
             self._retire(old, reason="replaced by deploy")
+        self._fire_version_listeners(model.name)
         event(_log, "deploy", model=model.name, version=mv.version,
               step=model.restored_step)
         return mv
@@ -700,7 +729,14 @@ class ModelControlPlane:
         # compared against the primary then discarded — the candidate
         # never answers a client while shadowing
         if shadow is not None and tick % shadow[1] == 0:
-            self._shadow_submit(shadow[0], image, inner)
+            bo = self.brownout
+            if bo is not None and bo.at_least(1):
+                # brownout L1+: the duplicate is optional work; the
+                # shadow phase compares more slowly, nothing breaks
+                with self._lock:
+                    self.shadow_paused += 1
+            else:
+                self._shadow_submit(shadow[0], image, inner)
 
     def _request_done(self, inner: Future, name, mv, image, deadline_ms,
                       span, fut: Future, retries: int, is_canary: bool):
@@ -874,6 +910,8 @@ class ModelControlPlane:
             calib_dir=old.calib_dir, device=old.device)
         for knob in DETECT_KNOBS:
             setattr(sm, knob, getattr(old, knob))
+        # a cascade front tier keeps its fused confidence epilogue
+        sm.cascade_topk = old.cascade_topk
         stamp_restore(sm, info)
         return sm
 
@@ -1060,6 +1098,7 @@ class ModelControlPlane:
                 if pair is not None and pair[0] is mv:
                     routes.pop(name)
         self.registry.add(mv.model, version=mv.version)
+        self._fire_version_listeners(name)
         event(_log, "promote", model=name, version=mv.version,
               step=mv.model.restored_step)
         if old is not None and old is not mv:
@@ -1315,6 +1354,7 @@ class ModelControlPlane:
                      "rollbacks": self.rollbacks,
                      "reverts": self.reverts,
                      "resubmitted": self.resubmitted,
+                     "shadow_paused": self.shadow_paused,
                      "policy": self.policy.describe()}
         models = {}
         for name, (active, versions) in sorted(snapshot.items()):

@@ -107,6 +107,11 @@ class ServingModel:
         self.params_digest: str | None = None
         #: version number under the control plane (serve/models.py)
         self.serve_version: int | None = None
+        #: cascade front-tier knob (serve/cascade.py): K > 0 fuses the
+        #: classify workload's softmax + top-K confidence epilogue into
+        #: this model's bucket callables, so the router reads the top-1
+        #: off a 3·K-scalar row instead of dense logits; 0 = dense rows
+        self.cascade_topk: int = 0
         self._model: torch.nn.Module | None = None
         # weight residency (serve/models.py WeightCache): the cache that
         # manages this model, the host copy of every parameter and
@@ -457,6 +462,7 @@ class ModelRegistry:
                         calib_dir: str | None = None,
                         device=None,
                         workdir: str | None = None,
+                        cascade_topk: int = 0,
                         detect_decode: str = "device",
                         detect_topk: int = 100,
                         detect_score_threshold: float = 0.05,
@@ -470,6 +476,9 @@ class ModelRegistry:
         neither, and serve it on ``device`` (default cuda).  ``wire_dtype``/``infer_dtype`` as in the module
         docstring; int8 calibrates on ``calib_batches`` batches from
         ``calib_dir`` (deterministic synthetic data when None).
+        ``cascade_topk`` > 0 marks a cascade front tier: the classify
+        workload fuses its confidence epilogue (softmax + top-K on the
+        device) into the bucket callables (serve/cascade.py).
 
         ``detect_*`` configure a detection model's decode
         (``ServingModel``'s attributes of the same names): ``"device"``
@@ -498,6 +507,7 @@ class ModelRegistry:
                                     calib_batches=calib_batches,
                                     calib_dir=calib_dir, device=device)
         stamp_restore(sm, info)
+        sm.cascade_topk = int(cascade_topk)
         sm.detect_decode = str(detect_decode)
         sm.detect_topk = int(detect_topk)
         sm.detect_score_threshold = float(detect_score_threshold)

@@ -10,8 +10,10 @@ keypoints on the device) and ``GenerateWorkload`` (the GAN generators
 behind ``/v1/generate``: a latent or a seed in for DCGAN, an image in
 for CycleGAN, uint8 pixels out).  Each verb also owns its shadow
 ``agree`` rule (the control plane's shadow phase, serve/models.py) and
-its response-cache size guard (``cacheable``).  Classify's cascade
-top-k epilogue and the cascade rules wait for the cascade slice.
+its response-cache size guard (``cacheable``), and the cascade's
+verbs their ``CascadeWorkloadRule`` (``cascade_rule``): classify reads
+the front tier's fused softmax + top-K epilogue, detect its
+device-decoded rows (serve/cascade.py).
 """
 
 from __future__ import annotations
@@ -80,15 +82,79 @@ class Workload:
         are not comparable (counted as discarded)."""
         return None
 
+    def cascade_rule(self):
+        """This verb's :class:`CascadeWorkloadRule`, or None when the
+        verb cannot cascade (pose and generate: no escalation signal on
+        their rows).  The router resolves it from the big tier."""
+        return None
+
+
+class CascadeWorkloadRule:
+    """How one verb's rows drive the cascade (serve/cascade.py).
+
+    ``signal(row)`` is the escalation signal of a cheap tier's row:
+    ``(class, confidence)``, confidence in [0, 1] (the hop's histogram
+    bucket and threshold comparison), class keying the optional
+    per-class thresholds (None: pooled only).  ``(None, None)`` means
+    the row carries no signal (a Shed, a dense host row): the router
+    escalates.  ``agree(tier_row, big_row)`` scores one dual-run
+    calibration sample: True/False, or None when not comparable
+    (discarded).  Stateless, like the adapters."""
+
+    def signal(self, row) -> tuple:
+        raise NotImplementedError
+
+    def agree(self, tier_row, big_row):
+        raise NotImplementedError
+
 
 class ClassifyWorkload(Workload):
     verb = "classify"
     slo = SLO("interactive", deadline_ms=30_000.0, max_queue=256)
 
+    def make_epilogue(self, model):
+        """The cascade front tiers' confidence reduction, fused into the
+        bucket callable on the device: float32 softmax, then the top-K
+        probabilities (the lower class first among equal ones, as
+        ``jax.lax.top_k``: ``ops/boxes.topk_stable``), their classes and
+        their logits, so the D2H copy moves 3·K scalars an image instead
+        of the dense logits.  Gated on the model's ``cascade_topk`` (set
+        by cli.serve on the non-final tiers, copied across reloads), so
+        the big tier keeps its dense rows and an escalated answer is a
+        big-only answer."""
+        k = int(getattr(model, "cascade_topk", 0) or 0)
+        if k <= 0:
+            return None
+        import torch
+
+        from deep_vision_tpu_torch.ops.boxes import topk_stable
+
+        def post(out):
+            logits = out.to(torch.float32)
+            probs = torch.softmax(logits, dim=-1)
+            top_p, top_i = topk_stable(probs, min(k, logits.shape[-1]))
+            return {"topk_class": top_i.to(torch.int32),
+                    "topk_prob": top_p,
+                    "topk_logit": torch.gather(logits, -1, top_i)}
+
+        return post
+
     @staticmethod
     def top1(row):
-        """``(class, prob)`` of a dense-logits row, or ``(None, None)``
-        for a row with no top-1."""
+        """``(class, prob)`` of a classify row, dense logits OR the
+        confidence epilogue's dict, or ``(None, None)`` for a row with
+        no top-1 (a Shed or Quarantined, a foreign shape).  The cascade
+        router and ``agree`` both read rows through it, so the two
+        shapes always compare."""
+        if isinstance(row, dict):
+            try:
+                cls = np.asarray(row["topk_class"]).reshape(-1)
+                prob = np.asarray(row["topk_prob"]).reshape(-1)
+            except (KeyError, TypeError, ValueError):
+                return None, None
+            if cls.size == 0 or prob.size == 0:
+                return None, None
+            return int(cls[0]), float(prob[0])
         if isinstance(row, np.ndarray) and row.ndim >= 1 and row.size:
             logits = row.astype(np.float64)
             z = np.exp(logits - logits.max())
@@ -97,6 +163,15 @@ class ClassifyWorkload(Workload):
         return None, None
 
     def respond(self, model, body: dict, row) -> dict:
+        if isinstance(row, dict):
+            # a confidence-epilogue row: the top K already on the device
+            cls = np.asarray(row["topk_class"]).reshape(-1)
+            prob = np.asarray(row["topk_prob"]).reshape(-1)
+            logit = np.asarray(row["topk_logit"]).reshape(-1)
+            k = min(int(body.get("top_k", 5)), cls.shape[0])
+            return {"model": model.name,
+                    "top": [{"class": int(cls[j]), "prob": float(prob[j]),
+                             "logit": float(logit[j])} for j in range(k)]}
         logits = np.asarray(row)
         k = min(int(body.get("top_k", 5)), logits.shape[-1])
         top = np.argsort(logits)[-k:][::-1]
@@ -113,6 +188,9 @@ class ClassifyWorkload(Workload):
         if p is None or s is None:
             return None
         return p == s
+
+    def cascade_rule(self):
+        return _ClassifyCascadeRule()
 
 
 class DetectWorkload(Workload):
@@ -290,6 +368,59 @@ class DetectWorkload(Workload):
                 taken[cand[j]] = True
                 matched += 1
         return matched / max(n_p, n_s) >= self.min_match_frac
+
+    def cascade_rule(self):
+        return _DetectCascadeRule(self)
+
+
+class _ClassifyCascadeRule(CascadeWorkloadRule):
+    """Classify cascades on the top-1: confidence is the row's
+    ``topk_prob[0]`` (the softmax of dense logits for a row without the
+    epilogue), class its ``topk_class[0]``; a dual-run sample agrees
+    when the two tiers' top-1 classes match."""
+
+    def signal(self, row) -> tuple:
+        return ClassifyWorkload.top1(row)
+
+    def agree(self, tier_row, big_row):
+        t, _ = ClassifyWorkload.top1(tier_row)
+        b, _ = ClassifyWorkload.top1(big_row)
+        if t is None or b is None:
+            return None
+        return t == b
+
+
+class _DetectCascadeRule(CascadeWorkloadRule):
+    """Detect cascades on the device-decoded row: an answer with no
+    valid box signals confidence 0.0 (an empty scene escalates unless
+    the sample shows the cheap tier agrees on such scenes), otherwise
+    its best valid box's score, that box's class keying the per-class
+    axis.  Agreement is ``DetectWorkload.agree`` (the greedy-IoU mAP
+    proxy).  A dense host row carries no signal: escalate."""
+
+    def __init__(self, workload):
+        self._workload = workload
+
+    def signal(self, row) -> tuple:
+        if not isinstance(row, dict):
+            return None, None
+        try:
+            s = np.asarray(row["scores"], np.float32).reshape(-1)
+            c = np.asarray(row["classes"]).reshape(-1)
+            v = np.asarray(row["valid"], np.float32).reshape(-1)
+        except (KeyError, TypeError, ValueError):
+            return None, None
+        if s.shape[0] != v.shape[0] or c.shape[0] != v.shape[0]:
+            return None, None
+        keep = v > 0
+        if not keep.any():
+            return None, 0.0
+        s, c = s[keep], c[keep]
+        j = int(np.argmax(s))
+        return int(c[j]), float(min(max(s[j], 0.0), 1.0))
+
+    def agree(self, tier_row, big_row):
+        return self._workload.agree(tier_row, big_row)
 
 
 class PoseWorkload(Workload):

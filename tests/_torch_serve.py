@@ -32,15 +32,16 @@ def lenet_variables(seed=0):
     return tz.variables("lenet5", seed)
 
 
-def jax_lenet(variables, wire="float32", infer="float32"):
-    """The reference's serving model of LeNet-5 with ``variables``."""
-    cfg = jax_get_config("lenet5")
-    jm = tz.MODELS["lenet5"][0]()
+def jax_lenet(variables, wire="float32", infer="float32", name="lenet5"):
+    """The reference's serving model of LeNet-5 (or its tier ``name``)
+    with ``variables``."""
+    cfg = jax_get_config(name)
+    jm = tz.MODELS[name][0]()
     state = JaxTrainState.create(
         apply_fn=jm.apply, params=variables["params"],
         tx=build_optimizer(OptimizerConfig()),
         batch_stats=variables.get("batch_stats", {}))
-    return JaxServingModel("lenet5", cfg, jm, state, wire_dtype=wire,
+    return JaxServingModel(name, cfg, jm, state, wire_dtype=wire,
                            infer_dtype=infer)
 
 
