@@ -408,6 +408,32 @@ Phases, each of which must pass:
               5xx anywhere; launches = batches + the reload's warmup;
               /metrics parses.  Information only: engage and release
               seconds, premium p50 under the clients at L2 and L3.
+  gateway     two ``python -m deep_vision_tpu_torch.cli.serve``
+              processes on the card (ResNet-50 int8 from one seeded
+              port checkpoint, uint8 wire, ``--warmup``, a 64 MB
+              response cache, the default selector edge; backend 0
+              with ``compute:exception:times=1``) behind
+              ``cli/gateway.py``'s ``build_gateway`` in this process:
+              32 requests (8 sequential, 24 concurrent) answer 200,
+              each equal to the bucket callable's answer at a bucket,
+              both backends serve, each backend's ``serve_ingest``
+              launches (from its ``/v1/stats``) equal its batches in
+              every window, backend 0's exception is retried; each
+              backend's edge reused keep-alive sockets and accepted no
+              more than the gateway's pool, its probes and this
+              script's own connections; a SIGKILL of backend 1 under 4
+              closed-loop clients loses nothing, its breaker opens and
+              the gateway's healthz stays 200; over the survivor and a
+              restarted backend 1 an ``--affinity`` gateway sends 8
+              repeats of one payload to one backend (one batch, 7
+              ``X-DVT-Cache`` hits, the other backend untouched);
+              ``gateway:conn_reset:p=0.2`` (seed 1) over 16 requests
+              retries and answers every one with
+              ``X-DVT-Retry-Budget``; ``POST /v1/drain`` on both turns
+              their healthz and the gateway's 503; every backend
+              process is reaped.  Information only: boot seconds, p50
+              through the gateway against direct to a backend, kill →
+              unroutable ms, reused connections.
 
 It prints ``{"phase_seconds": {...}}``, the wall seconds each phase
 took, and before the last line ``{"kernels": [...]}`` (one entry per
@@ -637,6 +663,23 @@ BROWNOUT_FLAGS = ["--brownout", "--brownout-interval-ms", "25",
                   "--brownout-l3-ms", "240", "--brownout-shed-rate", "0.9",
                   "--brownout-down-window", "3", "--brownout-cooldown-s",
                   "0.2"]
+
+#: the gateway: two ``cli.serve`` processes of ResNet-50 int8 on the one
+#: card behind ``cli.gateway`` (probes every 50 ms), backend 0 with one
+#: injected compute exception; 8 sequential then 24 concurrent requests,
+#: 16 bucket-1 requests each way for the hop's cost, 4 closed-loop
+#: clients across the SIGKILL (held 1 s after it), 8 repeats of one
+#: payload under affinity, and 16 requests under a seeded conn_reset
+#: (seed 1 fires on the first attempt and on two in a row later)
+GATEWAY_DEVICE = "cuda"
+GATEWAY_FAULT = "compute:exception:times=1"
+GATEWAY_PROBE_MS = 50
+GATEWAY_N, GATEWAY_N_SEQ, GATEWAY_HOP_N = 32, 8, 16
+GATEWAY_CLIENTS, GATEWAY_KILL_TAIL_S = 4, 1.0
+GATEWAY_AFFINITY_REPEATS = 8
+GATEWAY_NET_FAULT, GATEWAY_NET_SEED, GATEWAY_NET_N = \
+    "gateway:conn_reset:p=0.2", 1, 16
+GATEWAY_BOOT_TIMEOUT_S = 300.0
 
 
 def log(msg: str) -> None:
@@ -5506,6 +5549,435 @@ def phase_brownout(card_line: str) -> dict:
     return out
 
 
+class BackendProcess:
+    """One ``python -m deep_vision_tpu_torch.cli.serve`` child process:
+    its listening port is read off the URL line it prints at boot, its
+    stderr goes to ``log_path``."""
+
+    URL_RE = re.compile(r"http://[^\s/:]+:(\d+)/v1/")
+
+    def __init__(self, workdir: str, log_path: str, *extra):
+        argv = [sys.executable, "-m", "deep_vision_tpu_torch.cli.serve",
+                "-m", MODEL, "--workdir", workdir, "--wire-dtype", "uint8",
+                "--infer-dtype", "int8", "--warmup",
+                "--response-cache-mb", "64", "--port", "0",
+                "--device", GATEWAY_DEVICE,
+                "--max-batch", str(max(BUCKETS)),
+                "--buckets", ",".join(map(str, BUCKETS)), *extra]
+        self.log_path = log_path
+        self.started = time.monotonic()
+        self.boot_s: float | None = None
+        self.port: int | None = None
+        self._err = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            argv, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=subprocess.PIPE, stderr=self._err, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            m = self.URL_RE.search(line)
+            if m and self.port is None:
+                self.port = int(m.group(1))
+                self.boot_s = time.monotonic() - self.started
+
+    def wait_ready(self, timeout: float = GATEWAY_BOOT_TIMEOUT_S) -> int:
+        wait_for(lambda: self.port is not None
+                 or self.proc.poll() is not None, timeout)
+        if self.port is None:
+            self.stop()
+            with open(self.log_path) as f:
+                tail = f.read()[-3000:]
+            check(False, f"cli.serve did not come up (exit "
+                         f"{self.proc.poll()}):\n{tail}")
+        return self.port
+
+    @property
+    def url(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def stats(self) -> dict:
+        return json.loads(get_url(self.port, "/v1/stats")[1])
+
+    def stop(self, sig: str = "terminate") -> None:
+        if self.proc.poll() is None:
+            getattr(self.proc, sig)()
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        self._reader.join(5)
+        self._err.close()
+
+
+def backend_counts(bp: BackendProcess) -> dict:
+    """One backend's serve_ingest launches, executed batches, health and
+    edge counters from its own ``/v1/stats``."""
+    s = bp.stats()
+    eng = s[MODEL]
+    return {"launches": s["kernels"]["serve_ingest"],
+            "batches": eng["batches"], "served": eng["served"],
+            "retry_executions": eng["health"]["retry_executions"],
+            "batch_failures": eng["health"]["batch_failures"],
+            "edge": s["edge"]}
+
+
+def http_status(port: int, path: str) -> tuple[int, dict]:
+    try:
+        status, blob = get_url(port, path)
+    except urllib.error.HTTPError as e:
+        status, blob = e.code, e.read()
+    return status, json.loads(blob)
+
+
+def exact_replies(replies, idx: list, refs: dict) -> list:
+    """``exact_buckets`` for replies to the images at ``idx``."""
+    sub = {b: [rows[i] for i in idx] for b, rows in refs.items()}
+    return exact_buckets(replies, sub)[1]
+
+
+def launches_match(before: dict, after: dict, what: str) -> int:
+    """Each backend's serve_ingest launches rose by its executed batches
+    (on the card; the plain version on the CPU launches nothing)."""
+    ran = after["batches"] - before["batches"]
+    launched = after["launches"] - before["launches"]
+    want = ran if GATEWAY_DEVICE.startswith("cuda") else 0
+    check(launched == want, f"{what}: serve_ingest launched {launched} "
+                            f"times for {ran} batches")
+    return launched
+
+
+def build_gateway_cli(argv: list):
+    """``cli/gateway.py``'s ``build_gateway`` on ``argv``, started."""
+    from deep_vision_tpu_torch.cli import gateway as cli
+
+    gw, server = cli.build_gateway(cli.build_parser().parse_args(
+        ["--port", "0", "--probe-interval-ms", str(GATEWAY_PROBE_MS),
+         *argv]))
+    server.start_background()
+    return gw, server
+
+
+def gateway_healthz(server) -> int:
+    return http_status(server.port, "/v1/healthz")[0]
+
+
+def phase_gateway(card_line: str) -> dict:
+    """Two ``cli.serve`` processes (ResNet-50 int8 from one seeded port
+    checkpoint, the default edge, backend 0 with one injected compute
+    exception) behind ``cli.gateway``'s ``build_gateway``: answers equal
+    to the bucket callable at a bucket through the gateway, launches =
+    batches in each backend, keep-alive reuse, a SIGKILL of backend 1
+    under 4 closed-loop clients losing nothing, affinity over a restarted
+    backend 1 (one batch for 8 repeats), ``gateway:conn_reset`` absorbed
+    by retries, and a drain turning the gateway's healthz 503."""
+    import torch
+
+    from deep_vision_tpu_torch.serve.registry import ModelRegistry
+
+    t_phase = time.monotonic()
+    body = {"top_k": 5}
+    out: dict = {"card": card_line}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    procs: list = []
+    gateways: list = []
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        workdir = os.path.join(tmp, MODEL)
+        write_checkpoint(workdir, 1, seeded_classifier(7))
+        try:
+            # both backends boot cold, in parallel, while this process
+            # computes the reference answers
+            procs += [BackendProcess(workdir, os.path.join(tmp, "b0.log"),
+                                     "--faults", GATEWAY_FAULT),
+                      BackendProcess(workdir, os.path.join(tmp, "b1.log"))]
+            registry = ModelRegistry()
+            sm = registry.load_checkpoint(MODEL, workdir=workdir,
+                                          wire_dtype="uint8",
+                                          infer_dtype="int8",
+                                          device=FLEET_DEVICE)
+            n_img = GATEWAY_N + 1 + 2 * GATEWAY_HOP_N
+            imgs = np.random.RandomState(50).randint(
+                0, 256, (n_img, *sm.input_shape), np.uint8)
+            refs = bucket_answers(sm, imgs, body)
+            del sm, registry
+            torch.cuda.empty_cache()
+            bodies = [json.dumps({"pixels": im.tolist(), **body}).encode()
+                      for im in imgs]
+            for bp in procs:
+                bp.wait_ready()
+            out["backend_boot_s"] = [bp.boot_s for bp in procs]
+            b0, b1 = procs
+            gw, gsrv = build_gateway_cli(["--backend", b0.url,
+                                          "--backend", b1.url])
+            gateways.append((gw, gsrv))
+            gport = gsrv.port
+            direct = 0  # this script's own connections to the backends
+            base = [backend_counts(bp) for bp in procs]
+            direct += 2
+            # 1. answers: 8 sequential, then 24 concurrent
+            replies = drive(gport, bodies[:GATEWAY_N], GATEWAY_N_SEQ)
+            faults = exact_replies(replies, list(range(GATEWAY_N)), refs)
+            check(not faults, f"gateway answers: {faults[:5]}")
+            after = [backend_counts(bp) for bp in procs]
+            direct += 2
+            served = [a["served"] - b["served"]
+                      for a, b in zip(after, base)]
+            check(all(s > 0 for s in served) and sum(served) == GATEWAY_N,
+                  f"served by each backend {served}")
+            answers_launches = [launches_match(b, a, f"backend {i}")
+                                for i, (b, a) in enumerate(zip(base,
+                                                               after))]
+            check(after[0]["retry_executions"] >= 1
+                  and after[0]["batch_failures"] >= 1,
+                  f"backend 0's injected exception was not retried: "
+                  f"{after[0]}")
+            reports = gw.healthz()[1]["backends"]
+            out["answers"] = {
+                "requests": GATEWAY_N, "served": served,
+                "launches": answers_launches,
+                "batches": [a["batches"] - b["batches"]
+                            for a, b in zip(after, base)],
+                "retry_executions": after[0]["retry_executions"],
+                "gateway_successes": [reports[bp.url]["successes"]
+                                      for bp in procs]}
+            log(f"gateway answers: {json.dumps(out['answers'])}")
+
+            # 2. keep-alive: the gateway's pools reuse backend sockets
+            keep = []
+            for bp, a in zip(procs, after):
+                rep = reports[bp.url]
+                edge = a["edge"]
+                bound = rep["conns"]["created"] + rep["probes"] + direct
+                check(edge["keepalive_reuses"] > 0,
+                      f"{bp.url}: no keep-alive reuse {edge}")
+                check(edge["accepted"] <= bound,
+                      f"{bp.url}: accepted {edge['accepted']} > pool "
+                      f"{rep['conns']['created']} + probes "
+                      f"{rep['probes']} + direct {direct}")
+                keep.append({"accepted": edge["accepted"],
+                             "keepalive_reuses": edge["keepalive_reuses"],
+                             "pool_created": rep["conns"]["created"],
+                             "pool_reused": rep["conns"]["reused"],
+                             "probes": rep["probes"]})
+            out["keepalive"] = keep
+            log(f"gateway keep-alive: {json.dumps(keep)}")
+
+            # the hop's cost: bucket-1 requests of fresh images through
+            # the gateway and straight to backend 0 (information only)
+            hop0 = GATEWAY_N + 1
+            via = [post_any(gport, bodies[i])
+                   for i in range(hop0, hop0 + GATEWAY_HOP_N)]
+            straight = [post_any(b0.port, bodies[i])
+                        for i in range(hop0 + GATEWAY_HOP_N,
+                                       hop0 + 2 * GATEWAY_HOP_N)]
+            direct += GATEWAY_HOP_N
+            hop_faults = exact_replies(
+                [r for r in via + straight],
+                list(range(hop0, hop0 + 2 * GATEWAY_HOP_N)), refs)
+            check(not hop_faults, f"hop answers: {hop_faults[:5]}")
+            out["hop"] = {"gateway_p50_ms": p50_ms([r[2] for r in via]),
+                          "direct_p50_ms": p50_ms([r[2] for r in straight])}
+            before_kill = [backend_counts(bp) for bp in procs]
+            direct += 2
+            for i, (b, a) in enumerate(zip(after, before_kill)):
+                launches_match(b, a, f"backend {i} over the hop")
+
+            # 3. SIGKILL backend 1 under 4 closed-loop clients
+            stop = threading.Event()
+            lock = threading.Lock()
+            kill_replies: list = []
+            errors: list = []
+
+            def client(k):
+                i = k
+                while not stop.is_set():
+                    j = i % GATEWAY_N
+                    try:
+                        status, got, _ = post_any(gport, bodies[j])
+                        with lock:
+                            kill_replies.append((j, (status, got, 0.0)))
+                    except Exception as e:  # noqa: BLE001 — a lost request
+                        with lock:
+                            errors.append(repr(e))
+                    i += GATEWAY_CLIENTS
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(GATEWAY_CLIENTS)]
+            for t in threads:
+                t.start()
+            wait_for(lambda: len(kill_replies) >= 8, 60)
+            t_kill = time.monotonic()
+            b1.proc.kill()
+            routed_off = wait_for(lambda: not gw.backends[1].routable(), 10)
+            kill_ms = (time.monotonic() - t_kill) * 1e3
+            breaker = gw.backends[1].report()
+            restart = BackendProcess(workdir, os.path.join(tmp, "b1r.log"))
+            procs.append(restart)
+            time.sleep(GATEWAY_KILL_TAIL_S)
+            stop.set()
+            for t in threads:
+                t.join(120)
+            b1.stop("kill")
+            check(routed_off, "the gateway still routes to the killed "
+                              "backend 10 s after the SIGKILL")
+            check(breaker["breaker"] == "open"
+                  and breaker["breaker_opens"] >= 1,
+                  f"killed backend's breaker: {breaker['breaker']}, "
+                  f"opens {breaker['breaker_opens']}")
+            check(not errors, f"requests lost to the SIGKILL: {errors[:3]}")
+            kill_faults = exact_replies([r for _, r in kill_replies],
+                                        [j for j, _ in kill_replies], refs)
+            check(not kill_faults, f"answers under the SIGKILL: "
+                                   f"{kill_faults[:5]}")
+            check(gateway_healthz(gsrv) == 200,
+                  "gateway healthz is not 200 with one backend alive")
+            after_kill = backend_counts(b0)
+            direct += 1
+            out["sigkill"] = {
+                "requests": len(kill_replies), "errors": len(errors),
+                "kill_to_unroutable_ms": kill_ms,
+                "breaker_opens": breaker["breaker_opens"],
+                "failovers": gw.counters()["failovers"],
+                "retries": gw.counters()["retries"],
+                "launches_b0": launches_match(before_kill[0], after_kill,
+                                              "backend 0 under the kill"),
+                "launches_b1_before_kill": before_kill[1]["launches"]
+                - base[1]["launches"]}
+            log(f"gateway sigkill: {json.dumps(out['sigkill'])}")
+
+            # 4. affinity over the survivor and a restarted backend 1
+            b1r = restart
+            b1r.wait_ready()
+            out["restart_boot_s"] = b1r.boot_s
+            agw, agsrv = build_gateway_cli(["--backend", b0.url,
+                                            "--backend", b1r.url,
+                                            "--affinity"])
+            gateways.append((agw, agsrv))
+            pre = [backend_counts(bp) for bp in (b0, b1r)]
+            direct += 2
+            aff = GATEWAY_N  # a payload no backend has seen
+            aff_replies = [post_h(agsrv.port, bodies[aff], "/v1/classify")
+                           for _ in range(GATEWAY_AFFINITY_REPEATS)]
+            post = [backend_counts(bp) for bp in (b0, b1r)]
+            direct += 2
+            check(all(r[0] == 200 for r in aff_replies),
+                  f"affinity statuses {[r[0] for r in aff_replies]}")
+            answers = [json.loads(r[1]) for r in aff_replies]
+            check(all(a == answers[0] for a in answers)
+                  and any(answers[0] == rows[aff] for rows in refs.values()),
+                  "affinity answers differ from each other or from every "
+                  "bucket's")
+            hits = sum(r[2].get("X-DVT-Cache") == "hit" for r in aff_replies)
+            served_aff = [a["served"] - b["served"]
+                          for a, b in zip(post, pre)]
+            launched = [a["launches"] - b["launches"]
+                        for a, b in zip(post, pre)]
+            ran = [a["batches"] - b["batches"] for a, b in zip(post, pre)]
+            home = int(np.argmax(served_aff))
+            per_launch = 1 if GATEWAY_DEVICE.startswith("cuda") else 0
+            check(served_aff[1 - home] == 0 and ran[1 - home] == 0
+                  and launched[1 - home] == 0,
+                  f"affinity reached both backends: served {served_aff}, "
+                  f"launches {launched}")
+            check(ran[home] == 1 and launched[home] == per_launch
+                  and hits == GATEWAY_AFFINITY_REPEATS - 1,
+                  f"affinity: {ran[home]} batches, {launched[home]} "
+                  f"launches, {hits} cache hits for "
+                  f"{GATEWAY_AFFINITY_REPEATS} repeats")
+            succ = [agw.backends[i].report()["successes"] for i in (0, 1)]
+            check(succ[home] == GATEWAY_AFFINITY_REPEATS
+                  and succ[1 - home] == 0, f"affinity routed {succ}")
+            out["affinity"] = {"home": ["b0", "b1_restarted"][home],
+                               "batches": ran, "launches": launched,
+                               "cache_hits": hits}
+            log(f"gateway affinity: {json.dumps(out['affinity'])}")
+
+            # 5. network faults between gateway and backends
+            fgw, fgsrv = build_gateway_cli(["--backend", b0.url,
+                                            "--backend", b1r.url,
+                                            "--faults", GATEWAY_NET_FAULT,
+                                            "--fault-seed",
+                                            str(GATEWAY_NET_SEED)])
+            gateways.append((fgw, fgsrv))
+            net = [post_h(fgsrv.port, bodies[i], "/v1/classify")
+                   for i in range(GATEWAY_NET_N)]
+            check(all(r[0] == 200 for r in net),
+                  f"conn_reset statuses {[r[0] for r in net]}")
+            net_faults = exact_replies(
+                [(r[0], json.loads(r[1]), 0.0) for r in net],
+                list(range(GATEWAY_NET_N)), refs)
+            check(not net_faults, f"conn_reset answers: {net_faults[:5]}")
+            check(all("X-DVT-Retry-Budget" in r[2] for r in net),
+                  "an answer lacks X-DVT-Retry-Budget")
+            fc = fgw.counters()
+            fired = fgw.faults.stats()
+            check(fc["retries"] >= 1, f"conn_reset: no retries {fc}")
+            out["conn_reset"] = {"requests": GATEWAY_NET_N,
+                                 "retries": fc["retries"],
+                                 "failovers": fc["failovers"],
+                                 "faults": fired}
+            log(f"gateway conn_reset: {json.dumps(out['conn_reset'])}")
+            final = [backend_counts(bp) for bp in (b0, b1r)]
+            for i, (b, a) in enumerate(zip(post, final)):
+                launches_match(b, a, f"backend {i} under conn_reset")
+            launches_match(after_kill, pre[0], "backend 0 across the "
+                                               "restart")
+            # every launch this phase's traffic made, each window held to
+            # its batches above: backend 0 throughout, backend 1 until the
+            # kill (its last moments die with it), the restarted one after
+            # its warmup
+            out["launches"] = (
+                launches_match(base[0], final[0], "backend 0 in all")
+                + before_kill[1]["launches"] - base[1]["launches"]
+                + final[1]["launches"] - pre[1]["launches"])
+
+            # 6. drain every live backend: healthz 503, then the gateway's
+            for bp in (b0, b1r):
+                status, blob, _, _ = post_h(
+                    bp.port, json.dumps({"drain_deadline_s": 10}).encode(),
+                    "/v1/drain")
+                check(status == 200 and json.loads(blob)["status"]
+                      == "draining", f"drain {bp.url}: {status}")
+                status, doc = http_status(bp.port, "/v1/healthz")
+                check(status == 503 and doc["status"] == "draining",
+                      f"{bp.url} healthz after drain: {status} {doc}")
+            t_drain = time.monotonic()
+            check(wait_for(lambda: gateway_healthz(agsrv) == 503,
+                           20 * GATEWAY_PROBE_MS / 1e3),
+                  "the gateway's healthz is not 503 after every backend "
+                  "drained")
+            out["drain_to_503_ms"] = (time.monotonic() - t_drain) * 1e3
+        finally:
+            for gw_, srv_ in gateways:
+                srv_.shutdown()
+                gw_.stop()
+            for bp in procs:
+                bp.stop()
+        # 7. every backend process reaped, and off the card
+        check(all(bp.proc.poll() is not None for bp in procs),
+              "a backend process outlived the phase")
+        pids = {bp.proc.pid for bp in procs}
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.split() \
+            if GATEWAY_DEVICE.startswith("cuda") else []
+        check(not pids & {int(p) for p in apps if p.isdigit()},
+              f"backend processes still on the card: {apps}")
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"gateway ({card_line}): boot {out['backend_boot_s']} s, restart "
+        f"{out['restart_boot_s']:.1f} s, p50 via gateway "
+        f"{out['hop']['gateway_p50_ms']:.2f} ms vs direct "
+        f"{out['hop']['direct_p50_ms']:.2f} ms, kill -> unroutable "
+        f"{out['sigkill']['kill_to_unroutable_ms']:.0f} ms, reused "
+        f"{[k['keepalive_reuses'] for k in out['keepalive']]}, "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5612,6 +6084,7 @@ def main() -> int:
     deploy = phase_deploy()
     cascade = phase_cascade(card_line)
     brownout = phase_brownout(card_line)
+    gateway = phase_gateway(card_line)
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
@@ -5632,7 +6105,8 @@ def main() -> int:
                "deploy_resnet50": deploy["launches"],
                "cascade_classify": cascade["classify"]["launches"],
                "cascade_detect": cascade["detect"]["launches"],
-               "brownout_resnet50": brownout["launches"]}
+               "brownout_resnet50": brownout["launches"],
+               "gateway_resnet50": gateway["launches"]}
     zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
@@ -5720,6 +6194,7 @@ def main() -> int:
     print(json.dumps({"brownout": dict(
         brownout, with_cascade=cascade["classify"]["brownout"])}),
         flush=True)
+    print(json.dumps({"gateway": gateway}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

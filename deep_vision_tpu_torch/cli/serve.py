@@ -75,6 +75,12 @@ L2 serves degraded cascade answers and stale cache hits (marked
 ``X-DVT-Degraded``), L3 sheds every QoS class but premium; ``POST
 /v1/brownout {"force": n}`` pins it.
 
+The front end is the selector event loop of ``serve/edge.py``
+(keep-alive, pipelining, at most ``--max-connections`` open sockets,
+``--http-workers`` handler threads); ``--thread-server`` keeps the
+thread-per-request server.  Several of these processes go behind one
+endpoint with ``cli.gateway``.
+
 Port of ``deep_vision_tpu/cli/serve.py`` (``build_server``,
 ``_build_plane_server``, ``main``); the mesh and batch-tier flags wait
 for their slices.
@@ -122,6 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--calib-dir", default=None,
                    help="int8: held-out calibration images (.npy/.npz); "
                         "omitted = deterministic synthetic batches")
+    p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000,
                    help="0 = pick a free port")
     p.add_argument("--max-batch", type=int, default=32)
@@ -214,6 +221,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds admitted work may take to finish at "
                         "shutdown")
     # -- front end --
+    p.add_argument("--thread-server", action="store_true",
+                   help="serve with the original thread-per-request "
+                        "ThreadingHTTPServer instead of the selector "
+                        "event loop (no keep-alive pooling, no "
+                        "connection bound)")
+    p.add_argument("--max-connections", type=int, default=1024,
+                   help="edge loop: open-connection ceiling — at "
+                        "capacity the oldest fully-idle keep-alive "
+                        "connection is evicted, else accepting pauses "
+                        "until a slot frees")
+    p.add_argument("--http-workers", type=int, default=8,
+                   help="edge loop: worker threads running handler "
+                        "logic off the event loop")
+    p.add_argument("--verbose", action="store_true",
+                   help="per-request HTTP access logs")
+    p.add_argument("--log-level", default="info",
+                   choices=("debug", "info", "warning", "error"),
+                   help="structured-log threshold for the dvt.serve.* "
+                        "loggers (one JSON line per event on stderr)")
     p.add_argument("--max-body-mb", type=float, default=32.0,
                    help="request body cap (413 beyond it)")
     p.add_argument("--socket-timeout-s", type=float, default=30.0,
@@ -440,22 +466,35 @@ def _cascade_spec(args, names: list):
     return spec
 
 
-def _server(args, registry, engines: dict, tracer, plane=None,
-            deploy=None, cascade=None, brownout=None):
+def _edge_kwargs(args) -> dict:
+    """The ServeServer front-end wiring shared by both build paths: the
+    selector edge by default (``--thread-server`` restores the
+    thread-per-request server), and the response cache and tenant QoS
+    only when asked for."""
     from deep_vision_tpu_torch.serve.admission import TenantQoS
     from deep_vision_tpu_torch.serve.cache import ResponseCache
+
+    return dict(
+        edge=not args.thread_server,
+        max_connections=args.max_connections,
+        http_workers=args.http_workers,
+        response_cache=ResponseCache(int(args.response_cache_mb * 2**20))
+        if args.response_cache_mb > 0 else None,
+        qos=TenantQoS.parse(args.qos) if args.qos else None)
+
+
+def _server(args, registry, engines: dict, tracer, plane=None,
+            deploy=None, cascade=None, brownout=None):
     from deep_vision_tpu_torch.serve.http import ServeServer
 
     return ServeServer(
-        registry, engines, port=args.port,
+        registry, engines, host=args.host, port=args.port,
+        verbose=args.verbose,
         max_body_bytes=int(args.max_body_mb * 2**20),
         socket_timeout_s=args.socket_timeout_s
         if args.socket_timeout_s > 0 else None,
         tracer=tracer, plane=plane, deploy=deploy, cascade=cascade,
-        brownout=brownout,
-        response_cache=ResponseCache(int(args.response_cache_mb * 2**20))
-        if args.response_cache_mb > 0 else None,
-        qos=TenantQoS.parse(args.qos) if args.qos else None)
+        brownout=brownout, **_edge_kwargs(args))
 
 
 def build_server(args):
@@ -675,6 +714,9 @@ def main(argv=None):
     if args.cascade and not args.models:
         p.error("--cascade routes across the multi-model plane; use "
                 "--models front,big")
+    from deep_vision_tpu_torch.obs.log import configure_logging
+
+    configure_logging(args.log_level)
     engine, server = build_server(args)
     sm = engine.model
     served = args.models or sm.name

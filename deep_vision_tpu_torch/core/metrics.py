@@ -172,6 +172,12 @@ class LatencyHistogram:
         return {"edges": list(self.edges), "counts": list(self.counts),
                 "total": self.total, "sum": self.sum}
 
+    def load_state_dict(self, d: dict):
+        self.edges = list(d["edges"])
+        self.counts = list(d["counts"])
+        self.total = int(d["total"])
+        self.sum = float(d["sum"])
+
     def merge(self, d: dict) -> "LatencyHistogram":
         """Sum another histogram's ``state_dict`` into this one (a
         replicated engine's fleet latency)."""

@@ -1,9 +1,9 @@
 """Deterministic fault-injection plane for the serving engine.
 
-Copy of ``deep_vision_tpu/serve/faults.py``.  The ``gateway`` stage and
-the network modes (``conn_reset``, ``slow_drip``, ``blackhole``) parse
-and fire when asked, but no caller of this port asks yet: the gateway
-comes in a later slice.
+Copy of ``deep_vision_tpu/serve/faults.py``.  The ``gateway`` stage
+and the network modes (``conn_reset``, ``slow_drip``, ``blackhole``)
+fire in ``serve/gateway.py Gateway._single``, once per backend attempt
+(``cli.gateway --faults``).
 
 Crash-only software (Candea & Fox, HotOS'03) argues the recovery path
 must be the *tested* path — which requires failures you can produce on

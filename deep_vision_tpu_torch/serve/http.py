@@ -1,7 +1,10 @@
-"""Stdlib HTTP front-end for the batching engines (thread per request).
+"""HTTP front-end for the batching engines.
 
-Port of the ``edge=False`` path of ``deep_vision_tpu/serve/http.py``.
-Routes (JSON in, JSON out):
+Port of ``deep_vision_tpu/serve/http.py``.  The front end is the
+selector event loop of ``serve/edge.py`` by default (HTTP/1.1
+keep-alive, pipelining, bounded connections, slow-loris deadlines);
+``edge=False`` keeps the thread-per-request ``ThreadingHTTPServer``.
+The routes below run unchanged on either.  Routes (JSON in, JSON out):
 
     GET  /v1/healthz   per-engine health (thread liveness, heartbeat
                        ages, last-batch age, failures, retries,
@@ -14,6 +17,8 @@ Routes (JSON in, JSON out):
     GET  /v1/stats     per-model engine stats (or the control plane's
                        ``{"models", "cache", "plane"}`` shape, with
                        ``deploy`` when a deploy pipeline runs), the
+                       ``edge`` block (the selector loop's connection
+                       counters) on the default front end, the
                        ``response_cache``, ``qos``, ``cascade`` and
                        ``brownout`` blocks when those are on, and
                        ``kernels``: the launch count of each
@@ -65,7 +70,9 @@ A verb that is not the model's workload answers 400 and names the right
 route; an unknown route answers 404 with the supported verbs (the
 ``/v1/jobs`` routes wait for the batch tier).
 Bodies over ``max_body_bytes`` answer 413 before any buffer
-is allocated; a client that stalls mid-body gets 408.  Two optional
+is allocated (the edge dispatches such a request at once with an empty
+body, and the handler's own Content-Length check answers it); a client
+that stalls mid-body gets 408.  Two optional
 front-end services hook the inference path: a content-addressed
 response cache (``serve/cache.py``) and per-tenant QoS (the
 ``X-DVT-Tenant`` header, ``serve/admission.py TenantQoS``): the quota
@@ -97,6 +104,7 @@ from deep_vision_tpu_torch.serve.admission import TENANT_HEADER, Shed
 from deep_vision_tpu_torch.serve.cache import ResponseCache, payload_digest
 from deep_vision_tpu_torch.serve.cascade import base_tier as cascade_base_tier
 from deep_vision_tpu_torch.serve.cascade import is_degraded as cascade_degraded
+from deep_vision_tpu_torch.serve.edge import DEFAULT_MAX_CONNECTIONS, EdgeServer
 from deep_vision_tpu_torch.serve.faults import Quarantined
 from deep_vision_tpu_torch.serve.workloads import LIFECYCLE_VERBS, WORKLOADS
 
@@ -281,7 +289,8 @@ def render_serve_metrics(stats: dict) -> str:
 
 
 #: front-end stats blocks beside the per-model entries
-_FRONT_BLOCKS = ("response_cache", "qos", "kernels", "cascade", "brownout")
+_FRONT_BLOCKS = ("edge", "response_cache", "qos", "kernels", "cascade",
+                 "brownout")
 
 
 def _render_deploy_metrics(p, dep: dict) -> None:
@@ -323,7 +332,35 @@ def _render_deploy_metrics(p, dep: dict) -> None:
 
 
 def _render_front_metrics(p, stats: dict) -> None:
-    """The response cache's, per-tenant-class QoS and kernel series."""
+    """The front end's series: the selector edge's connection counters,
+    the response cache, per-tenant-class QoS and the kernel launches."""
+    edge = stats.get("edge")
+    if isinstance(edge, dict):
+        p.gauge("dvt_serve_open_connections",
+                edge.get("open_connections"), {},
+                help="Sockets currently open on the serving edge")
+        p.gauge("dvt_serve_max_connections",
+                edge.get("max_connections"), {},
+                help="Connection cap (--max-connections)")
+        p.counter("dvt_serve_edge_accepted_total", edge.get("accepted"),
+                  {}, help="Connections accepted")
+        p.counter("dvt_serve_edge_requests_total", edge.get("requests"),
+                  {}, help="Requests parsed off edge connections")
+        p.counter("dvt_serve_edge_keepalive_reuses_total",
+                  edge.get("keepalive_reuses"), {},
+                  help="Requests after the first on one connection")
+        p.counter("dvt_serve_edge_evicted_idle_total",
+                  edge.get("evicted_idle"), {},
+                  help="Idle connections evicted to admit new ones")
+        p.counter("dvt_serve_edge_accept_pauses_total",
+                  edge.get("accept_pauses"), {},
+                  help="Times the listener paused at the connection cap")
+        p.counter("dvt_serve_edge_timeouts_408_total",
+                  edge.get("timeouts_408"), {},
+                  help="Stalled-body connections answered 408")
+        p.counter("dvt_serve_edge_closed_idle_total",
+                  edge.get("closed_idle"), {},
+                  help="Idle/slow-loris connections closed silently")
     rcache = stats.get("response_cache")
     if isinstance(rcache, dict):
         p.counter("dvt_serve_cache_hits_total", rcache.get("hits"), {},
@@ -608,13 +645,17 @@ class _Handler(BaseHTTPRequestHandler):
     _degraded = False  # True when the brownout ladder degraded the answer
 
     def setup(self):
-        # a timeout on the request line closes the connection; one
-        # mid-body raises TimeoutError in do_POST (answered 408)
+        # thread server only (the edge's shim never calls setup(), and
+        # applies the same deadlines in its loop): a timeout on the
+        # request line closes the connection; one mid-body raises
+        # TimeoutError in do_POST (answered 408)
         self.timeout = self.server.socket_timeout_s
         super().setup()
 
     def log_message(self, fmt, *args):
-        pass  # no per-request access log on stderr
+        # per-request access log on stderr only with --verbose
+        if self.server.verbose:
+            super().log_message(fmt, *args)
 
     def _reply(self, status: int, payload: dict,
                headers: dict | None = None):
@@ -856,6 +897,9 @@ class _Handler(BaseHTTPRequestHandler):
                 stats["deploy"] = srv.deploy.stats()
         else:
             stats = {name: eng.stats() for name, eng in srv.engines.items()}
+        edge_stats = getattr(srv, "stats", None)
+        if callable(edge_stats):
+            stats["edge"] = edge_stats()
         if srv.response_cache is not None:
             stats["response_cache"] = srv.response_cache.stats()
         if srv.qos is not None:
@@ -1107,17 +1151,33 @@ class ServeServer:
     boot-time active engines, used only for the tracer) and, with it,
     the deploy pipeline (``deploy``: ledger, watcher, autoscalers) and
     the cascade router (``cascade``).  ``brownout`` is the ladder the
-    request path probes (stale cache hits, the L3 QoS floor)."""
+    request path probes (stale cache hits, the L3 QoS floor).
+
+    ``edge=True`` (default) runs the selector event loop of
+    ``serve/edge.py`` with ``http_workers`` handler threads and at most
+    ``max_connections`` open sockets; ``edge=False`` keeps the
+    thread-per-request ``ThreadingHTTPServer``.  Both listen with a
+    backlog of ``LISTEN_BACKLOG`` and carry the same context
+    attributes, so ``self.httpd`` is the one handle either way."""
 
     def __init__(self, registry, engines: dict, host: str = "127.0.0.1",
                  port: int = 0,
                  max_body_bytes: int = DEFAULT_MAX_BODY_BYTES,
                  socket_timeout_s: float | None = SOCKET_TIMEOUT_S,
                  tracer=None, plane=None, response_cache=None, qos=None,
-                 deploy=None, cascade=None, brownout=None):
-        self.httpd = _HTTPServer((host, port), _Handler)
+                 deploy=None, cascade=None, brownout=None,
+                 edge: bool = True,
+                 max_connections: int = DEFAULT_MAX_CONNECTIONS,
+                 http_workers: int = 8, verbose: bool = False):
+        if edge:
+            self.httpd = EdgeServer((host, port), _Handler,
+                                    max_connections=max_connections,
+                                    workers=http_workers, name="serve")
+        else:
+            self.httpd = _HTTPServer((host, port), _Handler)
         self.httpd.registry = registry
         self.httpd.engines = engines
+        self.httpd.verbose = verbose
         self.httpd.plane = plane
         self.httpd.deploy = deploy
         self.httpd.cascade = cascade

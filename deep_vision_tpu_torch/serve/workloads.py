@@ -583,3 +583,14 @@ def workload_for_task(task: str) -> Workload:
         raise ValueError(f"task '{task}' has no serving workload in this "
                          f"port yet (have {sorted(_BY_TASK)})")
     return WORKLOADS[verb]
+
+
+def infer_verbs() -> tuple:
+    """Every inference verb, sorted — the route allowlist for the edge
+    and the gateway (unknown verbs 404 with this list in the body)."""
+    return tuple(sorted(WORKLOADS))
+
+
+def infer_paths() -> tuple:
+    """The canonical ``/v1/<verb>`` inference routes."""
+    return tuple(f"/v1/{v}" for v in infer_verbs())

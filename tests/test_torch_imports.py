@@ -36,7 +36,8 @@ def test_every_module_imports_with_jax_blocked():
                 "zoo.classifiers", "zoo.lenet", "data.mnist",
                 "serve.faults", "serve.models", "serve.cache", "obs.mfu",
                 "serve.replicas", "deploy.history", "deploy.watcher",
-                "deploy.autoscale", "serve.cascade", "serve.brownout"):
+                "deploy.autoscale", "serve.cascade", "serve.brownout",
+                "serve.edge", "serve.gateway", "cli.gateway"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
