@@ -434,6 +434,47 @@ Phases, each of which must pass:
               process is reaped.  Information only: boot seconds, p50
               through the gateway against direct to a backend, kill →
               unroutable ms, reused connections.
+  batch       the offline batch tier through ``cli/serve.py``'s
+              ``build_server``: ResNet-50 int8 from a seeded port
+              checkpoint, uint8 wire, buckets 1-32 warmed,
+              ``--jobs-dir`` in a temporary directory,
+              ``--batch-cache-shards 1`` (so shards spill to the JSONL
+              ledger and stream back from disk), ``--brownout``,
+              ``--max-body-mb 128``. (1) A 96-item manifest (3 shards of
+              32) POSTed as one body is answered 202 and drains while 4
+              closed-loop clients send bucket-1 requests (after a
+              baseline of 32 of theirs alone, with the ladder free and
+              the level it reached recorded; the drain with the ladder
+              pinned at L0, since the clients alone stretch the engine's
+              measured execution until its signals freeze the tier):
+              every interactive answer is 200, the job is done while
+              they run, ``GET /v1/jobs/<id>/results`` arrives chunked
+              through the edge with indices 0-95 once each in order and
+              a ``done`` status line, at least one shard spilled, each
+              row's top-5 holds against a direct call of the model's
+              bucket callable at one of the buckets (logits within
+              3e-2·max|ref|, top-1 equal where the margin exceeds it)
+              and fails on most rows against a "unit" ingest;
+              ``serve_ingest`` launches equal the engine's batches over
+              checks 1 and 2. (2) At ``POST /v1/brownout {"force": 1}``
+              a 32-item job does no shard for 1.5 s while
+              ``frozen_deferred`` grows; after ``{"force": null}`` it
+              drains. (3) A 128-item job (4 shards) is stopped after its
+              first shard (the ladder pinned at L1 as that shard is
+              recorded, then the scheduler, the server and the engine),
+              a half-written shard line is appended to its ledger, and a
+              second server over the same ``--jobs-dir`` replays every
+              shard the first recorded, counts 1 torn line, resumes the
+              job with no resubmit, serves exactly 128 − 32 images and
+              streams 0-127 once each. (4) A 64-item job of ``{"seed":
+              i}`` on a ``dcgan`` int8 server: each image within twice
+              the card's bucket-1-vs-32 spread (codes) of a direct
+              bucket-callable call on ``default_rng(i)``'s latent, most
+              rows failing against seed i + 1's, ``serve_ingest`` never
+              launched. Information only: batch img/s, interactive p50
+              and p99 without and with the drain beside the reference
+              test's envelope (p99 ≤ 5·base + 0.25 s), the POST's and
+              its JSON parse's seconds, the resume's seconds.
 
 It prints ``{"phase_seconds": {...}}``, the wall seconds each phase
 took, and before the last line ``{"kernels": [...]}`` (one entry per
@@ -680,6 +721,23 @@ GATEWAY_AFFINITY_REPEATS = 8
 GATEWAY_NET_FAULT, GATEWAY_NET_SEED, GATEWAY_NET_N = \
     "gateway:conn_reset:p=0.2", 1, 16
 GATEWAY_BOOT_TIMEOUT_S = 300.0
+
+
+#: the batch tier: ResNet-50 int8 through ``cli.serve --jobs-dir`` with
+#: one shard of payloads cached (the rest spill to the ledger and stream
+#: back from disk) and the brownout ladder armed; a job of 3 shards
+#: drains under 4 closed-loop bucket-1 clients (8 requests each before
+#: it, for the baseline), one shard waits 1.5 s behind a pinned L1, and
+#: a job of 4 shards is stopped after its first and resumed by a second
+#: server; then 2 shards of DCGAN int8 seeds.  A 224² JSON item is
+#: ~0.79 MB, so the largest body is ~101 MB
+BATCH_DEVICE = "cuda"
+BATCH_DRAIN_SHARDS, BATCH_RESTART_SHARDS, BATCH_GAN_SHARDS = 3, 4, 2
+BATCH_CLIENTS, BATCH_BASE_N = 4, 8
+BATCH_FREEZE_S = 1.5
+BATCH_TIMEOUT_S = 300.0
+BATCH_FLAGS = ["--batch-cache-shards", "1", "--brownout",
+               "--max-body-mb", "128"]
 
 
 def log(msg: str) -> None:
@@ -5978,6 +6036,455 @@ def phase_gateway(card_line: str) -> dict:
     return out
 
 
+def batch_argv(workdir: str, jobs_dir: str) -> list:
+    """``cli.serve`` of the batch phase: ResNet-50 int8 on the uint8 wire
+    from the port checkpoint in ``workdir``, buckets 1-32 warmed, the
+    batch tier's ledger in ``jobs_dir``."""
+    return ["-m", MODEL, "--workdir", workdir, "--wire-dtype", "uint8",
+            "--infer-dtype", "int8", "--port", "0", "--device",
+            BATCH_DEVICE, "--max-batch", str(max(BUCKETS)),
+            "--buckets", ",".join(map(str, BUCKETS)), "--warmup",
+            "--jobs-dir", jobs_dir, *BATCH_FLAGS]
+
+
+def manifest_blob(items: list) -> bytes:
+    """A ``POST /v1/jobs`` body of manifest ``items``, encoded."""
+    return json.dumps({"items": items}).encode()
+
+
+def submit_job(port: int, blob: bytes) -> tuple[dict, float]:
+    """POST a job body → (its 202 handle, seconds)."""
+    status, raw, _, s = post_h(port, blob, "/v1/jobs")
+    check(status == 202, f"POST /v1/jobs answered {status}: {raw[:300]!r}")
+    return json.loads(raw), s
+
+
+def job_state(port: int, jid: str) -> dict:
+    return json.loads(get_url(port, f"/v1/jobs/{jid}")[1])
+
+
+def wait_job(port: int, jid: str, what: str) -> dict:
+    """Poll a job until it is done (fail on failed or on the timeout)."""
+    t_end = time.monotonic() + BATCH_TIMEOUT_S
+    st = job_state(port, jid)
+    while st["state"] not in ("done", "failed") \
+            and time.monotonic() < t_end:
+        time.sleep(0.01)
+        st = job_state(port, jid)
+    check(st["state"] == "done", f"{what}: the job ended {st}")
+    return st
+
+
+def stream_rows(port: int, jid: str, n: int, what: str) -> list:
+    """``GET /v1/jobs/<id>/results``: chunked, indices 0..n-1 each once
+    and in order, then a ``done`` status line; returns the rows."""
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/v1/jobs/{jid}/results",
+            timeout=300) as r:
+        te = r.headers.get("Transfer-Encoding")
+        lines = [json.loads(ln) for ln in r.read().splitlines()]
+    check(te == "chunked", f"{what}: results sent with Transfer-Encoding "
+                           f"{te}")
+    idx = [ln.get("index") for ln in lines[:-1]]
+    check(idx == list(range(n)), f"{what}: streamed {len(idx)} indices, "
+                                 f"not 0..{n - 1} in order: {idx[:8]}")
+    check((lines[-1].get("status") or {}).get("state") == "done",
+          f"{what}: the stream ended {lines[-1]}")
+    return lines[:-1]
+
+
+def bucket_logits(sm, imgs: np.ndarray, bucket: int) -> np.ndarray:
+    """The served model's own bucket callable (the ``serve_ingest``
+    kernel, the forward, float32 logits) in batches of ``bucket``, zero
+    padded: one logits row an image."""
+    fn = sm.compile_bucket(bucket)
+    out = []
+    for i in range(0, len(imgs), bucket):
+        chunk = imgs[i:i + bucket]
+        batch = np.zeros((bucket, *sm.input_shape), np.uint8)
+        batch[:len(chunk)] = chunk
+        out.append(fn(batch).float().cpu().numpy()[:len(chunk)])
+    return np.concatenate(out)
+
+
+def top5_faults(rows: list, refs: dict) -> list[str]:
+    """Each row's top-5 against the direct logits of its image in each of
+    ``refs`` (one array a bucket, or a control): a row holds when, for
+    one of them, every served logit lies within the serving bound
+    (3e-2·max|ref|) of the direct logit of its class, with top-1 equal
+    where the direct margin exceeds the bound.  One fault a row that
+    holds for none."""
+    bounds = {k: BF16_BOUND * float(np.abs(r).max()) for k, r in refs.items()}
+    faults = []
+    for i, row in enumerate(rows):
+        top = row.get("top") or []
+        classes = [t["class"] for t in top]
+        logits = np.array([t["logit"] for t in top], np.float64)
+        if len(top) != 5 or not np.isfinite(logits).all():
+            faults.append(f"row {i}: {len(top)} classes, finite "
+                          f"{bool(np.isfinite(logits).all())}")
+            continue
+        held = False
+        for k, ref in refs.items():
+            r = ref[i]
+            top2 = np.sort(r)[-2:]
+            if float(np.abs(logits - r[classes]).max()) <= bounds[k] and (
+                    top2[1] - top2[0] <= bounds[k]
+                    or classes[0] == int(r.argmax())):
+                held = True
+                break
+        if not held:
+            faults.append(f"row {i}: top-5 {classes} held by no direct call")
+    return faults
+
+
+def p99_s(seconds: list) -> float:
+    """The reference test's p99: the sorted sample at ⌊0.99·n⌋ − 1."""
+    return sorted(seconds)[max(0, int(len(seconds) * 0.99) - 1)]
+
+
+def stop_server(engine, server) -> None:
+    """``cli.serve``'s shutdown order: the batch scheduler and the
+    ladder, then the server, then the engine; once a server."""
+    if getattr(server, "stopped", False):
+        return
+    server.stopped = True
+    srv = server.httpd
+    if srv.batch_sched is not None:
+        srv.batch_sched.stop()
+    if srv.brownout is not None:
+        srv.brownout.stop()
+    server.shutdown()
+    engine.stop(drain_deadline=10.0)
+
+
+def batch_drain(port: int, engine, imgs: np.ndarray, bodies: list
+                ) -> tuple[dict, list]:
+    """Check 1: a job of ``BATCH_DRAIN_SHARDS`` shards drains while
+    ``BATCH_CLIENTS`` closed-loop clients send bucket-1 requests (after a
+    baseline of the same clients alone); every interactive answer is
+    200, the job is done before they stop, the stream is whole.
+
+    The baseline runs with the ladder free, and the level it reached and
+    its signals are recorded (``ladder_unpinned``); the drain runs with
+    the ladder pinned at L0.  These clients alone hold the interpreter,
+    which stretches every batch's measured execution (the engine's exec
+    EWMA and occupancy are wall time from dispatch to the drained
+    result), so the free ladder climbs and would freeze the tier for as
+    long as they run.  The signals it reads under the pin are recorded
+    too (``ladder_signals``)."""
+    base = Clients(port, "/v1/classify", bodies, n=BATCH_CLIENTS)
+    check(wait_for(lambda: len(base.replies)
+                   >= BATCH_CLIENTS * BATCH_BASE_N, 120.0),
+          "the baseline clients never finished")
+    free = json.loads(get_url(port, "/v1/brownout")[1])
+    base_ewma = engine.stats()["admission"]["exec_ewma_ms_by_bucket"]
+    base.finish()
+    force_level(port, 0)
+    n = len(imgs)
+    blob = manifest_blob([{"pixels": im.tolist()} for im in imgs])
+    t0 = time.perf_counter()
+    json.loads(blob)
+    parse_s = time.perf_counter() - t0
+    clients = Clients(port, "/v1/classify", bodies, n=BATCH_CLIENTS)
+    try:
+        view, post_s = submit_job(port, blob)
+        # the answers before the 202 waited on the POST's own parse and
+        # the job record's append, each one call that holds the
+        # interpreter for seconds; the drain's own answers come after it
+        at_202 = len(clients.replies)
+        t0 = time.monotonic()
+        check(view["n_shards"] == BATCH_DRAIN_SHARDS and view["n_items"]
+              == n, f"the drain job's handle: {view}")
+        st = wait_job(port, view["job_id"], "the drain under clients")
+        drain_s = time.monotonic() - t0
+        check(all(t.is_alive() for t in clients.threads),
+              "a client stopped before the job was done")
+        ladder = json.loads(get_url(port, "/v1/brownout")[1])
+    finally:
+        clients.finish()
+        force_level(port, None)
+    replies = base.replies + clients.replies
+    bad = [r["status"] for r in replies if r["status"] != 200]
+    check(not bad, f"{len(bad)} interactive answers were not 200: {bad[:5]}")
+    rows = stream_rows(port, view["job_id"], n, "the drain job")
+    base_s = [r["s"] for r in base.replies]
+    post_lat = [r["s"] for r in clients.replies[:at_202]]
+    drain_lat = [r["s"] for r in clients.replies[at_202:]]
+    check(drain_lat, "no interactive request was answered during the "
+                     "drain")
+    out = {"items": n, "body_bytes": len(blob), "post_s": post_s,
+           "host_parse_s": parse_s, "drain_s": drain_s,
+           "batch_img_per_s": n / drain_s,
+           "images_done": st["images_done"],
+           "interactive_requests": {"base": len(base_s),
+                                    "post": len(post_lat),
+                                    "drain": len(drain_lat)},
+           "interactive_p50_ms": {"base": p50_ms(base_s),
+                                  "post": p50_ms(post_lat),
+                                  "drain": p50_ms(drain_lat)},
+           "interactive_p99_ms": {"base": p99_s(base_s) * 1e3,
+                                  "post": p99_s(post_lat) * 1e3
+                                  if post_lat else None,
+                                  "drain": p99_s(drain_lat) * 1e3},
+           "p99_envelope_ms": (5 * p99_s(base_s) + 0.25) * 1e3,
+           "ladder_unpinned": {k: free[k] for k in (
+               "level", "level_entries", "signals")},
+           "exec_ewma_ms_by_bucket_base": base_ewma,
+           "ladder_signals": ladder["signals"],
+           "exec_ewma_ms_by_bucket": engine.stats()["admission"][
+               "exec_ewma_ms_by_bucket"]}
+    out["within_envelope"] = out["interactive_p99_ms"]["drain"] \
+        <= out["p99_envelope_ms"]
+    return out, rows
+
+
+def batch_freeze(port: int, imgs: np.ndarray) -> dict:
+    """Check 2: at a pinned L1 a one-shard job waits ``BATCH_FREEZE_S``
+    with no shard done while ``frozen_deferred`` grows; released, it
+    drains."""
+    force_level(port, 1)
+    try:
+        sched0 = json.loads(get_url(port, "/v1/stats")[1])["batch"][
+            "scheduler"]
+        view, _ = submit_job(port, manifest_blob(
+            [{"pixels": im.tolist()} for im in imgs]))
+        time.sleep(BATCH_FREEZE_S)
+        st = job_state(port, view["job_id"])
+        sched1 = json.loads(get_url(port, "/v1/stats")[1])["batch"][
+            "scheduler"]
+    finally:
+        force_level(port, None)
+    check(st["shards_done"] == 0 and st["state"] == "pending",
+          f"a shard ran at brownout L1: {st}")
+    check(sched1["shards_done"] == sched0["shards_done"],
+          f"the scheduler recorded shards at L1: {sched1}")
+    frozen = sched1["frozen_deferred"] - sched0["frozen_deferred"]
+    check(frozen > 0, f"frozen_deferred did not grow at L1: {sched1}")
+    t0 = time.monotonic()
+    wait_job(port, view["job_id"], "the frozen job after the release")
+    return {"frozen_deferred": frozen, "freeze_s": BATCH_FREEZE_S,
+            "release_to_done_s": time.monotonic() - t0}
+
+
+def batch_restart(workdir: str, jobs_dir: str, imgs: np.ndarray,
+                  engine, server) -> tuple[dict, list]:
+    """Check 3: a job of ``BATCH_RESTART_SHARDS`` shards is stopped once a
+    shard is done (scheduler, then server, then engine; the ladder is
+    pinned at L1 as the first shard is recorded, so that the scheduler
+    stops between shards 1 and 2 however fast they run), a half-written
+    shard line is appended to its ledger, and a second server over the
+    same ``--jobs-dir`` replays every shard the first recorded, counts
+    the torn line, resumes the job with no resubmit and executes exactly
+    the images of the shards left; the stream holds every index once."""
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    port = server.port
+    shard = max(BUCKETS)
+    store1, ladder = server.httpd.jobs, server.httpd.brownout
+    known = {j["job_id"] for j in store1.jobs()}
+    record = store1.record_shard
+
+    def record_then_freeze(job_id, *args, **kwargs):
+        ok = record(job_id, *args, **kwargs)
+        if job_id not in known:
+            ladder.force(1)
+        return ok
+
+    store1.record_shard = record_then_freeze
+    view, _ = submit_job(port, manifest_blob(
+        [{"pixels": im.tolist()} for im in imgs]))
+    jid = view["job_id"]
+    check(wait_for(lambda: job_state(port, jid)["shards_done"] >= 1,
+                   BATCH_TIMEOUT_S), "no shard of the restart job ran")
+    sched = server.httpd.batch_sched
+    sched.stop()
+    check(not sched._thread.is_alive(), "the batch scheduler did not stop")
+    # every shard the first server recorded, of every job
+    recorded = sum(j["shards_done"] for j in server.httpd.jobs.jobs())
+    done1 = server.httpd.jobs.status(jid)["shards_done"]
+    stop_server(engine, server)
+    check(1 <= done1 < BATCH_RESTART_SHARDS,
+          f"the stop came after {done1} shards")
+    with open(os.path.join(jobs_dir, f"{jid}.jsonl"), "a",
+              encoding="utf-8") as f:
+        f.write('{"kind": "shard", "job": "%s", "index": %d, "res'
+                % (jid, done1))
+    launches0 = serve_ingest.launches
+    t0 = time.monotonic()
+    engine2, server2 = boot_cli(batch_argv(workdir, jobs_dir))
+    boot_s = time.monotonic() - t0
+    try:
+        store = server2.httpd.jobs
+        st0 = store.stats()
+        check(st0["resumed"] == 1 and st0["torn_lines"] == 1
+              and st0["replayed_shards"] == recorded,
+              f"the second server's replay of {recorded} shards: {st0}")
+        st = wait_job(server2.port, jid, "the resumed job")
+        resume_s = time.monotonic() - t0
+        rows = stream_rows(server2.port, jid, len(imgs), "the resumed job")
+        served = engine2.stats()["served"]
+        check(served == len(imgs) - shard * done1,
+              f"the second engine served {served} images, not "
+              f"{len(imgs)} - {shard}·{done1}")
+        check(store.stats()["submitted"] == 0, "the job was resubmitted")
+        check(st["images_done"] == len(imgs), f"the resumed job: {st}")
+        batches2 = engine2.stats()["batches"]
+        launches2 = serve_ingest.launches - launches0
+    finally:
+        stop_server(engine2, server2)
+    return {"items": len(imgs), "shards_before_stop": done1,
+            "replayed_shards": st0["replayed_shards"],
+            "torn_lines": st0["torn_lines"], "resumed": st0["resumed"],
+            "second_served": served, "boot_s": boot_s,
+            "resume_s": resume_s, "second_batches": batches2,
+            "second_launches_with_warmup": launches2}, rows
+
+
+def batch_gan(tmp: str) -> dict:
+    """Check 4: a job of ``{"seed": i}`` items on a DCGAN int8 server;
+    each image within twice the card's own bucket-1-vs-32 spread (codes)
+    of a direct bucket-callable call on ``default_rng(i)``'s latent, and
+    the same rows against the latents of seed i + 1 fail on most;
+    ``serve_ingest`` never launches."""
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    weights = os.path.join(tmp, "dcgan.npz")
+    write_gan_weights("dcgan", weights, 71)
+    n = BATCH_GAN_SHARDS * max(BUCKETS)
+    t0 = time.monotonic()
+    engine, server = boot_cli([
+        "-m", "dcgan", "--weights", weights, "--infer-dtype", "int8",
+        "--port", "0", "--device", BATCH_DEVICE,
+        "--max-batch", str(max(BUCKETS)),
+        "--buckets", ",".join(map(str, BUCKETS)), "--warmup",
+        "--jobs-dir", os.path.join(tmp, "gan_jobs")])
+    boot_s = time.monotonic() - t0
+    sm = engine.model
+    try:
+        check(sm.infer_dtype == "int8" and str(sm.wire_dtype) == "float32",
+              f"dcgan served {sm.describe()}")
+        serve_ingest.launches = 0
+        t0 = time.monotonic()
+        view, _ = submit_job(server.port, manifest_blob(
+            [{"seed": i} for i in range(n)]))
+        check(view["verb"] == "generate", f"the seed job's handle: {view}")
+        wait_job(server.port, view["job_id"], "the DCGAN seed job")
+        drain_s = time.monotonic() - t0
+        rows = stream_rows(server.port, view["job_id"], n, "the seed job")
+        launches = serve_ingest.launches
+        stats = engine.stats()
+    finally:
+        stop_server(engine, server)
+    check(launches == 0, f"serve_ingest launched {launches} times on the "
+                         f"generate path")
+
+    def latents(seeds):
+        return np.stack([np.random.default_rng(s).standard_normal(
+            sm.input_shape).astype(np.float32) for s in seeds])
+
+    def direct(z):
+        out = {}
+        for b in BUCKETS:
+            fn, imgs = sm.compile_bucket(b), []
+            for i in range(0, len(z), b):
+                batch = np.zeros((b, *sm.input_shape), np.float32)
+                batch[:len(z[i:i + b])] = z[i:i + b]
+                imgs += list(fn(batch).cpu().numpy()[:len(z[i:i + b])])
+            out[b] = imgs
+        return out
+
+    replies = [(200, r, 0.0) for r in rows]
+    refs = direct(latents(range(n)))
+    spread = max(code_diff(a, b) for a, b in zip(refs[min(BUCKETS)],
+                                                 refs[max(BUCKETS)]))
+    faults = hold_images(replies, refs, 2 * spread)
+    check(not faults, f"dcgan int8 seed rows: {faults[:5]}")
+    control = len(hold_images(replies, direct(latents(range(1, n + 1))),
+                              2 * spread))
+    check(2 * control > n, f"dcgan: only {control} of {n} rows failed "
+                           f"against the latents of the next seed")
+    exact = sum(min(code_diff(reply_image(r), rs[i]) for rs in refs.values())
+                == 0 for i, r in enumerate(rows))
+    return {"items": n, "boot_s": boot_s, "drain_s": drain_s,
+            "img_per_s": n / drain_s, "launches": launches,
+            "batches": stats["batches"], "bucket_spread_codes": spread,
+            "exact_rows": exact, "control_faults": control}
+
+
+def phase_batch(card_line: str) -> dict:
+    """The offline batch tier through ``cli.serve``'s ``build_server``:
+    ResNet-50 int8 bulk jobs beside interactive clients, the brownout
+    freeze, a restart that resumes exactly once, and DCGAN int8 seed
+    jobs (checks 1-4 of the docstring's ``batch`` phase)."""
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    shard = max(BUCKETS)
+    out: dict = {"card": card_line}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        workdir = os.path.join(tmp, MODEL)
+        write_checkpoint(workdir, 1, seeded_classifier(70))
+        jobs_dir = os.path.join(tmp, "jobs")
+        t0 = time.monotonic()
+        engine, server = boot_cli(batch_argv(workdir, jobs_dir))
+        out["boot_s"] = time.monotonic() - t0
+        sm = engine.model
+        port = server.port
+        rng = np.random.RandomState(72)
+        n_drain = BATCH_DRAIN_SHARDS * shard
+        imgs = rng.randint(0, 256, (n_drain + shard + BATCH_CLIENTS,
+                                    *sm.input_shape), np.uint8)
+        drain_imgs = imgs[:n_drain]
+        freeze_imgs = imgs[n_drain:n_drain + shard]
+        bodies = [json.dumps({"pixels": im.tolist(), "top_k": 5}).encode()
+                  for im in imgs[n_drain + shard:]]
+        try:
+            batches0 = engine.stats()["batches"]
+            serve_ingest.launches = 0
+            out["drain"], rows = batch_drain(port, engine, drain_imgs,
+                                             bodies)
+            out["freeze"] = batch_freeze(port, freeze_imgs)
+            launches = serve_ingest.launches
+            batches = engine.stats()["batches"] - batches0
+            check(launches == batches, f"serve_ingest launched {launches} "
+                                       f"times for {batches} batches")
+            jobs = json.loads(get_url(port, "/v1/stats")[1])["batch"]["jobs"]
+            check(jobs["spilled_shards"] >= 1,
+                  f"no shard spilled to the ledger: {jobs}")
+            metrics = parse_metrics(get_url(port, "/metrics")[1].decode())
+            check(metrics.get("dvt_batch_images_total")
+                  == n_drain + shard, "dvt_batch_images_total is "
+                  f"{metrics.get('dvt_batch_images_total')}")
+            out.update(launches=launches, batches=batches,
+                       spilled_shards=jobs["spilled_shards"])
+            restart_imgs = np.random.RandomState(73).randint(
+                0, 256, (BATCH_RESTART_SHARDS * shard, *sm.input_shape),
+                np.uint8)
+            out["restart"], restart_rows = batch_restart(
+                workdir, jobs_dir, restart_imgs, engine, server)
+        finally:
+            stop_server(engine, server)
+        # the answers, held once every launch is counted
+        refs = {b: bucket_logits(sm, drain_imgs, b) for b in BUCKETS}
+        faults = top5_faults(rows, refs)
+        check(not faults, f"batch rows vs the bucket callables: "
+                          f"{faults[:5]}")
+        wrong = top5_faults(rows, {"unit": direct_logits(sm, drain_imgs,
+                                                         "unit")})
+        check(2 * len(wrong) > len(rows),
+              f"only {len(wrong)} of {len(rows)} rows failed against a "
+              f"'unit' ingest")
+        rfaults = top5_faults(restart_rows, {
+            b: bucket_logits(sm, restart_imgs, b) for b in BUCKETS})
+        check(not rfaults, f"resumed rows vs the bucket callables: "
+                           f"{rfaults[:5]}")
+        out["drain"]["control_faults"] = len(wrong)
+        out["gan"] = batch_gan(tmp)
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6085,6 +6592,7 @@ def main() -> int:
     cascade = phase_cascade(card_line)
     brownout = phase_brownout(card_line)
     gateway = phase_gateway(card_line)
+    batch = phase_batch(card_line)
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
@@ -6106,7 +6614,8 @@ def main() -> int:
                "cascade_classify": cascade["classify"]["launches"],
                "cascade_detect": cascade["detect"]["launches"],
                "brownout_resnet50": brownout["launches"],
-               "gateway_resnet50": gateway["launches"]}
+               "gateway_resnet50": gateway["launches"],
+               "batch_resnet50": batch["launches"]}
     zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
@@ -6195,6 +6704,7 @@ def main() -> int:
         brownout, with_cascade=cascade["classify"]["brownout"])}),
         flush=True)
     print(json.dumps({"gateway": gateway}), flush=True)
+    print(json.dumps({"batch": batch}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

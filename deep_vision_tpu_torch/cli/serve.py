@@ -31,6 +31,10 @@
     python -m deep_vision_tpu_torch.cli.serve -m dcgan [--weights w.npz]
     python -m deep_vision_tpu_torch.cli.serve -m cyclegan \\
         [--weights w.npz] --wire-dtype uint8 [--infer-dtype int8]
+    python -m deep_vision_tpu_torch.cli.serve -m resnet50 \\
+        --wire-dtype uint8 --infer-dtype int8 --warmup --jobs-dir jobs \\
+        [--batch-shard-size 0] [--batch-max-depth 0] \\
+        [--batch-pressure-ms 10] [--batch-cache-shards 64]
 
 A classifier answers ``POST /v1/classify``; a detection model
 (``yolov3_*``, ``centernet*``) answers ``POST /v1/detect``; a pose model
@@ -75,6 +79,16 @@ L2 serves degraded cascade answers and stale cache hits (marked
 ``X-DVT-Degraded``), L3 sheds every QoS class but premium; ``POST
 /v1/brownout {"force": n}`` pins it.
 
+``--jobs-dir D`` turns the offline batch tier on (``serve/jobs.py``,
+``serve/batch_sched.py``): ``POST /v1/jobs {"items": [...]}`` takes a
+manifest of request bodies, a scheduler drains it a shard (one engine
+cohort) at a time whenever the interactive queue is in a trough (and
+not at all at brownout L1+), every finished shard is appended to
+``D/<job>.jsonl``, a restarted server resumes each unfinished job at
+its first missing shard, and ``GET /v1/jobs/<id>/results`` streams the
+results as chunked NDJSON (``--jobs-dir ''``: the tier in memory
+only).
+
 The front end is the selector event loop of ``serve/edge.py``
 (keep-alive, pipelining, at most ``--max-connections`` open sockets,
 ``--http-workers`` handler threads); ``--thread-server`` keeps the
@@ -82,8 +96,8 @@ thread-per-request server.  Several of these processes go behind one
 endpoint with ``cli.gateway``.
 
 Port of ``deep_vision_tpu/cli/serve.py`` (``build_server``,
-``_build_plane_server``, ``main``); the mesh and batch-tier flags wait
-for their slices.
+``_build_plane_server``, ``main``); the mesh flags wait for their
+slice.
 """
 
 from __future__ import annotations
@@ -291,6 +305,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cascade-class-min-sample", type=int, default=50,
                    help="dual-run samples one class needs before its own "
                         "threshold applies (below it: the pooled one)")
+    # -- offline batch tier --
+    p.add_argument("--jobs-dir", default=None,
+                   help="enable the offline batch-inference tier "
+                        "(POST /v1/jobs) and checkpoint job progress "
+                        "as append-only JSONL under this directory — "
+                        "a restarted server resumes unfinished jobs "
+                        "from their last durable shard ('' = enabled "
+                        "but memory-only, no restart durability)")
+    p.add_argument("--batch-shard-size", type=int, default=0,
+                   help="images per batch job shard — the durability "
+                        "AND scheduling unit (0 = --max-batch, one "
+                        "engine cohort; the worst interference any "
+                        "interactive request can see)")
+    p.add_argument("--batch-interval-ms", type=float, default=20.0,
+                   help="batch scheduler poll pacing while deferred "
+                        "behind interactive load")
+    p.add_argument("--batch-max-depth", type=int, default=0,
+                   help="max interactive queue depth at which a batch "
+                        "shard may still be submitted (default 0: any "
+                        "waiting interactive request parks the batch "
+                        "tier)")
+    p.add_argument("--batch-pressure-ms", type=float, default=10.0,
+                   help="interactive pressure ceiling (queue_depth x "
+                        "exec EWMA, ms) for the trough check; above "
+                        "it batch work defers")
+    p.add_argument("--batch-cache-shards", type=int, default=64,
+                   help="per-job completed-shard payloads kept in "
+                        "memory; with --jobs-dir the rest spill to the "
+                        "JSONL ledger (LRU) and GET /v1/jobs/<id>/"
+                        "results streams them back from disk (0 = "
+                        "unbounded; memory-only stores never evict)")
     # -- overload brownout --
     p.add_argument("--brownout", action="store_true",
                    help="arm the brownout ladder: a controller polls "
@@ -435,6 +480,30 @@ def _brownout(args, engines_provider, tracer):
     return bc.start()
 
 
+def _batch_tier(args, resolve):
+    """``--jobs-dir`` → (JobStore, started BatchScheduler), or (None,
+    None).  ``resolve(model_name) -> (model, engine)`` is the routing
+    closure of the build path (the engines dict, or the control plane);
+    the scheduler fails a job for good when it raises KeyError.  The
+    shard size defaults to ``--max-batch``: one shard is one full
+    cohort, the unit the trough check reasons about."""
+    if args.jobs_dir is None:
+        return None, None
+    from deep_vision_tpu_torch.serve.batch_sched import BatchScheduler
+    from deep_vision_tpu_torch.serve.jobs import JobStore
+
+    store = JobStore(args.jobs_dir or None,
+                     shard_size=args.batch_shard_size or args.max_batch,
+                     max_cached_shards=args.batch_cache_shards)
+    # 0 for the interval or the pressure means the default, as in the
+    # reference
+    sched = BatchScheduler(
+        store, resolve, interval_s=(args.batch_interval_ms or 20.0) / 1e3,
+        max_interactive_depth=args.batch_max_depth,
+        pressure_high_ms=args.batch_pressure_ms or 10.0)
+    return store, sched.start()
+
+
 def _cascade_spec(args, names: list):
     """``--cascade`` → a CascadeSpec, checked before any checkpoint is
     restored: every tier served, one workload verb, and a verb with a
@@ -484,7 +553,8 @@ def _edge_kwargs(args) -> dict:
 
 
 def _server(args, registry, engines: dict, tracer, plane=None,
-            deploy=None, cascade=None, brownout=None):
+            deploy=None, cascade=None, brownout=None, jobs=None,
+            batch_sched=None):
     from deep_vision_tpu_torch.serve.http import ServeServer
 
     return ServeServer(
@@ -494,7 +564,8 @@ def _server(args, registry, engines: dict, tracer, plane=None,
         socket_timeout_s=args.socket_timeout_s
         if args.socket_timeout_s > 0 else None,
         tracer=tracer, plane=plane, deploy=deploy, cascade=cascade,
-        brownout=brownout, **_edge_kwargs(args))
+        brownout=brownout, jobs=jobs, batch_sched=batch_sched,
+        **_edge_kwargs(args))
 
 
 def build_server(args):
@@ -544,9 +615,17 @@ def build_server(args):
         print(f"[serve] warming {engine.buckets} ...", flush=True)
         engine.warmup()
     engines = {sm.name: engine}
+
+    def resolve(name):
+        return registry.get(name), engines[name]  # KeyError: job fails
+
+    jobs, batch_sched = _batch_tier(args, resolve)
     brownout = _brownout(args, lambda: engines.values(), kwargs["tracer"])
+    if brownout is not None and batch_sched is not None:
+        batch_sched.brownout = brownout  # L1+: freeze the batch tier
     return engine, _server(args, registry, engines, kwargs["tracer"],
-                           brownout=brownout)
+                           brownout=brownout, jobs=jobs,
+                           batch_sched=batch_sched)
 
 
 def _build_plane_server(args, registry, device):
@@ -659,15 +738,26 @@ def _build_plane_server(args, registry, device):
         pipeline = _deploy_pipeline(args, plane, names, min_replicas,
                                     max_replicas)
         pipeline.start()
+
+    def resolve(name):
+        # resolved per shard: after a hot reload the NEXT shard runs on
+        # the new ACTIVE engine (KeyError: the job fails)
+        model = plane.resolve(name)
+        return model, plane.active_engine(model.name)
+
+    jobs, batch_sched = _batch_tier(args, resolve)
     brownout = _brownout(args, lambda: plane.active_engines().values(),
                          kwargs["tracer"])
     if brownout is not None:
         plane.brownout = brownout  # L1+: pause shadow duplication
         if cascade is not None:
             cascade.brownout = brownout  # L1 sample pause, L2 degrade
+        if batch_sched is not None:
+            batch_sched.brownout = brownout  # L1+: freeze the batch tier
     return plane, _server(args, registry, plane.active_engines(),
                           kwargs["tracer"], plane=plane, deploy=pipeline,
-                          cascade=cascade, brownout=brownout)
+                          cascade=cascade, brownout=brownout, jobs=jobs,
+                          batch_sched=batch_sched)
 
 
 def _deploy_pipeline(args, plane, names, min_replicas: int,
@@ -766,6 +856,13 @@ def main(argv=None):
               f"queue pressure — pin: curl -XPOST http://{server.host}:"
               f"{server.port}/v1/brownout -d '{{\"force\": 2}}'",
               flush=True)
+    jobs = server.httpd.jobs
+    if jobs is not None:
+        print(f"[serve] batch tier: POST http://{server.host}:"
+              f"{server.port}/v1/jobs (jobs_dir="
+              f"{jobs.root or 'memory-only'}, shard_size="
+              f"{jobs.default_shard_size}, max_depth={args.batch_max_depth}"
+              f", pressure={args.batch_pressure_ms}ms)", flush=True)
     if engine.faults.enabled:
         print(f"[serve] FAULT INJECTION ACTIVE: '{engine.faults.spec}' "
               f"(seed {engine.faults.seed})", flush=True)
@@ -778,6 +875,12 @@ def main(argv=None):
             # the watcher and autoscalers stop BEFORE the engines drain:
             # no scale action or rollout races the shutdown
             deploy.stop()
+        batch_sched = server.httpd.batch_sched
+        if batch_sched is not None:
+            # likewise the batch scheduler: no shard submit races the
+            # engines' stop; a shard in flight past this point sheds
+            # and re-runs from the JSONL checkpoint on the next boot
+            batch_sched.stop()
         if brownout is not None:
             brownout.stop()
         server.shutdown()

@@ -19,8 +19,9 @@ The routes below run unchanged on either.  Routes (JSON in, JSON out):
                        ``deploy`` when a deploy pipeline runs), the
                        ``edge`` block (the selector loop's connection
                        counters) on the default front end, the
-                       ``response_cache``, ``qos``, ``cascade`` and
-                       ``brownout`` blocks when those are on, and
+                       ``response_cache``, ``qos``, ``cascade``,
+                       ``brownout`` and ``batch`` blocks when those are
+                       on, and
                        ``kernels``: the launch count of each
                        hand-written kernel
     GET  /metrics      Prometheus text (format 0.0.4) of the same stats
@@ -43,6 +44,19 @@ The routes below run unchanged on either.  Routes (JSON in, JSON out):
                        where its threshold came from)
     GET  /v1/brownout  the brownout ladder's stats (503 without
                        ``--brownout``)
+    GET  /v1/jobs      every batch job's status view, oldest first
+    GET  /v1/jobs/{id} one job's status (state, shards and images done)
+    GET  /v1/jobs/{id}/results
+                       chunked NDJSON: one ``{"index", ...answer}`` line
+                       an item of the completed shard prefix, in
+                       manifest order, then a ``{"status": ...}`` line;
+                       the jobs routes answer 503 without ``--jobs-dir``
+                       and 404 for an unknown job or sub-route
+    POST /v1/jobs      {"items": [request bodies], "model"?,
+                        "shard_size"?}: a bulk job for the batch tier
+                       (serve/jobs.py, serve/batch_sched.py), answered
+                       202 with its handle; 400 for bad ``items`` or
+                       ``shard_size``
     POST /v1/brownout  {"force": 0..3 | null}: pin the ladder at a level,
                        or hand it back to the signals; answers the stats
     POST /v1/classify | /v1/detect | /v1/pose | /v1/generate
@@ -67,8 +81,7 @@ The routes below run unchanged on either.  Routes (JSON in, JSON out):
                        {"drain_deadline_s"?: 10}) before the 200 reply
 
 A verb that is not the model's workload answers 400 and names the right
-route; an unknown route answers 404 with the supported verbs (the
-``/v1/jobs`` routes wait for the batch tier).
+route; an unknown route answers 404 with the supported verbs.
 Bodies over ``max_body_bytes`` answer 413 before any buffer
 is allocated (the edge dispatches such a request at once with an empty
 body, and the handler's own Content-Length check answers it); a client
@@ -104,7 +117,12 @@ from deep_vision_tpu_torch.serve.admission import TENANT_HEADER, Shed
 from deep_vision_tpu_torch.serve.cache import ResponseCache, payload_digest
 from deep_vision_tpu_torch.serve.cascade import base_tier as cascade_base_tier
 from deep_vision_tpu_torch.serve.cascade import is_degraded as cascade_degraded
-from deep_vision_tpu_torch.serve.edge import DEFAULT_MAX_CONNECTIONS, EdgeServer
+from deep_vision_tpu_torch.serve.edge import (
+    _CHUNK_END,
+    DEFAULT_MAX_CONNECTIONS,
+    EdgeServer,
+    _chunk_frame,
+)
 from deep_vision_tpu_torch.serve.faults import Quarantined
 from deep_vision_tpu_torch.serve.workloads import LIFECYCLE_VERBS, WORKLOADS
 
@@ -223,6 +241,8 @@ def render_serve_metrics(stats: dict) -> str:
 
     p = PromText()
     _render_front_metrics(p, stats)
+    if isinstance(stats.get("batch"), dict):
+        _render_batch_metrics(p, stats["batch"])
     if isinstance(stats.get("cascade"), dict):
         _render_cascade_metrics(p, stats["cascade"])
     if isinstance(stats.get("brownout"), dict):
@@ -290,7 +310,7 @@ def render_serve_metrics(stats: dict) -> str:
 
 #: front-end stats blocks beside the per-model entries
 _FRONT_BLOCKS = ("edge", "response_cache", "qos", "kernels", "cascade",
-                 "brownout")
+                 "brownout", "batch")
 
 
 def _render_deploy_metrics(p, dep: dict) -> None:
@@ -412,6 +432,46 @@ def _render_front_metrics(p, stats: dict) -> None:
     for kernel, n in (stats.get("kernels") or {}).items():
         p.counter("dvt_serve_kernel_launches_total", n, {"kernel": kernel},
                   help="Launches of each hand-written CUDA kernel")
+
+
+def _render_batch_metrics(p, batch: dict) -> None:
+    """The offline batch tier's dvt_batch_* series from the reserved
+    ``batch`` stats block (the job store, the trough-filling scheduler
+    and the occupancy-weighted MFU)."""
+    jobs = batch.get("jobs") or {}
+    sched = batch.get("scheduler") or {}
+    p.counter("dvt_batch_jobs_submitted_total", jobs.get("submitted"),
+              {}, help="Bulk jobs accepted via POST /v1/jobs")
+    p.counter("dvt_batch_images_total", jobs.get("images_done"), {},
+              help="Images with durable batch results (end-to-end "
+                   "goodput; replayed checkpoint shards count once)")
+    p.counter("dvt_batch_jobs_resumed_total", jobs.get("resumed"), {},
+              help="Unfinished jobs resumed from the JSONL checkpoint "
+                   "at boot")
+    p.counter("dvt_batch_checkpoint_write_errors_total",
+              jobs.get("write_errors"), {},
+              help="Job-ledger appends that failed to reach disk")
+    for state, n in (jobs.get("states") or {}).items():
+        p.gauge("dvt_batch_jobs", n, {"state": state},
+                help="Jobs by lifecycle state")
+    p.counter("dvt_batch_shards_total", sched.get("shards_done"), {},
+              help="Shards drained to a durable record this process")
+    p.counter("dvt_batch_shards_shed_total", sched.get("shards_shed"),
+              {}, help="Whole-shard retries after an engine shed")
+    p.counter("dvt_batch_deferred_total", sched.get("deferred"), {},
+              help="Trough checks that parked batch work behind "
+                   "interactive pressure")
+    p.counter("dvt_batch_frozen_deferred_total",
+              sched.get("frozen_deferred"), {},
+              help="Cohort admissions frozen outright at brownout L1+")
+    p.gauge("dvt_batch_occupancy", sched.get("occupancy"), {},
+            help="Fraction of the trailing window batch shards kept "
+                 "an engine busy (the trough-filling duty cycle)")
+    for mname, v in (batch.get("mfu_occupancy_weighted") or {}).items():
+        p.gauge("dvt_batch_mfu_weighted", v, {"model": mname},
+                help="serving MFU x engine compute occupancy — the "
+                     "sustained-throughput MFU a saturating bulk job "
+                     "should drive toward the interactive peak")
 
 
 def _render_cascade_metrics(p, cas: dict) -> None:
@@ -643,6 +703,12 @@ class _Handler(BaseHTTPRequestHandler):
     _cache_hit = False
     _tier = None  # the cascade tier that answered ("front", ..., "big")
     _degraded = False  # True when the brownout ladder degraded the answer
+    # chunked replies: the edge's shim sets _edge_stream, and
+    # _reply_stream then parks the body generator on _stream for the
+    # event loop to pump (serve/edge.py); without it the frames are
+    # written inline
+    _edge_stream = False
+    _stream = None
 
     def setup(self):
         # thread server only (the edge's shim never calls setup(), and
@@ -673,6 +739,27 @@ class _Handler(BaseHTTPRequestHandler):
             self.send_header(k, str(v))
         self.end_headers()
         self.wfile.write(blob)
+
+    def _reply_stream(self, status: int, chunks):
+        """A chunked NDJSON reply of the byte pieces ``chunks`` yields.
+        Under the edge the generator goes to the event loop, which
+        frames and flushes each piece as the worker produces it, so a
+        result set larger than any buffer streams in O(1) memory; under
+        the thread server the same frames are written to the socket
+        here."""
+        self.send_response(status)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("Transfer-Encoding", "chunked")
+        if self._rid is not None:
+            self.send_header(REQUEST_ID_HEADER, self._rid)
+        self.end_headers()
+        if self._edge_stream:
+            self._stream = chunks
+            return
+        for piece in chunks:
+            if piece:
+                self.wfile.write(_chunk_frame(piece))
+        self.wfile.write(_CHUNK_END)
 
     def _body(self) -> dict:
         return self._parse(self._read_body())
@@ -906,10 +993,107 @@ class _Handler(BaseHTTPRequestHandler):
             stats["qos"] = srv.qos.stats()
         if srv.brownout is not None:
             stats["brownout"] = srv.brownout.stats()
+        self._add_batch_block(stats)
         if srv.cascade is not None:
             stats["cascade"] = srv.cascade.stats()
         stats["kernels"] = kernel_launches()
         return stats
+
+    def _add_batch_block(self, stats: dict) -> None:
+        """The batch tier's reserved ``batch`` block, when it is on: the
+        job store's and the scheduler's stats, and per model the serving
+        MFU times the engine's occupancy (the sustained-throughput MFU a
+        saturating bulk job should push toward the interactive MFU)."""
+        store = self.server.jobs
+        if store is None:
+            return
+        from deep_vision_tpu_torch.obs.mfu import round_mfu
+
+        sched = self.server.batch_sched
+        block = {"jobs": store.stats(),
+                 "scheduler": sched.stats() if sched is not None
+                 else None}
+        models = stats.get("models")
+        if isinstance(models, dict):
+            eng_stats = {n: e.get("engine") for n, e in models.items()}
+        else:
+            eng_stats = {n: s for n, s in stats.items()
+                         if isinstance(s, dict) and "pipeline" in s}
+        weighted = {}
+        for name, s in eng_stats.items():
+            if not isinstance(s, dict):
+                continue
+            mfu = (s.get("mfu") or {}).get("serving_mfu")
+            occ = (s.get("pipeline") or {}).get("occupancy")
+            if mfu is not None and occ is not None:
+                weighted[name] = round_mfu(mfu * occ)
+        block["mfu_occupancy_weighted"] = weighted
+        stats["batch"] = block
+
+    def _job_results_ndjson(self, job_id: str):
+        """The results stream's body: one JSON line an item of the
+        contiguous completed shard prefix, in manifest order, then a
+        ``{"status": ...}`` line that tells "all delivered" from
+        "drained so far"."""
+        store = self.server.jobs
+        for idx, item in store.results_items(job_id):
+            yield json.dumps({"index": idx, **item}).encode() + b"\n"
+        yield json.dumps({"status": store.status(job_id)}).encode() \
+            + b"\n"
+
+    def _jobs_get(self, path: str) -> None:
+        store = self.server.jobs
+        if store is None:
+            self._reply(503, {"error": "batch jobs are not enabled "
+                                       "(cli.serve --jobs-dir ...)"})
+            return
+        parts = path.split("/")
+        if len(parts) == 3:  # /v1/jobs
+            self._reply(200, {"jobs": store.jobs()})
+            return
+        try:
+            status = store.status(parts[3])
+        except KeyError:
+            self._reply(404, {"error": f"no job '{parts[3]}'"})
+            return
+        if len(parts) == 4:  # /v1/jobs/<id>
+            self._reply(200, status)
+        elif len(parts) == 5 and parts[4] == "results":
+            self._reply_stream(200, self._job_results_ndjson(parts[3]))
+        else:
+            self._reply(404, {"error": f"no route {self.path}"})
+
+    def _jobs_post(self) -> tuple:
+        """POST /v1/jobs → (status, payload): check the manifest, resolve
+        the model as an interactive body would, persist the job and kick
+        the scheduler.  202: the reply is the job's handle; its results
+        come from the trough-filling drain."""
+        store = self.server.jobs
+        if store is None:
+            return 503, {"error": "batch jobs are not enabled "
+                                  "(cli.serve --jobs-dir ...)"}
+        body = self._body()
+        items = body.get("items")
+        if not isinstance(items, list) or not items:
+            raise ServeError(
+                400, "manifest 'items' must be a non-empty list of "
+                     "request bodies")
+        shard_size = body.get("shard_size")
+        if shard_size is not None:
+            try:
+                shard_size = int(shard_size)
+            except (TypeError, ValueError) as e:
+                raise ServeError(
+                    400, f"bad shard_size: {body['shard_size']!r}") from e
+            if shard_size <= 0:
+                raise ServeError(400, "shard_size must be >= 1")
+        model, _ = self._engine(body.get("model"))
+        view = store.submit(model.name, model.workload.verb, items,
+                            shard_size)
+        sched = self.server.batch_sched
+        if sched is not None:
+            sched.kick()
+        return 202, view
 
     def _models_with_cascade(self, models: dict) -> dict:
         """/v1/models entries, a cascade member's with the router's
@@ -961,6 +1145,8 @@ class _Handler(BaseHTTPRequestHandler):
                                            "--brownout)"})
                 return
             self._reply(200, srv.brownout.stats())
+        elif path == "/v1/jobs" or path.startswith("/v1/jobs/"):
+            self._jobs_get(path)
         elif path == "/v1/traces":
             try:
                 n = int(parse_qs(query).get("n", ["32"])[0])
@@ -988,6 +1174,9 @@ class _Handler(BaseHTTPRequestHandler):
         try:
             if path == "/v1/drain":
                 self._reply(200, self._drain())
+                return
+            if path == "/v1/jobs":
+                self._reply(*self._jobs_post())
                 return
             if path == "/v1/brownout":
                 self._reply(*self._brownout_post())
@@ -1151,7 +1340,9 @@ class ServeServer:
     boot-time active engines, used only for the tracer) and, with it,
     the deploy pipeline (``deploy``: ledger, watcher, autoscalers) and
     the cascade router (``cascade``).  ``brownout`` is the ladder the
-    request path probes (stale cache hits, the L3 QoS floor).
+    request path probes (stale cache hits, the L3 QoS floor).  ``jobs``
+    and ``batch_sched`` are the offline batch tier behind ``/v1/jobs``
+    (the job store and the scheduler a submit kicks); None turns it off.
 
     ``edge=True`` (default) runs the selector event loop of
     ``serve/edge.py`` with ``http_workers`` handler threads and at most
@@ -1166,7 +1357,7 @@ class ServeServer:
                  socket_timeout_s: float | None = SOCKET_TIMEOUT_S,
                  tracer=None, plane=None, response_cache=None, qos=None,
                  deploy=None, cascade=None, brownout=None,
-                 edge: bool = True,
+                 jobs=None, batch_sched=None, edge: bool = True,
                  max_connections: int = DEFAULT_MAX_CONNECTIONS,
                  http_workers: int = 8, verbose: bool = False):
         if edge:
@@ -1182,6 +1373,8 @@ class ServeServer:
         self.httpd.deploy = deploy
         self.httpd.cascade = cascade
         self.httpd.brownout = brownout
+        self.httpd.jobs = jobs
+        self.httpd.batch_sched = batch_sched
         self.httpd.max_body_bytes = int(max_body_bytes)
         self.httpd.socket_timeout_s = socket_timeout_s
         self.httpd.response_cache = response_cache

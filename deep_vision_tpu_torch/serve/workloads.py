@@ -13,7 +13,8 @@ for CycleGAN, uint8 pixels out).  Each verb also owns its shadow
 its response-cache size guard (``cacheable``), and the cascade's
 verbs their ``CascadeWorkloadRule`` (``cascade_rule``): classify reads
 the front tier's fused softmax + top-K epilogue, detect its
-device-decoded rows (serve/cascade.py).
+device-decoded rows (serve/cascade.py).  ``decode_manifest_item`` is
+the batch tier's per-item codec (serve/batch_sched.py).
 """
 
 from __future__ import annotations
@@ -68,6 +69,28 @@ class Workload:
         """A transform of the forward's float32 outputs run on the
         device inside each bucket callable, or None."""
         return None
+
+    def decode_manifest_item(self, item: dict, model):
+        """One batch-job manifest entry (serve/jobs.py) → one input in
+        the wire dtype: the workload's own ``decode`` first (generate
+        takes ``latent``/``seed`` entries), else the generic
+        ``pixels``/``image_b64`` decode of an interactive body, so a
+        manifest is a list of request bodies.  A malformed entry raises
+        ``ValueError`` (the scheduler records it as that item's error
+        row; one bad entry never fails its shard)."""
+        if not isinstance(item, dict):
+            raise ValueError(f"manifest entry must be an object, got "
+                             f"{type(item).__name__}")
+        x = self.decode(item, model)
+        if x is not None:
+            return x
+        # imported here: serve/http.py imports this module
+        from deep_vision_tpu_torch.serve.http import ServeError, decode_pixels
+
+        try:
+            return decode_pixels(item, model)
+        except ServeError as e:
+            raise ValueError(str(e)) from e
 
     def respond(self, model, body: dict, row) -> dict:
         raise NotImplementedError

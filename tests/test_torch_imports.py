@@ -37,7 +37,8 @@ def test_every_module_imports_with_jax_blocked():
                 "serve.faults", "serve.models", "serve.cache", "obs.mfu",
                 "serve.replicas", "deploy.history", "deploy.watcher",
                 "deploy.autoscale", "serve.cascade", "serve.brownout",
-                "serve.edge", "serve.gateway", "cli.gateway"):
+                "serve.edge", "serve.gateway", "cli.gateway", "serve.jobs",
+                "serve.batch_sched"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
