@@ -77,7 +77,8 @@ Phases, each of which must pass:
               side must fail;
 7. iou kernel — hold ``best_iou_max`` against its plain PyTorch version
               on the card at the yolov3_coco loss shapes (128, N, 100)
-              for N = 3·52², 3·26², 3·13² with 70% of the ground truths
+              for N = 3·52², 3·26², 3·13² and at a ``--grad-accum 2``
+              microbatch's (64, 8112, 100), with 70% of the ground truths
               unmasked, and at (128, 8112, 100) on near ties (twinned
               ground truths, predictions a few ulps off them), at a
               COCO-like share (7% unmasked) and at the YOLOv3 run's share
@@ -90,7 +91,7 @@ Phases, each of which must pass:
               kernel's resources as above, each timed set with its own
               row; no single PyTorch call computes this function, so
               there is no library time;
-8. yolo training — write seeded raw-payload detection shards (train 384,
+8. yolo training — write seeded raw-payload detection shards (train 258,
               val 128 synthetic scenes stored at 416×416×3, boxes from 80
               classes) and call ``cli/train.py``'s ``main`` for
               ``yolov3_coco`` at full width (Darknet-53, 416², 80 classes,
@@ -101,7 +102,7 @@ Phases, each of which must pass:
               a non-zero share of predictions in a logged step, the
               val mAP be finite (the records are noise to a random model:
               its value is no accuracy measurement), a checkpoint exist
-              per epoch, and the resumed run start at epoch 3, step 6,
+              per epoch, and the resumed run start at epoch 3, step 4,
               with the saved weights and Adam state.  Prints step ms
               (CUDA events), img/s, input stall, peak memory and mAP;
 9. yolo step check — one float32 forward + backward (TF32 off) of
@@ -256,6 +257,37 @@ Phases, each of which must pass:
               other sign on at most 1% of the elements it moves, a
               gradient in every parameter; rolled z (DCGAN) and swapped
               domains (CycleGAN) must fail;
+23a. trainer recipes — (a) 16 steps of lenet5 (batch 64) and of dcgan
+              (batch 256) from one seed with ``scan_steps`` 8 (3 eager
+              warmup steps, then a captured CUDA graph of the guarded
+              step replayed) and 1: final weights bit-identical or within
+              1e-6 relative (which is printed); controls that must fail:
+              dcgan replays whose generators are not re-seeded, and runs
+              whose warmup steps are thrown away; step ms and host
+              launches a step, eager and graph.  (b) ``cli.train -m
+              resnet50 --scan-steps 4 --ema-decay 0.9999`` on the
+              training phase's records (rewritten from their seed), 2
+              epochs and a resumed third: ``train_ingest`` launches =
+              steps (counted by replay), a profiler trace of one replay
+              names the kernel, the logged losses within 1e-4 of the
+              training phase's single-step run, no bad step, the EMA in
+              the checkpoint and carried by the resume (which captures
+              anew), ``load_state`` serving the EMA (digest of the EMA,
+              not of the trained weights), and ``cli.serve --workdir``
+              answering as a direct call of those weights with one
+              ``serve_ingest`` launch a batch; peak memory and step ms
+              beside the eager run's.  (c) ``cli.train -m yolov3_coco
+              --grad-accum 2``, one epoch of 2 steps: ``best_iou_max``
+              launches 3 a microbatch and 3 an eval batch, finite
+              losses, no bad step; peak memory beside the yolo training
+              phase's.  (d) lenet5 with SGD nesterov and a bfloat16
+              momentum, 3 float32 steps on the card and on the CPU:
+              losses within 1e-4, updates within ``compare_steps``'s
+              bounds, the momentum stored in bfloat16; the same run
+              without nesterov must fail.  Also in (a): yolov3_toy,
+              centernet_toy and hourglass_toy through ``cli.train
+              --synthetic``, 8 steps with ``--scan-steps 4`` and 1 under
+              deterministic algorithms: checkpoints bit-identical;
 24. generate serving — seeded generator weights (non-zero BN scales)
               through ``gan_to_flax``: dcgan at float32 (its float32
               latent wire forced over the requested uint8) and cyclegan
@@ -575,6 +607,8 @@ BF16_BOUND = 3e-2
 #: best_iou_max at yolov3_coco's loss: B=128, N = 3·(416/s)² for s in
 #: (8, 16, 32), M = MAX_BOXES
 IOU_SHAPES = [(128, 8112, 100), (128, 2028, 100), (128, 507, 100)]
+#: the largest scale's shape in a microbatch of --grad-accum 2
+IOU_MICRO_SHAPE = (64, 8112, 100)
 #: float32 operations of best_iou_max per unmasked pair: 2 max + 2 min
 #: (intersection corners), 2 sub + 2 clamp (its sides), 1 mul, add, sub,
 #: + eps, the division, the mask select and the running max; per ground
@@ -582,9 +616,10 @@ IOU_SHAPES = [(128, 8112, 100), (128, 2028, 100), (128, 507, 100)]
 #: term is an exact 0); per box its area (2 sub, 2 clamp, 1 mul)
 IOU_OPS_PER_PAIR, IOU_OPS_MASK, IOU_OPS_AREA = 15, 1, 5
 #: the YOLOv3 run: yolov3_coco at full width (416², 80 classes, batch 128,
-#: bf16, Adam) on seeded synthetic records, 3 train steps an epoch and
-#: one val batch; the card-vs-CPU step at 128² (grids 16, 8, 4)
-YOLO_TRAIN, YOLO_VAL, YOLO_SIZE, YOLO_BATCH = 384, 128, 416, 128
+#: bf16, Adam) on seeded synthetic records (three shards of 86 scenes),
+#: 2 train steps an epoch and one val batch; the card-vs-CPU step at 128²
+#: (grids 16, 8, 4)
+YOLO_TRAIN, YOLO_VAL, YOLO_SIZE, YOLO_BATCH = 258, 128, 416, 128
 YOLO_CLASSES, YOLO_WORKERS, YOLO_CHECK_SIZE = 80, 6, 128
 #: CenterNet and Stacked Hourglass-104 training at full width (256², 80
 #: classes or 16 keypoints, bf16, batch 32, Adam) on seeded raw records
@@ -738,6 +773,27 @@ BATCH_FREEZE_S = 1.5
 BATCH_TIMEOUT_S = 300.0
 BATCH_FLAGS = ["--batch-cache-shards", "1", "--brownout",
                "--max-body-mb", "128"]
+
+#: the trainer's recipe options: (a) 16 steps of lenet5 (batch 64) and
+#: dcgan (batch 256) with --scan-steps 8 against 1, and the detection and
+#: pose tasks at their toy sizes with --scan-steps 4 against 1 (yolov3_toy
+#: also with --grad-accum 2 --ema-decay 0.9); (b) resnet50 through
+#: cli.train on the training phase's records (2 epochs and a resumed
+#: third, 4 steps each) with --scan-steps 4 --ema-decay 0.9999; (c)
+#: yolov3_coco with --grad-accum 2 for one epoch on 258 + 128 records (2
+#: steps: three shards of 86; one val batch); (d) lenet5 with SGD
+#: nesterov and a bfloat16 momentum, 3 steps on the card and on the CPU
+RECIPE_STEPS, RECIPE_SCAN = 16, 8
+#: the other Trainer tasks captured at their toy sizes, 8 steps each:
+#: (name, extra cli.train flags)
+RECIPE_TOY_ACCUM = ("--grad-accum", "2", "--ema-decay", "0.9")
+RECIPE_TOY_TASKS = (
+    ("yolov3_toy", ()), ("centernet_toy", ()), ("hourglass_toy", ()),
+    ("yolov3_toy", RECIPE_TOY_ACCUM))
+RECIPE_TOY_STEPS = 8
+RECIPE_R50_SCAN, RECIPE_EMA = 4, 0.9999
+RECIPE_YOLO_TRAIN, RECIPE_YOLO_VAL, RECIPE_ACCUM = 258, 128, 2
+RECIPE_NESTEROV_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -1826,6 +1882,7 @@ def kernel_resources(name: str) -> list[dict]:
 #: images hold about 7 boxes of MAX_BOXES = 100) and at the YOLOv3 run's
 #: share (its synthetic scenes hold 1-3 boxes, 2 on average)
 IOU_CASES = [(IOU_SHAPES[0], "mixed", 0.7, False),
+             (IOU_MICRO_SHAPE, "microbatch", 0.7, False),
              (IOU_SHAPES[0], "near_tie", 0.7, True),
              (IOU_SHAPES[0], "coco_share", 0.07, False),
              (IOU_SHAPES[0], "run_share", 0.02, False)] + [
@@ -6485,6 +6542,568 @@ def phase_batch(card_line: str) -> dict:
     return out
 
 
+def profile_steps(run, n: int = 2) -> dict:
+    """``run()`` ``n`` times under ``torch.profiler``: per call, the
+    host's launch calls (kernel launches, graph launches, async copies
+    and sets) and the device's kernels, and every device kernel's name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    host = device = 0
+    names = set()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                                 "cudaMemcpyAsync", "cudaMemsetAsync")):
+                host += e.count
+        elif e.self_device_time_total > 0:
+            device += e.count
+            names.add(e.key)
+    return {"host_launches": host / n, "device_kernels": device / n,
+            "kernels": sorted(names)}
+
+
+def states_of(trainer) -> dict:
+    """A trainer's ``{name: TrainState}`` of its scan runner."""
+    owner = trainer._runner.owner
+    return owner if isinstance(owner, dict) else {"model": owner}
+
+
+def weights_of(states: dict) -> dict:
+    return {f"{name}/{k}": v.detach().cpu().clone()
+            for name, st in states.items()
+            for k, v in st.model.state_dict().items()}
+
+
+def weights_diff(got: dict, want: dict) -> tuple[bool, float]:
+    """(bit-identical, the worst tensor's max|got − want| / max|want|)."""
+    import torch
+
+    same = all(torch.equal(got[k], want[k]) for k in want)
+    worst = 0.0
+    for k, w in want.items():
+        if w.numel() == 0 or not w.is_floating_point():
+            continue
+        d = float((got[k].double() - w.double()).abs().max())
+        worst = max(worst, d / max(float(w.double().abs().max()), 1e-30))
+    return same, worst
+
+
+def recipe_trainer(name: str, K: int, work: str, device: str = "cuda"):
+    """(trainer, loader) of ``name`` (``lenet5`` or ``dcgan``) with
+    ``scan_steps = K`` over RECIPE_STEPS seeded uint8 batches at the
+    recipe's batch, one epoch."""
+    import torch
+
+    from deep_vision_tpu_torch.core.adversarial import AdversarialTrainer
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.data.gan import GANLoader
+    from deep_vision_tpu_torch.data.loader import ArrayLoader
+    from deep_vision_tpu_torch.ops.preprocess import (
+        make_gan_preprocess,
+        make_mnist_preprocess,
+    )
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    cfg = get_config(name)
+    cfg.scan_steps, cfg.total_epochs, cfg.log_every_steps = K, 1, 1
+    cfg.checkpoint_every_epochs = 10  # no checkpoint: weights are read
+    rng = np.random.default_rng(21)
+    n = RECIPE_STEPS * cfg.batch_size
+    if name == "dcgan":
+        dtype = torch.bfloat16 if cfg.half_precision else torch.float32
+        loader = GANLoader(rng.integers(0, 256, (n, 28, 28, 1), np.uint8),
+                           cfg.batch_size, seed=cfg.seed)
+        trainer = AdversarialTrainer(cfg, gan_task(name, dtype),
+                                     workdir=work,
+                                     preprocess_fn=make_gan_preprocess(),
+                                     device=device)
+    else:
+        loader = ArrayLoader(
+            {"image": rng.integers(0, 256, (n, 32, 32, 1), np.uint8),
+             "label": rng.integers(0, 10, n).astype(np.int32)},
+            cfg.batch_size, seed=cfg.seed)
+        trainer = Trainer(cfg, cfg.model(), ClassificationTask(10),
+                          workdir=work, preprocess_fn=make_mnist_preprocess(),
+                          device=device)
+    return trainer, loader
+
+
+def recipe_fit(trainer, loader) -> dict:
+    """``fit`` for one epoch; the states."""
+    if hasattr(trainer, "init_states"):
+        return trainer.fit(loader, epochs=1)
+    return {"model": trainer.fit(loader)}
+
+
+def scan_equivalence(name: str, tmp: str) -> dict:
+    """(a): RECIPE_STEPS steps of ``name`` from one seed with
+    ``--scan-steps RECIPE_SCAN`` and with 1: the final weights must be
+    bit-identical or within 1e-6 relative; a run whose replays are not
+    re-seeded (DCGAN) and one whose warmup steps are thrown away must
+    fail that.  Step ms (the trainer's device-clock mean: the replays,
+    or the eager steps after the first) and launches a step, eager and
+    graph, are information."""
+    import torch
+
+    from deep_vision_tpu_torch.core.step_graph import (
+        WARMUP_STEPS,
+        StepRunner,
+    )
+
+    out = {}
+    runs = {}
+    for K in (1, RECIPE_SCAN):
+        work = os.path.join(tmp, f"{name}_scan{K}")
+        trainer, loader = recipe_trainer(name, K, work)
+        states = recipe_fit(trainer, loader)
+        runs[K] = weights_of(states)
+        series = read_series(work)
+        out[f"step_ms_scan{K}"] = series["train_step_ms"][-1][1]
+        bad = [v for k, s in series.items() if k.endswith("bad_steps")
+               for _, v in s]
+        check(bad and all(v == 0 for v in bad),
+              f"{name} scan {K}: bad steps {bad}")
+        batch = next(iter(loader))
+        dev = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+        if K == 1:
+            out["eager"] = profile_steps(
+                lambda: trainer.train_step(states if name == "dcgan"
+                                           else states["model"], batch))
+            del out["eager"]["kernels"]
+        else:
+            runner = trainer._runner
+            check(runner.graph is not None and runner.replays
+                  == RECIPE_STEPS - WARMUP_STEPS,
+                  f"{name} scan {K}: {runner.replays} replays, "
+                  f"{runner.eager_steps} eager steps")
+            out.update(replays=runner.replays,
+                       eager_steps=runner.eager_steps)
+            seed = trainer.seed_step
+            st = states if name == "dcgan" else states["model"]
+
+            def replay():
+                seed(st)
+                runner._row = 0  # each replay writes the group's first row
+                runner.step(dev)
+            out["graph"] = profile_steps(replay)
+            del out["graph"]["kernels"]
+        del trainer
+    same, rel = weights_diff(runs[RECIPE_SCAN], runs[1])
+    check(same or rel <= 1e-6,
+          f"{name}: --scan-steps {RECIPE_SCAN} ended {rel:.3e} (relative) "
+          f"from --scan-steps 1")
+    out.update(bit_identical=same, rel=rel)
+    controls = {}
+    # a run whose warmup steps are thrown away: each one's update undone
+    orig_warm = StepRunner._warm
+
+    def throwaway(runner, batch):
+        sts = states_of(holder["trainer"])
+        saved = {k: (copy.deepcopy(st.model.state_dict()),
+                     copy.deepcopy(st.opt.state_dict()))
+                 for k, st in sts.items()}
+        vec = orig_warm(runner, batch)
+        for k, st in sts.items():
+            st.model.load_state_dict(saved[k][0])
+            st.opt.load_state_dict(saved[k][1])
+        return vec
+
+    holder = {}
+    kinds = ["warmup_thrown_away"] + (["not_reseeded"] if name == "dcgan"
+                                      else [])
+    for kind in kinds:
+        work = os.path.join(tmp, f"{name}_{kind}")
+        trainer, loader = recipe_trainer(name, RECIPE_SCAN, work)
+        holder["trainer"] = trainer
+        if kind == "not_reseeded":
+            seed = trainer.seed_step
+
+            def seed_before_capture(sts, trainer=trainer, seed=seed):
+                r = trainer._runner
+                if r is None or r.graph is None:
+                    seed(sts)
+            trainer.seed_step = seed_before_capture
+        else:
+            StepRunner._warm = throwaway
+        try:
+            got = weights_of(recipe_fit(trainer, loader))
+        finally:
+            StepRunner._warm = orig_warm
+        same_c, rel_c = weights_diff(got, runs[1])
+        check(not same_c and rel_c > 1e-6,
+              f"{name}: the control '{kind}' did not fail the check "
+              f"({rel_c:.3e})")
+        controls[kind] = rel_c
+        del trainer
+    out["controls_rel"] = controls
+    torch.cuda.empty_cache()
+    log(f"trainer recipes (a) {name}: {json.dumps(out)}")
+    return out
+
+
+def tasks_capture(tmp: str) -> dict:
+    """(a) for the other Trainer tasks: yolov3_toy, centernet_toy and
+    hourglass_toy, and yolov3_toy with accumulation and the EMA, through
+    ``cli.train --synthetic`` for RECIPE_TOY_STEPS steps with
+    ``--scan-steps RECIPE_R50_SCAN`` and with 1, under deterministic
+    algorithms (cuDNN's atomics otherwise make two eager runs differ):
+    the checkpoints (the EMA included) bit-identical, and YOLOv3's
+    ``best_iou_max`` launches equal, counted by replay."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.ops.best_iou import best_iou_max
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, extra in RECIPE_TOY_TASKS:
+            label = " ".join((name,) + extra)
+            n = RECIPE_TOY_STEPS * get_config(name).batch_size
+            got = {}
+            for K in (1, RECIPE_R50_SCAN):
+                work = os.path.join(tmp, f"{name}_{len(extra)}_scan{K}")
+                best_iou_max.launches = 0
+                check(cli.main(["-m", name, "--synthetic", "--synthetic-size",
+                                str(n), "--workdir", work, "--epochs", "1",
+                                "--num-workers", "0", "--device", "cuda",
+                                "--scan-steps", str(K), *extra]) == 0,
+                      f"cli.train -m {label} --scan-steps {K} failed")
+                saved = Checkpointer(os.path.join(work, "checkpoints")) \
+                    .load()["state"]
+                tensors = {f"model/{k}": v for k, v in saved["model"].items()}
+                tensors.update({f"ema/{k}": v
+                                for k, v in (saved.get("ema") or {}).items()})
+                got[K] = (tensors, best_iou_max.launches)
+            single, scan = got[1], got[RECIPE_R50_SCAN]
+            same = single[0].keys() == scan[0].keys() and all(
+                torch.equal(single[0][k], scan[0][k]) for k in single[0])
+            ema = sum(k.startswith("ema/") for k in single[0])
+            check(same and single[1] == scan[1]
+                  and (ema > 0) == ("--ema-decay" in extra),
+                  f"{label}: --scan-steps {RECIPE_R50_SCAN} is not "
+                  f"bit-identical to single steps (best_iou_max "
+                  f"{scan[1]} vs {single[1]} launches, {ema} EMA tensors)")
+            out[label] = {"bit_identical": same, "ema_tensors": ema,
+                          "best_iou_max_launches": scan[1]}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    log(f"trainer recipes (a) the other tasks: {json.dumps(out)}")
+    return out
+
+
+def ema_digest(tensors: dict) -> str:
+    """One hash over ``{name: tensor}``, in name order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.blake2b(digest_size=8)
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def recipe_resnet50(tmp: str, training: dict) -> dict:
+    """(b): resnet50 through cli.train on the training phase's records
+    (rewritten from their seed) with ``--scan-steps RECIPE_R50_SCAN
+    --ema-decay RECIPE_EMA``, 2 epochs and a resumed third: one
+    ``train_ingest`` launch a step counted by replay, the kernel named in
+    a profiler trace of one replay, the logged losses within 1e-4 of
+    the training phase's ``--scan-steps 1`` run at the same steps, no
+    bad step, the EMA in every checkpoint and carried through the
+    resume (which captures anew), ``load_state`` of the workdir serving
+    the EMA, and ``cli.serve --workdir`` answering from it."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.restore import (
+        EMA_WEIGHTS,
+        checkpoint_weights,
+        load_state,
+        params_digest,
+    )
+    from deep_vision_tpu_torch.core.step_graph import StepRunner
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+
+    data, work = os.path.join(tmp, "r50_data"), os.path.join(tmp, "r50")
+    write_records(data)
+    argv = ["-m", MODEL, "--data-format", "records", "--data-root", data,
+            "--workdir", work, "--num-workers", str(WORKERS), "--device",
+            "cuda", "--scan-steps", str(RECIPE_R50_SCAN), "--ema-decay",
+            str(RECIPE_EMA)]
+    steps = N_TRAIN // BATCH
+    seen = {"captures": 0, "trace": None}
+    orig_capture, orig_step = StepRunner._capture, StepRunner.step
+
+    def counting_capture(runner, batch):
+        seen["captures"] += 1
+        return orig_capture(runner, batch)
+
+    def traced_step(runner, batch):
+        if runner.graph is None or seen["trace"] is not None:
+            return orig_step(runner, batch)
+        before = train_ingest.launches
+        seen["trace"] = profile_steps(lambda: orig_step(runner, batch), 1)
+        seen["trace_launches"] = train_ingest.launches - before
+    StepRunner._capture, StepRunner.step = counting_capture, traced_step
+    resumed = {}
+    orig_resume = Trainer.maybe_resume
+
+    def spy(self, state):
+        state = orig_resume(self, state)
+        resumed.update(step=state.step,
+                       ema=ema_digest(state.ema_named()))
+        return state
+    Trainer.maybe_resume = spy
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        train_ingest.launches = 0
+        check(cli.main(argv + ["--epochs", str(EPOCHS)]) == 0,
+              "cli.train --scan-steps failed")
+        first = train_ingest.launches
+        peak = torch.cuda.max_memory_allocated()
+        captures_first = seen["captures"]
+        ckpts = Checkpointer(os.path.join(work, "checkpoints"))
+        saved = ckpts.load(EPOCHS * steps)["state"]
+        check(bool(saved.get("ema")), "the checkpoint holds no EMA")
+        saved_ema = ema_digest(saved["ema"])
+        check(cli.main(argv + ["--resume", "--epochs",
+                               str(RESUME_EPOCHS)]) == 0,
+              "cli.train --scan-steps --resume failed")
+    finally:
+        StepRunner._capture, StepRunner.step = orig_capture, orig_step
+        Trainer.maybe_resume = orig_resume
+    launches = train_ingest.launches
+    check(first == EPOCHS * steps and launches == RESUME_EPOCHS * steps,
+          f"train_ingest launched {first} then {launches} times in "
+          f"{EPOCHS * steps} then {RESUME_EPOCHS * steps} steps")
+    trace = seen["trace"]
+    check(trace is not None and seen["trace_launches"] == 1 and any(
+        "train_ingest" in k for k in trace["kernels"]),
+        f"no train_ingest kernel in the trace of one replay: {trace}")
+    check(captures_first == 1 and seen["captures"] == 2,
+          f"captures: {captures_first} in the first run, "
+          f"{seen['captures']} in all (the resume must capture anew)")
+    check(resumed == {"step": EPOCHS * steps, "ema": saved_ema},
+          f"the resume restored {resumed}, not step {EPOCHS * steps} with "
+          f"EMA {saved_ema}")
+    series = read_series(work)
+    losses = dict(series["train_loss"])
+    base = dict(training["losses"])
+    common = sorted(set(losses) & set(base))
+    check(bool(common) and all(
+        abs(losses[s] - base[s]) <= 1e-4 * abs(base[s]) for s in common),
+        f"losses {[(s, losses[s], base.get(s)) for s in common]} against "
+        f"the --scan-steps 1 run's")
+    check(all(v == 0 for _, v in series["train_bad_steps"]),
+          f"bad steps: {series['train_bad_steps']}")
+    # the workdir serves the EMA: load_state's digest is the EMA copy's
+    info = {}
+    model = load_state(get_config(MODEL), workdir=work, info=info,
+                       log=lambda _m: None)
+    payload = Checkpointer(info["dir"]).load(info["step"])
+    ema_model = get_config(MODEL).model()
+    ema_model.load_state_dict(checkpoint_weights(payload))
+    raw_model = get_config(MODEL).model()
+    raw_model.load_state_dict(payload["state"]["model"])
+    want, raw = params_digest(ema_model), params_digest(raw_model)
+    check(info["ema"] == EMA_WEIGHTS and info["digest"] == want != raw,
+          f"load_state served {info['ema']} digest {info['digest']} "
+          f"(EMA {want}, trained weights {raw})")
+    del model, ema_model, raw_model
+    served = serve_trained_workdir(MODEL, work)
+    step_ms = [v for _, v in series["train_step_ms"]]
+    out = {"train_ingest_launches": launches, "steps": RESUME_EPOCHS * steps,
+           "replay_trace_kernels": [k for k in trace["kernels"]
+                                    if "ingest" in k],
+           "replay_host_launches": trace["host_launches"],
+           "replay_device_kernels": trace["device_kernels"],
+           "losses": series["train_loss"], "eager_losses": training["losses"],
+           "step_ms_by_epoch": step_ms,
+           "eager_step_ms_by_epoch": training["step_ms_by_epoch"],
+           "peak_memory_bytes": peak,
+           "eager_peak_memory_bytes": training["peak_memory_bytes"],
+           "captures": seen["captures"], "ema_digest": saved_ema,
+           "served_digest": info["digest"], "trained_digest": raw,
+           "served": served}
+    torch.cuda.empty_cache()
+    log(f"trainer recipes (b) resnet50: {json.dumps(out)}")
+    return out
+
+
+def recipe_yolo_accum(tmp: str, yolo: dict) -> dict:
+    """(c): yolov3_coco at full width (416², batch 128, bf16, Adam)
+    through cli.train with ``--grad-accum RECIPE_ACCUM`` for one epoch on
+    RECIPE_YOLO_TRAIN + RECIPE_YOLO_VAL seeded records: ``best_iou_max``
+    launches 3 times a microbatch and 3 times an eval batch, finite
+    losses, no bad step; peak memory beside the accumulation-1 run's."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.ops.best_iou import best_iou_max
+
+    data, work = os.path.join(tmp, "yolo_data"), os.path.join(tmp, "yolo")
+    write_detection_shards(data, RECIPE_YOLO_TRAIN, RECIPE_YOLO_VAL,
+                           YOLO_SIZE)
+    steps = RECIPE_YOLO_TRAIN // YOLO_BATCH
+    evals = -(-RECIPE_YOLO_VAL // YOLO_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    best_iou_max.launches = 0
+    check(cli.main(["-m", "yolov3_coco", "--data-root", data, "--workdir",
+                    work, "--num-workers", str(YOLO_WORKERS), "--device",
+                    "cuda", "--epochs", "1", "--grad-accum",
+                    str(RECIPE_ACCUM)]) == 0,
+          "cli.train -m yolov3_coco --grad-accum failed")
+    peak = torch.cuda.max_memory_allocated()
+    launches = best_iou_max.launches
+    # one evaluation an epoch and cli.train's final one
+    want = 3 * RECIPE_ACCUM * steps + 3 * 2 * evals
+    check(launches == want,
+          f"best_iou_max launched {launches} times, not 3 x {RECIPE_ACCUM} "
+          f"x {steps} train steps + 3 x {2 * evals} eval batches")
+    series = read_series(work)
+    losses = [v for _, v in series["train_loss"]]
+    check(bool(losses) and all(math.isfinite(v) for v in losses),
+          f"losses {losses}")
+    check(all(v == 0 for _, v in series["train_bad_steps"]),
+          f"bad steps: {series['train_bad_steps']}")
+    out = {"best_iou_max_launches": launches, "train_steps": steps,
+           "eval_batches": 2 * evals, "losses": series["train_loss"],
+           "step_ms": [v for _, v in series["train_step_ms"]],
+           "peak_memory_bytes": peak,
+           "accum1_peak_memory_bytes": yolo["peak_memory_bytes"]}
+    torch.cuda.empty_cache()
+    log(f"trainer recipes (c) yolov3_coco: {json.dumps(out)}")
+    return out
+
+
+def nesterov_run(device: str, sd: dict, batches: list, nesterov: bool):
+    """RECIPE_NESTEROV_STEPS float32 steps of lenet5 with SGD (lr 0.05,
+    momentum 0.9, ``nesterov``, bfloat16 momentum) on ``device`` from
+    ``sd``: (losses, state_dict before, after, the momentum's dtype)."""
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.optim import OptimizerConfig
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.preprocess import make_mnist_preprocess
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    cfg = get_config("lenet5")
+    cfg.optimizer = OptimizerConfig(name="sgd", learning_rate=0.05,
+                                    momentum=0.9, nesterov=nesterov,
+                                    momentum_dtype="bfloat16")
+    model = cfg.model()
+    model.load_state_dict(sd)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as work:
+        trainer = Trainer(cfg, model, ClassificationTask(10), workdir=work,
+                          preprocess_fn=make_mnist_preprocess(),
+                          device=device)
+        state = trainer.state_for(model)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+        losses = []
+        for batch in batches:
+            state, m = trainer.train_step(state, batch)
+            losses.append(float(m["loss"]))
+            check(int(m["bad_steps"]) == 0, f"a {device} step was skipped")
+        after = {k: v.detach().cpu().clone()
+                 for k, v in state.model.state_dict().items()}
+    return losses, before, after, state.opt.momentum[0].dtype
+
+
+def recipe_nesterov() -> dict:
+    """(d): lenet5 with SGD nesterov and a bfloat16 momentum, the card
+    against the CPU in float32 over RECIPE_NESTEROV_STEPS steps: every
+    loss within 1e-4 relative and the updates within the step check's
+    bounds (``compare_steps``); the stored momentum bfloat16; the same
+    run without nesterov on the card must fail those bounds."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+
+    model = get_config("lenet5").model()
+    model.reset_parameters(torch.Generator().manual_seed(5))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(6)
+    batches = [{"image": rng.integers(0, 256, (64, 32, 32, 1), np.uint8),
+                "label": rng.integers(0, 10, 64).astype(np.int32)}
+               for _ in range(RECIPE_NESTEROV_STEPS)]
+    cpu = nesterov_run("cpu", sd, batches, True)
+    card = nesterov_run("cuda", sd, batches, True)
+    plain = nesterov_run("cuda", sd, batches, False)
+    check(card[3] == cpu[3] == torch.bfloat16,
+          f"the momentum is stored in {card[3]} / {cpu[3]}")
+    faults = [f"loss {i}: {g} vs {w}" for i, (g, w) in
+              enumerate(zip(card[0], cpu[0])) if abs(g - w) > 1e-4 * abs(w)]
+    faults += compare_steps((card[0][-1], card[1], card[2]),
+                            (cpu[0][-1], cpu[1], cpu[2]))
+    check(not faults, f"nesterov bf16 momentum, card vs CPU: {faults}")
+    control = compare_steps((plain[0][-1], plain[1], plain[2]),
+                            (cpu[0][-1], cpu[1], cpu[2]))
+    check(bool(control), "the control without nesterov passed the bounds")
+    errs = update_errors((None, card[1], card[2]), (None, cpu[1], cpu[2]))
+    out = {"losses_card": card[0], "losses_cpu": cpu[0],
+           "update_l2": errs["params"],
+           "worst_tensor_l2": max(errs["l2"].values()),
+           "control_faults": control[:3], "momentum_dtype": str(card[3])}
+    log(f"trainer recipes (d) nesterov: {json.dumps(out)}")
+    return out
+
+
+def phase_trainer_recipes(training: dict, yolo: dict) -> dict:
+    """The trainer's recipe options on the card: (a) ``--scan-steps``
+    against single steps for lenet5 and dcgan, with its two controls;
+    (b) resnet50 with ``--scan-steps`` and ``--ema-decay`` through
+    cli.train, resume and cli.serve; (c) yolov3_coco with
+    ``--grad-accum``; (d) nesterov with a bfloat16 momentum."""
+    import torch
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        t0 = time.monotonic()
+        out["scan"] = {name: scan_equivalence(name, tmp)
+                       for name in ("lenet5", "dcgan")}
+        out["scan"]["tasks"] = tasks_capture(tmp)
+        out["scan_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["resnet50"] = recipe_resnet50(tmp, training)
+        out["resnet50_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        out["yolo_accum"] = recipe_yolo_accum(tmp, yolo)
+        out["yolo_accum_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    out["nesterov"] = recipe_nesterov()
+    out["nesterov_s"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6583,6 +7202,7 @@ def main() -> int:
     for name in GAN_MODELS:
         gan_check[name] = phase_gan_step_check(name)
         torch.cuda.empty_cache()
+    recipes = phase_trainer_recipes(training, yolo)
     generate = phase_generate_serving()
     card_line = card()
     faults = phase_faults(card_line)
@@ -6602,6 +7222,8 @@ def main() -> int:
                **{f"classify_{m}": classify[m]["launches"]
                   for m, _, _ in CLASSIFY_MODELS},
                "classify_lenet5_workdir": lenet["served"]["launches"],
+               "classify_resnet50_ema_workdir": recipes["resnet50"][
+                   "served"]["launches"],
                **{f"generate_{k}": row["launches"]
                   for k, row in generate.items()},
                "faults_resnet50": faults["poison"]["launches"],
@@ -6642,6 +7264,8 @@ def main() -> int:
     train_row = train_rows[0]
     train_by_path = {
         "train_resnet50": training["train_ingest_launches"],
+        "recipes_resnet50_scan_ema": recipes["resnet50"][
+            "train_ingest_launches"],
         "train_inception3": zoo_train["launches"],
         **{f"steps_{m}": zoo_steps[m]["train_ingest_launches"]
            for m in ZOO_STEP_MODELS}}
@@ -6665,11 +7289,25 @@ def main() -> int:
         "library_ms": train_row["library_ms"], "shape": train_row["shape"],
         "build_s": build_s})
     iou_row = iou_rows[0]
+    iou_by_path = {"train_yolov3_coco": yolo["best_iou_max_launches"],
+                   "recipes_yolov3_coco_accum": recipes["yolo_accum"][
+                       "best_iou_max_launches"],
+                   "recipes_yolov3_toy_scan": recipes["scan"]["tasks"][
+                       "yolov3_toy"]["best_iou_max_launches"],
+                   "recipes_yolov3_toy_scan_accum_ema": recipes["scan"][
+                       "tasks"][" ".join(("yolov3_toy",) + RECIPE_TOY_ACCUM)][
+                       "best_iou_max_launches"]}
+    micro_row = next(r for r in iou_rows
+                     if tuple(r["shape"]) == IOU_MICRO_SHAPE)
     kernels.append({
         "name": "best_iou_max", "route": "cuda",
         "source": "deep_vision_tpu_torch/csrc/best_iou_max.cu",
         "replaces": "deep_vision_tpu/ops/pallas_ops.py:377",
-        "launches": yolo["best_iou_max_launches"],
+        "launches": sum(iou_by_path.values()),
+        "launches_by_path": iou_by_path,
+        "microbatch_shape": {k: micro_row[k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "differing")},
         "max_abs_err": max(r["max_abs_err"] for r in iou_rows),
         "ms": iou_row["ms"], "plain_ms": iou_row["plain_ms"],
         "bound_ms": iou_row["bound_ms"], "bound_by": iou_row["bound_by"],
@@ -6694,6 +7332,7 @@ def main() -> int:
     print(json.dumps({"classify_serving": classify}), flush=True)
     print(json.dumps({"gan_training": gan_train}), flush=True)
     print(json.dumps({"gan_step_check": gan_check}), flush=True)
+    print(json.dumps({"trainer_recipes": recipes}), flush=True)
     print(json.dumps({"generate_serving": generate}), flush=True)
     print(json.dumps({"faults": faults}), flush=True)
     print(json.dumps({"plane": plane}), flush=True)

@@ -19,6 +19,8 @@
     python -m deep_vision_tpu_torch.cli.train -m cyclegan \
         --synthetic [--synthetic-size N] --workdir W [--resume]
     python -m deep_vision_tpu_torch.cli.train --list -m x
+    ... [--scan-steps K] [--grad-accum A] [--ema-decay D] \
+        [--momentum-dtype bfloat16]
 
 Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
 classification branch, ``build_classification_val_loader``,
@@ -42,8 +44,13 @@ trainer on uint8 batches the card scales to [-1, 1]: DCGAN on MNIST's
 ``train-images-idx3-ubyte[.gz]`` under ``D`` (or synthetic digits),
 CycleGAN on ``train_a-*``/``train_b-*.dvrec`` shards of encoded images
 (``prepare_data unpaired``; decoding them needs PIL) or on seeded
-synthetic domains.  Runs on CUDA unless given ``--device cpu``; without
-a GPU it raises.
+synthetic domains.  The recipe options take the reference's flags and
+config fields: ``--scan-steps`` (``scan_steps``: on the card a captured
+CUDA graph of the guarded step; DCGAN too, CycleGAN per step),
+``--grad-accum`` (``grad_accum_steps``), ``--ema-decay`` (``ema_decay``:
+eval and the workdir's serving use the EMA) and ``--momentum-dtype
+bfloat16`` (``optimizer.momentum_dtype``).  Runs on CUDA unless given
+``--device cpu``; without a GPU it raises.
 """
 
 from __future__ import annotations
@@ -76,6 +83,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override config")
     p.add_argument("--batch-size", type=int, default=None,
                    help="override config")
+    p.add_argument("--scan-steps", type=int, default=None,
+                   help="train steps a group: on the card one captured "
+                        "CUDA graph of the guarded step, replayed a step "
+                        "at a time, metrics read once a group")
+    p.add_argument("--grad-accum", type=int, default=None,
+                   help="gradient-accumulation microbatches per optimizer "
+                        "update (the recipe's batch in a fraction of the "
+                        "memory)")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="params EMA decay (e.g. 0.9999); eval and serving "
+                        "use the averaged copy")
+    p.add_argument("--momentum-dtype", choices=("bfloat16",), default=None,
+                   help="store the SGD momentum in bfloat16 (changes the "
+                        "update's numerics by ~1e-3: off for parity "
+                        "recipes)")
     p.add_argument("--image-size", type=int, default=None,
                    help="override config (smoke runs at low resolution)")
     p.add_argument("--num-workers", type=int, default=16,
@@ -138,6 +160,14 @@ def main(argv=None):
         cfg.total_epochs = args.epochs
     if args.batch_size is not None:
         cfg.batch_size = cfg.eval_batch_size = args.batch_size
+    if args.scan_steps is not None:
+        cfg.scan_steps = args.scan_steps
+    if args.grad_accum is not None:
+        cfg.grad_accum_steps = args.grad_accum
+    if args.ema_decay is not None:
+        cfg.ema_decay = args.ema_decay
+    if args.momentum_dtype is not None:
+        cfg.optimizer.momentum_dtype = args.momentum_dtype
     if args.image_size is not None:
         cfg.image_size = args.image_size
     if args.prefetch_depth is not None:

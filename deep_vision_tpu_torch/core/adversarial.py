@@ -20,8 +20,18 @@ sets the scheduler's learning rate on every optimizer; every
 ``checkpoint_every_epochs`` all networks go into one checkpoint with
 ``{"epoch", "scheduler"}``, and SIGTERM saves one at the step boundary.
 The image pools are host state and are not checkpointed: a resumed run
-(a new task) starts with empty pools, as the reference's does.  ``scan_steps`` and
-gradient accumulation are not ported (the trainer refuses them).
+(a new task) starts with empty pools, as the reference's does.
+
+``scan_steps = K > 1`` runs a ``scan_safe`` task (DCGAN: no host state
+between steps) in groups of K through ``core/step_graph.py`` (on the
+card one CUDA graph of the joint G/D step with its guard, replayed a
+step at a time), reading a group's metrics once and showing the guard
+every step; a ragged tail runs as single steps.  A task that is not
+scan-safe (CycleGAN's image pools) runs per step, as the reference does.
+``fit(..., sample_hook=f)`` calls ``f(epoch, states)`` after each
+epoch's checkpoint.  Gradient accumulation is refused, as the reference
+refuses it; so is ``ema_decay``, which the reference accepts and
+ignores.
 """
 
 from __future__ import annotations
@@ -45,10 +55,12 @@ from deep_vision_tpu_torch.core.state import (
     TrainState,
     all_finite,
 )
+from deep_vision_tpu_torch.core.step_graph import StepRunner, run_groups
 from deep_vision_tpu_torch.core.trainer import (
+    StepGenerators,
+    check_recipe,
     install_sigterm_flag,
     log_input_stats,
-    step_seed,
     to_device,
 )
 
@@ -59,14 +71,21 @@ RNG_OFFSET = 17
 class AdversarialTrainer:
     def __init__(self, config: TrainConfig, task, workdir: str | None = None,
                  preprocess_fn=None, device=None):
-        for field, default in (("grad_accum_steps", 1), ("ema_decay", 0.0),
-                               ("scan_steps", 1)):
-            if getattr(config, field) != default:
-                raise NotImplementedError(
-                    f"{field}={getattr(config, field)} is not ported; the "
-                    f"adversarial trainer runs with {field}={default}")
+        check_recipe(config)
+        if config.grad_accum_steps > 1:
+            raise NotImplementedError(
+                "grad_accum_steps applies to the single-optimizer Trainer "
+                "only; adversarial steps update G and D from the same "
+                "forward, so accumulate by lowering batch_size instead")
+        if config.ema_decay:
+            raise NotImplementedError(
+                f"ema_decay={config.ema_decay}: the adversarial trainer "
+                f"keeps no params EMA (the reference's accepts the option "
+                f"and ignores it)")
         self.config = config
         self.device = resolve_device(device)
+        self.generators = StepGenerators(self.device)
+        self._runner: StepRunner | None = None
         self.task = task
         # signature (batch, generator, train), as the Trainer's
         self.preprocess_fn = preprocess_fn
@@ -110,6 +129,7 @@ class AdversarialTrainer:
         if self.checkpointer.latest_step() is None:
             return states
         states, extras = self.checkpointer.restore_tree(states)
+        self._runner = None  # the restored states are captured anew
         self.start_epoch = int(extras.get("epoch", 0)) + 1
         if "scheduler" in extras:
             self.scheduler.load_state_dict(extras["scheduler"])
@@ -121,11 +141,12 @@ class AdversarialTrainer:
 
     # ----------------------------------------------------------------- steps
 
-    def step_generator(self, states: dict) -> torch.Generator:
+    def seed_step(self, states: dict) -> None:
+        """Seed the draw generator from the first network's seed and step
+        (host work only: a replayed graph reads the seed)."""
         first = next(iter(states.values()))
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(step_seed(first.rng, first.step))
-        return gen
+        self.generators.get(None)
+        self.generators.seed(first.rng, first.step)
 
     def train_step(self, states: dict, batch: dict, draws: dict | None = None
                    ) -> tuple[dict, dict]:
@@ -134,11 +155,23 @@ class AdversarialTrainer:
         included).  ``draws`` replaces the task's own draw (tests and
         card-vs-CPU checks feed the same draws to both sides)."""
         batch = to_device(batch, self.device)
+        self.seed_step(states)
+        outputs, metrics = self.device_step(states, batch, draws)
+        for st in states.values():
+            st.advance()
+        return outputs, metrics
+
+    def device_step(self, states: dict, batch: dict,
+                    draws: dict | None = None) -> tuple[dict, dict]:
+        """The device work of one step on a device batch, the draw
+        generator seeded: preprocess → draws → the task's gradients →
+        every proposal → one joint guard → commit.  Reads nothing from
+        the host that changes between steps, so it may be captured."""
         if self.preprocess_fn is not None:
             batch = self.preprocess_fn(batch, None, True)
         if draws is None and hasattr(self.task, "draw"):
             bs = len(next(iter(batch.values())))
-            draws = self.task.draw(bs, self.step_generator(states),
+            draws = self.task.draw(bs, self.generators.get(None),
                                    self.device)
         before = {}
         for name, st in states.items():
@@ -155,10 +188,24 @@ class AdversarialTrainer:
         first = next(iter(states.values()))
         return outputs, dict(metrics, bad_steps=first.bad_steps.clone())
 
+    def step_runner(self, states: dict) -> StepRunner:
+        """The ``scan_steps`` runner of ``states`` (made on first use, and
+        anew for other states or after a resume)."""
+        if self._runner is None or self._runner.owner is not states:
+            self.generators.get(None)
+            self._runner = StepRunner(
+                lambda batch: self.device_step(states, batch)[1],
+                self.generators.all(), self.device, self.config.scan_steps,
+                owner=states)
+        return self._runner
+
     # ----------------------------------------------------------------- loops
 
     def fit(self, train_data, epochs: int | None = None,
-            states: dict | None = None, resume: bool = False) -> dict:
+            states: dict | None = None, resume: bool = False,
+            sample_hook=None) -> dict:
+        """The epoch loop; ``sample_hook(epoch, states)``, when given, runs
+        after each epoch's checkpoint."""
         epochs = epochs or self.config.total_epochs
         if states is None:
             states = self.init_states()
@@ -168,14 +215,16 @@ class AdversarialTrainer:
         restore = install_sigterm_flag(
             lambda: setattr(self, "_preempted", True))
         try:
-            return self._fit_epochs(train_data, epochs, states)
+            return self._fit_epochs(train_data, epochs, states, sample_hook)
         finally:
             restore()
             if self._prefetcher is not None:
                 self._prefetcher.close()
 
-    def _fit_epochs(self, train_data, epochs: int, states: dict) -> dict:
+    def _fit_epochs(self, train_data, epochs: int, states: dict,
+                    sample_hook=None) -> dict:
         cfg = self.config
+        scan = cfg.scan_steps > 1 and getattr(self.task, "scan_safe", False)
         for epoch in range(self.start_epoch, epochs + 1):
             lr = self.scheduler.epoch_begin(epoch)
             for st in states.values():
@@ -183,7 +232,8 @@ class AdversarialTrainer:
             if hasattr(train_data, "set_epoch"):
                 train_data.set_epoch(epoch)
             t0 = time.monotonic()
-            if self._epoch(train_data, states, epoch):
+            run = self._epoch_scan if scan else self._epoch
+            if run(train_data, states, epoch):
                 self._save(states, epoch - 1)
                 print(f"[preempt] checkpoint saved at step "
                       f"{next(iter(states.values())).step}; rerun with "
@@ -194,6 +244,8 @@ class AdversarialTrainer:
                   flush=True)
             if epoch % cfg.checkpoint_every_epochs == 0:
                 self._save(states, epoch)
+            if sample_hook is not None:
+                sample_hook(epoch, states)
         return states
 
     def _save(self, states: dict, epoch: int) -> None:
@@ -263,3 +315,55 @@ class AdversarialTrainer:
                 log_input_stats(self.logger, first.step, stream.stats(),
                                 epoch)
 
+    def _epoch_scan(self, train_data, states: dict, epoch: int) -> bool:
+        """One epoch of a scan-safe task in groups of ``scan_steps``
+        through :func:`run_groups` (the reference's ``_epoch_scan``);
+        True when SIGTERM stopped it.  The metrics of a group are read
+        once, every step's by the guard; a ragged tail runs as single
+        steps."""
+        task = self.task
+        runner = self.step_runner(states)
+        meter = ThroughputMeter()
+        timer = StepTimer(self.device, warmup=runner.untimed_steps)
+        first = next(iter(states.values()))
+        bs = 0
+
+        def on_step(batch):
+            nonlocal bs
+            timer.mark()
+            bs = len(next(iter(batch.values())))
+            meter.update(bs)
+
+        def advance():
+            for st in states.values():
+                st.advance()
+
+        def on_group(steps):
+            for m in steps:
+                self.guard.check(m)
+            self.logger.log_dict(first.step, steps[-1])
+            print(f"Epoch {epoch} Step {first.step} "
+                  + " ".join(f"{k}={v:.4f}" for k, v in steps[-1].items())
+                  + f" {meter.images_per_sec:.1f} img/s", flush=True)
+
+        stream = self._get_prefetcher().iterate(
+            map(task.host_prepare, train_data))
+        timer.mark()
+        try:
+            tail = run_groups((to_device(b, self.device) for b in stream),
+                              runner, lambda: self.seed_step(states), advance,
+                              on_step, on_group, lambda: self._preempted)
+            for batch in tail:  # the ragged tail: single steps
+                if self._preempted:
+                    break
+                outputs, metrics = self.train_step(states, batch)
+                task.host_update(outputs)
+                self._log_metrics(epoch, first.step, metrics, meter)
+            return self._preempted
+        finally:
+            step_ms = timer.mean_ms()
+            if step_ms is not None:
+                self.logger.log("train_step_ms", first.step, step_ms)
+                self.logger.log("images_per_sec", first.step,
+                                bs * 1e3 / step_ms)
+            log_input_stats(self.logger, first.step, stream.stats(), epoch)

@@ -44,9 +44,9 @@ class TrainConfig:
     max_bad_steps: int = 100
     # staged H2D prefetch: device batches queued ahead of the step
     prefetch_depth: int = 2
-    # train steps per dispatch, microbatches per optimizer update and the
-    # params EMA of the reference: not ported, the trainer refuses any
-    # value but these defaults
+    # steps a group (on the card: replays of one captured CUDA graph,
+    # metrics read once a group), microbatches per optimizer update, and
+    # the params EMA's decay (0 = off; eval and serving use the EMA)
     scan_steps: int = 1
     grad_accum_steps: int = 1
     ema_decay: float = 0.0

@@ -8,7 +8,10 @@ them:
 
     clip (grad_clip_norm c):  n = ‖all g‖₂;  g = g if n < c else g / n · c
     sgd:   d = g + wd·p (decay mask);  buf = momentum·buf + d;
-           p = p − lr·buf
+           u = d + momentum·buf if nesterov else buf;  p = p − lr·u;
+           with ``momentum_dtype="bfloat16"`` the stored ``buf`` is
+           rounded to bfloat16 and ``momentum·buf`` is a bfloat16
+           product (optax ``trace(accumulator_dtype=bfloat16)``)
     adam:  t += 1;  mu = (1−b1)·g + b1·mu;  nu = (1−b2)·g² + b2·nu;
            u = (mu / (1−b1ᵗ)) / (sqrt(nu / (1−b2ᵗ)) + eps)
            (+ wd·p on the decay mask: AdamW);  p = p − lr·u
@@ -45,14 +48,16 @@ class OptimizerConfig:
     name: str = "sgd"  # sgd | adam | rmsprop
     learning_rate: float = 0.1
     momentum: float = 0.9
-    nesterov: bool = False  # not ported: refused
+    nesterov: bool = False
     weight_decay: float = 0.0  # on the decay mask (no BN, no bias)
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
     rms_decay: float = 0.9  # RMSprop's decay of nu (torch's ``alpha``)
     grad_clip_norm: float | None = None
-    momentum_dtype: str | None = None  # not ported: refused
+    # SGD momentum's storage dtype: None (the parameters', float32) or
+    # "bfloat16"
+    momentum_dtype: str | None = None
 
 
 def weight_decay_mask(model: nn.Module) -> dict[str, bool]:
@@ -87,9 +92,6 @@ class _Optimizer:
     device learning rate and the clip shared by SGD and Adam."""
 
     def __init__(self, cfg: OptimizerConfig, model: nn.Module):
-        if cfg.nesterov or cfg.momentum_dtype:
-            raise NotImplementedError(
-                "nesterov and momentum_dtype are not ported")
         self.cfg = cfg
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
@@ -148,19 +150,34 @@ class _Optimizer:
 
 
 class SGD(_Optimizer):
-    """Momentum SGD (optax ``add_decayed_weights`` then ``sgd``)."""
+    """Momentum SGD (optax ``add_decayed_weights`` then ``sgd``), with
+    Nesterov's update and a bfloat16 momentum as optax's ``trace``
+    computes them."""
 
     def __init__(self, cfg: OptimizerConfig, model: nn.Module):
         super().__init__(cfg, model)
-        self.momentum = [torch.zeros_like(p) for p in self.params]
+        dtype = torch.bfloat16 if cfg.momentum_dtype == "bfloat16" else None
+        self.momentum = [torch.zeros_like(p, dtype=dtype)
+                         for p in self.params]
+        # optax multiplies a bfloat16 trace by the decay rounded to
+        # bfloat16 (a weakly typed float takes the array's dtype), so the
+        # product rounds once to bfloat16 before the float32 add
+        self.decay = (float(torch.tensor(cfg.momentum, dtype=dtype))
+                      if dtype is not None else cfg.momentum)
 
     @torch.no_grad()
     def propose(self, grads: list[torch.Tensor]) -> list:
         """``[(old, new)]`` lists: parameters first, then momentum."""
         d = self._with_decay(self._clipped(grads))
-        bufs = torch._foreach_mul(self.momentum, self.cfg.momentum)
-        torch._foreach_add_(bufs, d)
-        return [(self.params, self._stepped(bufs)), (self.momentum, bufs)]
+        trace = torch._foreach_add(
+            d, torch._foreach_mul(self.momentum, self.decay))
+        update = trace
+        if self.cfg.nesterov:  # from the float32 trace, before its cast
+            update = torch._foreach_add(
+                d, torch._foreach_mul(trace, self.cfg.momentum))
+        if self.momentum[0].dtype != trace[0].dtype:
+            trace = [t.to(self.momentum[0].dtype) for t in trace]
+        return [(self.params, self._stepped(update)), (self.momentum, trace)]
 
     def state_dict(self) -> dict:
         return {"momentum": dict(zip(self.names, self.momentum)),
@@ -267,6 +284,13 @@ OPTIMIZERS = {"sgd": SGD, "adam": Adam, "rmsprop": RMSprop}
 
 def build_optimizer(cfg: OptimizerConfig, model: nn.Module) -> _Optimizer:
     """The optimizer ``cfg.name`` names, over ``model``'s parameters."""
+    if cfg.momentum_dtype not in (None, "bfloat16"):
+        raise ValueError(f"momentum_dtype must be None or 'bfloat16', "
+                         f"got {cfg.momentum_dtype!r}")
+    if cfg.momentum_dtype is not None and cfg.name != "sgd":
+        raise ValueError(
+            f"momentum_dtype applies to the sgd momentum accumulator "
+            f"only; optimizer is {cfg.name!r}")
     if cfg.name not in OPTIMIZERS:
         raise NotImplementedError(
             f"optimizer '{cfg.name}' is not ported; have "

@@ -15,8 +15,11 @@ Weights come from one of three places:
   * neither: a seeded random init, with a warning, as the reference does
     when no checkpoint exists.
 
-The port trains no params EMA, so a workdir always serves the trained
-weights themselves (``info["ema"]`` says so).
+A checkpoint that holds a params EMA (``cli.train --ema-decay``) serves
+the EMA parameters with the raw BatchNorm buffers, the copy eval scored,
+as the reference does; ``info["ema"]`` says which copy served.  The
+serving plane's reload and the deploy watcher's gate restore through
+this path, so they gate and serve that copy too.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ CHECKPOINT_DIRS = ("checkpoints_best", "checkpoints")
 #: which network of an adversarial checkpoint (``save_tree``) is served:
 #: DCGAN's generator, CycleGAN's A→B generator
 GENERATOR_NAMES = ("generator", "gen_a2b")
-#: ``info["ema"]``: what a workdir's served weights are
-NO_EMA = "none: the port trains no params EMA; the trained weights serve"
+#: ``info["ema"]``: which copy of a workdir's weights serves
+EMA_WEIGHTS = "EMA weights"
+RAW_WEIGHTS = "none: the checkpoint holds no params EMA; the trained " \
+    "weights serve"
 
 
 def params_digest(model: torch.nn.Module) -> str:
@@ -140,16 +145,24 @@ def checkpoint_fingerprint(workdir: str) -> dict:
 
 def checkpoint_weights(payload: dict) -> dict:
     """The served network's ``state_dict`` from a checkpoint payload: a
-    trainer's ``{"state"}``, or an adversarial trainer's ``{"states"}``
-    (its generator, ``GENERATOR_NAMES``)."""
+    trainer's ``{"state"}`` (its EMA parameters over the raw buffers
+    where it holds an EMA, :func:`checkpoint_has_ema`), or an
+    adversarial trainer's ``{"states"}`` (its generator,
+    ``GENERATOR_NAMES``)."""
     if "state" in payload:
-        return payload["state"]["model"]
+        state = payload["state"]
+        return {**state["model"], **(state.get("ema") or {})}
     states = payload.get("states") or {}
     for name in GENERATOR_NAMES:
         if name in states:
             return states[name]["model"]
     raise KeyError(f"checkpoint holds no servable network (keys "
                    f"{sorted(payload)}, networks {sorted(states)})")
+
+
+def checkpoint_has_ema(payload: dict) -> bool:
+    """Whether the payload's served weights are a params EMA."""
+    return bool((payload.get("state") or {}).get("ema"))
 
 
 def _restore_workdir(cfg, workdir: str, log, tag: str, info: dict):
@@ -175,9 +188,12 @@ def _restore_workdir(cfg, workdir: str, log, tag: str, info: dict):
                     f"falling back to the previous retained step")
                 continue
             fallback = step != steps[0]
+            ema = checkpoint_has_ema(payload)
             info.update({"step": step, "dir": d, "fallback": fallback,
-                         "mtime": os.path.getmtime(step_dir)})
+                         "mtime": os.path.getmtime(step_dir),
+                         "ema": EMA_WEIGHTS if ema else RAW_WEIGHTS})
             log(f"[{tag}] restored from {d} step {step}"
+                + (f" ({EMA_WEIGHTS})" if ema else "")
                 + (" [FALLBACK: newer step was corrupt]" if fallback
                    else ""))
             return model
@@ -198,13 +214,15 @@ def load_state(cfg, weights: str | None = None, *, workdir: str | None = None,
     ``info`` (optional dict) receives ``weights`` (the npz path or None),
     ``step`` (the step restored, None otherwise), ``dir``, ``fallback``
     (True when a step older than the newest was restored), ``mtime`` (the
-    step directory's), ``ema`` and ``digest`` (:func:`params_digest`)."""
+    step directory's), ``ema`` (:data:`EMA_WEIGHTS` when the EMA copy
+    serves, else :data:`RAW_WEIGHTS`) and ``digest``
+    (:func:`params_digest`)."""
     from deep_vision_tpu_torch import convert
 
     if info is None:
         info = {}
     info.update({"weights": weights or None, "step": None, "dir": None,
-                 "fallback": False, "mtime": None, "ema": NO_EMA})
+                 "fallback": False, "mtime": None, "ema": RAW_WEIGHTS})
     model = None
     if weights:
         model = cfg.model()

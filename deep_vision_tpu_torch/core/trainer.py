@@ -19,9 +19,31 @@ sums metrics on the device and fetches them once.  A task with
 ``eval_outputs`` (detection) also returns decoded outputs from the same
 eval forward; they are copied to the host batch by batch into the task's
 ``make_host_evaluator()`` (mAP), whose metrics join the eval dict, and
-the task's ``monitor`` ("mAP", "top1") picks the best checkpoint.  Gradient
-accumulation, the params EMA and multi-step dispatch (``scan_steps``)
-are not ported: their config fields must keep their defaults.
+the task's ``monitor`` ("mAP", "top1") picks the best checkpoint.
+
+The recipe options (reference ``core/trainer.py``):
+
+* ``grad_accum_steps = A``: the preprocess runs once on the whole batch,
+  which then splits the reference's interleaved way (microbatch ``a`` is
+  rows ``a, a+A, a+2A, …``); each microbatch draws its dropout from its
+  own generator (stream ``2 + a``), the BatchNorm statistics thread
+  through the microbatches in turn (A updates a step, all undone by a
+  skipped step), and one update applies ``Σg / A`` with the loss and
+  metrics averaged over the microbatches;
+* ``ema_decay = d``: after the guarded commit the params EMA moves by
+  ``min(d, (1+t)/(10+t))`` (``core/state.py``); eval (and the serving
+  paths, ``core/restore.py``) scores the EMA copy with the raw BatchNorm
+  statistics;
+* ``scan_steps = K``: steps run in groups of K through
+  ``core/step_graph.py`` (on the card one CUDA graph of the whole
+  guarded step, replayed a step at a time), the host reads a group's
+  metrics once, the guard sees every step, logging is once a group and
+  a ragged tail of fewer than K batches runs as single steps.
+  ``--profile`` is not traced in this mode.
+
+Every step's randomness comes from generators the trainer keeps for the
+run and re-seeds from ``(seed, step, stream)`` before each step, so a
+replayed graph draws what an eager step draws.
 """
 
 from __future__ import annotations
@@ -43,7 +65,9 @@ from deep_vision_tpu_torch.core.metrics import (
 )
 from deep_vision_tpu_torch.core.optim import build_optimizer, build_scheduler
 from deep_vision_tpu_torch.core.state import DivergenceGuard, TrainState
+from deep_vision_tpu_torch.core.step_graph import StepRunner, run_groups
 from deep_vision_tpu_torch.models.common import set_dropout_generator
+from deep_vision_tpu_torch.ops.ingest import device_scalar
 
 
 def install_sigterm_flag(on_sigterm):
@@ -70,8 +94,58 @@ def step_seed(seed: int, step: int, stream: int | None = None) -> int:
                .generate_state(1, np.uint64)[0] >> 1)
 
 
-#: ``step_seed`` stream of the dropout generator
+#: ``step_seed`` stream of the dropout generator; microbatch ``a`` of an
+#: accumulated step draws from stream ``ACCUM_STREAM + a``
 DROPOUT_STREAM = 1
+ACCUM_STREAM = 2
+
+
+class StepGenerators:
+    """The per-step generators of one trainer, kept for the run on one
+    device: ``get(stream)`` makes one on first use, ``seed(rng, step)``
+    re-seeds every one from ``step_seed(rng, step, stream)`` (the
+    preprocess and draw stream is ``None``)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._gens: dict = {}
+
+    def get(self, stream: int | None = None) -> torch.Generator:
+        if stream not in self._gens:
+            self._gens[stream] = torch.Generator(device=self.device)
+        return self._gens[stream]
+
+    def seed(self, rng: int, step: int) -> None:
+        for stream, gen in self._gens.items():
+            gen.manual_seed(step_seed(rng, step, stream))
+
+    def all(self) -> list[torch.Generator]:
+        return list(self._gens.values())
+
+
+def check_recipe(config: TrainConfig) -> None:
+    """The reference's checks of the recipe options."""
+    ema = float(config.ema_decay)
+    if not 0.0 <= ema < 1.0:
+        raise ValueError(
+            f"ema_decay={ema} must be in [0, 1): 1.0 would freeze the "
+            f"EMA at its init forever, >1 diverges")
+    for field in ("grad_accum_steps", "scan_steps"):
+        if int(getattr(config, field)) < 1:
+            raise ValueError(f"{field} must be at least 1, got "
+                             f"{getattr(config, field)}")
+
+
+def interleaved_split(batch: dict, parts: int) -> list[dict]:
+    """The reference's microbatches: part ``a`` holds rows ``a, a+parts,
+    a+2·parts, …`` of every tensor.  Raises its ``ValueError`` when the
+    batch does not divide."""
+    b = next(iter(batch.values())).shape[0]
+    if b % parts:
+        raise ValueError(f"global batch {b} not divisible by "
+                         f"grad_accum_steps={parts}")
+    return [{k: v[a::parts].contiguous() for k, v in batch.items()}
+            for a in range(parts)]
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -110,14 +184,15 @@ class Trainer:
     def __init__(self, config: TrainConfig, model: torch.nn.Module, task,
                  workdir: str | None = None, preprocess_fn=None,
                  device=None):
-        for field, default in (("grad_accum_steps", 1), ("ema_decay", 0.0),
-                               ("scan_steps", 1)):
-            if getattr(config, field) != default:
-                raise NotImplementedError(
-                    f"{field}={getattr(config, field)} is not ported; the "
-                    f"trainer runs with {field}={default}")
+        check_recipe(config)
         self.config = config
         self.device = resolve_device(device)
+        self.accum = int(config.grad_accum_steps)
+        self.ema_decay = float(config.ema_decay)
+        self.generators = StepGenerators(self.device)
+        # the scan_steps runner of one state (a resume or a new state
+        # makes a new one, which captures anew)
+        self._runner: StepRunner | None = None
         self.model = model
         self.task = task
         # device-side input preprocessing, signature (batch, generator,
@@ -161,13 +236,14 @@ class Trainer:
         self.model = model
         return TrainState(model, build_optimizer(self.config.optimizer,
                                                  model),
-                          rng=self.config.seed)
+                          rng=self.config.seed, ema=self.ema_decay > 0)
 
     def maybe_resume(self, state: TrainState) -> TrainState:
         """Resume from the latest checkpoint if one exists."""
         if self.checkpointer.latest_step() is None:
             return state
         state, extras = self.checkpointer.restore(state)
+        self._runner = None  # the restored state is captured anew
         self.start_epoch = int(extras.get("epoch", 0)) + 1
         if "scheduler" in extras:
             self.scheduler.load_state_dict(extras["scheduler"])
@@ -181,27 +257,58 @@ class Trainer:
 
     # ----------------------------------------------------------------- steps
 
-    def step_generator(self, state: TrainState,
-                       stream: int | None = None) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(step_seed(state.rng, state.step, stream))
-        return gen
+    def _step_streams(self) -> list:
+        """The generator streams a step draws from."""
+        if self.accum == 1:
+            return [None, DROPOUT_STREAM]
+        return [None] + [ACCUM_STREAM + a for a in range(self.accum)]
+
+    def seed_step(self, state: TrainState) -> None:
+        """Seed every generator of the step ``state.step`` is about to
+        take (host work only: a replayed graph reads the seeds)."""
+        for stream in self._step_streams():
+            self.generators.get(stream)
+        self.generators.seed(state.rng, state.step)
 
     def train_step(self, state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
         """One guarded optimizer step; metrics are 0-d device tensors."""
+        batch = to_device(batch, self.device)
+        self.seed_step(state)
+        metrics = self.device_step(state, batch)
+        state.advance()
+        return state, metrics
+
+    def device_step(self, state: TrainState, batch: dict) -> dict:
+        """The device work of one step on a device batch, with the
+        generators seeded: preprocess → forward and backward (per
+        microbatch) → guarded update → EMA.  Reads nothing from the host
+        that changes between steps, so it may be captured."""
         model = state.model
         model.train()
-        batch = to_device(batch, self.device)
         if self.preprocess_fn is not None:
-            batch = self.preprocess_fn(batch, self.step_generator(state),
+            batch = self.preprocess_fn(batch, self.generators.get(None),
                                        True)
         stats_before = state.snapshot_stats()
+        if self.accum == 1:
+            loss, aux, grads = self._grads(
+                state, batch, self.generators.get(DROPOUT_STREAM))
+        else:
+            loss, aux, grads = self._accumulated(state, batch)
+        state.apply_gradients_if_finite(loss, grads, stats_before)
+        if self.ema_decay:
+            state.update_ema(self.ema_decay)
+        return {"loss": loss, "bad_steps": state.bad_steps.clone(), **aux}
+
+    def _grads(self, state: TrainState, batch: dict,
+               gen: torch.Generator):
+        """(loss, aux, gradients) of one forward and backward, the
+        model's dropouts drawing from ``gen``."""
+        model = state.model
         params = state.opt.params
         for p in params:
             p.grad = None
-        set_dropout_generator(model, self.step_generator(state,
-                                                         DROPOUT_STREAM))
+        set_dropout_generator(model, gen)
         try:
             loss, aux = self.task.loss(model(batch["image"]), batch)
         finally:
@@ -209,22 +316,44 @@ class Trainer:
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in params]
-        state.apply_gradients_if_finite(loss.detach(), grads, stats_before)
         for p in params:
             p.grad = None
-        metrics = {"loss": loss.detach(), "bad_steps": state.bad_steps.clone(),
-                   **{k: v.detach() for k, v in aux.items()}}
-        return state, metrics
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+    def _accumulated(self, state: TrainState, batch: dict):
+        """(mean loss, mean aux, ``Σg / A``) over the interleaved
+        microbatches of ``batch``."""
+        losses, auxes, gsum = [], [], None
+        for a, micro in enumerate(interleaved_split(batch, self.accum)):
+            loss, aux, grads = self._grads(
+                state, micro, self.generators.get(ACCUM_STREAM + a))
+            losses.append(loss)
+            auxes.append(aux)
+            if gsum is None:
+                gsum = grads
+            else:
+                torch._foreach_add_(gsum, grads)
+        grads = torch._foreach_div(
+            gsum, device_scalar(float(self.accum), self.device))
+        aux = {k: torch.stack([x[k] for x in auxes]).mean()
+               for k in auxes[0]}
+        return torch.stack(losses).mean(), aux, grads
 
     @torch.no_grad()
     def _eval_forward(self, state: TrainState, batch: dict):
         """One eval forward: (metric sums, decoded outputs or None), both
-        device tensors.  The outputs carry the batch's ``weight``."""
+        device tensors.  The outputs carry the batch's ``weight``.  With
+        the EMA on, the forward runs the EMA parameters and leaves the
+        training parameters alone."""
         state.model.eval()
         batch = to_device(batch, self.device)
         if self.preprocess_fn is not None:
             batch = self.preprocess_fn(batch, None, False)
-        out = state.model(batch["image"])
+        if state.ema:  # the EMA copy, with the raw BatchNorm statistics
+            out = torch.func.functional_call(state.model, state.ema_named(),
+                                             (batch["image"],))
+        else:
+            out = state.model(batch["image"])
         sums = self.task.eval_metrics(out, batch)
         extra = None
         if hasattr(self.task, "eval_outputs"):
@@ -279,6 +408,8 @@ class Trainer:
     def train_epoch(self, state: TrainState, train_data: Iterable,
                     epoch: int) -> TrainState:
         cfg = self.config
+        if cfg.scan_steps > 1:
+            return self._train_epoch_scan(state, train_data, epoch)
         meter = ThroughputMeter()
         timer = StepTimer(self.device)
         pending = None  # metrics fetched one step late
@@ -310,6 +441,70 @@ class Trainer:
             prof = self._stop_profile(prof)
         if pending is not None:
             self._log_metrics(state.step, pending)
+        step_ms = timer.mean_ms()
+        if step_ms is not None:
+            self.logger.log("train_step_ms", state.step, step_ms)
+            self.logger.log("images_per_sec", state.step,
+                            bs * 1e3 / step_ms)
+        self._log_input_stats(state.step, stream.stats(), epoch)
+        return state
+
+    def step_runner(self, state: TrainState) -> StepRunner:
+        """The ``scan_steps`` runner of ``state`` (made on first use, and
+        anew for another state or after a resume)."""
+        if self._runner is None or self._runner.owner is not state:
+            self.seed_step(state)  # every stream's generator exists
+            self._runner = StepRunner(
+                lambda batch: self.device_step(state, batch),
+                self.generators.all(), self.device, self.config.scan_steps,
+                owner=state)
+        return self._runner
+
+    def _train_epoch_scan(self, state: TrainState, train_data: Iterable,
+                          epoch: int) -> TrainState:
+        """The epoch in groups of ``scan_steps`` steps through
+        :func:`run_groups` (on the card each step after the warmup is a
+        replay of the captured step); the metrics of a group are read
+        once, and the guard sees every step; a ragged tail runs as
+        single steps."""
+        K = self.config.scan_steps
+        if self.profile_steps is not None and epoch == self.start_epoch:
+            print(f"[profile] --profile is not traced with --scan-steps "
+                  f"{K}; profile a single-step run instead", flush=True)
+        runner = self.step_runner(state)
+        meter = ThroughputMeter()
+        timer = StepTimer(self.device, warmup=runner.untimed_steps)
+        bs = 0
+
+        def on_step(batch):
+            nonlocal bs
+            timer.mark()
+            bs = len(batch["image"])
+            meter.update(bs)
+
+        def on_group(steps):
+            for m in steps:
+                self.guard.check(m)
+            self.logger.log_dict(state.step, {f"train_{k}": v
+                                              for k, v in steps[-1].items()})
+            print(f"Epoch {epoch} Step {state.step} "
+                  f"loss {steps[-1]['loss']:.4f} "
+                  f"lr {self.scheduler.lr:.2e} "
+                  f"{meter.images_per_sec:.1f} img/s", flush=True)
+
+        stream = self._get_prefetcher().iterate(train_data)
+        timer.mark()
+        tail = run_groups((to_device(b, self.device) for b in stream), runner,
+                          lambda: self.seed_step(state), state.advance,
+                          on_step, on_group, lambda: self._preempted)
+        if self._preempted:
+            print("[preempt] SIGTERM — stopping at group boundary",
+                  flush=True)
+        for batch in tail:  # the ragged tail: single steps
+            if self._preempted:
+                break
+            state, metrics = self.train_step(state, batch)
+            self._log_metrics(state.step, metrics)
         step_ms = timer.mean_ms()
         if step_ms is not None:
             self.logger.log("train_step_ms", state.step, step_ms)

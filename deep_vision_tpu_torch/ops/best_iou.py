@@ -31,6 +31,7 @@ import functools
 
 import torch
 
+from deep_vision_tpu_torch.ops import counted
 from deep_vision_tpu_torch.ops.boxes import broadcast_iou
 
 
@@ -71,6 +72,7 @@ def _check(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> None:
                          f"{pred.device}")
 
 
+@counted
 def best_iou_max(pred: torch.Tensor, gt: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
     """``(B, N, 4)`` + ``(B, M, 4)`` + ``(B, M)`` float32 → ``(B, N)``.
@@ -104,9 +106,6 @@ def best_iou_max(pred: torch.Tensor, gt: torch.Tensor,
                            f"(cudaError {err})")
     best_iou_max.launches += 1
     return out
-
-
-best_iou_max.launches = 0
 
 
 @functools.cache

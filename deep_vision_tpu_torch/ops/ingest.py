@@ -28,6 +28,7 @@ import torch
 from deep_vision_tpu_torch.data.mnist import MEAN as MNIST_MEAN
 from deep_vision_tpu_torch.data.mnist import STD as MNIST_STD
 from deep_vision_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from deep_vision_tpu_torch.ops import counted
 
 #: normalization families the fused ingest supports ("gan" is not one:
 #: ops/preprocess.py keeps it on the plain path)
@@ -100,6 +101,7 @@ def _check(x: torch.Tensor, kind: str) -> None:
                          f"(have {INGEST_KINDS})")
 
 
+@counted
 def serve_ingest(x: torch.Tensor, kind: str, act_scale: float = 1.0,
                  quantize: bool = True) -> torch.Tensor:
     """uint8 ``(B, H, W, C)`` → int8 (``quantize``) or float32, same shape.
@@ -135,9 +137,6 @@ def serve_ingest(x: torch.Tensor, kind: str, act_scale: float = 1.0,
                            f"(cudaError {err})")
     serve_ingest.launches += 1
     return out
-
-
-serve_ingest.launches = 0
 
 
 @functools.cache

@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from deep_vision_tpu_torch.ops import counted
 from deep_vision_tpu_torch.ops.ingest import (
     INGEST_KINDS,
     device_scalar,
@@ -139,6 +140,7 @@ def division_magic(pixels: int, total: int) -> tuple[int, int]:
     return -(-(1 << s) // pixels), s - 64
 
 
+@counted
 def train_ingest(x: torch.Tensor, factors: torch.Tensor,
                  kind: str = "imagenet") -> torch.Tensor:
     """uint8 ``(B, H, W, 3)`` + ``(B, 4)`` factors → float32, same shape.
@@ -173,9 +175,6 @@ def train_ingest(x: torch.Tensor, factors: torch.Tensor,
                            f"(cudaError {err})")
     train_ingest.launches += 1
     return out
-
-
-train_ingest.launches = 0
 
 
 @functools.cache

@@ -321,6 +321,7 @@ class ModelVersion:
              "step": self.model.restored_step,
              "digest": getattr(self.model, "params_digest", None),
              "mtime": getattr(self.model, "restored_mtime", None),
+             "ema": getattr(self.model, "restored_ema", None),
              "loaded_age_s": round(time.monotonic() - self.loaded_at, 3)}
         if self.canary_requests or self.canary_errors:
             d["canary"] = {"requests": self.canary_requests,

@@ -98,12 +98,14 @@ class ServingModel:
         #: where the weights came from: an npz (``weights``) or a
         #: workdir's checkpoint step (``restored_step``, None for random
         #: init, with ``restore_fallback`` when a newer step was torn and
-        #: the step directory's ``restored_mtime``), and their byte
-        #: digest (core/restore.py)
+        #: the step directory's ``restored_mtime``, and ``restored_ema``,
+        #: which copy of the checkpoint serves: its params EMA or the
+        #: trained weights), and their byte digest (core/restore.py)
         self.weights: str | None = None
         self.restored_step: int | None = None
         self.restore_fallback = False
         self.restored_mtime: float | None = None
+        self.restored_ema: str | None = None
         self.params_digest: str | None = None
         #: version number under the control plane (serve/models.py)
         self.serve_version: int | None = None
@@ -265,6 +267,7 @@ class ServingModel:
                 "restored_step": self.restored_step,
                 "restore_fallback": self.restore_fallback,
                 "restored_mtime": self.restored_mtime,
+                "restored_ema": self.restored_ema,
                 "params_digest": self.params_digest,
                 "version": self.serve_version}
 
@@ -548,4 +551,5 @@ def stamp_restore(sm: ServingModel, info: dict) -> None:
     sm.restored_step = info["step"]
     sm.restore_fallback = bool(info["fallback"])
     sm.restored_mtime = info["mtime"]
+    sm.restored_ema = info["ema"]
     sm.params_digest = info["digest"]

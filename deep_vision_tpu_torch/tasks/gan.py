@@ -123,6 +123,8 @@ class DCGANTask:
 
     #: host_prepare is stateless: batches may be staged ahead
     prefetch_safe = True
+    #: no host state between steps: scan_steps may group them
+    scan_safe = True
 
     def __init__(self, make_generator, make_discriminator,
                  latent_dim: int = 100, opt: OptimizerConfig | None = None):
@@ -192,8 +194,10 @@ class DCGANTask:
 class CycleGANTask:
     """Networks ``gen_a2b``, ``gen_b2a``, ``disc_a``, ``disc_b``."""
 
-    #: host_prepare reads the pool the previous step filled: no staging
+    #: host_prepare reads the pool the previous step filled: no staging,
+    #: and every step is dispatched on its own
     prefetch_safe = False
+    scan_safe = False
     names = ("gen_a2b", "gen_b2a", "disc_a", "disc_b")
     LAMBDA_CYCLE = 10.0
     LAMBDA_ID = 5.0

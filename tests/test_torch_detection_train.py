@@ -253,9 +253,14 @@ def test_clip_by_global_norm_rule():
     assert all(torch.equal(a, b) for a, b in zip(same, g))
     cut = port_optim.clip_by_global_norm(g, 2.5)     # g / 5 · 2.5
     assert torch.equal(cut[0], torch.tensor([3.0, 4.0]) / 5.0 * 2.5)
-    with pytest.raises(NotImplementedError, match="nesterov"):
+    # nesterov builds (tests/test_torch_optim_recipes.py holds it against
+    # optax); a bfloat16 momentum is SGD's only, as in the reference
+    assert port_optim.build_optimizer(
+        port_optim.OptimizerConfig(nesterov=True), _Tiny()).cfg.nesterov
+    with pytest.raises(ValueError, match="momentum_dtype applies"):
         port_optim.build_optimizer(
-            port_optim.OptimizerConfig(nesterov=True), _Tiny())
+            port_optim.OptimizerConfig(name="adam",
+                                       momentum_dtype="bfloat16"), _Tiny())
 
 
 # -- cli.train and the profiler on the CPU -------------------------------------

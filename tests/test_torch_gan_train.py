@@ -208,12 +208,19 @@ def test_fit_checkpoint_resume(name, tmp_path):
 
 
 def test_trainer_refuses_scan_steps(tmp_path):
+    """scan_steps below 1 is refused; DCGAN accepts K > 1 and trains in
+    groups (tests/test_torch_scan_steps.py holds K = 2 against K = 1)."""
     cfg = get_config("dcgan")
-    cfg.scan_steps = 4
-    with pytest.raises(NotImplementedError, match="scan_steps"):
+    cfg.scan_steps = 0
+    with pytest.raises(ValueError, match="scan_steps"):
         AdversarialTrainer(cfg, DCGANTask(gan.DCGANGenerator,
                                           gan.DCGANDiscriminator),
                            workdir=str(tmp_path), device="cpu")
+    cfg.scan_steps = 4
+    trainer = AdversarialTrainer(cfg, DCGANTask(gan.DCGANGenerator,
+                                                gan.DCGANDiscriminator),
+                                 workdir=str(tmp_path), device="cpu")
+    assert trainer.task.scan_safe and trainer.config.scan_steps == 4
 
 
 def test_linear_decay_reaches_every_optimizer(tmp_path):

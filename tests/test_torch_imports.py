@@ -38,7 +38,7 @@ def test_every_module_imports_with_jax_blocked():
                 "serve.replicas", "deploy.history", "deploy.watcher",
                 "deploy.autoscale", "serve.cascade", "serve.brownout",
                 "serve.edge", "serve.gateway", "cli.gateway", "serve.jobs",
-                "serve.batch_sched"):
+                "serve.batch_sched", "core.step_graph"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"

@@ -20,7 +20,7 @@ from _torch_serve import get, lenet_model, post, write_step
 from deep_vision_tpu_torch.core.checkpoint import FILENAME
 from deep_vision_tpu_torch.core.config import get_config
 from deep_vision_tpu_torch.core.restore import (
-    NO_EMA,
+    RAW_WEIGHTS,
     checkpoint_fingerprint,
     load_state,
     params_digest,
@@ -55,7 +55,7 @@ def test_torn_newest_step_falls_back(tmp_path):
     assert info["dir"] == os.path.join(wd, "checkpoints")
     assert info["mtime"] == os.path.getmtime(step_dir)
     assert info["digest"] == params_digest(want) == params_digest(model)
-    assert info["weights"] is None and info["ema"] == NO_EMA
+    assert info["weights"] is None and info["ema"] == RAW_WEIGHTS
     for k, v in want.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
     assert not model.training
