@@ -142,13 +142,13 @@ Phases, each of which must pass:
               400.  Prints per bucket the forward and the epilogue ms
               apart, the client p50 and the concurrent img/s;
 11. centernet training — write seeded raw-payload detection shards
-              (train 128, val 64 synthetic scenes stored at 256×256×3,
+              (train 96, val 64 synthetic scenes stored at 256×256×3,
               boxes from 80 classes) and call ``cli/train.py``'s ``main``
               for ``centernet`` at full width (2 stacks of the order-5
               hourglass, 256² → 64², 80 classes, bf16, batch 32, Adam)
               with 6 loader workers for 2 epochs, then with ``--resume
               --epochs 3``: every logged loss finite, ``bad_steps`` 0, a
-              checkpoint per epoch, the resumed run at epoch 3, step 8,
+              checkpoint per epoch, the resumed run at epoch 3, step 6,
               with the saved weights, BN statistics and Adam state, the
               val loss and mAP finite (the mAP is noise on these scenes).
               Prints step ms (CUDA events), img/s, input stall, peak
@@ -166,7 +166,7 @@ Phases, each of which must pass:
 13. hourglass training and 14. step check — the same two phases for
               ``hourglass104`` (4 stacks of the order-4 hourglass at 256
               filters, 16 heatmaps, 256² → 64², bf16, batch 32, Adam) on
-              seeded raw pose shards (train 128, val 64 synthetic poses
+              seeded raw pose shards (train 96, val 64 synthetic poses
               stored at 256×256×3; the loader crops around the keypoints
               and resizes), the val loss finite;
 15. pose serving — seeded ``hourglass104`` weights through
@@ -234,12 +234,12 @@ Phases, each of which must pass:
               on most rows, ``serve_ingest`` launches equal to the batches;
 21. card    — print ``nvidia-smi --query-gpu=name,power.limit``;
 22. GAN training — ``cli.train`` for dcgan (28²×1, latent 100, bf16,
-              batch 256, Adam) on seeded idx-ubyte files at MNIST's size
-              (60,000 images: 234 steps an epoch, through the staged
+              batch 256, Adam) on seeded idx-ubyte files of MNIST's shape
+              (15,360 images: 60 steps an epoch, through the staged
               prefetcher) and for cyclegan (256²×3, 9 residual blocks,
-              bf16, batch 1) on ``--synthetic --synthetic-size 64`` (64
+              bf16, batch 1) on ``--synthetic --synthetic-size 32`` (32
               steps an epoch: the 50-image pools fill and replay in the
-              first), each 2 epochs and then ``--resume --epochs 3``:
+              second), each 2 epochs and then ``--resume --epochs 3``:
               finite losses, 0 bad steps, a checkpoint at epoch 2 (the
               recipes save every 2), the resumed run starting from it
               with every network's weights, BN statistics, Adam moments
@@ -304,6 +304,36 @@ Phases, each of which must pass:
               image; other verbs answer 400 naming ``/v1/generate``.
               Prints forward and epilogue ms per bucket, the client p50
               and the concurrent img/s.
+24a. cli tools — ResNet-50 at full width on the training phase's
+              records rewritten from their seed, two of the four train
+              shards linked into a second root (2 steps at batch 256):
+              (a) ``cli.train --pretrained P`` from a torchvision-layout
+              ``.pth`` of seeded weights (``{"state_dict"}`` wrapper,
+              ``module.`` prefixes, ``num_batches_tracked`` at 7) for
+              one epoch: the state before the first step equals the
+              checkpoint bit for bit (the counters left at 0), the head
+              kept, ``train_ingest`` launched once a step, finite
+              losses; (b) ``--host-normalize`` with ``--upload`` to a
+              local mirror and ``--tf-preprocessing``, one epoch each:
+              ``train_ingest`` launches +0, the H2D image bytes a step 4×
+              the uint8 run's, the eval ran, event files under
+              ``workdir/tensorboard``, the mirror holding the checkpoint
+              byte for byte; (c) ``cli.infer eval --pretrained P`` on the
+              256 val records: top-1 and top-5 equal to
+              ``Trainer.evaluate`` on the same weights loaded directly,
+              and ``cli.infer eval -m yolov3_coco`` on the YOLOv3
+              phase's workdir and val records: ``best_iou_max`` 3 an
+              eval batch, finite metrics; (d) ``cli.infer export`` of
+              (a)'s workdir, ``cli.serve --stablehlo`` of the archive
+              with that workdir: the exported forward at batch 1 equal
+              to the eager one bit for bit, and 8 float32 requests
+              answered bit for bit as the eager model answers through
+              the same engine (``--workdir --wire-dtype float32``),
+              ``serve_ingest`` never launched, ``--infer-dtype
+              bfloat16`` refused.  Information
+              only: the checkpoint's load seconds, step ms and input
+              stall of each pipeline, export seconds and archive bytes,
+              the exported and the eager forward's ms at batch 1;
 
 25. faults — ResNet-50 int8 on the uint8 wire through ``cli/serve.py``
               with ``--workdir`` (a port checkpoint of seeded weights,
@@ -526,11 +556,13 @@ way, so that two commits' phase times can be held side by side.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -623,9 +655,10 @@ YOLO_TRAIN, YOLO_VAL, YOLO_SIZE, YOLO_BATCH = 258, 128, 416, 128
 YOLO_CLASSES, YOLO_WORKERS, YOLO_CHECK_SIZE = 80, 6, 128
 #: CenterNet and Stacked Hourglass-104 training at full width (256², 80
 #: classes or 16 keypoints, bf16, batch 32, Adam) on seeded raw records
-#: stored at 256²: 4 train steps an epoch and 2 val batches; their
+#: stored at 256² (three train shards of 32): 3 train steps an epoch and
+#: 2 val batches; their
 #: card-vs-CPU float32 steps on 2 images at 128²
-HEAT_TRAIN, HEAT_VAL, HEAT_SIZE, HEAT_BATCH = 192, 64, 256, 32
+HEAT_TRAIN, HEAT_VAL, HEAT_SIZE, HEAT_BATCH = 96, 64, 256, 32
 HEAT_WORKERS, HEAT_CHECK_SIZE, HEAT_CHECK_BATCH = 6, 128, 8
 #: the biases of the convs whose output goes straight into a training
 #: BatchNorm (each bottleneck's conv1/conv2, the stem conv, a stack's
@@ -661,13 +694,15 @@ HEAD_STD = {"yolo": 1.5, "heat": 1.5, "wh": 1.0, "offset": 0.5,
             "pose": 1.0}
 HEAT_PRIOR, YOLO_OBJ_BIAS = -2.19, -6.0
 #: the GAN family at full width: dcgan through cli.train on seeded
-#: idx-ubyte files at MNIST's size (batch 256: 234 steps an epoch),
-#: cyclegan on seeded --synthetic domains (256², 9 blocks, batch 1: 64
+#: idx-ubyte files of MNIST's shape (batch 256: 60 steps an epoch),
+#: cyclegan on seeded --synthetic domains (256², 9 blocks, batch 1: 32
 #: steps an epoch, so the 50-image pools fill and start replaying in the
-#: first epoch); both checkpoint every 2 epochs
+#: second epoch); both checkpoint every 2 epochs
 GAN_MODELS = ("dcgan", "cyclegan")
-GAN_SYNTHETIC = 64
-GAN_STEPS = {"dcgan": MNIST_TRAIN // 256, "cyclegan": GAN_SYNTHETIC}
+GAN_SYNTHETIC = 32
+#: dcgan's idx images (60 steps an epoch; MNIST's 60,000 until PR 16)
+DCGAN_TRAIN = 15360
+GAN_STEPS = {"dcgan": DCGAN_TRAIN // 256, "cyclegan": GAN_SYNTHETIC}
 #: the card-vs-CPU float32 steps: DCGAN at batch 64, CycleGAN at 128²,
 #: batch 1, with valid pooled fakes
 DCGAN_CHECK_BATCH, CYCLE_CHECK_SIZE = 64, 128
@@ -2416,13 +2451,15 @@ def train_and_resume(name: str, data: str, work: str, workers: int,
     return out, series
 
 
-def phase_yolo_training() -> dict:
-    """cli.train end to end for yolov3_coco at full width on the card."""
+def phase_yolo_training(keep: str | None = None) -> dict:
+    """cli.train end to end for yolov3_coco at full width on the card;
+    with ``keep`` its records and workdir stay under that directory (for
+    ``phase_cli_tools``'s ``cli.infer eval``)."""
     from deep_vision_tpu_torch.ops.best_iou import best_iou_max
 
     os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
-            as tmp:
+    with (contextlib.nullcontext(keep) if keep else tempfile.
+          TemporaryDirectory(dir=os.path.join(REPO, "_scratch"))) as tmp:
         data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
         t0 = time.monotonic()
         write_detection_shards(data, YOLO_TRAIN, YOLO_VAL, YOLO_SIZE)
@@ -3316,7 +3353,7 @@ def gan_train_and_resume(name: str, work: str, extra=()) -> dict:
 
 
 def phase_gan_training() -> dict:
-    """cli.train for dcgan on seeded idx-ubyte files at MNIST's size
+    """cli.train for dcgan on seeded idx-ubyte files of MNIST's shape
     (through the staged prefetcher) and cyclegan on seeded synthetic
     domains at 256² (the pools), EPOCHS epochs and a resumed one each."""
     from deep_vision_tpu_torch.data import mnist
@@ -3329,8 +3366,8 @@ def phase_gan_training() -> dict:
         os.makedirs(data)
         rng = np.random.default_rng(30)
         mnist.write_idx(data, "train",
-                        rng.integers(0, 256, (MNIST_TRAIN, 28, 28), np.uint8),
-                        rng.integers(0, 10, MNIST_TRAIN).astype(np.uint8))
+                        rng.integers(0, 256, (DCGAN_TRAIN, 28, 28), np.uint8),
+                        rng.integers(0, 10, DCGAN_TRAIN).astype(np.uint8))
         out["dcgan"] = gan_train_and_resume(
             "dcgan", os.path.join(tmp, "dcgan"), ["--data-root", data])
         check(bool(out["dcgan"]["input_stall_frac"]),
@@ -7104,6 +7141,398 @@ def phase_trainer_recipes(training: dict, yolo: dict) -> dict:
     return out
 
 
+#: phase_cli_tools: the train shards (of write_records' 4) that make the
+#: two-step runs (512 images at batch 256), the exported server's requests
+CLI_SHARDS, CLI_REQUESTS = 2, 8
+#: where phase_cli_tools runs (its CPU rehearsal sets "cpu")
+CLI_DEVICE = "cuda"
+
+
+def subset_records(src: str, dst: str, shards: int) -> None:
+    """``dst`` holding the first ``shards`` train shards of ``src`` and
+    its val shards, as symbolic links: the same records, fewer steps."""
+    from deep_vision_tpu_torch.data.records import list_shards
+
+    os.makedirs(dst, exist_ok=True)
+    for path in list_shards(src, "train")[:shards] + \
+            list_shards(src, "val"):
+        os.symlink(path, os.path.join(dst, os.path.basename(path)))
+
+
+def write_torchvision_checkpoint(path: str, model) -> dict:
+    """``model``'s weights as a torchvision-layout ``.pth``: the
+    ``{"state_dict"}`` wrapper, ``module.`` prefixes (DataParallel) and
+    ``num_batches_tracked`` counters (set to 7, which no importer
+    reads).  Returns the state_dict written, without prefixes."""
+    import torch
+
+    sd = {k: (torch.full_like(v, 7) if k.endswith("num_batches_tracked")
+              else v.detach().clone())
+          for k, v in model.state_dict().items()}
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()},
+                "epoch": 90}, path)
+    return sd
+
+
+def tree_bytes(root: str) -> dict:
+    """Relative path → bytes of every file under ``root``."""
+    out = {}
+    for r, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(r, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(r, f), root)] = fh.read()
+    return out
+
+
+def cli_run(argv: list, work: str) -> dict:
+    """``cli.train.main(argv)`` on the card; the run's seconds, metric
+    series and event files."""
+    import glob
+
+    from deep_vision_tpu_torch.cli import train as cli
+
+    t0 = time.monotonic()
+    check(cli.main(argv + ["--workdir", work, "--device", CLI_DEVICE]) == 0,
+          f"cli.train {' '.join(argv)} failed")
+    series = read_series(work)
+    losses = [v for _, v in series.get("train_loss", [])]
+    check(bool(losses) and all(math.isfinite(v) for v in losses),
+          f"cli.train {' '.join(argv)}: losses {losses}")
+    return {"seconds": time.monotonic() - t0, "series": series,
+            "events": glob.glob(os.path.join(work, "tensorboard",
+                                             "events.out.tfevents.*"))}
+
+
+def run_info(run: dict) -> dict:
+    s = run["series"]
+    return {"seconds": run["seconds"],
+            "losses": [v for _, v in s["train_loss"]],
+            "step_ms": [v for _, v in s.get("train_step_ms", [])],
+            "input_stall_frac": [v for _, v in
+                                 s.get("input_stall_frac", [])],
+            "h2d_bytes_per_step": [v for _, v in
+                                   s.get("input_h2d_bytes_per_step", [])],
+            "val_top1": [v for _, v in s.get("val_top1", [])],
+            "event_files": len(run["events"])}
+
+
+def pretrained_run(tmp: str, small: str) -> dict:
+    """(a): ``cli.train -m resnet50 --pretrained P`` for one epoch of
+    CLI_SHARDS shards: the state before the first step equals the
+    checkpoint bit for bit, the head is kept, ``train_ingest`` launches
+    once a step, the losses are finite."""
+    import torch
+
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.models import pretrained
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+
+    ckpt = os.path.join(tmp, "resnet50.pth")
+    want = write_torchvision_checkpoint(ckpt, seeded_classifier(41))
+    seen: dict = {}
+    orig_import, orig_step = pretrained.import_pretrained, Trainer.train_step
+
+    def timed_import(*args):
+        t0 = time.monotonic()
+        merged, kept = orig_import(*args)
+        seen.update(load_s=time.monotonic() - t0, head_kept=kept)
+        return merged, kept
+
+    def first_step(self, state, batch):
+        if "differing" not in seen:
+            got = state.model.state_dict()
+            seen["differing"] = [
+                k for k, v in want.items()
+                if not k.endswith("num_batches_tracked")
+                and not torch.equal(got[k].cpu(), v)]
+            seen["counters"] = sorted({int(v) for k, v in got.items()
+                                       if k.endswith("num_batches_tracked")})
+        return orig_step(self, state, batch)
+
+    pretrained.import_pretrained, Trainer.train_step = timed_import, \
+        first_step
+    train_ingest.launches = 0
+    try:
+        run = cli_run(["-m", MODEL, "--data-root", small, "--num-workers",
+                       str(WORKERS), "--batch-size", str(BATCH),
+                       "--pretrained", ckpt, "--epochs", "1"],
+                      os.path.join(tmp, "pretrained"))
+    finally:
+        pretrained.import_pretrained, Trainer.train_step = orig_import, \
+            orig_step
+    steps = CLI_SHARDS * (N_TRAIN // 4) // BATCH
+    launches = train_ingest.launches
+    check(seen.get("differing") == [] and seen.get("counters") == [0],
+          f"the state before the first step is not the checkpoint: "
+          f"{seen.get('differing', 'no step')[:5]}, BN counters "
+          f"{seen.get('counters')}")
+    check(seen["head_kept"], "the pretrained head was not kept")
+    check(launches == steps, f"train_ingest launched {launches} times in "
+                             f"{steps} --pretrained steps")
+    out = {"checkpoint": ckpt, "workdir": os.path.join(tmp, "pretrained"),
+           "load_s": seen["load_s"], "head_kept": seen["head_kept"],
+           "train_ingest_launches": launches, "steps": steps,
+           **run_info(run)}
+    log(f"cli tools (a) --pretrained: {json.dumps(out)}")
+    return out
+
+
+def host_runs(tmp: str, small: str, uint8: dict) -> dict:
+    """(b): ``--host-normalize`` (with ``--upload`` to a local mirror)
+    and ``--tf-preprocessing``, one epoch of CLI_SHARDS shards each:
+    ``train_ingest`` never launches, the float32 wire moves 4× the uint8
+    run's image bytes a step, the TF eval runs, event files exist, the
+    mirror holds the checkpoint byte for byte."""
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+
+    out = {}
+    mirror = os.path.join(tmp, "mirror")
+    from deep_vision_tpu_torch.core.config import get_config
+
+    size = get_config(MODEL).image_size
+    label_bytes = BATCH * 4
+    image_bytes = uint8["h2d_bytes_per_step"][-1] - label_bytes
+    check(image_bytes == BATCH * size * size * 3,
+          f"the uint8 run moved {image_bytes} image bytes a step")
+    for flag in ("--host-normalize", "--tf-preprocessing"):
+        work = os.path.join(tmp, flag.strip("-"))
+        extra = ["--upload", mirror] if flag == "--host-normalize" else []
+        before = train_ingest.launches
+        run = cli_run(["-m", MODEL, "--data-root", small, "--num-workers",
+                       str(WORKERS), "--batch-size", str(BATCH), "--epochs",
+                       "1", flag, *extra], work)
+        info = run_info(run)
+        check(train_ingest.launches == before,
+              f"{flag}: train_ingest launched "
+              f"{train_ingest.launches - before} times")
+        h2d = info["h2d_bytes_per_step"][-1]
+        check(h2d - label_bytes == 4 * image_bytes,
+              f"{flag}: {h2d} H2D bytes a step, not 4 x {image_bytes} "
+              f"image bytes + {label_bytes} label bytes")
+        check(bool(info["val_top1"]) and bool(run["events"]),
+              f"{flag}: eval {info['val_top1']}, event files "
+              f"{run['events']}")
+        info["train_ingest_launches"] = train_ingest.launches - before
+        if extra:
+            local = tree_bytes(os.path.join(work, "checkpoints"))
+            mirrored = tree_bytes(os.path.join(mirror, "checkpoints"))
+            check(bool(local) and mirrored == local,
+                  f"the mirror holds {sorted(mirrored)}, the workdir "
+                  f"{sorted(local)}")
+            info["mirrored_files"] = sorted(mirrored)
+        out[flag.strip("-")] = info
+    log(f"cli tools (b) host pipelines: {json.dumps(out)}")
+    return out
+
+
+def infer_evals(tmp: str, data: str, pretrained: dict, yolo_dirs: dict
+                ) -> dict:
+    """(c): ``cli.infer eval -m resnet50 --pretrained P`` on the val
+    records gives the top-1/top-5 of ``Trainer.evaluate`` on the same
+    weights loaded directly; ``cli.infer eval -m yolov3_coco`` on the
+    YOLOv3 phase's workdir launches ``best_iou_max`` 3 times an eval
+    batch."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import infer
+    from deep_vision_tpu_torch.cli.train import (
+        build_classification_val_loader,
+    )
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.best_iou import best_iou_max
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    seen = {}
+    orig = Trainer.evaluate
+
+    def record(self, state, loader):
+        seen["metrics"] = orig(self, state, loader)
+        return seen["metrics"]
+
+    Trainer.evaluate = record
+    try:
+        t0 = time.monotonic()
+        check(infer.main(["eval", "-m", MODEL, "--workdir",
+                          os.path.join(tmp, "eval"), "--pretrained",
+                          pretrained["checkpoint"], "--data-root", data,
+                          "--batch-size", str(BATCH), "--num-workers",
+                          str(WORKERS), "--device", CLI_DEVICE]) == 0,
+              "cli.infer eval --pretrained failed")
+        eval_s = time.monotonic() - t0
+        got = seen.pop("metrics")
+        cfg = get_config(MODEL)
+        model = cfg.model()
+        sd = torch.load(pretrained["checkpoint"], weights_only=True)
+        model.load_state_dict({k.removeprefix("module."): v for k, v in
+                               sd["state_dict"].items()})
+        trainer = Trainer(cfg, model, ClassificationTask(cfg.num_classes),
+                          workdir=os.path.join(tmp, "eval_direct"),
+                          device=CLI_DEVICE)
+        loader, _ = build_classification_val_loader(
+            cfg, data, "val", BATCH, num_workers=WORKERS)
+        try:
+            want = trainer.evaluate(trainer.state_for(model), loader)
+        finally:
+            loader.close()
+        check(all(got[k] == want[k] for k in ("top1", "top5")),
+              f"cli.infer eval --pretrained {got} against Trainer.evaluate "
+              f"{want}")
+        yolo_batch = YOLO_BATCH
+        evals = -(-YOLO_VAL // yolo_batch)
+        best_iou_max.launches = 0
+        t0 = time.monotonic()
+        check(infer.main(["eval", "-m", yolo_dirs["model"], "--workdir",
+                          yolo_dirs["work"], "--data-root",
+                          yolo_dirs["data"], "--batch-size",
+                          str(yolo_batch), "--device", CLI_DEVICE]) == 0,
+              "cli.infer eval -m yolov3_coco failed")
+        yolo_s = time.monotonic() - t0
+        launches = best_iou_max.launches
+        yolo = seen.pop("metrics")
+    finally:
+        Trainer.evaluate = orig
+    check(launches == 3 * evals,
+          f"cli.infer eval launched best_iou_max {launches} times in "
+          f"{evals} eval batches")
+    check(all(math.isfinite(v) for v in yolo.values()),
+          f"cli.infer eval -m yolov3_coco: {yolo}")
+    out = {"pretrained": got, "direct": want, "eval_s": eval_s,
+           "yolo": yolo, "yolo_s": yolo_s, "best_iou_max_launches":
+           launches, "eval_batches": evals}
+    log(f"cli tools (c) cli.infer eval: {json.dumps(out)}")
+    return out
+
+
+def served_top5(argv: list, xs: np.ndarray) -> tuple:
+    """(engine buckets, the top-5 (class, logit) of each of ``xs``
+    through ``cli.serve argv`` over HTTP, ``serve_ingest`` launches)."""
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    serve_ingest.launches = 0
+    engine, server = boot_cli(argv)
+    try:
+        answers = []
+        for i, x in enumerate(xs):
+            status, raw, _, _ = post_h(server.port, json.dumps(
+                {"pixels": x.tolist(), "top_k": 5}).encode(),
+                "/v1/classify")
+            body = json.loads(raw)
+            check(status == 200, f"request {i}: {status} {body}")
+            answers.append([(t["class"], t["logit"]) for t in body["top"]])
+        return engine.buckets, answers, serve_ingest.launches
+    finally:
+        server.shutdown()
+        engine.stop()
+
+
+def export_serving(tmp: str, work: str) -> dict:
+    """(d): ``cli.infer export`` of the --pretrained run's workdir, then
+    ``cli.serve --stablehlo`` with that workdir: the exported forward
+    at batch 1 equals the eager one bit for bit on this thread, and over
+    HTTP CLI_REQUESTS float32 requests answer bit for bit as the eager
+    model does through the same engine (``cli.serve --workdir
+    --wire-dtype float32``), ``serve_ingest`` launching never;
+    ``--infer-dtype bfloat16`` is refused.  The engine's thread and
+    stream round the eager model's answers their own way too, so the
+    HTTP answers against this thread's eager call are recorded, not
+    held.  Information: the archive's size and export seconds, the
+    exported and the eager forward's ms at batch 1."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import infer
+    from deep_vision_tpu_torch.cli import serve as serve_cli
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.restore import load_state
+    from deep_vision_tpu_torch.serve.registry import ModelRegistry
+
+    archive = os.path.join(tmp, "resnet50.pt2")
+    t0 = time.monotonic()
+    check(infer.main(["export", "-m", MODEL, "--workdir", work, "--out",
+                      archive, "--device", CLI_DEVICE]) == 0,
+          "cli.infer export failed")
+    export_s = time.monotonic() - t0
+    try:
+        serve_cli.build_server(serve_cli.build_parser().parse_args(
+            ["-m", MODEL, "--stablehlo", archive, "--workdir", work,
+             "--infer-dtype", "bfloat16", "--port", "0", "--device",
+             CLI_DEVICE]))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "f32-wire/f32-compute only" in refused,
+          f"--stablehlo --infer-dtype bfloat16 was not refused: {refused}")
+    cfg = get_config(MODEL)
+    eager = load_state(cfg, workdir=work, log=lambda _m: None) \
+        .to(CLI_DEVICE)
+    rng = np.random.default_rng(43)
+    xs = rng.standard_normal((CLI_REQUESTS, cfg.image_size, cfg.image_size,
+                              3)).astype(np.float32)
+    sm = ModelRegistry().load_exported(MODEL, archive, workdir=work,
+                                       device=CLI_DEVICE)
+    run = sm.compile_bucket(1)
+    with torch.no_grad():
+        want = [eager(torch.from_numpy(x[None]).to(CLI_DEVICE))[0]
+                .float().cpu().numpy() for x in xs]
+        direct = [run(x[None])[0].float().cpu().numpy() for x in xs]
+        x1 = torch.from_numpy(xs[:1]).to(CLI_DEVICE)
+        exported_ms = call_ms(run, [x1], iters=30, warmup=3)
+        eager_ms = call_ms(eager, [x1], iters=30, warmup=3)
+    differing = [i for i in range(CLI_REQUESTS)
+                 if not np.array_equal(direct[i], want[i])]
+    check(not differing, f"the exported forward at batch 1 differs from "
+                         f"the eager one on requests {differing}")
+    del sm, run
+    buckets, got, launches = served_top5(
+        ["-m", MODEL, "--stablehlo", archive, "--workdir", work, "--port",
+         "0", "--warmup", "--device", CLI_DEVICE], xs)
+    check(buckets == [1], f"the exported server's buckets {buckets}")
+    check(launches == 0, f"serve_ingest launched {launches} times on the "
+                         f"exported float32 server")
+    _, eager_got, _ = served_top5(
+        ["-m", MODEL, "--workdir", work, "--wire-dtype", "float32",
+         "--max-batch", "1", "--port", "0", "--warmup", "--device",
+         CLI_DEVICE], xs)
+    check(got == eager_got,
+          f"exported answers against the eager model's through the same "
+          f"engine: {[(g, e) for g, e in zip(got, eager_got) if g != e][:2]}")
+    thread_diff = max(abs(logit - float(want[i][c]))
+                      for i, row in enumerate(got) for c, logit in row)
+    out = {"archive_bytes": os.path.getsize(archive), "export_s": export_s,
+           "requests": CLI_REQUESTS, "serve_ingest_launches": launches,
+           "exported_forward_ms": exported_ms, "eager_forward_ms": eager_ms,
+           "served_vs_this_thread_max_abs": thread_diff,
+           "bf16_refused": refused}
+    log(f"cli tools (d) export + --stablehlo: {json.dumps(out)}")
+    return out
+
+
+def phase_cli_tools(card_line: str, yolo_dirs: dict) -> dict:
+    """The single-card CLI's last options on the card, ResNet-50 at full
+    width on the training phase's records (rewritten from their seed):
+    (a) ``--pretrained``; (b) ``--host-normalize`` with ``--upload`` and
+    ``--tf-preprocessing``; (c) ``cli.infer eval`` of the pretrained
+    checkpoint and of the YOLOv3 phase's workdir; (d) ``cli.infer
+    export`` served by ``cli.serve --stablehlo``."""
+    import torch
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        data, small = os.path.join(tmp, "data"), os.path.join(tmp, "small")
+        write_records(data, N_TRAIN, N_VAL)
+        subset_records(data, small, CLI_SHARDS)
+        out = {"card": card_line}
+        out["pretrained"] = pretrained_run(tmp, small)
+        out["host"] = host_runs(tmp, small, out["pretrained"])
+        out["eval"] = infer_evals(tmp, data, out["pretrained"], yolo_dirs)
+        out["export"] = export_serving(tmp, out["pretrained"].pop("workdir"))
+    torch.cuda.empty_cache()
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7147,9 +7576,12 @@ def phase_times_of(path: str) -> int:
     sys.modules[spec.name] = other
     spec.loader.exec_module(other)
     seconds = time_phases(other)
-    rc = other.main()
-    print(json.dumps({"phase_seconds_of": path, "rc": rc,
-                      "phase_seconds": seconds}), flush=True)
+    rc = 1
+    try:
+        rc = other.main()
+    finally:  # a failing phase still leaves the phases before it timed
+        print(json.dumps({"phase_seconds_of": path, "rc": rc,
+                          "phase_seconds": seconds}), flush=True)
     return rc
 
 
@@ -7181,7 +7613,9 @@ def main() -> int:
     serving = phase_serving()
     training = phase_training()
     step_check = phase_step_check()
-    yolo = phase_yolo_training()
+    # the YOLOv3 run's records and workdir stay for phase_cli_tools
+    keep = tempfile.mkdtemp(dir=os.path.join(REPO, "_scratch"))
+    yolo = phase_yolo_training(keep)
     yolo_check = phase_yolo_step_check()
     detect = phase_detect_serving()
     heat_train, heat_check = {}, {}
@@ -7205,6 +7639,10 @@ def main() -> int:
     recipes = phase_trainer_recipes(training, yolo)
     generate = phase_generate_serving()
     card_line = card()
+    cli_tools = phase_cli_tools(card_line, {
+        "model": "yolov3_coco", "work": os.path.join(keep, "work"),
+        "data": os.path.join(keep, "data")})
+    shutil.rmtree(keep)
     faults = phase_faults(card_line)
     plane = phase_plane()
     fleet = phase_fleet()
@@ -7237,7 +7675,9 @@ def main() -> int:
                "cascade_detect": cascade["detect"]["launches"],
                "brownout_resnet50": brownout["launches"],
                "gateway_resnet50": gateway["launches"],
-               "batch_resnet50": batch["launches"]}
+               "batch_resnet50": batch["launches"],
+               "stablehlo_resnet50": cli_tools["export"][
+                   "serve_ingest_launches"]}
     zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
                                          "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
@@ -7267,6 +7707,10 @@ def main() -> int:
         "recipes_resnet50_scan_ema": recipes["resnet50"][
             "train_ingest_launches"],
         "train_inception3": zoo_train["launches"],
+        "pretrained_resnet50": cli_tools["pretrained"][
+            "train_ingest_launches"],
+        **{f"{k}_resnet50": row["train_ingest_launches"]
+           for k, row in cli_tools["host"].items()},
         **{f"steps_{m}": zoo_steps[m]["train_ingest_launches"]
            for m in ZOO_STEP_MODELS}}
     zoo_train_rows = [{k: r[k] for k in ("shape", "ms", "plain_ms",
@@ -7296,6 +7740,8 @@ def main() -> int:
                        "yolov3_toy"]["best_iou_max_launches"],
                    "recipes_yolov3_toy_scan_accum_ema": recipes["scan"][
                        "tasks"][" ".join(("yolov3_toy",) + RECIPE_TOY_ACCUM)][
+                       "best_iou_max_launches"],
+                   "infer_eval_yolov3_coco": cli_tools["eval"][
                        "best_iou_max_launches"]}
     micro_row = next(r for r in iou_rows
                      if tuple(r["shape"]) == IOU_MICRO_SHAPE)
@@ -7333,6 +7779,7 @@ def main() -> int:
     print(json.dumps({"gan_training": gan_train}), flush=True)
     print(json.dumps({"gan_step_check": gan_check}), flush=True)
     print(json.dumps({"trainer_recipes": recipes}), flush=True)
+    print(json.dumps({"cli_tools": cli_tools}), flush=True)
     print(json.dumps({"generate_serving": generate}), flush=True)
     print(json.dumps({"faults": faults}), flush=True)
     print(json.dumps({"plane": plane}), flush=True)

@@ -32,6 +32,8 @@
     python -m deep_vision_tpu_torch.cli.serve -m cyclegan \\
         [--weights w.npz] --wire-dtype uint8 [--infer-dtype int8]
     python -m deep_vision_tpu_torch.cli.serve -m resnet50 \\
+        --stablehlo model.pt2 --workdir runs/r50 [--warmup]
+    python -m deep_vision_tpu_torch.cli.serve -m resnet50 \\
         --wire-dtype uint8 --infer-dtype int8 --warmup --jobs-dir jobs \\
         [--batch-shard-size 0] [--batch-max-depth 0] \\
         [--batch-pressure-ms 10] [--batch-cache-shards 64]
@@ -46,6 +48,11 @@ uint8 image in base64: ``dcgan`` from ``{"seed": N}`` or ``{"latent":
 
 ``--workdir`` serves what ``cli.train`` wrote there: the newest complete
 checkpoint, falling back past a torn one (``core/restore.py``).
+``--stablehlo A`` (the reference's flag name, kept so scripts carry
+over) serves the ``torch.export`` archive ``A`` of ``cli.infer export``
+instead of the model code, at its one traced batch, on the float32 wire
+and in float32 (``--infer-dtype bfloat16``/``int8`` is refused), with
+the weights of ``--workdir`` or ``--weights``.
 ``--weights`` is an ``.npz`` of the reference's flax variables tree
 (keys joined by ``/``, see ``convert.py``); with neither the model is a
 seeded random init.  ``--models a,b`` serves several models from
@@ -127,6 +134,11 @@ def build_parser() -> argparse.ArgumentParser:
     src.add_argument("--weights", default=None,
                      help=".npz of the flax variables tree (keys joined "
                           "by '/'); with neither, a seeded random init")
+    p.add_argument("--stablehlo", default=None,
+                   help="serve this cli.infer export archive (.pt2) "
+                        "instead of the model code, with the weights of "
+                        "--workdir or --weights (fixed batch = export "
+                        "batch; float32 wire and compute)")
     p.add_argument("--wire-dtype", choices=("uint8", "float32"),
                    default="uint8",
                    help="client wire format: uint8 = raw 0-255 pixels "
@@ -583,6 +595,10 @@ def build_server(args):
     configure_precision()
     registry = ModelRegistry()
     if args.models:
+        if args.stablehlo:
+            raise ValueError("--stablehlo serves one exported archive; "
+                             "multi-model serving (--models) is "
+                             "checkpoint-path only")
         return _build_plane_server(args, registry, device)
     if args.watch or args.max_replicas:
         raise ValueError("--watch / --max-replicas need the model control "
@@ -594,13 +610,26 @@ def build_server(args):
     # fail on a device count the machine lacks before any model work
     devices = _replica_devices(device, args.serve_devices) \
         if args.serve_devices != 1 else None
-    sm = registry.load_checkpoint(args.model, args.weights,
-                                  wire_dtype=args.wire_dtype,
-                                  infer_dtype=args.infer_dtype,
-                                  calib_batches=args.calib_batches,
-                                  calib_dir=args.calib_dir,
-                                  device=device, workdir=args.workdir,
-                                  **_detect_knobs(args))
+    if args.stablehlo:
+        # the archive was traced at float32 on host-normalized input: the
+        # wire knob does not apply (describe() shows the real wire); a
+        # non-float32 --infer-dtype is refused by the registry with the
+        # one "f32-wire/f32-compute only" error
+        sm = registry.load_exported(args.model, args.stablehlo,
+                                    workdir=args.workdir,
+                                    weights=args.weights,
+                                    infer_dtype=args.infer_dtype,
+                                    device=device)
+        for knob, value in _detect_knobs(args).items():
+            setattr(sm, knob, value)
+    else:
+        sm = registry.load_checkpoint(args.model, args.weights,
+                                      wire_dtype=args.wire_dtype,
+                                      infer_dtype=args.infer_dtype,
+                                      calib_batches=args.calib_batches,
+                                      calib_dir=args.calib_dir,
+                                      device=device, workdir=args.workdir,
+                                      **_detect_knobs(args))
     kwargs = _engine_kwargs(args)
     admission = AdmissionController(
         max_queue=sm.workload.slo.bound_queue(args.max_queue),

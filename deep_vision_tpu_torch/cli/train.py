@@ -20,7 +20,8 @@
         --synthetic [--synthetic-size N] --workdir W [--resume]
     python -m deep_vision_tpu_torch.cli.train --list -m x
     ... [--scan-steps K] [--grad-accum A] [--ema-decay D] \
-        [--momentum-dtype bfloat16]
+        [--momentum-dtype bfloat16] [--pretrained P.pth] \
+        [--host-normalize | --tf-preprocessing] [--upload URI]
 
 Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
 classification branch, ``build_classification_val_loader``,
@@ -49,7 +50,17 @@ config fields: ``--scan-steps`` (``scan_steps``: on the card a captured
 CUDA graph of the guarded step; DCGAN too, CycleGAN per step),
 ``--grad-accum`` (``grad_accum_steps``), ``--ema-decay`` (``ema_decay``:
 eval and the workdir's serving use the EMA) and ``--momentum-dtype
-bfloat16`` (``optimizer.momentum_dtype``).  Runs on CUDA unless given
+bfloat16`` (``optimizer.momentum_dtype``).  ``--pretrained P`` starts
+from a torch-format ``state_dict`` (``models/pretrained.py``; the class
+head is kept only when it fits).  ``--host-normalize`` moves the jitter
+and normalize (or the /255 and [-1, 1] scales) to the host and ships
+float32 batches, so ``train_ingest`` never runs; ``--tf-preprocessing``
+is the TF pipeline (crop, flip, mean subtraction on the host).
+``--upload URI`` mirrors the checkpoints after every save to a local
+path or ``file://`` URI (``gs://`` through google-cloud-storage or
+gsutil where installed) and, on a fresh workdir, restores them from
+there first (``core/upload.py``).  Every run writes TensorBoard event
+files under ``workdir/tensorboard``.  Runs on CUDA unless given
 ``--device cpu``; without a GPU it raises.
 """
 
@@ -102,9 +113,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="override config (smoke runs at low resolution)")
     p.add_argument("--num-workers", type=int, default=16,
                    help="record read/crop worker processes (0 = inline)")
+    p.add_argument("--host-normalize", action="store_true",
+                   help="float32 jitter+normalize on the HOST (reference "
+                        "semantics) instead of the device's train_ingest")
     p.add_argument("--prefetch-depth", type=int, default=None,
                    help="device batches staged ahead of the step "
                         "(default 2)")
+    p.add_argument("--tf-preprocessing", action="store_true",
+                   help="TF 'ResNet preprocessing' pipeline (aspect-"
+                        "preserving resize + mean subtraction, no jitter) "
+                        "instead of the torch one")
+    p.add_argument("--upload", default=None,
+                   help="sync checkpoints to this URI after each save "
+                        "(path, file://, or gs://)")
+    p.add_argument("--pretrained", default=None,
+                   help="torch-format state_dict (.pth) to start from "
+                        "(any published-accuracy arch — see "
+                        "models/pretrained.py); head kept only when the "
+                        "class count matches")
     p.add_argument("--profile", action="store_true",
                    help="torch.profiler trace of steps 10-20 → "
                         "workdir/profile")
@@ -119,11 +145,16 @@ MNIST_CONFIGS = ("lenet5_nano", "lenet5", "lenet5_big")
 
 
 def build_classification_val_loader(cfg, data_root: str, split: str,
-                                    batch: int, num_workers: int = 4):
-    """Eval loader over ``split`` at the config's crop size: records, or,
-    where ``data_root`` holds MNIST's idx-ubyte files (any name
+                                    batch: int, num_workers: int = 4,
+                                    preprocessing: str = "torch",
+                                    device_normalize: bool = False):
+    """Eval loader over ``split`` at the config's crop size, shared by
+    the train CLI's val loader and ``infer eval``: records, or, where
+    ``data_root`` holds MNIST's idx-ubyte files (any name
     ``data/mnist.load_mnist`` accepts), MNIST's host-normalized images.
-    Returns ``(loader, dataset_size)``."""
+    ``preprocessing`` and ``device_normalize`` pick the records'
+    pipeline (``data/imagenet.ImageNetLoader``).  Returns ``(loader,
+    dataset_size)``."""
     import glob
     import os
 
@@ -140,7 +171,8 @@ def build_classification_val_loader(cfg, data_root: str, split: str,
         return loader, len(data["label"])
     loader = ImageNetLoader.from_records(
         data_root, split, batch, train=False, image_size=cfg.image_size,
-        resize=imagenet_resize_for(cfg.image_size), num_workers=num_workers)
+        resize=imagenet_resize_for(cfg.image_size), num_workers=num_workers,
+        device_normalize=device_normalize, preprocessing=preprocessing)
     return loader, len(loader.ds)
 
 
@@ -189,10 +221,15 @@ def main(argv=None):
         from deep_vision_tpu_torch.core.trainer import Trainer
 
         trainer = Trainer(cfg, cfg.model(), task, workdir=args.workdir,
-                          preprocess_fn=preprocess_fn, device=device)
+                          preprocess_fn=preprocess_fn, device=device,
+                          upload=args.upload)
         if args.profile:
             trainer.profile_steps = (10, 20)
-        state = trainer.fit(train_loader, val_loader, resume=args.resume)
+        state = None
+        if args.pretrained:
+            state = load_pretrained_state(args, trainer)
+        state = trainer.fit(train_loader, val_loader, state=state,
+                            resume=args.resume)
         final = trainer.evaluate(state, val_loader)
     finally:
         for loader in loaders:
@@ -234,31 +271,64 @@ def _classification_loaders(args, cfg, loaders: list):
             make_mnist_preprocess,
         )
 
-        # the uint8 wire: padded raw bytes cross to the card, which
-        # standardizes them
+        # the uint8 wire by default: padded raw bytes cross to the card,
+        # which standardizes them; --host-normalize ships float32
+        dev_norm = not args.host_normalize
         train_loader = ArrayLoader(
-            load_mnist(args.data_root, "train", device_normalize=True),
+            load_mnist(args.data_root, "train", device_normalize=dev_norm),
             cfg.batch_size, seed=cfg.seed)
         val_loader = ArrayLoader(
-            load_mnist(args.data_root, "test", device_normalize=True),
+            load_mnist(args.data_root, "test", device_normalize=dev_norm),
             cfg.eval_batch_size, shuffle=False, drop_last=False,
             pad_last=True)
-        return task, train_loader, val_loader, make_mnist_preprocess()
+        return task, train_loader, val_loader, \
+            make_mnist_preprocess() if dev_norm else None
     from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
     from deep_vision_tpu_torch.data.transforms import imagenet_resize_for
     from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
 
+    if args.tf_preprocessing and args.host_normalize:
+        raise SystemExit("--tf-preprocessing and --host-normalize pick "
+                         "contradictory pipelines; pass only one")
+    preprocessing = "tf" if args.tf_preprocessing else "torch"
+    # the uint8 wire and the train_ingest kernel unless the host does it
+    dev_norm = not args.host_normalize and preprocessing == "torch"
     train_loader = ImageNetLoader.from_records(
         args.data_root, "train", cfg.batch_size, train=True,
         seed=cfg.seed, image_size=cfg.image_size,
         resize=imagenet_resize_for(cfg.image_size),
-        num_workers=args.num_workers)
+        num_workers=args.num_workers, device_normalize=dev_norm,
+        preprocessing=preprocessing)
     loaders.append(train_loader)
     val_loader, _ = build_classification_val_loader(
         cfg, args.data_root, "val", cfg.eval_batch_size,
-        num_workers=args.num_workers)
+        num_workers=args.num_workers, preprocessing=preprocessing,
+        device_normalize=dev_norm)
     loaders.append(val_loader)
-    return task, train_loader, val_loader, make_imagenet_preprocess()
+    return task, train_loader, val_loader, \
+        make_imagenet_preprocess() if dev_norm else None
+
+
+def load_pretrained_state(args, trainer):
+    """The trainer's fresh state with a torch-format checkpoint merged
+    over it (``models/pretrained.import_pretrained``): the reference's
+    pretrained start."""
+    from deep_vision_tpu_torch.models.pretrained import (
+        ARCH_IMPORTERS,
+        import_pretrained,
+    )
+
+    if args.model not in ARCH_IMPORTERS:
+        raise SystemExit(
+            f"--pretrained supports {sorted(ARCH_IMPORTERS)} (torch-format "
+            f"checkpoints); '{args.model}' has a different param tree")
+    state = trainer.init_state()
+    merged, head_kept = import_pretrained(args.pretrained, args.model,
+                                          state.model.state_dict())
+    state.model.load_state_dict(merged)
+    print(f"[pretrained] loaded {args.model} weights from {args.pretrained} "
+          f"(head {'kept' if head_kept else 'fresh'})", flush=True)
+    return state
 
 
 def _detection_loaders(args, cfg, loaders: list):
@@ -300,17 +370,20 @@ def _detection_loaders(args, cfg, loaders: list):
             args.data_root, "train", cache_decoded=args.num_workers == 0)
         val_samples = load_detection_records(args.data_root, "val",
                                              cache_decoded=True)
+    # uint8 batches and the /255 on the device, unless --host-normalize;
     # in-memory synthetic samples need no reading: a pool would only add
     # pickling
+    dev_norm = not args.host_normalize
     train_loader = loader_cls(
         train_samples, cfg.batch_size, cfg.num_classes, cfg.image_size,
-        train=True, seed=cfg.seed, device_normalize=True,
+        train=True, seed=cfg.seed, device_normalize=dev_norm,
         num_workers=0 if args.synthetic else args.num_workers)
     loaders.append(train_loader)
     val_loader = loader_cls(
         val_samples, cfg.eval_batch_size, cfg.num_classes, cfg.image_size,
-        train=False, device_normalize=True)
-    return task, train_loader, val_loader, make_scale_preprocess()
+        train=False, device_normalize=dev_norm)
+    return task, train_loader, val_loader, \
+        make_scale_preprocess() if dev_norm else None
 
 
 def _pose_loaders(args, cfg, loaders: list):
@@ -341,15 +414,18 @@ def _pose_loaders(args, cfg, loaders: list):
         val_samples = load_pose_records(args.data_root, "val",
                                         cache_decoded=True)
     heatmap_size = cfg.image_size // 4
+    dev_norm = not args.host_normalize
     train_loader = PoseLoader(
         train_samples, cfg.batch_size, cfg.image_size, heatmap_size,
-        cfg.num_classes, train=True, seed=cfg.seed, device_normalize=True,
+        cfg.num_classes, train=True, seed=cfg.seed,
+        device_normalize=dev_norm,
         num_workers=0 if args.synthetic else args.num_workers)
     loaders.append(train_loader)
     val_loader = PoseLoader(
         val_samples, cfg.eval_batch_size, cfg.image_size, heatmap_size,
-        cfg.num_classes, train=False, device_normalize=True)
-    return PoseTask(), train_loader, val_loader, make_scale_preprocess()
+        cfg.num_classes, train=False, device_normalize=dev_norm)
+    return PoseTask(), train_loader, val_loader, \
+        make_scale_preprocess() if dev_norm else None
 
 
 def _main_gan(args, cfg, device) -> int:
@@ -368,6 +444,9 @@ def _main_gan(args, cfg, device) -> int:
                          "deep_vision_tpu_torch.obs.profile -m "
                          f"{args.model} --train")
     dtype = torch.bfloat16 if cfg.half_precision else torch.float32
+    # the uint8 wire and the [-1, 1] scale on the device, unless
+    # --host-normalize ships float32
+    dev_norm = not args.host_normalize
     if cfg.task == "gan_dcgan":
         from deep_vision_tpu_torch.data.gan import GANLoader, mnist_gan_data
 
@@ -375,7 +454,7 @@ def _main_gan(args, cfg, device) -> int:
             raise SystemExit("--data-root is required without --synthetic")
         images = mnist_gan_data(None if args.synthetic else args.data_root,
                                 n_synthetic=args.synthetic_size,
-                                device_normalize=True)
+                                device_normalize=dev_norm)
         loader = GANLoader(images, cfg.batch_size, seed=cfg.seed)
         task = DCGANTask(lambda: gan_models.DCGANGenerator(dtype=dtype),
                          lambda: gan_models.DCGANDiscriminator(dtype=dtype),
@@ -388,27 +467,31 @@ def _main_gan(args, cfg, device) -> int:
 
         if args.synthetic:
             a, b = synthetic_unpaired(args.synthetic_size, cfg.image_size,
-                                      device_normalize=True)
+                                      device_normalize=dev_norm)
         else:
-            a, b = load_unpaired_records(args.data_root, cfg.image_size)
+            a, b = load_unpaired_records(args.data_root, cfg.image_size,
+                                         device_normalize=dev_norm)
         loader = UnpairedLoader(a, b, cfg.batch_size, seed=cfg.seed)
         task = CycleGANTask(
             lambda: gan_models.CycleGANGenerator(dtype=dtype),
             lambda: gan_models.PatchGANDiscriminator(dtype=dtype),
             opt=cfg.optimizer)
-    trainer = AdversarialTrainer(cfg, task, workdir=args.workdir,
-                                 preprocess_fn=make_gan_preprocess(),
-                                 device=device)
+    trainer = AdversarialTrainer(
+        cfg, task, workdir=args.workdir,
+        preprocess_fn=make_gan_preprocess() if dev_norm else None,
+        device=device, upload=args.upload)
     states = trainer.fit(loader, epochs=cfg.total_epochs,
                          resume=args.resume)
     print("done: trained", ", ".join(states), flush=True)
     return 0
 
 
-def load_unpaired_records(data_root: str, image_size: int):
+def load_unpaired_records(data_root: str, image_size: int,
+                          device_normalize: bool = True):
     """``train_a-*``/``train_b-*.dvrec`` shards (``prepare_data
-    unpaired``: encoded image payloads) → two uint8 (N, S, S, 3) arrays,
-    each image decoded to RGB with PIL and resized to ``image_size``²
+    unpaired``: encoded image payloads) → two uint8 (N, S, S, 3) arrays
+    (float32 ``x/127.5 − 1`` without ``device_normalize``), each image
+    decoded to RGB with PIL and resized to ``image_size``²
     (``data/transforms.resize_bilinear``, the reference's resize)."""
     import io
 
@@ -437,8 +520,9 @@ def load_unpaired_records(data_root: str, image_size: int):
             for _, payload in read_records(sh):
                 img = np.asarray(Image.open(io.BytesIO(payload))
                                  .convert("RGB"))
-                imgs.append(resize_bilinear(img, image_size, image_size)
-                            .astype(np.uint8))
+                sq = resize_bilinear(img, image_size, image_size)
+                imgs.append(sq.astype(np.uint8) if device_normalize
+                            else sq.astype(np.float32) / 127.5 - 1.0)
         out.append(np.stack(imgs))
     return out[0], out[1]
 

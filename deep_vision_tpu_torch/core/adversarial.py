@@ -70,7 +70,7 @@ RNG_OFFSET = 17
 
 class AdversarialTrainer:
     def __init__(self, config: TrainConfig, task, workdir: str | None = None,
-                 preprocess_fn=None, device=None):
+                 preprocess_fn=None, device=None, upload: str | None = None):
         check_recipe(config)
         if config.grad_accum_steps > 1:
             raise NotImplementedError(
@@ -97,6 +97,13 @@ class AdversarialTrainer:
         self.checkpointer = ckpt_lib.Checkpointer(
             os.path.join(self.workdir, "checkpoints"),
             max_to_keep=config.keep_checkpoints)
+        # checkpoints mirrored to ``upload`` after every save
+        # (core/upload.py)
+        self.uploader = None
+        if upload:
+            from deep_vision_tpu_torch.core.upload import ArtifactUploader
+
+            self.uploader = ArtifactUploader(upload)
         self.start_epoch = 1
         self.guard = DivergenceGuard(config.max_bad_steps)
         self._preempted = False
@@ -253,6 +260,8 @@ class AdversarialTrainer:
             next(iter(states.values())).step, states,
             extras={"epoch": epoch,
                     "scheduler": self.scheduler.state_dict()})
+        if self.uploader is not None:
+            self.uploader.sync(self.checkpointer.directory, "checkpoints")
 
     def _get_prefetcher(self):
         if self._prefetcher is None:

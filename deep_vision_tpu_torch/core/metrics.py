@@ -1,9 +1,10 @@
 """Metrics: the training logger, latency quantiles, throughput, step
 timing and the Prometheus text renderer.
 
-Copies of ``MetricLogger`` (``metrics.jsonl``, no TensorBoard writer),
-``LatencyHistogram``, ``PromText`` and ``ThroughputMeter`` from
-``deep_vision_tpu/core/metrics.py``, plus ``StepTimer``.
+Copies of ``MetricLogger`` (``metrics.jsonl`` and TensorBoard event
+files, ``core/tboard.py``), ``LatencyHistogram``, ``PromText`` and
+``ThroughputMeter`` from ``deep_vision_tpu/core/metrics.py``, plus
+``StepTimer``.
 """
 
 from __future__ import annotations
@@ -16,18 +17,32 @@ from typing import Mapping
 
 class MetricLogger:
     """Named scalar series kept in memory (``history``, checkpointed so a
-    resumed run continues them) and appended to ``workdir/metrics.jsonl``
-    as one JSON object per value."""
+    resumed run continues them), appended to ``workdir/metrics.jsonl``
+    as one JSON object per value and, with ``tensorboard`` (the
+    default), written as TensorBoard scalars under
+    ``workdir/tensorboard`` (the event file is made at the first log, so
+    a logger that never logs leaves none)."""
 
     def __init__(self, workdir: str | None = None,
-                 filename: str = "metrics.jsonl"):
+                 filename: str = "metrics.jsonl", tensorboard: bool = True):
         self.history: dict[str, dict[str, list]] = {}
         self._path = None
+        self._tb = None
+        self._tb_dir = None
         if workdir is not None:
             os.makedirs(workdir, exist_ok=True)
             self._path = os.path.join(workdir, filename)
+            if tensorboard:
+                self._tb_dir = os.path.join(workdir, "tensorboard")
 
-    def log(self, name: str, step: int, value: float):
+    def _tb_writer(self):
+        if self._tb is None and self._tb_dir is not None:
+            from deep_vision_tpu_torch.core.tboard import TFEventWriter
+
+            self._tb = TFEventWriter(self._tb_dir)
+        return self._tb
+
+    def _record(self, name: str, step: int, value: float):
         series = self.history.setdefault(name, {"steps": [], "values": []})
         series["steps"].append(int(step))
         series["values"].append(float(value))
@@ -37,9 +52,20 @@ class MetricLogger:
                                     "value": float(value),
                                     "time": time.time()}) + "\n")
 
+    def log(self, name: str, step: int, value: float):
+        self._record(name, step, value)
+        tb = self._tb_writer()
+        if tb is not None:
+            tb.scalar(name, value, step)
+            tb.flush()
+
     def log_dict(self, step: int, metrics: Mapping[str, float]):
         for k, v in metrics.items():
-            self.log(k, step, v)
+            self._record(k, step, v)
+        tb = self._tb_writer()
+        if tb is not None and metrics:
+            tb.scalars(metrics, step)  # one event and one flush
+            tb.flush()
 
     def log_input_block(self, step: int, stats: dict):
         """The trainer's per-epoch input block from ``DevicePrefetcher``

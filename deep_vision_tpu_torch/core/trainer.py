@@ -44,6 +44,11 @@ The recipe options (reference ``core/trainer.py``):
 Every step's randomness comes from generators the trainer keeps for the
 run and re-seeds from ``(seed, step, stream)`` before each step, so a
 replayed graph draws what an eager step draws.
+
+The metric logger writes ``metrics.jsonl`` and TensorBoard event files
+under the workdir.  With ``upload`` (``cli.train --upload``) every
+checkpoint directory is mirrored there after each save, and a fresh
+workdir is first restored from the mirror (``core/upload.py``).
 """
 
 from __future__ import annotations
@@ -183,7 +188,7 @@ class Trainer:
 
     def __init__(self, config: TrainConfig, model: torch.nn.Module, task,
                  workdir: str | None = None, preprocess_fn=None,
-                 device=None):
+                 device=None, upload: str | None = None):
         check_recipe(config)
         self.config = config
         self.device = resolve_device(device)
@@ -203,6 +208,22 @@ class Trainer:
         self.scheduler = build_scheduler(
             config.scheduler.name, config.optimizer.learning_rate,
             **config.scheduler.kwargs)
+        # checkpoints mirrored to ``upload`` after every save
+        # (core/upload.py)
+        self.uploader = None
+        if upload:
+            from deep_vision_tpu_torch.core.upload import ArtifactUploader
+
+            self.uploader = ArtifactUploader(upload)
+            # preemption recovery: a fresh host (empty workdir) pulls the
+            # mirror's checkpoints back before anything looks for them;
+            # otherwise its first sync would wipe the mirror's copies
+            ckpt_dir = os.path.join(self.workdir, "checkpoints")
+            if not os.path.isdir(ckpt_dir) or not os.listdir(ckpt_dir):
+                self.uploader.restore(ckpt_dir, "checkpoints")
+                self.uploader.restore(
+                    os.path.join(self.workdir, "checkpoints_best"),
+                    "checkpoints_best")
         self.checkpointer = ckpt_lib.Checkpointer(
             os.path.join(self.workdir, "checkpoints"),
             max_to_keep=config.keep_checkpoints)
@@ -598,6 +619,9 @@ class Trainer:
                     state.step, state,
                     extras={"epoch": epoch, "metric": float(metric_val),
                             "monitor": monitor or ""})
+                if self.uploader is not None:
+                    self.uploader.sync(self.best_checkpointer.directory,
+                                       "checkpoints_best")
         return state
 
     def save(self, state: TrainState, epoch: int):
@@ -606,3 +630,5 @@ class Trainer:
             extras={"epoch": epoch,
                     "scheduler": self.scheduler.state_dict(),
                     "history": self.logger.state_dict()})
+        if self.uploader is not None:
+            self.uploader.sync(self.checkpointer.directory, "checkpoints")

@@ -2,14 +2,18 @@
 
 Port of ``deep_vision_tpu/data/imagenet.py`` (``ImageNetRecords``,
 ``ImageNetLoader``, ``ImageNetLoader.from_records``, ``_load_one`` and
-the worker pool) for the uint8 training wire: records written by
-``prepare_data --store raw`` hold HWC uint8 pixels, read back with
-``np.frombuffer`` and no decode; the host only rescales (a no-op at the
-stored size), flips and crops, and the color jitter and normalize run on
-the device (``ops/preprocess.make_imagenet_preprocess``).  Records that
-hold JPEG payloads, and the flat-folder JPEG layout, need a decoder and
-are not read here.  One process reads every record: per-host sharding is
-the identity.
+the worker pool): records written by ``prepare_data --store raw`` hold
+HWC uint8 pixels, read back with ``np.frombuffer`` and no decode.  Three
+pipelines, as in the reference: with ``device_normalize`` (the uint8
+wire, what ``cli.train`` uses by default) the host only rescales (a
+no-op at the stored size), flips and crops, and the color jitter and
+normalize run on the device (``ops/preprocess.make_imagenet_preprocess``);
+without it the host also jitters and normalizes and ships float32
+(``--host-normalize``); ``preprocessing="tf"`` is the TF pipeline's
+crop, flip and mean subtraction on the host, float32 (``--tf-preprocessing``).
+Records that hold JPEG payloads, and the flat-folder JPEG layout, need
+a decoder and are not read here.  One process reads every record:
+per-host sharding is the identity.
 """
 
 from __future__ import annotations
@@ -79,20 +83,27 @@ def _worker_init(cfg: dict):
 
 
 def _load_one(cfg: dict, i: int, seed: int) -> tuple[np.ndarray, np.int32]:
-    """Record ``i`` → (uint8 HWC image at the crop size, label)."""
+    """Record ``i`` → (HWC image at the crop size, label): uint8 with
+    ``device_normalize``, else float32 from the torch or the TF host
+    pipeline."""
     path, off, plen, shape = cfg["entries"][i]
     if shape is None:
         raise ValueError(
             f"{path}@{off}: a JPEG payload; the port reads raw-payload "
             f"records (prepare_data --store raw) and has no image decoder")
     img = np.frombuffer(_pread(path, off, plen), np.uint8).reshape(shape)
-    if cfg["train"]:
-        rng = np.random.default_rng(seed)
-        img = T.train_transform_u8(img, rng, cfg["image_size"],
-                                   cfg["resize"])
+    size, resize = cfg["image_size"], cfg["resize"]
+    rng = np.random.default_rng(seed) if cfg["train"] else None
+    if cfg["preprocessing"] == "tf":
+        x = T.tf_train_transform(img, rng, size, resize) if cfg["train"] \
+            else T.tf_eval_transform(img, size, resize)
+    elif cfg["device_normalize"]:
+        x = T.train_transform_u8(img, rng, size, resize) if cfg["train"] \
+            else T.eval_transform_u8(img, size, resize)
     else:
-        img = T.eval_transform_u8(img, cfg["image_size"], cfg["resize"])
-    return img, cfg["labels"][i]
+        x = T.train_transform(img, rng, size, resize).astype(np.float32) \
+            if cfg["train"] else T.eval_transform(img, size, resize)
+    return x, cfg["labels"][i]
 
 
 def _worker_load(args) -> tuple[np.ndarray, np.int32]:
@@ -103,16 +114,25 @@ def _worker_load(args) -> tuple[np.ndarray, np.int32]:
 class ImageNetLoader:
     """Epoch-reshuffled batch iterator over :class:`ImageNetRecords`.
 
-    Yields ``{"image": (B, H, W, 3) uint8, "label": (B,) int32}`` host
-    batches; eval iteration adds ``"weight"`` and pads the last partial
-    batch with weight-0 fillers so every example is scored once.  With
-    ``num_workers > 0`` a forkserver pool reads and crops while
-    ``prefetch_batches`` batches are in flight."""
+    Yields ``{"image": (B, H, W, 3), "label": (B,) int32}`` host
+    batches, the images uint8 with ``device_normalize`` and float32
+    otherwise (:attr:`wire_dtype`); eval iteration adds ``"weight"`` and
+    pads the last partial batch with weight-0 fillers so every example is
+    scored once.  With ``num_workers > 0`` a forkserver pool reads and
+    crops while ``prefetch_batches`` batches are in flight."""
 
     def __init__(self, dataset: ImageNetRecords, batch_size: int,
                  train: bool = True, image_size: int = 224,
                  resize: int = 256, num_workers: int = 16, seed: int = 0,
-                 prefetch_batches: int = 2):
+                 prefetch_batches: int = 2, device_normalize: bool = True,
+                 preprocessing: str = "torch"):
+        if preprocessing not in ("torch", "tf"):
+            raise ValueError(f"preprocessing must be torch|tf, "
+                             f"got {preprocessing!r}")
+        if preprocessing == "tf" and device_normalize:
+            raise ValueError("tf preprocessing is host-side only "
+                             "(mean-centered 0-255 floats); disable "
+                             "device_normalize")
         self.ds = dataset
         self.host_indices = np.arange(len(self.ds))
         self.batch_size = batch_size
@@ -123,7 +143,11 @@ class ImageNetLoader:
         self.epoch = 0
         self.prefetch_batches = max(1, prefetch_batches)
         self._cfg = dict(labels=self.ds.labels, entries=self.ds.entries,
-                         train=train, image_size=image_size, resize=resize)
+                         train=train, image_size=image_size, resize=resize,
+                         device_normalize=device_normalize,
+                         preprocessing=preprocessing)
+        #: what this loader ships a pixel (the trainer's H2D bytes)
+        self.wire_dtype = np.uint8 if device_normalize else np.float32
         self._pool = None
         if self.num_workers > 0:
             import multiprocessing as mp

@@ -4,14 +4,18 @@ channel statistics.
 Copies of ``deep_vision_tpu/data/transforms.py``'s uint8 half
 (``rescale``, ``random_horizontal_flip``, ``random_crop``,
 ``center_crop``, ``train_transform_u8``, ``eval_transform_u8``,
-``imagenet_resize_for``) and of ``normalize`` and ``eval_transform``
-(the float32 serving wire's ``image_b64`` decode), and the torch bilinear resizes that detection
-and pose use on every machine (``resize_u8``, ``resize_square_u8``,
-``rescale_u8``).  All functions take and return HWC uint8 numpy
-arrays on the host; randomness comes from an explicit
-``np.random.Generator`` with the reference's draw order (flip, then crop
-top, then crop left).  Color jitter and normalize run on the device
-(``ops/train_ingest.py``).
+``imagenet_resize_for``), of its float32 host half (``color_jitter``,
+``normalize``, ``train_transform``, ``eval_transform``: the
+``--host-normalize`` wire and the float32 serving wire's ``image_b64``
+decode) and of the TF "ResNet preprocessing" variant
+(``tf_train_transform``, ``tf_eval_transform``, ``TF_CHANNEL_MEANS``),
+and the torch bilinear resizes that detection and pose use on every
+machine (``resize_u8``, ``resize_square_u8``, ``rescale_u8``).  All
+functions take HWC numpy arrays on the host; randomness comes from an
+explicit ``np.random.Generator`` with the reference's draw order (flip,
+then crop top, then crop left, then the jitter's three factors and
+their shuffled order).  On the uint8 wire the color jitter and
+normalize run on the device instead (``ops/train_ingest.py``).
 """
 
 from __future__ import annotations
@@ -122,6 +126,70 @@ def eval_transform(img: np.ndarray, size: int = 224, resize: int = 256
                    ) -> np.ndarray:
     """Rescale → CenterCrop → Normalize, float32 out."""
     return normalize(eval_transform_u8(img, size, resize))
+
+
+def color_jitter(img: np.ndarray, rng: np.random.Generator,
+                 brightness: float = 0.2, contrast: float = 0.2,
+                 saturation: float = 0.2) -> np.ndarray:
+    """Brightness, contrast and saturation jitter in an order
+    ``rng.shuffle`` picks, each factor uniform in [1-x, 1+x] and drawn in
+    that order before the shuffle; on float32 [0, 1] pixels (uint8 is
+    scaled by 1/255 first), clipped to [0, 1] at the end."""
+    x = img.astype(np.float32) / 255.0 if img.dtype == np.uint8 else img
+    ops = []
+    if brightness > 0:
+        f = rng.uniform(max(0, 1 - brightness), 1 + brightness)
+        ops.append(lambda a, f=f: a * f)
+    if contrast > 0:
+        f = rng.uniform(max(0, 1 - contrast), 1 + contrast)
+        ops.append(lambda a, f=f: (a - a.mean()) * f + a.mean())
+    if saturation > 0:
+        f = rng.uniform(max(0, 1 - saturation), 1 + saturation)
+
+        def sat(a, f=f):
+            gray = a @ np.array([0.299, 0.587, 0.114], np.float32)
+            return gray[..., None] + (a - gray[..., None]) * f
+
+        ops.append(sat)
+    rng.shuffle(ops)
+    for op in ops:
+        x = op(x)
+    return np.clip(x, 0.0, 1.0)
+
+
+def train_transform(img: np.ndarray, rng: np.random.Generator,
+                    size: int = 224, resize: int = 256,
+                    jitter: bool = True) -> np.ndarray:
+    """Rescale → flip → RandomCrop → ColorJitter(.2, .2, .2) →
+    Normalize, float32 out: the host-normalized train wire."""
+    img = train_transform_u8(img, rng, size, resize)
+    if jitter:
+        img = color_jitter(img, rng)
+    return normalize(img)
+
+
+#: the TF pipeline's channel means in raw 0-255 space: it subtracts them
+#: and neither divides by 255 nor by a std
+TF_CHANNEL_MEANS = np.array([123.68, 116.78, 103.94], np.float32)
+
+
+def tf_train_transform(img: np.ndarray, rng: np.random.Generator,
+                       size: int = 224, resize: int = 256) -> np.ndarray:
+    """The TF train path: aspect-preserving resize → random crop →
+    random flip (crop before flip, unlike the torch pipeline; no jitter)
+    → mean subtraction, float32 out."""
+    img = rescale(img, resize)
+    img = random_crop(img, size, rng)
+    img = random_horizontal_flip(img, rng)
+    return img.astype(np.float32) - TF_CHANNEL_MEANS
+
+
+def tf_eval_transform(img: np.ndarray, size: int = 224, resize: int = 256
+                      ) -> np.ndarray:
+    """The TF eval path: aspect-preserving resize → central crop → mean
+    subtraction, float32 out."""
+    img = center_crop(rescale(img, resize), size)
+    return img.astype(np.float32) - TF_CHANNEL_MEANS
 
 
 def resize_u8(img: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -279,6 +279,16 @@ class BatchingEngine:
                  validate_outputs: bool | None = None):
         self.model = model
         self.device = torch.device(model.device)
+        if getattr(model, "fixed_batch", None) is not None:
+            # an exported archive serves exactly its traced batch; a
+            # conflicting bucket list is an operator error, named here
+            available = getattr(model, "bucket_sizes", [model.fixed_batch])
+            if buckets and any(b not in available for b in buckets):
+                raise ValueError(
+                    f"model '{model.name}' was exported with bucket sizes "
+                    f"{available}; requested buckets {sorted(buckets)} "
+                    f"unavailable — re-export or serve from the checkpoint")
+            buckets = buckets or list(available)
         self.buckets = sorted(buckets) if buckets else \
             power_of_two_buckets(max_batch)
         self.max_batch = self.buckets[-1]

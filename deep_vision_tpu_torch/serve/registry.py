@@ -1,7 +1,8 @@
 """Model registry: name → ServingModel with per-bucket forward callables.
 
 Port of ``deep_vision_tpu/serve/registry.py`` (``ServingModel``,
-``CheckpointServingModel``, ``ModelRegistry`` with versions).  The
+``CheckpointServingModel``, ``ExportedServingModel``, ``ModelRegistry``
+with versions).  The
 engine asks ``compile_bucket(b)`` for a callable that takes a padded
 batch of exactly ``b`` inputs; the model decides how it runs.  A model
 loads from a training workdir (``load_checkpoint(name, workdir=...)``,
@@ -74,7 +75,8 @@ class ServingModel:
 
     def __init__(self, name: str, *, task: str, input_shape: tuple,
                  num_classes: int, wire_dtype: str = "float32",
-                 infer_dtype: str = "float32", device=None):
+                 infer_dtype: str = "float32", device=None,
+                 fixed_batch: int | None = None):
         if str(wire_dtype) not in WIRE_DTYPES:
             raise ValueError(f"wire_dtype '{wire_dtype}' unsupported "
                              f"(have {tuple(WIRE_DTYPES)})")
@@ -86,6 +88,9 @@ class ServingModel:
         self.task = task
         self.input_shape = tuple(input_shape)
         self.num_classes = num_classes
+        #: an exported archive serves exactly its traced batch (the
+        #: engine's only bucket); None for a model that takes any
+        self.fixed_batch = fixed_batch
         self.workload = workload_for_task(task)
         #: the engine stages and copies exactly this dtype (numpy for
         #: request decoding, torch for staging and the callables)
@@ -259,6 +264,7 @@ class ServingModel:
                 "workload": self.workload.verb, **d,
                 "input_shape": list(self.input_shape),
                 "num_classes": self.num_classes,
+                "fixed_batch": self.fixed_batch,
                 "wire_dtype": str(self.wire_dtype),
                 "output_wire": self.output_wire,
                 "infer_dtype": self.infer_dtype,
@@ -431,6 +437,65 @@ class CheckpointServingModel(ServingModel):
         return call
 
 
+class ExportedServingModel(ServingModel):
+    """A ``cli.infer export`` archive (``core/export.py``): the traced
+    eval forward, served at its one fixed batch with the workdir's
+    weights loaded into it.  It was traced at float32 on host-normalized
+    input, so the wire and compute dtypes are float32 and nothing
+    normalizes on the device (no ``serve_ingest``); the workload's
+    epilogue runs after it as on a checkpoint model."""
+
+    def __init__(self, name: str, cfg, call, fixed_batch: int, device):
+        super().__init__(
+            name, task=cfg.task,
+            input_shape=(cfg.image_size, cfg.image_size, cfg.channels),
+            num_classes=cfg.num_classes, device=device,
+            fixed_batch=fixed_batch)
+        self.cfg = cfg
+        self._call = call
+        self._model = call.module
+        #: every batch size the archive was exported at (one trace an
+        #: archive): an unavailable bucket is named here instead of the
+        #: traced graph's shape-guard error
+        self.bucket_sizes = [int(fixed_batch)]
+
+    def _unavailable(self, batch: int) -> ValueError:
+        return ValueError(
+            f"exported archive for '{self.name}' was exported with bucket "
+            f"sizes {self.bucket_sizes}; batch {batch} unavailable — "
+            f"re-export with --batch {batch} or serve from the checkpoint")
+
+    def compile_bucket(self, batch: int, epilogue: bool = True):
+        if batch not in self.bucket_sizes:
+            raise self._unavailable(batch)
+        from deep_vision_tpu_torch.obs.mfu import params_flops_lower_bound
+
+        call, device, owner = self._call, self.device, self
+        shape = (batch, *self.input_shape)
+        post = self.workload.make_epilogue(self) if epilogue else None
+
+        def run(x):
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            # checked here: the traced graph's own guard names symbols,
+            # not what an operator can act on
+            if x.shape[0] not in owner.bucket_sizes:
+                raise owner._unavailable(x.shape[0])
+            if tuple(x.shape) != shape or x.dtype != torch.float32:
+                raise ValueError(f"bucket {batch} of '{owner.name}' takes "
+                                 f"float32 {list(shape)}, got {x.dtype} "
+                                 f"{list(x.shape)}")
+            with owner.weights_in_use(), torch.inference_mode():
+                out = call(x.to(device, non_blocking=True))
+                return out if post is None else post(out)
+
+        # the archive runs no Python model to count FLOPs on, so the MFU
+        # numerator is the documented lower bound
+        run.cost_flops = params_flops_lower_bound(self._model, batch)
+        run.flops_source = "params_lower_bound"
+        return run
+
+
 class ModelRegistry:
     def __init__(self):
         self._models: dict[str, ServingModel] = {}
@@ -518,6 +583,47 @@ class ModelRegistry:
         sm.detect_soft_nms = str(detect_soft_nms)
         sm.detect_soft_sigma = float(detect_soft_sigma)
         sm.detect_max_per_class = int(detect_max_per_class)
+        return self.add(sm)
+
+    def load_exported(self, config_name: str, archive: str,
+                      workdir: str | None = None,
+                      weights: str | None = None,
+                      wire_dtype: str = "float32",
+                      infer_dtype: str = "float32",
+                      device=None) -> ServingModel:
+        """Serve a ``cli.infer export`` archive with the weights of
+        ``workdir`` (or of the ``weights`` npz), restored as
+        :meth:`load_checkpoint` restores them and loaded into the
+        archive's module by name.
+
+        Archives are f32-wire/f32-compute only: the forward was traced
+        at one float32 signature on host-normalized input, so neither a
+        uint8 wire's device normalize nor a compute-dtype rewrite
+        (bfloat16 or int8) applies.  Checked first, before any file is
+        read, so the operator gets the dtype error rather than a restore
+        traceback."""
+        if str(wire_dtype) != "float32" or str(infer_dtype) != "float32":
+            raise ValueError(
+                "exported archives are f32-wire/f32-compute only: the "
+                "archive serves exactly its traced float32 signature, so "
+                f"wire_dtype='{wire_dtype}' / infer_dtype='{infer_dtype}' "
+                "(bfloat16 and int8 included) need the checkpoint path — "
+                "serve without --stablehlo")
+        from deep_vision_tpu_torch.core.config import get_config
+        from deep_vision_tpu_torch.core.export import load_exported
+        from deep_vision_tpu_torch.core.restore import load_state
+
+        device = resolve_device(device)
+        cfg = get_config(config_name)
+        info: dict = {}
+        model = load_state(cfg, weights, workdir=workdir, tag="serve",
+                           info=info)
+        call = load_exported(archive, weights=model.state_dict(),
+                             device=device)
+        del model
+        sm = ExportedServingModel(config_name, cfg, call,
+                                  call.fixed_batch, device)
+        stamp_restore(sm, info)
         return self.add(sm)
 
     def get(self, name: str | None = None,

@@ -38,7 +38,9 @@ def test_every_module_imports_with_jax_blocked():
                 "serve.replicas", "deploy.history", "deploy.watcher",
                 "deploy.autoscale", "serve.cascade", "serve.brownout",
                 "serve.edge", "serve.gateway", "cli.gateway", "serve.jobs",
-                "serve.batch_sched", "core.step_graph"):
+                "serve.batch_sched", "core.step_graph", "models.pretrained",
+                "core.tboard", "core.upload", "core.export", "cli.infer",
+                "viz"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
