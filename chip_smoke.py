@@ -75,6 +75,24 @@ Phases, each of which must pass:
               within 5e-2 in L2 (``compare_steps`` says why); the same
               comparison with two images' factors swapped on the card's
               side must fail;
+6a. native input — build the native dvrec reader
+              (``data/native/dvrec_reader.cc``) with the machine's C++
+              compiler and print the build seconds; rewrite the training
+              phase's records from their seed and iterate
+              ``ImageNetLoader.from_records(..., num_workers=0)`` at batch
+              256, crop 224, train and eval over two epochs: every batch
+              byte-equal to the numpy path's (``_native_batch`` patched
+              to return None) and counted by the reader, one for every
+              batch; a batch drawn with another seed must differ. Then
+              ``cli.train -m resnet50 --data-format records --num-workers
+              0 --epochs 1``: ``train_ingest`` launches = the steps, the
+              reader's batches = the train batches + the eval batches
+              (two evals: the epoch's and the final one); and
+              ``cli.train --data-format folder`` fails with an error that
+              names PIL (blocked for the check where the machine has
+              it). Information only: host img/s of native against numpy
+              assembly, and step ms and input stall at 0 workers beside
+              the training phase's 4-worker run;
 7. iou kernel — hold ``best_iou_max`` against its plain PyTorch version
               on the card at the yolov3_coco loss shapes (128, N, 100)
               for N = 3·52², 3·26², 3·13² and at a ``--grad-accum 2``
@@ -629,6 +647,8 @@ ZOO_CHECK_SIZE, ZOO_CHECK_BATCH = 128, 8
 CLASSIFY_MODELS = (("lenet5", "float32", "mnist"),
                    ("inception3", "int8", "imagenet"))
 N_TRAIN, N_VAL, STORED, BATCH = 1024, 256, 256, 256
+#: the crop ResNet-50 trains at from records stored at STORED
+CROP = 224
 EPOCHS, RESUME_EPOCHS, WORKERS = 2, 3, 4
 STEP_CHECK_BATCH = 8
 #: the step check's last BN scale of every block: at the trainer's zero no
@@ -2154,6 +2174,162 @@ def phase_training() -> dict:
     return out
 
 
+def native_pass(data: str, split: str, train: bool, seed: int = 0
+                ) -> tuple:
+    """One epoch of ``split`` through ``ImageNetLoader`` at 0 workers:
+    (batches, seconds)."""
+    from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
+
+    loader = ImageNetLoader.from_records(
+        data, split, BATCH, train=train, image_size=CROP, resize=STORED,
+        num_workers=0, seed=seed)
+    loader.set_epoch(1)
+    t0 = time.monotonic()
+    try:
+        batches = list(loader)
+    finally:
+        loader.close()
+    return batches, time.monotonic() - t0
+
+
+def batches_equal(got: list, want: list) -> bool:
+    return len(got) == len(want) and all(
+        sorted(g) == sorted(w) and all(np.array_equal(g[k], w[k])
+                                       for k in w)
+        for g, w in zip(got, want))
+
+
+def phase_native_input(training: dict) -> dict:
+    """The native dvrec reader: built here, byte for byte the numpy
+    path, and counted on ``cli.train``'s 0-worker path."""
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.data import native
+    from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        # a compile into an empty directory, timed whatever _build holds
+        t0 = time.monotonic()
+        built = native.build(os.path.join(tmp, "build"))
+        build_s = time.monotonic() - t0
+        check(built is not None and native.load() is not None,
+              f"no C++ compiler for the native reader "
+              f"({native.compiler()})")
+        log(f"native input: built {os.path.basename(built)} with "
+            f"{native.compiler()} in {build_s:.2f} s")
+        count = native.assemble_batch
+        out = {"build_s": build_s, "compiler": native.compiler()}
+        data = os.path.join(tmp, "data")
+        t0 = time.monotonic()
+        write_records(data, N_TRAIN, N_VAL, STORED)
+        out["write_s"] = time.monotonic() - t0
+        passes = {}
+        for split, train in (("train", True), ("val", False)):
+            before = count.batches
+            got, native_s = native_pass(data, split, train)
+            n_native = count.batches - before
+            real = ImageNetLoader._native_batch
+            ImageNetLoader._native_batch = lambda self, args, n_real: None
+            try:
+                want, numpy_s = native_pass(data, split, train)
+            finally:
+                ImageNetLoader._native_batch = real
+            check(count.batches - before == n_native == len(got),
+                  f"native input {split}: the reader counted {n_native} "
+                  f"of {len(got)} batches")
+            check(batches_equal(got, want),
+                  f"native input {split}: native batches differ from the "
+                  f"numpy path's")
+            images = sum(len(b["image"]) for b in got)
+            passes[split] = {"batches": len(got),
+                             "native_img_s": images / native_s,
+                             "numpy_img_s": images / numpy_s}
+            if train:  # control: another seed draws other crops, flips
+                other, _ = native_pass(data, split, train, seed=1)
+                check(not np.array_equal(other[0]["image"],
+                                         got[0]["image"]),
+                      "native input: a batch drawn with another seed "
+                      "equals seed 0's")
+        out["passes"] = passes
+        log(f"native input: {json.dumps(passes)}")
+        work = os.path.join(tmp, "work")
+        steps = N_TRAIN // BATCH
+        val_batches = -(-N_VAL // BATCH)
+        train_ingest.launches = 0
+        before = count.batches
+        t0 = time.monotonic()
+        check(cli.main(["-m", MODEL, "--data-format", "records",
+                        "--data-root", data, "--workdir", work,
+                        "--num-workers", "0", "--epochs", "1",
+                        "--device", CLI_DEVICE]) == 0,
+              "cli.train --num-workers 0 failed")
+        out["cli_s"] = time.monotonic() - t0
+        out["train_ingest_launches"] = train_ingest.launches
+        out["native_batches"] = count.batches - before
+        check(train_ingest.launches == steps,
+              f"native input: train_ingest launched "
+              f"{train_ingest.launches} times in {steps} steps")
+        # train batches, the epoch's eval and the final eval
+        check(out["native_batches"] == steps + 2 * val_batches,
+              f"native input: the reader assembled {out['native_batches']} "
+              f"batches, not {steps} train + 2 x {val_batches} eval")
+        series = read_series(work)
+        losses = [v for _, v in series.get("train_loss", [])]
+        check(bool(losses) and all(math.isfinite(v) for v in losses),
+              f"native input: losses {losses}")
+        out["losses"] = losses
+        out["step_ms"] = [v for _, v in series.get("train_step_ms", [])]
+        out["input_stall_frac"] = [v for _, v in
+                                   series.get("input_stall_frac", [])]
+        out["workers_4"] = {"step_ms": training["step_ms_by_epoch"],
+                            "input_stall_frac":
+                                training["input_stall_frac"]}
+        out["folder_refusal"] = folder_refusal(tmp)
+    log(f"native input: {json.dumps(out)}")
+    return out
+
+
+def folder_refusal(tmp: str) -> str:
+    """``cli.train --data-format folder`` on the card: an error that
+    names PIL (blocked here for the check where the machine has it)."""
+    import importlib.util
+
+    from deep_vision_tpu_torch.cli import train as cli
+
+    root = os.path.join(tmp, "folder")
+    for d in ("train", "val"):
+        os.makedirs(os.path.join(root, d))
+    with open(os.path.join(root, "imagenet_2012_metadata.txt"), "w") as f:
+        f.write("n01440764\ttench, Tinca tinca\n")
+    have_pil = importlib.util.find_spec("PIL") is not None
+    log(f"native input: PIL {'installed' if have_pil else 'absent'}, cv2 "
+        f"{'installed' if importlib.util.find_spec('cv2') else 'absent'} "
+        f"on this machine")
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k == "PIL" or k.startswith("PIL.")}
+    if have_pil:
+        sys.modules["PIL"] = None
+    try:
+        cli.main(["-m", MODEL, "--data-root", root, "--workdir",
+                  os.path.join(tmp, "folder_work"), "--num-workers", "0",
+                  "--device", CLI_DEVICE])
+    except ImportError as e:
+        message = str(e)
+    else:
+        message = ""
+    finally:
+        sys.modules.pop("PIL", None)
+        sys.modules.update(saved)
+    check("PIL" in message,
+          f"cli.train --data-format folder did not fail naming PIL "
+          f"({message!r})")
+    log(f"native input: folder run refused (PIL installed: {have_pil}): "
+        f"{message}")
+    return message
+
+
 def one_step(device: str, model_sd: dict, images, factors, workdir: str
              ) -> tuple[float, dict, dict]:
     """One float32 train step of full-width ResNet-50 on ``device``:
@@ -2337,7 +2513,8 @@ def write_detection_shards(root: str, n_train: int, n_val: int, size: int
                 seed=17 + i + (100 if split == "val" else 0))
             with RecordWriter(shard_name(root, split, i, shards)) as w:
                 for scene in scenes:
-                    w.write(*encode_detection_sample(scene, size))
+                    w.write(*encode_detection_sample(
+                        scene, store="raw", resize=size))
 
 
 def write_pose_shards(root: str, n_train: int, n_val: int, size: int
@@ -2359,7 +2536,8 @@ def write_pose_shards(root: str, n_train: int, n_val: int, size: int
                 seed=31 + i + (100 if split == "val" else 0))
             with RecordWriter(shard_name(root, split, i, shards)) as w:
                 for pose in poses:
-                    w.write(*encode_pose_sample(pose, resize=size))
+                    w.write(*encode_pose_sample(pose, store="raw",
+                                                   resize=size))
 
 
 def read_series(workdir: str) -> dict[str, list]:
@@ -7253,7 +7431,8 @@ def pretrained_run(tmp: str, small: str) -> dict:
         first_step
     train_ingest.launches = 0
     try:
-        run = cli_run(["-m", MODEL, "--data-root", small, "--num-workers",
+        run = cli_run(["-m", MODEL, "--data-format", "records",
+                       "--data-root", small, "--num-workers",
                        str(WORKERS), "--batch-size", str(BATCH),
                        "--pretrained", ckpt, "--epochs", "1"],
                       os.path.join(tmp, "pretrained"))
@@ -7298,7 +7477,8 @@ def host_runs(tmp: str, small: str, uint8: dict) -> dict:
         work = os.path.join(tmp, flag.strip("-"))
         extra = ["--upload", mirror] if flag == "--host-normalize" else []
         before = train_ingest.launches
-        run = cli_run(["-m", MODEL, "--data-root", small, "--num-workers",
+        run = cli_run(["-m", MODEL, "--data-format", "records",
+                       "--data-root", small, "--num-workers",
                        str(WORKERS), "--batch-size", str(BATCH), "--epochs",
                        "1", flag, *extra], work)
         info = run_info(run)
@@ -7613,6 +7793,7 @@ def main() -> int:
     serving = phase_serving()
     training = phase_training()
     step_check = phase_step_check()
+    native_input = phase_native_input(training)
     # the YOLOv3 run's records and workdir stay for phase_cli_tools
     keep = tempfile.mkdtemp(dir=os.path.join(REPO, "_scratch"))
     yolo = phase_yolo_training(keep)
@@ -7706,6 +7887,7 @@ def main() -> int:
         "train_resnet50": training["train_ingest_launches"],
         "recipes_resnet50_scan_ema": recipes["resnet50"][
             "train_ingest_launches"],
+        "native_resnet50": native_input["train_ingest_launches"],
         "train_inception3": zoo_train["launches"],
         "pretrained_resnet50": cli_tools["pretrained"][
             "train_ingest_launches"],
@@ -7765,6 +7947,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"training": training}), flush=True)
     print(json.dumps({"step_check": step_check}), flush=True)
+    print(json.dumps({"native_input": native_input}), flush=True)
     print(json.dumps({"yolo_training": yolo}), flush=True)
     print(json.dumps({"yolo_step_check": yolo_check}), flush=True)
     print(json.dumps({"detect_serving": detect}), flush=True)

@@ -4,8 +4,11 @@
         --data-format records --data-root D --workdir W [--resume] \\
         [--epochs N] [--batch-size B] [--num-workers K] [--device cuda]
     python -m deep_vision_tpu_torch.cli.train -m resnet50 --synthetic ...
+    python -m deep_vision_tpu_torch.cli.train -m resnet50 \\
+        --data-root IMAGENET --workdir W      # the folder layout (PIL)
     python -m deep_vision_tpu_torch.cli.train -m inception3 \\
-        --data-root D --workdir W [--resume]   # or alexnet1, vgg16, ...
+        --data-format records --data-root D --workdir W [--resume]
+        # or alexnet1, vgg16, ...
     python -m deep_vision_tpu_torch.cli.train -m lenet5 \\
         --data-root MNIST_DIR --workdir W [--resume]
     python -m deep_vision_tpu_torch.cli.train -m yolov3_coco \\
@@ -25,10 +28,16 @@
 
 Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
 classification branch, ``build_classification_val_loader``,
-``_main_detection`` and ``_main_pose``) on the records input: ``D``
-holds ``train-*.dvrec`` and ``val-*.dvrec`` shards with raw uint8
-payloads (``prepare_data --store raw``).  Classification: the host
-reads, flips and crops uint8 pixels; the ``train_ingest`` CUDA kernel
+``_main_detection`` and ``_main_pose``).  Classification reads
+``--data-format records`` (``train-*.dvrec`` and ``val-*.dvrec`` shards
+under ``D``: raw uint8 payloads from ``prepare_data --store raw``, or
+JPEG payloads) or ``folder``, the default (``D/train/`` and ``D/val/``
+flat ``synset_*.JPEG`` directories labelled by
+``D/imagenet_2012_metadata.txt``).  JPEG payloads and the folder decode
+with PIL: without it they fail with an error that names PIL.  The host
+reads, flips and crops uint8 pixels (at ``--num-workers 0``, raw
+records at the loader's resize go through the native reader,
+``data/native``); the ``train_ingest`` CUDA kernel
 jitters and normalizes each train batch on the card.  LeNet-5 and its
 tiers (``-m lenet5``, ``lenet5_nano``, ``lenet5_big``) read MNIST's
 idx-ubyte files from ``D`` instead: uint8 images padded to 32×32, which
@@ -79,11 +88,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--model", required=True,
                    help="config name (see --list)")
     p.add_argument("--data-root", default=None,
-                   help="directory of train-*/val-*.dvrec shards "
-                        "(raw payloads; detection: stored at the input size)")
-    p.add_argument("--data-format", choices=("records",), default="records",
-                   help="classification input: dvrec shards with raw uint8 "
-                        "payloads (the folder/JPEG layout is not ported)")
+                   help="dataset directory: train/ and val/ image folders "
+                        "with imagenet_2012_metadata.txt, or train-*/"
+                        "val-*.dvrec shards")
+    p.add_argument("--data-format", choices=("folder", "records"),
+                   default="folder",
+                   help="classification input: flat image dir (folder; "
+                        "decodes with PIL) or prepare_data imagenet dvrec "
+                        "shards (records)")
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic data smoke run (no dataset needed)")
     p.add_argument("--synthetic-size", type=int, default=1024)
@@ -142,23 +154,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: the configs that train on MNIST's idx-ubyte files
 MNIST_CONFIGS = ("lenet5_nano", "lenet5", "lenet5_big")
+#: the folder layout's labels: one "synset name..." line a class
+METADATA = "imagenet_2012_metadata.txt"
 
 
 def build_classification_val_loader(cfg, data_root: str, split: str,
                                     batch: int, num_workers: int = 4,
                                     preprocessing: str = "torch",
-                                    device_normalize: bool = False):
+                                    device_normalize: bool = False,
+                                    data_format: str | None = None):
     """Eval loader over ``split`` at the config's crop size, shared by
-    the train CLI's val loader and ``infer eval``: records, or, where
-    ``data_root`` holds MNIST's idx-ubyte files (any name
-    ``data/mnist.load_mnist`` accepts), MNIST's host-normalized images.
-    ``preprocessing`` and ``device_normalize`` pick the records'
-    pipeline (``data/imagenet.ImageNetLoader``).  Returns ``(loader,
+    the train CLI's val loader and ``infer eval``: where ``data_root``
+    holds MNIST's idx-ubyte files (any name ``data/mnist.load_mnist``
+    accepts), MNIST's host-normalized images; else records or the flat
+    folder ``data_root/split`` labelled by
+    ``data_root/imagenet_2012_metadata.txt`` (``data_format``, or with
+    None records wherever ``split`` shards exist).  ``preprocessing``
+    and ``device_normalize`` pick the pipeline
+    (``data/imagenet.ImageNetLoader``).  Returns ``(loader,
     dataset_size)``."""
     import glob
     import os
 
     from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
+    from deep_vision_tpu_torch.data.records import list_shards
     from deep_vision_tpu_torch.data.transforms import imagenet_resize_for
 
     if glob.glob(os.path.join(data_root, "t10k-images*idx3-ubyte*")):
@@ -169,10 +188,18 @@ def build_classification_val_loader(cfg, data_root: str, split: str,
         loader = ArrayLoader(data, batch, shuffle=False, drop_last=False,
                              pad_last=True)
         return loader, len(data["label"])
-    loader = ImageNetLoader.from_records(
-        data_root, split, batch, train=False, image_size=cfg.image_size,
-        resize=imagenet_resize_for(cfg.image_size), num_workers=num_workers,
-        device_normalize=device_normalize, preprocessing=preprocessing)
+    common = dict(train=False, image_size=cfg.image_size,
+                  resize=imagenet_resize_for(cfg.image_size),
+                  num_workers=num_workers, preprocessing=preprocessing,
+                  device_normalize=device_normalize)
+    if data_format == "records" or (data_format is None
+                                    and list_shards(data_root, split)):
+        loader = ImageNetLoader.from_records(data_root, split, batch,
+                                             **common)
+    else:
+        loader = ImageNetLoader(os.path.join(data_root, split),
+                                os.path.join(data_root, METADATA), batch,
+                                **common)
     return loader, len(loader.ds)
 
 
@@ -283,6 +310,8 @@ def _classification_loaders(args, cfg, loaders: list):
             pad_last=True)
         return task, train_loader, val_loader, \
             make_mnist_preprocess() if dev_norm else None
+    import os
+
     from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
     from deep_vision_tpu_torch.data.transforms import imagenet_resize_for
     from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
@@ -293,17 +322,23 @@ def _classification_loaders(args, cfg, loaders: list):
     preprocessing = "tf" if args.tf_preprocessing else "torch"
     # the uint8 wire and the train_ingest kernel unless the host does it
     dev_norm = not args.host_normalize and preprocessing == "torch"
-    train_loader = ImageNetLoader.from_records(
-        args.data_root, "train", cfg.batch_size, train=True,
-        seed=cfg.seed, image_size=cfg.image_size,
-        resize=imagenet_resize_for(cfg.image_size),
-        num_workers=args.num_workers, device_normalize=dev_norm,
-        preprocessing=preprocessing)
+    common = dict(train=True, seed=cfg.seed, image_size=cfg.image_size,
+                  resize=imagenet_resize_for(cfg.image_size),
+                  num_workers=args.num_workers, device_normalize=dev_norm,
+                  preprocessing=preprocessing)
+    if args.data_format == "records":
+        train_loader = ImageNetLoader.from_records(
+            args.data_root, "train", cfg.batch_size, **common)
+    else:  # <root>/train/, <root>/val/, <root>/imagenet_2012_metadata.txt
+        train_loader = ImageNetLoader(
+            os.path.join(args.data_root, "train"),
+            os.path.join(args.data_root, METADATA), cfg.batch_size,
+            **common)
     loaders.append(train_loader)
     val_loader, _ = build_classification_val_loader(
         cfg, args.data_root, "val", cfg.eval_batch_size,
         num_workers=args.num_workers, preprocessing=preprocessing,
-        device_normalize=dev_norm)
+        device_normalize=dev_norm, data_format=args.data_format)
     loaders.append(val_loader)
     return task, train_loader, val_loader, \
         make_imagenet_preprocess() if dev_norm else None

@@ -1,27 +1,32 @@
 """dvrec: the packed record format, byte for byte the reference's.
 
-Copy of the format half of ``deep_vision_tpu/data/records.py``:
+Copy of ``deep_vision_tpu/data/records.py``:
 
     shard = repeat[u32 header_len | header JSON | u32 payload_len | payload]
 
 - header: JSON metadata (``label``; raw-store records add ``"enc": "raw"``
   and ``"shape": [H, W, C]``);
-- payload: raw bytes (uint8 HWC pixels for the raw store);
+- payload: the encoded image (the JPEG store, the default) or its HWC
+  uint8 pixels (the raw store);
 - shards are named ``{split}-{i:05d}-of-{n:05d}.dvrec``.
 
 Detection records (``encode_detection_sample``,
-``write_detection_records``, ``load_detection_records``) are the
-reference's raw store: header ``{"boxes", "classes", "shape", "enc":
-"raw"}``, the image's HWC uint8 bytes at 416² by default.  Pose records
+``write_detection_records``, ``load_detection_records``) hold a header
+``{"boxes", "classes"}`` and, in the raw store, the image square-resized
+to 416² by default with ``"shape"`` and ``"enc": "raw"``.  Pose records
 (``encode_pose_sample``, ``write_pose_records``, ``load_pose_records``)
-are too: header ``{"keypoints", "center", "scale", "shape", "enc":
-"raw"}``, the image with its shorter side at 384 by default.
+hold ``{"keypoints", "center", "scale"}`` and, in the raw store, the
+image with its shorter side at 384 by default.  Writing and reading the
+JPEG store, and the raw store's resize where one is needed, take PIL or
+cv2 (``data/transforms.resize_bilinear``); a machine with neither
+writes and reads the raw store at the stored size only.
 """
 
 from __future__ import annotations
 
 import functools
 import glob
+import io
 import json
 import os
 import struct
@@ -119,52 +124,87 @@ def write_sharded(items: Sequence, out_dir: str, split: str,
 
 
 # ---------------------------------------------------------------------------
-# Detection records (raw payloads)
+# Detection records
 # ---------------------------------------------------------------------------
 
 
-def encode_detection_sample(sample: dict, resize: int = 416
-                            ) -> tuple[dict, bytes]:
-    """``{"image": HWC uint8, "boxes": (N, 4) normalized corners,
-    "classes": (N,)}`` → a raw-store record: header ``{"boxes",
-    "classes", "shape", "enc": "raw"}`` and the image's uint8 HWC bytes,
-    square-resized to ``resize``² (boxes are normalized, so the square
-    resize changes no label), as the reference's
-    ``encode_detection_sample(store="raw")`` writes them.  The resize,
-    where one is needed, is bilinear through torch
-    (``data/transforms.resize_square_u8``)."""
-    from deep_vision_tpu_torch.data.transforms import resize_square_u8
+def require_pil(what: str):
+    """``PIL.Image``, or an ImportError that names PIL and ``what``."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"{what} needs PIL (Pillow), which is not installed; write "
+            f"and read raw-store records (prepare_data --store raw) at the "
+            f"loader's size instead") from e
+    return Image
 
+
+def _decode_for_raw(sample: dict) -> np.ndarray | None:
+    """The sample's pixels as HWC uint8, ``image_bytes`` decoded once
+    (``data/prep.decode_image_robust``); None drops an undecodable item."""
+    if "image_bytes" not in sample:
+        return np.asarray(sample["image"], np.uint8)
+    from deep_vision_tpu_torch.data.prep import decode_image_robust
+
+    return decode_image_robust(sample["image_bytes"])
+
+
+def _jpeg_payload(sample: dict) -> bytes:
+    """The JPEG store's payload: ``image_bytes`` as given, or the decoded
+    ``image`` encoded at quality 95."""
+    if "image_bytes" in sample:
+        return sample["image_bytes"]
+    Image = require_pil("encoding an image for the JPEG store")
+    buf = io.BytesIO()
+    Image.fromarray(sample["image"]).save(buf, format="JPEG", quality=95)
+    return buf.getvalue()
+
+
+def encode_detection_sample(sample: dict, store: str = "jpeg",
+                            resize: int = 416) -> tuple[dict, bytes] | None:
+    """``{"image": HWC uint8 | "image_bytes": JPEG, "boxes": (N, 4)
+    normalized corners, "classes": (N,)}`` → ``(header, payload)``.
+
+    ``store="raw"`` decodes once, square-resizes to ``resize``² (boxes
+    are normalized, so the square resize changes no label) and stores
+    the uint8 HWC bytes with ``"shape"`` and ``"enc": "raw"``; an
+    undecodable ``image_bytes`` gives None (the writer drops it).
+    ``store="jpeg"`` stores the encoded image."""
     header = {
         "boxes": np.asarray(sample["boxes"], np.float32).reshape(
             -1, 4).tolist(),
         "classes": np.asarray(sample["classes"], np.int64).reshape(
             -1).tolist(),
     }
-    img = np.ascontiguousarray(resize_square_u8(
-        np.asarray(sample["image"], np.uint8), resize))
-    header["shape"] = list(img.shape)
-    header["enc"] = "raw"
-    return header, img.tobytes()
+    if store == "raw":
+        from deep_vision_tpu_torch.data.transforms import resize_bilinear
+
+        img = _decode_for_raw(sample)
+        if img is None:
+            return None
+        img = np.ascontiguousarray(resize_bilinear(img, resize, resize))
+        header["shape"] = list(img.shape)
+        header["enc"] = "raw"
+        return header, img.tobytes()
+    return header, _jpeg_payload(sample)
 
 
 def write_detection_records(samples: Sequence[dict], out_dir: str,
                             split: str, num_shards: int = 8,
-                            num_workers: int = 8, store: str = "raw",
+                            num_workers: int = 8, store: str = "jpeg",
                             resize: int = 416):
-    """Detection samples → ``num_shards`` raw-payload dvrec shards.  The
-    JPEG store needs an encoder the port does not have."""
-    if store != "raw":
-        raise NotImplementedError(
-            f"store '{store}': the port writes raw-payload records only")
-    encode = functools.partial(encode_detection_sample, resize=resize)
+    """Detection samples → ``num_shards`` dvrec shards."""
+    encode = functools.partial(encode_detection_sample, store=store,
+                               resize=resize)
     return write_sharded(samples, out_dir, split, num_shards, encode,
                          num_workers)
 
 
 class LazyRecordSample(dict):
-    """A raw-store record as a dict whose ``"image"`` is read on access
-    with one positioned read; the labels come from the header
+    """A record as a dict whose ``"image"`` is read on access with one
+    positioned read: raw-store payloads come back with ``frombuffer``,
+    JPEG payloads are decoded with PIL.  The labels come from the header
     (``_parse``), and the sample keeps only (shard, offset, length), so
     it pickles to loader workers in a few hundred bytes.
     ``cache_decoded`` keeps the image after the first read (for a small,
@@ -172,14 +212,10 @@ class LazyRecordSample(dict):
 
     def __init__(self, header: dict, src: tuple, cache_decoded: bool):
         super().__init__()
-        if header.get("enc") != "raw":
-            path, off, _ = src
-            raise ValueError(
-                f"{path}@{off}: a JPEG payload; the port reads "
-                f"raw-payload records (store='raw') and has no decoder")
         self._src = src
         self._cache = cache_decoded
-        self._shape = tuple(header["shape"])
+        self._shape = (tuple(header["shape"])
+                       if header.get("enc") == "raw" else None)
         self._parse(header)
 
     def _parse(self, header: dict):
@@ -193,7 +229,12 @@ class LazyRecordSample(dict):
                 payload = os.pread(fd, plen, off)
             finally:
                 os.close(fd)
-            img = np.frombuffer(payload, np.uint8).reshape(self._shape)
+            if self._shape is not None:
+                img = np.frombuffer(payload, np.uint8).reshape(self._shape)
+            else:  # RGB whatever the encoding's mode (alpha, CMYK, gray)
+                Image = require_pil("decoding a JPEG payload")
+                with Image.open(io.BytesIO(payload)) as im:
+                    img = np.asarray(im.convert("RGB"))
             if self._cache:
                 dict.__setitem__(self, "image", img)
             return img
@@ -229,55 +270,59 @@ def load_detection_records(root: str, split: str,
 
 
 # ---------------------------------------------------------------------------
-# Pose records (raw payloads; the MPII layout: keypoints, center, scale)
+# Pose records (the MPII layout: keypoints, center, scale)
 # ---------------------------------------------------------------------------
 
 
-def encode_pose_sample(sample: dict, store: str = "raw", resize: int = 384
-                       ) -> tuple[dict, bytes]:
-    """``{"image": HWC uint8, "keypoints": (K, 3) [x_px, y_px, vis],
-    "center"?: (2,), "scale"?: float}`` → a raw-store record, as the
-    reference's ``encode_pose_sample(store="raw")`` writes it: the image
-    rescaled so its shorter side is ``resize`` (bilinear through torch,
-    ``data/transforms.rescale_u8``), and the labels, which are in PIXEL
-    coordinates, rescaled with it: keypoint x and the center's x by the
-    width's factor, y by the height's (the longer side rounds, so one
-    shared factor would drift keypoints by up to a pixel), and the MPII
-    person scale (·200 = the body's height in pixels) by the height's.
-    The JPEG store needs an encoder, and reading it a decoder, that the
-    card machine does not have: it is refused."""
-    if store != "raw":
-        raise NotImplementedError(
-            f"store '{store}': the port writes raw-payload records only")
-    if "image" not in sample:
-        raise ValueError("a pose sample for the raw store needs its "
-                         "decoded 'image' (the port has no decoder for "
-                         "'image_bytes')")
-    from deep_vision_tpu_torch.data.transforms import rescale_u8
+def encode_pose_sample(sample: dict, store: str = "jpeg", resize: int = 384
+                       ) -> tuple[dict, bytes] | None:
+    """``{"image": HWC uint8 | "image_bytes": JPEG, "keypoints": (K, 3)
+    [x_px, y_px, vis], "center"?: (2,), "scale"?: float}`` →
+    ``(header, payload)``.
 
+    ``store="raw"`` decodes once and rescales the image so its shorter
+    side is ``resize`` (``data/transforms.rescale``); the labels are in
+    PIXEL coordinates and rescale with it: keypoint x and the center's x
+    by the width's factor, y by the height's (the longer side rounds, so
+    one shared factor would drift keypoints by up to a pixel), and the
+    MPII person scale (·200 = the body's height in pixels) by the
+    height's.  ``store="jpeg"`` stores the encoded image and the labels
+    as given."""
     kp = np.asarray(sample["keypoints"], np.float32).reshape(-1, 3)
     center = np.asarray(sample.get("center", (0, 0)), np.float32)
     scale = float(sample.get("scale", 1.0))
-    img = np.asarray(sample["image"], np.uint8)
-    h, w = img.shape[:2]
-    img = np.ascontiguousarray(rescale_u8(img, resize))
-    fy, fx = img.shape[0] / h, img.shape[1] / w
-    kp = np.concatenate([kp[:, 0:1] * fx, kp[:, 1:2] * fy, kp[:, 2:3]],
-                        axis=1)
+    if store == "raw":
+        from deep_vision_tpu_torch.data.transforms import rescale
+
+        img = _decode_for_raw(sample)
+        if img is None:
+            return None
+        h, w = img.shape[:2]
+        img = np.ascontiguousarray(rescale(img, resize))
+        fy, fx = img.shape[0] / h, img.shape[1] / w
+        kp = np.concatenate([kp[:, 0:1] * fx, kp[:, 1:2] * fy,
+                             kp[:, 2:3]], axis=1)
+        header = {
+            "keypoints": kp.tolist(),
+            "center": [float(center[0]) * fx, float(center[1]) * fy],
+            "scale": scale * fy,
+            "shape": list(img.shape),
+            "enc": "raw",
+        }
+        return header, img.tobytes()
+    payload = _jpeg_payload(sample)
     header = {
         "keypoints": kp.tolist(),
-        "center": [float(center[0]) * fx, float(center[1]) * fy],
-        "scale": scale * fy,
-        "shape": list(img.shape),
-        "enc": "raw",
+        "center": center.tolist(),
+        "scale": scale,
     }
-    return header, img.tobytes()
+    return header, payload
 
 
 def write_pose_records(samples: Sequence[dict], out_dir: str, split: str,
                        num_shards: int = 8, num_workers: int = 8,
-                       store: str = "raw", resize: int = 384):
-    """Pose samples → ``num_shards`` raw-payload dvrec shards."""
+                       store: str = "jpeg", resize: int = 384):
+    """Pose samples → ``num_shards`` dvrec shards."""
     encode = functools.partial(encode_pose_sample, store=store,
                                resize=resize)
     return write_sharded(samples, out_dir, split, num_shards, encode,

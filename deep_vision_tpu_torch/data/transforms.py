@@ -9,8 +9,10 @@ Copies of ``deep_vision_tpu/data/transforms.py``'s uint8 half
 ``--host-normalize`` wire and the float32 serving wire's ``image_b64``
 decode) and of the TF "ResNet preprocessing" variant
 (``tf_train_transform``, ``tf_eval_transform``, ``TF_CHANNEL_MEANS``),
-and the torch bilinear resizes that detection and pose use on every
-machine (``resize_u8``, ``resize_square_u8``, ``rescale_u8``).  All
+and the torch bilinear resizes that the detection and pose loaders use
+on every machine (``resize_u8``, ``resize_square_u8``); the record
+writers resize through ``resize_bilinear`` and ``rescale`` (cv2, else
+PIL), as the reference's do.  All
 functions take HWC numpy arrays on the host; randomness comes from an
 explicit ``np.random.Generator`` with the reference's draw order (flip,
 then crop top, then crop left, then the jitter's three factors and
@@ -214,10 +216,3 @@ def resize_u8(img: np.ndarray, h: int, w: int) -> np.ndarray:
 def resize_square_u8(img: np.ndarray, size: int) -> np.ndarray:
     """:func:`resize_u8` to ``size``×``size``."""
     return resize_u8(img, size, size)
-
-
-def rescale_u8(img: np.ndarray, size: int) -> np.ndarray:
-    """:func:`rescale` through :func:`resize_u8`: the shorter side at
-    ``size``, on every machine."""
-    nh, nw = rescaled_hw(*img.shape[:2], size)
-    return resize_u8(img, nh, nw)

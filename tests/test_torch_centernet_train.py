@@ -237,9 +237,11 @@ def test_cli_train_centernet_toy_on_cpu_with_resume(tmp_path, capsys):
 
     data, work = str(tmp_path / "data"), tmp_path / "work"
     port_records.write_detection_records(_scenes(16, seed=8), data, "train",
-                                         2, num_workers=1, resize=SIZE)
+                                         2, num_workers=1, store="raw",
+                                         resize=SIZE)
     port_records.write_detection_records(_scenes(6, seed=9), data, "val", 1,
-                                         num_workers=1, resize=SIZE)
+                                         num_workers=1, store="raw",
+                                         resize=SIZE)
     argv = ["-m", "centernet_toy", "--data-root", data, "--workdir",
             str(work), "--num-workers", "2", "--device", "cpu"]
     assert cli.main(argv + ["--epochs", "1"]) == 0

@@ -117,7 +117,8 @@ def test_detection_records_shared_with_reference(tmp_path):
     samples = _samples(7, seed=6)
     mine, ref = str(tmp_path / "mine"), str(tmp_path / "ref")
     port_records.write_detection_records(samples, mine, "train", 2,
-                                         num_workers=1, resize=SIZE)
+                                         num_workers=1, store="raw",
+                                         resize=SIZE)
     jax_records.write_detection_records(samples, ref, "train", 2,
                                         num_workers=1, store="raw",
                                         resize=SIZE)
@@ -134,15 +135,20 @@ def test_detection_records_shared_with_reference(tmp_path):
                 np.testing.assert_array_equal(g[k], w[k])
     # a 100×80 image is square-resized on write, as the reference does
     big = dict(samples[0], image=np.zeros((100, 80, 3), np.uint8))
-    header, payload = port_records.encode_detection_sample(big, resize=SIZE)
+    header, payload = port_records.encode_detection_sample(
+        big, store="raw", resize=SIZE)
     assert header["shape"] == [SIZE, SIZE, 3] and header["enc"] == "raw"
     assert len(payload) == SIZE * SIZE * 3
-    # JPEG payloads are refused, not decoded
+    # JPEG payloads decode as the reference decodes them
     jpeg = str(tmp_path / "jpeg")
     jax_records.write_detection_records(samples[:2], jpeg, "val", 1,
                                         num_workers=1, store="jpeg")
-    with pytest.raises(ValueError, match="JPEG payload"):
-        port_records.load_detection_records(jpeg, "val")
+    got = port_records.load_detection_records(jpeg, "val")
+    want = jax_records.load_detection_records(jpeg, "val")
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for k in ("image", "boxes", "classes"):
+            np.testing.assert_array_equal(g[k], w[k])
 
 
 # -- clip + Adam against optax -------------------------------------------------
@@ -277,9 +283,10 @@ def test_cli_train_yolov3_toy_on_cpu_with_resume(tmp_path, capsys):
     data, work = str(tmp_path / "data"), tmp_path / "work"
     port_records.write_detection_records(_samples(16, seed=8), data,
                                          "train", 2, num_workers=1,
-                                         resize=SIZE)
+                                         store="raw", resize=SIZE)
     port_records.write_detection_records(_samples(6, seed=9), data, "val",
-                                         1, num_workers=1, resize=SIZE)
+                                         1, num_workers=1, store="raw",
+                                         resize=SIZE)
     argv = ["-m", "yolov3_toy", "--data-root", data, "--workdir",
             str(work), "--num-workers", "0", "--device", "cpu"]
     assert cli.main(argv + ["--epochs", "1"]) == 0

@@ -114,13 +114,14 @@ def test_records_loader_refuses_what_the_reference_refuses(tmp_path):
     _write_records(tmp_path)
     ds = port_imagenet.ImageNetRecords(str(tmp_path), "train")
     with pytest.raises(ValueError, match="preprocessing must be torch|tf"):
-        port_imagenet.ImageNetLoader(ds, 4, preprocessing="keras",
-                                     num_workers=0)
+        port_imagenet.ImageNetLoader(None, None, 4, dataset=ds,
+                                     preprocessing="keras", num_workers=0)
     with pytest.raises(ValueError, match="host-side only"):
-        port_imagenet.ImageNetLoader(ds, 4, preprocessing="tf",
+        port_imagenet.ImageNetLoader(None, None, 4, dataset=ds,
+                                     preprocessing="tf",
                                      device_normalize=True, num_workers=0)
-    assert port_imagenet.ImageNetLoader(ds, 4, num_workers=0).wire_dtype \
-        == np.uint8
+    assert port_imagenet.ImageNetLoader(
+        None, None, 4, dataset=ds, num_workers=0).wire_dtype == np.uint8
 
 
 def test_mnist_host_normalized_equals_reference(tmp_path):
@@ -225,7 +226,8 @@ def test_cli_train_host_pipelines_never_call_train_ingest(tmp_path, capsys,
     monkeypatch.setattr(preprocess, "train_ingest", spy)
     data, work = tmp_path / "data", tmp_path / "work"
     _write_records(data, n_train=8, n_val=6)
-    argv = ["-m", "torch_port_host_tiny", "--data-root", str(data),
+    argv = ["-m", "torch_port_host_tiny", "--data-format", "records",
+            "--data-root", str(data),
             "--workdir", str(work), "--num-workers", "0", "--device", "cpu"]
     argv += [flag] if flag else []
     assert cli.main(argv + ["--epochs", "1"]) == 0
@@ -254,8 +256,8 @@ def test_cli_train_refuses_both_host_pipelines(tmp_path):
     _register_tiny()
     _write_records(tmp_path)
     with pytest.raises(SystemExit, match="contradictory pipelines"):
-        cli.main(["-m", "torch_port_host_tiny", "--data-root",
-                  str(tmp_path), "--host-normalize", "--tf-preprocessing",
+        cli.main(["-m", "torch_port_host_tiny", "--data-format", "records",
+                  "--data-root", str(tmp_path), "--host-normalize", "--tf-preprocessing",
                   "--num-workers", "0", "--workdir", str(tmp_path / "w"),
                   "--device", "cpu"])
 

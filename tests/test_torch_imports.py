@@ -40,7 +40,7 @@ def test_every_module_imports_with_jax_blocked():
                 "serve.edge", "serve.gateway", "cli.gateway", "serve.jobs",
                 "serve.batch_sched", "core.step_graph", "models.pretrained",
                 "core.tboard", "core.upload", "core.export", "cli.infer",
-                "viz"):
+                "viz", "data.prep", "data.native", "cli.prepare_data"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"

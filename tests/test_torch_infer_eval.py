@@ -102,7 +102,8 @@ def test_eval_detection_equals_reference(tmp_path, monkeypatch):
     data = tmp_path / "det"
     with RecordWriter(shard_name(str(data), "val", 0, 1)) as w:
         for scene in synthetic_detection_dataset(10, 64, 3, seed=5):
-            w.write(*encode_detection_sample(scene, 64))
+            w.write(*encode_detection_sample(scene, store="raw",
+                                             resize=64))
     ref, got = _both_evals(monkeypatch, [
         "eval", "-m", "yolov3_toy", "--workdir", wd, "--data-root",
         str(data), "--batch-size", "8"])
@@ -124,7 +125,8 @@ def test_eval_pose_equals_reference(tmp_path, monkeypatch):
     with RecordWriter(shard_name(str(data), "val", 0, 1)) as w:
         for pose in synthetic_pose_dataset(10, 64, 8, seed=6):
             # a crop past every edge: at the input size, so no resize
-            w.write(*encode_pose_sample(dict(pose, scale=10.0), resize=64))
+            w.write(*encode_pose_sample(dict(pose, scale=10.0),
+                                        store="raw", resize=64))
     ref, got = _both_evals(monkeypatch, [
         "eval", "-m", "hourglass_toy", "--workdir", wd, "--data-root",
         str(data), "--batch-size", "8"])

@@ -366,21 +366,16 @@ def test_raw_pose_records_match_reference(tmp_path):
                                                  shape[0] / SIZE, 1.0])
                 for s, shape in zip(_poses(2, seed=8),
                                     ((101, 77, 3), (90, 131, 3)))]
-    for i, sample in enumerate(at_size + rescaled):
+    for sample in at_size + rescaled:
         gh, gp = port_records.encode_pose_sample(sample, "raw", SIZE)
         wh, wp = jax_records.encode_pose_sample(sample, "raw", SIZE)
         assert json.dumps(gh) == json.dumps(wh)
         assert gh["enc"] == "raw" and min(gh["shape"][:2]) == SIZE
-        g = np.frombuffer(gp, np.uint8).astype(int)
-        w = np.frombuffer(wp, np.uint8).astype(int)
-        assert g.shape == w.shape
-        if i < len(at_size):
-            assert gp == wp
-        else:
-            assert np.abs(g - w).max() <= 1
+        # both rescale through cv2 (else PIL): byte for byte
+        assert gp == wp
     mine, ref = str(tmp_path / "mine"), str(tmp_path / "ref")
     port_records.write_pose_records(at_size, mine, "train", 2,
-                                    num_workers=1, resize=SIZE)
+                                    num_workers=1, store="raw", resize=SIZE)
     jax_records.write_pose_records(at_size, ref, "train", 2, num_workers=1,
                                    store="raw", resize=SIZE)
     for a, b in zip(port_records.list_shards(mine, "train"),
@@ -394,14 +389,20 @@ def test_raw_pose_records_match_reference(tmp_path):
         for k in ("image", "keypoints", "center"):
             np.testing.assert_array_equal(g[k], w[k])
         assert g["scale"] == w["scale"]
-    with pytest.raises(NotImplementedError, match="raw"):
-        port_records.write_pose_records(at_size, mine, "val", 1,
-                                        num_workers=1, store="jpeg")
-    jpeg = str(tmp_path / "jpeg")
+    # the JPEG store: written and decoded as the reference does
+    mine, jpeg = str(tmp_path / "mine_jpeg"), str(tmp_path / "jpeg")
+    port_records.write_pose_records(at_size[:2], mine, "val", 1,
+                                    num_workers=1, store="jpeg")
     jax_records.write_pose_records(at_size[:2], jpeg, "val", 1,
                                    num_workers=1, store="jpeg")
-    with pytest.raises(ValueError, match="JPEG payload"):
-        port_records.load_pose_records(jpeg, "val")
+    (a,), (b,) = (port_records.list_shards(r, "val") for r in (mine, jpeg))
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+    got = port_records.load_pose_records(jpeg, "val")
+    want = jax_records.load_pose_records(jpeg, "val")
+    for g, w in zip(got, want):
+        for k in ("image", "keypoints", "center"):
+            np.testing.assert_array_equal(g[k], w[k])
 
 
 # -- cli.train and the profiler on the CPU -------------------------------------

@@ -657,7 +657,8 @@ def test_cli_train_on_cpu_with_records_shared_with_jax(tmp_path, capsys):
             optimizer=port_optim.OptimizerConfig(learning_rate=0.01,
                                                  momentum=0.9,
                                                  weight_decay=1e-4)))
-    argv = ["-m", "torch_port_train_tiny", "--data-root", str(data),
+    argv = ["-m", "torch_port_train_tiny", "--data-format", "records",
+            "--data-root", str(data),
             "--workdir", str(work), "--num-workers", "0", "--device", "cpu"]
     assert cli.main(argv + ["--epochs", "1"]) == 0
     assert cli.main(argv + ["--epochs", "2", "--resume"]) == 0
