@@ -110,17 +110,17 @@ Phases, each of which must pass:
               row; no single PyTorch call computes this function, so
               there is no library time;
 8. yolo training — write seeded raw-payload detection shards (train 258,
-              val 128 synthetic scenes stored at 416×416×3, boxes from 80
+              val 64 synthetic scenes stored at 416×416×3, boxes from 80
               classes) and call ``cli/train.py``'s ``main`` for
               ``yolov3_coco`` at full width (Darknet-53, 416², 80 classes,
-              bf16, batch 128, Adam with clipping) for 2 epochs, then
-              with ``--resume --epochs 3``.  ``best_iou_max`` must launch
+              bf16, batch 128, Adam with clipping) for 1 epoch, then
+              with ``--resume --epochs 2``.  ``best_iou_max`` must launch
               3 times per train step and per eval batch, every logged
               loss be finite, ``bad_steps`` stay 0, the ignore mask hide
               a non-zero share of predictions in a logged step, the
               val mAP be finite (the records are noise to a random model:
               its value is no accuracy measurement), a checkpoint exist
-              per epoch, and the resumed run start at epoch 3, step 4,
+              per epoch, and the resumed run start at epoch 2, step 2,
               with the saved weights and Adam state.  Prints step ms
               (CUDA events), img/s, input stall, peak memory and mAP;
 9. yolo step check — one float32 forward + backward (TF32 off) of
@@ -160,13 +160,13 @@ Phases, each of which must pass:
               400.  Prints per bucket the forward and the epilogue ms
               apart, the client p50 and the concurrent img/s;
 11. centernet training — write seeded raw-payload detection shards
-              (train 96, val 64 synthetic scenes stored at 256×256×3,
+              (train 66, val 32 synthetic scenes stored at 256×256×3,
               boxes from 80 classes) and call ``cli/train.py``'s ``main``
               for ``centernet`` at full width (2 stacks of the order-5
               hourglass, 256² → 64², 80 classes, bf16, batch 32, Adam)
-              with 6 loader workers for 2 epochs, then with ``--resume
-              --epochs 3``: every logged loss finite, ``bad_steps`` 0, a
-              checkpoint per epoch, the resumed run at epoch 3, step 6,
+              with 6 loader workers for 1 epoch, then with ``--resume
+              --epochs 2``: every logged loss finite, ``bad_steps`` 0, a
+              checkpoint per epoch, the resumed run at epoch 2, step 2,
               with the saved weights, BN statistics and Adam state, the
               val loss and mAP finite (the mAP is noise on these scenes).
               Prints step ms (CUDA events), img/s, input stall, peak
@@ -184,7 +184,7 @@ Phases, each of which must pass:
 13. hourglass training and 14. step check — the same two phases for
               ``hourglass104`` (4 stacks of the order-4 hourglass at 256
               filters, 16 heatmaps, 256² → 64², bf16, batch 32, Adam) on
-              seeded raw pose shards (train 96, val 64 synthetic poses
+              seeded raw pose shards (train 66, val 32 synthetic poses
               stored at 256×256×3; the loader crops around the keypoints
               and resizes), the val loss finite;
 15. pose serving — seeded ``hourglass104`` weights through
@@ -220,9 +220,9 @@ Phases, each of which must pass:
               weights finite: ``ZOO_DIVERGING``), one launch a step; step
               ms (CUDA events), img/s, peak memory;
 18. zoo training — ``cli.train`` for inception3 (299², batch 128,
-              RMSprop) on 512 train and 128 val seeded raw records stored
+              RMSprop) on 256 train and 128 val seeded raw records stored
               at 341², 6 workers, and for lenet5 on seeded idx-ubyte files
-              at MNIST's size (60,000 + 10,000), each 2 epochs and a
+              (20,000 + 10,000 images), each 2 epochs and a
               resumed third: a checkpoint an epoch, the resumed run
               starting from the last with its weights, BN statistics and
               optimizer state (RMSprop's nu and trace, Adam's moments and
@@ -352,6 +352,34 @@ Phases, each of which must pass:
               only: the checkpoint's load seconds, step ms and input
               stall of each pipeline, export seconds and archive bytes,
               the exported and the eager forward's ms at batch 1;
+24b. data parallel — ``parallel/`` on the card.  (a) Two processes
+              (``chip_smoke.py --dp-rank``) join a gloo group, both on
+              ``cuda:0`` (NCCL refuses two ranks on one device; gloo
+              runs ``all_reduce`` and ``broadcast`` on CUDA tensors):
+              one float32 guarded step of full-width ResNet-50 from the
+              step check's start on the rows of a global batch of 256
+              (128 a rank, deterministic algorithms) against this
+              process's step on all 256: loss within 1e-4, running
+              statistics within 1e-4 in L2, parameter updates within
+              1e-3 in L2 and 5e-2 a tensor, each of the last two raised
+              to twice this process's own floor (the step from weights
+              moved by 1e-7) where that is higher; both ranks' weights
+              bit-identical; the control, the ranks with rank-local
+              BatchNorm statistics, fails those bounds.  Then
+              ``Trainer.fit`` at the recipe's rank batch on each rank's
+              shard of the training records (1024 + 256, 512 + 128 a
+              rank): ``train_ingest`` launches = a rank's steps, the
+              eval and the weights equal on both ranks, the checkpoints
+              written by rank 0 alone, a fresh trainer's resume equal
+              bit for bit to the saved state; ``yolov3_coco`` at 416²,
+              a rank batch of 64, 2 steps: ``best_iou_max`` 3 a step a
+              rank, the ranks' weights equal.  A 102 MB all-reduce is
+              timed.  (b) Beside them, ``python -m torch.distributed.run
+              --standalone --nproc-per-node 1`` runs ``cli.train -m
+              resnet50 --mesh data=1 --scan-steps 2`` for an epoch (4
+              steps) and its ``--resume``: the backend ``nccl``,
+              ``train_ingest`` = steps, the losses within 1e-4 of the
+              training phase's run with no mesh at the steps both log;
 
 25. faults — ResNet-50 int8 on the uint8 wire through ``cli/serve.py``
               with ``--workdir`` (a port checkpoint of seeded weights,
@@ -636,10 +664,11 @@ ZOO_STEPS = 3
 #: skip exactly the non-finite steps and leave the weights finite.
 ZOO_DIVERGING = ("inception1",)
 #: inception3 through cli.train: seeded raw records stored at its
-#: resize (341²), 4 train steps an epoch at batch 128, one val batch
-ZOO_TRAIN, ZOO_VAL, ZOO_WORKERS = 512, 128, 6
-#: lenet5 through cli.train on MNIST's own sizes
-MNIST_TRAIN, MNIST_TEST = 60000, 10000
+#: resize (341²), 2 train steps an epoch at batch 128, one val batch
+ZOO_TRAIN, ZOO_VAL, ZOO_WORKERS = 256, 128, 6
+#: lenet5 through cli.train on a third of MNIST's train split and its
+#: test split's size
+MNIST_TRAIN, MNIST_TEST = 20000, 10000
 #: the card-vs-CPU float32 steps: size, batch
 ZOO_CHECK_MODELS = ("mobilenet1", "inception1")
 ZOO_CHECK_SIZE, ZOO_CHECK_BATCH = 128, 8
@@ -669,17 +698,20 @@ IOU_MICRO_SHAPE = (64, 8112, 100)
 IOU_OPS_PER_PAIR, IOU_OPS_MASK, IOU_OPS_AREA = 15, 1, 5
 #: the YOLOv3 run: yolov3_coco at full width (416², 80 classes, batch 128,
 #: bf16, Adam) on seeded synthetic records (three shards of 86 scenes),
-#: 2 train steps an epoch and one val batch; the card-vs-CPU step at 128²
-#: (grids 16, 8, 4)
-YOLO_TRAIN, YOLO_VAL, YOLO_SIZE, YOLO_BATCH = 258, 128, 416, 128
+#: 2 train steps an epoch and one val batch (64 scenes, padded); the
+#: card-vs-CPU step at 128² (grids 16, 8, 4)
+YOLO_TRAIN, YOLO_VAL, YOLO_SIZE, YOLO_BATCH = 258, 64, 416, 128
 YOLO_CLASSES, YOLO_WORKERS, YOLO_CHECK_SIZE = 80, 6, 128
 #: CenterNet and Stacked Hourglass-104 training at full width (256², 80
 #: classes or 16 keypoints, bf16, batch 32, Adam) on seeded raw records
-#: stored at 256² (three train shards of 32): 3 train steps an epoch and
-#: 2 val batches; their
+#: stored at 256² (three train shards of 22): 2 train steps an epoch and
+#: 1 val batch; their
 #: card-vs-CPU float32 steps on 2 images at 128²
-HEAT_TRAIN, HEAT_VAL, HEAT_SIZE, HEAT_BATCH = 96, 64, 256, 32
+HEAT_TRAIN, HEAT_VAL, HEAT_SIZE, HEAT_BATCH = 66, 32, 256, 32
 HEAT_WORKERS, HEAT_CHECK_SIZE, HEAT_CHECK_BATCH = 6, 128, 8
+#: the YOLOv3 and heatmap runs through cli.train: an epoch, then a
+#: resumed second (the other runs: EPOCHS and a resumed RESUME_EPOCHS)
+DETECT_EPOCHS = (1, 2)
 #: the biases of the convs whose output goes straight into a training
 #: BatchNorm (each bottleneck's conv1/conv2, the stem conv, a stack's
 #: conv or linear layer): the normalization removes any per-channel
@@ -835,7 +867,7 @@ BATCH_FLAGS = ["--batch-cache-shards", "1", "--brownout",
 #: also with --grad-accum 2 --ema-decay 0.9); (b) resnet50 through
 #: cli.train on the training phase's records (2 epochs and a resumed
 #: third, 4 steps each) with --scan-steps 4 --ema-decay 0.9999; (c)
-#: yolov3_coco with --grad-accum 2 for one epoch on 258 + 128 records (2
+#: yolov3_coco with --grad-accum 2 for one epoch on 258 + 64 records (2
 #: steps: three shards of 86; one val batch); (d) lenet5 with SGD
 #: nesterov and a bfloat16 momentum, 3 steps on the card and on the CPU
 RECIPE_STEPS, RECIPE_SCAN = 16, 8
@@ -847,7 +879,7 @@ RECIPE_TOY_TASKS = (
     ("yolov3_toy", RECIPE_TOY_ACCUM))
 RECIPE_TOY_STEPS = 8
 RECIPE_R50_SCAN, RECIPE_EMA = 4, 0.9999
-RECIPE_YOLO_TRAIN, RECIPE_YOLO_VAL, RECIPE_ACCUM = 258, 128, 2
+RECIPE_YOLO_TRAIN, RECIPE_YOLO_VAL, RECIPE_ACCUM = 258, 64, 2
 RECIPE_NESTEROV_STEPS = 3
 
 
@@ -2550,10 +2582,11 @@ def read_series(workdir: str) -> dict[str, list]:
 
 
 def train_and_resume(name: str, data: str, work: str, workers: int,
-                     steps: int, counter=None, extra=()) -> dict:
+                     steps: int, counter=None, extra=(),
+                     epochs: tuple = (EPOCHS, RESUME_EPOCHS)) -> dict:
     """``cli.train.main`` for ``name`` on the card over the records in
-    ``data``: ``EPOCHS`` epochs, then ``--resume --epochs
-    RESUME_EPOCHS``.  Checks a checkpoint per epoch, that the resumed
+    ``data``: ``epochs[0]`` epochs (default ``EPOCHS``), then ``--resume
+    --epochs epochs[1]`` (``RESUME_EPOCHS``).  Checks a checkpoint per epoch, that the resumed
     run starts from the last one with its weights, BN statistics and
     Adam state (one digest over all of them), every logged loss finite
     and no bad step (an optimizer without a count, SGD or RMSprop, is
@@ -2566,18 +2599,19 @@ def train_and_resume(name: str, data: str, work: str, workers: int,
     from deep_vision_tpu_torch.core.checkpoint import Checkpointer
     from deep_vision_tpu_torch.core.trainer import Trainer
 
+    first_epochs, last_epochs = epochs
     argv = ["-m", name, "--data-root", data, "--workdir", work,
             "--num-workers", str(workers), "--device", "cuda", *extra]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    check(cli.main(argv + ["--epochs", str(EPOCHS)]) == 0,
+    check(cli.main(argv + ["--epochs", str(first_epochs)]) == 0,
           f"cli.train -m {name} failed")
     first_s = time.monotonic() - t0
     first = counter() if counter else None
     ckpts = Checkpointer(os.path.join(work, "checkpoints"))
-    check(ckpts.all_steps() == [steps * e for e in range(1, EPOCHS + 1)],
+    check(ckpts.all_steps() == [steps * e for e in range(1, first_epochs + 1)],
           f"{name}: checkpoints {ckpts.all_steps()}, not one per epoch")
-    saved = ckpts.load(EPOCHS * steps)["state"]
+    saved = ckpts.load(first_epochs * steps)["state"]
     want_digest = state_digest(saved["model"], saved["optimizer"])
     resumed = {}
     original = Trainer.maybe_resume
@@ -2586,7 +2620,7 @@ def train_and_resume(name: str, data: str, work: str, workers: int,
         state = original(self, state)
         resumed.update(
             step=state.step, epoch=self.start_epoch,
-            count=int(getattr(state.opt, "count", EPOCHS * steps)),
+            count=int(getattr(state.opt, "count", first_epochs * steps)),
             digest=state_digest(state.model.state_dict(),
                                 state.opt.state_dict()))
         return state
@@ -2595,17 +2629,17 @@ def train_and_resume(name: str, data: str, work: str, workers: int,
     try:
         t0 = time.monotonic()
         check(cli.main(argv + ["--resume", "--epochs",
-                               str(RESUME_EPOCHS)]) == 0,
+                               str(last_epochs)]) == 0,
               f"cli.train -m {name} --resume failed")
         resume_s = time.monotonic() - t0
     finally:
         Trainer.maybe_resume = original
-    check(resumed == {"step": EPOCHS * steps, "epoch": EPOCHS + 1,
-                      "count": EPOCHS * steps, "digest": want_digest},
-          f"{name}: resume restored {resumed}, not step {EPOCHS * steps} "
-          f"epoch {EPOCHS + 1} digest {want_digest}")
+    check(resumed == {"step": first_epochs * steps, "epoch": first_epochs + 1,
+                      "count": first_epochs * steps, "digest": want_digest},
+          f"{name}: resume restored {resumed}, not step {first_epochs * steps} "
+          f"epoch {first_epochs + 1} digest {want_digest}")
     check(ckpts.all_steps() == [steps * e
-                                for e in range(1, RESUME_EPOCHS + 1)],
+                                for e in range(1, last_epochs + 1)],
           f"{name}: checkpoints after resume: {ckpts.all_steps()}")
     series = read_series(work)
     losses = series.get("train_loss", [])
@@ -2615,7 +2649,7 @@ def train_and_resume(name: str, data: str, work: str, workers: int,
     check(all(v == 0 for _, v in series["train_bad_steps"]),
           f"{name}: bad steps: {series['train_bad_steps']}")
     step_ms = [v for _, v in series["train_step_ms"]]
-    out = {"train_steps": RESUME_EPOCHS * steps,
+    out = {"train_steps": last_epochs * steps,
            "first_run_s": first_s, "resumed_run_s": resume_s,
            "step_ms_by_epoch": step_ms,
            "img_per_s_by_epoch": [v for _, v in series["images_per_sec"]],
@@ -2645,17 +2679,18 @@ def phase_yolo_training(keep: str | None = None) -> dict:
             f"records in {time.monotonic() - t0:.1f} s")
         steps = YOLO_TRAIN // YOLO_BATCH
         evals = -(-YOLO_VAL // YOLO_BATCH)  # val batches per evaluation
+        first_epochs, last_epochs = DETECT_EPOCHS
         best_iou_max.launches = 0
         out, series = train_and_resume(
             "yolov3_coco", data, work, YOLO_WORKERS, steps,
-            lambda: best_iou_max.launches)
+            lambda: best_iou_max.launches, epochs=DETECT_EPOCHS)
         # every epoch evaluates once, and cli.train once more at the end
         first, launches = out.pop("first_launches"), out.pop("launches")
-        want = 3 * (EPOCHS * steps + (EPOCHS + 1) * evals)
+        want = 3 * (first_epochs * steps + (first_epochs + 1) * evals)
         check(first == want, f"best_iou_max launched {first} times, not "
-                             f"3 x ({EPOCHS * steps} train steps + "
-                             f"{(EPOCHS + 1) * evals} eval batches)")
-        more = RESUME_EPOCHS - EPOCHS
+                             f"3 x ({first_epochs * steps} train steps + "
+                             f"{(first_epochs + 1) * evals} eval batches)")
+        more = last_epochs - first_epochs
         check(launches - first == 3 * (more * steps + (more + 1) * evals),
               f"the resumed run launched best_iou_max {launches - first} "
               f"times")
@@ -2667,7 +2702,7 @@ def phase_yolo_training(keep: str | None = None) -> dict:
         maps = [v for _, v in series["val_mAP"]]
         check(all(math.isfinite(v) for v in maps), f"val mAP {maps}")
         out.update(best_iou_max_launches=launches,
-                   eval_batches=(RESUME_EPOCHS + 2) * evals,
+                   eval_batches=(last_epochs + 2) * evals,
                    ignored_share_by_scale=ignored, val_mAP=maps)
         log(f"yolo training: {json.dumps(out)}")
     return out
@@ -2676,7 +2711,8 @@ def phase_yolo_training(keep: str | None = None) -> dict:
 def phase_heatmap_training(name: str) -> dict:
     """cli.train end to end for ``centernet`` or ``hourglass104`` at full
     width on the card (256², batch 32, bf16, Adam): seeded raw records
-    stored at 256², loader workers, EPOCHS epochs and a resumed one.  No
+    stored at 256², loader workers, DETECT_EPOCHS: an epoch and a resumed
+    one.  No
     hand-written kernel runs on these paths."""
     os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
@@ -2689,7 +2725,8 @@ def phase_heatmap_training(name: str) -> dict:
         log(f"{name} training: wrote {HEAT_TRAIN}+{HEAT_VAL} raw records "
             f"in {time.monotonic() - t0:.1f} s")
         out, series = train_and_resume(name, data, work, HEAT_WORKERS,
-                                       HEAT_TRAIN // HEAT_BATCH)
+                                       HEAT_TRAIN // HEAT_BATCH,
+                                       epochs=DETECT_EPOCHS)
         evals = {k: [v for _, v in series[f"val_{k}"]]
                  for k in ("loss", "mAP") if f"val_{k}" in series}
         check(all(math.isfinite(v) for vs in evals.values() for v in vs),
@@ -3185,8 +3222,8 @@ def serve_trained_workdir(name: str, work: str) -> dict:
 
 def phase_lenet_training() -> dict:
     """cli.train for lenet5 (float32, batch 64, Adam) on seeded idx-ubyte
-    files at MNIST's own size (60,000 train, 10,000 test images of
-    28×28), 2 epochs and a resumed third: exact resume of the weights
+    files (MNIST_TRAIN train, MNIST_TEST test images of 28×28), 2 epochs
+    and a resumed third: exact resume of the weights
     and Adam's moments and count; then ``cli.serve --workdir`` serves
     what it wrote."""
     from deep_vision_tpu_torch.data import mnist
@@ -7713,6 +7750,551 @@ def phase_cli_tools(card_line: str, yolo_dirs: dict) -> dict:
     return out
 
 
+#: data parallelism (phase_data_parallel): two gloo ranks on the one
+#: card, the step check's global batch (a rank's half each), YOLOv3's
+#: rank batch where two ranks fit beside each other, and the seconds a
+#: collective or a rank process may wait before the phase fails
+DP_RANKS, DP_STEP_BATCH, DP_YOLO_BATCH, DP_YOLO_STEPS = 2, 256, 64, 2
+DP_COLLECTIVE_S, DP_RANK_TIMEOUT_S = 120.0, 240.0
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's and PyTorch's deterministic algorithms inside: two runs of
+    the same step agree bit for bit, so what parts two steps is the
+    split of the batch, not the weight gradients' atomics."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def step_errors(got, want) -> dict:
+    """:func:`update_errors` of step ``got`` against ``want`` in brief:
+    the loss, the parameters' and the statistics' L2 ratios, the worst
+    tensor's and the six worst tensors."""
+    errs = update_errors(got, want)
+    worst = sorted(errs["l2"].items(), key=lambda kv: -kv[1])
+    return {"loss": got[0], "params": errs["params"],
+            "stats": errs["stats"], "worst_tensor": worst[0][1],
+            "worst_l2": worst[:6]}
+
+
+def dp_bounds(floor: dict) -> dict:
+    """The step check's bounds for the data-parallel step: loss 1e-4
+    relative, running statistics 1e-4 in L2, parameter updates 1e-3 in
+    L2 and 5e-2 a tensor, each of the last two raised to twice the
+    one-process step's own floor where that is higher: at the global
+    batch 256, weights moved by 1e-7 move the float32 update by about
+    1e-3 (the BatchNorm scales' gradients cancel most)."""
+    return {"loss": 1e-4, "stats": 1e-4,
+            "params": max(1e-3, 2 * floor["params"]),
+            "tensor": max(5e-2, 2 * floor["worst_tensor"])}
+
+
+def dp_faults(step: dict, want_loss: float, bounds: dict) -> list[str]:
+    """What of a rank's step (``step_errors``) breaks ``bounds``."""
+    faults = []
+    if abs(step["loss"] - want_loss) > bounds["loss"] * abs(want_loss):
+        faults.append(f"loss {step['loss']} vs {want_loss}")
+    for k, b in (("params", "params"), ("stats", "stats"),
+                 ("worst_tensor", "tensor")):
+        if step[k] > bounds[b]:
+            faults.append(f"{k} {step[k]:.3e} > {bounds[b]:.3e}")
+    return faults
+
+
+def dp_step(device, sd: dict, images, factors, labels, workdir: str,
+            local: bool = False) -> tuple:
+    """One float32 guarded step of full-width ResNet-50 on ``device``,
+    under deterministic algorithms, over ``images`` (this process's
+    rows: a rank's shard, or all of them outside a group), on the
+    default mesh (the group's ranks): (loss, state_dict before, after,
+    both on the CPU).  ``local`` (control): BatchNorm over this rank's
+    rows alone."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.models.common import set_batchnorm_mesh
+    from deep_vision_tpu_torch.models.resnet import ResNet50
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    cfg = get_config(MODEL)
+    cfg.batch_size = len(images)
+    model = ResNet50(dtype=torch.float32)
+    model.load_state_dict(sd)
+    f = factors.to(device)
+
+    def preprocess(batch, generator, train):
+        return {**batch, "image": train_ingest(batch["image"], f)}
+
+    trainer = Trainer(cfg, model, ClassificationTask(1000), workdir=workdir,
+                      preprocess_fn=preprocess, device=device)
+    state = trainer.state_for(model)
+    if local:
+        set_batchnorm_mesh(model, None)
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    with deterministic():
+        state, m = trainer.train_step(state, {"image": images,
+                                              "label": labels})
+    after = {k: v.detach().cpu().clone()
+             for k, v in state.model.state_dict().items()}
+    check(int(m["bad_steps"]) == 0, f"the {device} step was skipped")
+    return float(m["loss"]), before, after
+
+
+def dp_rank_fit(device, data: str, work: str) -> dict:
+    """``Trainer.fit`` of ResNet-50 at the recipe's rank batch over this
+    rank's shard of the training records (``ImageNetLoader`` takes the
+    rank from the group), one epoch; then a fresh trainer resumes the
+    checkpoint rank 0 wrote and trains the second epoch."""
+    from deep_vision_tpu_torch.core import checkpoint
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.data.imagenet import ImageNetLoader
+    from deep_vision_tpu_torch.ops.preprocess import make_imagenet_preprocess
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest
+    from deep_vision_tpu_torch.tasks.classification import (
+        ClassificationTask,
+    )
+
+    writes = []
+    write_files = checkpoint.Checkpointer._write_files
+
+    def counted(self, step, payload):
+        writes.append(step)
+        return write_files(self, step, payload)
+
+    checkpoint.Checkpointer._write_files = counted
+    out = {}
+    for epochs in (1, 2):
+        cfg = get_config(MODEL)
+        cfg.total_epochs = epochs
+        common = dict(image_size=CROP, resize=STORED, num_workers=0)
+        train = ImageNetLoader.from_records(data, "train", cfg.batch_size,
+                                            train=True, seed=cfg.seed,
+                                            **common)
+        val = ImageNetLoader.from_records(data, "val", cfg.eval_batch_size,
+                                          train=False, **common)
+        trainer = Trainer(cfg, cfg.model(),
+                          ClassificationTask(cfg.num_classes,
+                                             cfg.label_smoothing),
+                          workdir=work,
+                          preprocess_fn=make_imagenet_preprocess(),
+                          device=device)
+        state = trainer.init_state()
+        if epochs == 2:
+            state = trainer.maybe_resume(state)
+            out["restored"] = state_digest(
+                state.model.state_dict(), state.opt.state_dict()["momentum"])
+        train_ingest.launches = 0
+        state = trainer.fit(train, val, state=state)
+        hist = trainer.logger.history
+        out[f"epoch{epochs}"] = {
+            "train_ingest_launches": train_ingest.launches,
+            "steps": len(train), "step": state.step,
+            "shard": len(train.host_indices),
+            "val_top1": hist["val_top1"]["values"][-1],
+            "val_loss": hist["val_loss"]["values"][-1],
+            "losses": hist["train_loss"]["values"],
+            "step_ms": hist["train_step_ms"]["values"][-1],
+            "digest": state_digest(state.model.state_dict(),
+                                   state.opt.state_dict()["momentum"])}
+        train.close()
+        val.close()
+    out["writes"] = len(writes)
+    return out
+
+
+def dp_rank_yolo(device, work: str) -> dict:
+    """``DP_YOLO_STEPS`` guarded steps of ``yolov3_coco`` at 416² and the
+    rank batch ``DP_YOLO_BATCH`` on seeded scenes (its loader, as the
+    reference's, reads the whole split on every rank)."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.data.detection import (
+        DetectionLoader,
+        synthetic_detection_dataset,
+    )
+    from deep_vision_tpu_torch.ops.best_iou import best_iou_max
+    from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.detection import YoloTask
+
+    cfg = get_config("yolov3_coco")
+    cfg.batch_size = DP_YOLO_BATCH
+    samples = synthetic_detection_dataset(DP_YOLO_STEPS * DP_YOLO_BATCH,
+                                          YOLO_SIZE, YOLO_CLASSES, seed=41)
+    loader = DetectionLoader(samples, DP_YOLO_BATCH, YOLO_CLASSES, YOLO_SIZE,
+                             train=True, seed=cfg.seed,
+                             device_normalize=True, num_workers=0)
+    trainer = Trainer(cfg, cfg.model(), YoloTask(YOLO_CLASSES),
+                      workdir=work, preprocess_fn=make_scale_preprocess(),
+                      device=device)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    best_iou_max.launches = 0
+    losses, t0 = [], time.monotonic()
+    for batch in loader:
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        check(int(m["bad_steps"]) == 0, "a YOLOv3 step was skipped")
+    out = {"best_iou_max_launches": best_iou_max.launches,
+           "steps": len(losses), "losses": losses,
+           "s": time.monotonic() - t0,
+           "digest": state_digest(state.model.state_dict(),
+                                  state.opt.state_dict())}
+    loader.close()
+    return out
+
+
+def dp_all_reduce_ms(device, iters: int = 5) -> float:
+    """Host-clock ms of one all-reduce of a CUDA float32 buffer the size
+    of ResNet-50's gradients (25,557,032 values, 102 MB) through the
+    group, the trainer's one flat gradient reduction (after a warmup;
+    each call ends in a synchronize)."""
+    import torch
+
+    from deep_vision_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    buf = torch.ones(25_557_032, device=device)
+    mesh.all_reduce_(buf)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(iters):
+        mesh.all_reduce_(buf)
+    torch.cuda.synchronize()
+    check(float(buf[0]) == float(DP_RANKS) ** (iters + 1),
+          "the all-reduce summed wrongly")
+    return (time.monotonic() - t0) * 1e3 / iters
+
+
+def dp_rank_main(spec_path: str, rank: int) -> int:
+    """A rank of ``phase_data_parallel`` (``chip_smoke.py --dp-rank SPEC
+    RANK``): joins the gloo group on ``cuda:0``, runs the step check
+    (and its rank-local-statistics control), the fit and resume, and the
+    YOLOv3 steps, and writes its results as JSON."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from deep_vision_tpu_torch.core.device import configure_precision
+    from deep_vision_tpu_torch.parallel import distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    configure_precision()
+    distributed.initialize(f"127.0.0.1:{spec['port']}", DP_RANKS, rank,
+                           backend="gloo", device="cuda:0",
+                           timeout_s=DP_COLLECTIVE_S)
+    device = torch.device("cuda", 0)
+    out = {"rank": rank, "backend": distributed.backend()}
+    try:
+        images = np.load(spec["images"])
+        factors = torch.load(spec["factors"])
+        sd = torch.load(spec["sd"])
+        ref = torch.load(spec["ref"])
+        rows = slice(rank * DP_STEP_BATCH // DP_RANKS,
+                     (rank + 1) * DP_STEP_BATCH // DP_RANKS)
+        labels = (np.arange(DP_STEP_BATCH, dtype=np.int32) * 97) % 1000
+        work = os.path.join(spec["work"], f"step{rank}")
+        steps = {}
+        for local in (False, True):
+            t0 = time.monotonic()
+            got = dp_step(device, sd, images[rows], factors[rows],
+                          labels[rows], work, local=local)
+            steps[local] = {"loss": got[0], "s": time.monotonic() - t0,
+                            "digest": state_digest(got[2], {}),
+                            **step_errors(got, ref)}
+            torch.cuda.empty_cache()
+        out["step"], out["control"] = steps[False], steps[True]
+        t0 = time.monotonic()
+        out["fit"] = dp_rank_fit(device, spec["data"],
+                                 os.path.join(spec["work"], "fit"))
+        out["fit"]["s"] = time.monotonic() - t0
+        torch.cuda.empty_cache()
+        out["yolo"] = dp_rank_yolo(device, os.path.join(spec["work"],
+                                                        f"yolo{rank}"))
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        out["all_reduce_ms"] = dp_all_reduce_ms(device)
+    finally:
+        distributed.shutdown()
+    with open(spec[f"out{rank}"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class Procs:
+    """Processes the phase started: each polled to its end, a failing
+    one failing the phase at once, all killed at the deadline and
+    reaped whatever happens (``with`` block)."""
+
+    def __init__(self, timeout_s: float):
+        self.deadline = time.monotonic() + timeout_s
+        self.procs: dict = {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for p, _ in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+        for p, _ in self.procs.values():
+            p.wait()
+
+    def start(self, name: str, cmd: list, log_path: str) -> None:
+        with open(log_path, "w") as out:
+            self.procs[name] = (subprocess.Popen(
+                cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                stdout=out, stderr=subprocess.STDOUT), log_path)
+
+    def wait(self, names) -> list[str]:
+        """Wait for ``names``; their output.  Any started process that
+        fails first fails the phase with its log's tail."""
+        while True:
+            for name, (p, path) in self.procs.items():
+                if p.poll() not in (None, 0):
+                    with open(path) as f:
+                        tail = f.read()[-4000:]
+                    log(f"data parallel: {name} exited {p.returncode}:\n"
+                        f"{tail}")
+                    check(False, f"data parallel: {name} exited "
+                                 f"{p.returncode}")
+            if all(self.procs[n][0].poll() == 0 for n in names):
+                break
+            check(time.monotonic() < self.deadline,
+                  f"data parallel: {names} still running at the deadline")
+            time.sleep(0.2)
+        outs = []
+        for n in names:
+            with open(self.procs[n][1]) as f:
+                outs.append(f.read())
+        return outs
+
+
+def cli_command(data: str, work: str, extra: list) -> list:
+    """``cli.train -m resnet50 --scan-steps 2`` on the training records
+    through ``chip_smoke.py --cli-train`` (which prints the kernels'
+    launches) under ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1``."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", os.path.abspath(__file__),
+            "--cli-train", "-m", MODEL, "--data-format", "records",
+            "--data-root", data, "--workdir", work, "--num-workers", "0",
+            "--device", "cuda", "--scan-steps", "2", *extra]
+
+
+def cli_result(stdout: str, work: str) -> dict:
+    launches = [json.loads(s)["launches"] for s in stdout.splitlines()
+                if s.startswith('{"launches"')]
+    device = [s for s in stdout.splitlines() if s.startswith("device:")]
+    check(bool(launches) and bool(device),
+          f"cli.train printed no launches or device line:\n{stdout[-2000:]}")
+    return {"launches": launches[-1], "device_line": device[-1],
+            "series": read_series(work)}
+
+
+def cli_train_main(argv: list) -> int:
+    """``chip_smoke.py --cli-train ARGS``: ``cli.train.main(ARGS)`` with
+    every counted kernel's launches set to 0 before and printed after."""
+    sys.path.insert(0, REPO)
+    from deep_vision_tpu_torch.cli import train as cli
+    from deep_vision_tpu_torch.ops import COUNTED
+
+    for fn in COUNTED:
+        fn.launches = 0
+    rc = cli.main(argv)
+    print(json.dumps({"launches": {fn.__name__: fn.launches
+                                   for fn in COUNTED}}), flush=True)
+    return rc
+
+
+def phase_data_parallel(training: dict) -> dict:
+    """Data-parallel training (``parallel/``): (a) two gloo ranks of
+    full-width ResNet-50 on the one card against the one-process step,
+    a fit and resume at the recipe's rank batch, YOLOv3 steps; (b) one
+    NCCL rank through ``torch.distributed.run`` and ``cli.train --mesh
+    data=1 --scan-steps 2`` for an epoch and its resume, against the
+    training phase's run with no mesh on the same records.  (b) runs
+    while (a)'s ranks run."""
+    import torch
+
+    from deep_vision_tpu_torch.models.resnet import ResNet50
+    from deep_vision_tpu_torch.ops.train_ingest import train_ingest_factors
+
+    log("data parallel: two ranks share the card under gloo, since NCCL "
+        "refuses two ranks on one device (gloo runs all_reduce and "
+        "broadcast on CUDA tensors through the host)")
+    out = {}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp, Procs(DP_RANK_TIMEOUT_S) as procs:
+        data = os.path.join(tmp, "data")
+        write_records(data, N_TRAIN, N_VAL, STORED)
+        # (a) the step check's start: seeded weights, the last BN scale of
+        # every block at STEP_CHECK_LAST_SCALE, one global batch
+        model = ResNet50().reset_parameters(torch.Generator().manual_seed(5))
+        for stage in model.stages():
+            for block in stage:
+                torch.nn.init.constant_(
+                    getattr(block, f"bn{block.convs}").weight,
+                    STEP_CHECK_LAST_SCALE)
+        sd = model.state_dict()
+        images = np.random.default_rng(4).integers(
+            0, 256, (DP_STEP_BATCH, 224, 224, 3), dtype=np.uint8)
+        factors = train_ingest_factors(torch.from_numpy(images),
+                                       torch.Generator().manual_seed(6))
+        labels = (np.arange(DP_STEP_BATCH, dtype=np.int32) * 97) % 1000
+        t0 = time.monotonic()
+        ref = dp_step(torch.device("cuda", 0), sd, images, factors, labels,
+                      os.path.join(tmp, "ref"))
+        out["one_process_step_s"] = time.monotonic() - t0
+        # the floor: the one-process step from weights moved by 1e-7
+        gen = torch.Generator().manual_seed(9)
+        moved = {k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                 if v.is_floating_point() else v for k, v in sd.items()}
+        out["floor"] = step_errors(dp_step(
+            torch.device("cuda", 0), moved, images, factors, labels,
+            os.path.join(tmp, "moved")), ref)
+        bounds = dp_bounds(out["floor"])
+        out["bounds"], out["loss"] = bounds, ref[0]
+        log(f"data parallel: one process {out['one_process_step_s']:.1f} s, "
+            f"floor {json.dumps(out['floor'])}, bounds {json.dumps(bounds)}")
+        torch.cuda.empty_cache()
+        spec = {"port": free_port(), "work": tmp, "data": data,
+                "images": os.path.join(tmp, "images.npy"),
+                "factors": os.path.join(tmp, "factors.pt"),
+                "sd": os.path.join(tmp, "sd.pt"),
+                "ref": os.path.join(tmp, "ref.pt"),
+                **{f"out{r}": os.path.join(tmp, f"out{r}.json")
+                   for r in range(DP_RANKS)}}
+        np.save(spec["images"], images)
+        torch.save(factors, spec["factors"])
+        torch.save(sd, spec["sd"])
+        torch.save(ref, spec["ref"])
+        del ref, model, sd, moved
+        spec_path = os.path.join(tmp, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        t0 = time.monotonic()
+        for r in range(DP_RANKS):
+            procs.start(f"rank {r}", [sys.executable,
+                                      os.path.abspath(__file__),
+                                      "--dp-rank", spec_path, str(r)],
+                        os.path.join(tmp, f"rank{r}.log"))
+        # (b) beside them: one NCCL rank for an epoch, then its resume
+        nccl_work = os.path.join(tmp, "nccl")
+        procs.start("torchrun", cli_command(data, nccl_work, [
+            "--mesh", "data=1", "--epochs", "1"]),
+            os.path.join(tmp, "nccl1.log"))
+        nccl = cli_result(procs.wait(["torchrun"])[0], nccl_work)
+        procs.start("torchrun resume", cli_command(data, nccl_work, [
+            "--mesh", "data=1", "--epochs", "2", "--resume"]),
+            os.path.join(tmp, "nccl2.log"))
+        resumed = cli_result(procs.wait(["torchrun resume"])[0], nccl_work)
+        out["cli_s"] = time.monotonic() - t0
+        procs.wait([f"rank {r}" for r in range(DP_RANKS)])
+        out["ranks_s"] = time.monotonic() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(spec[f"out{r}"]) as f:
+                ranks.append(json.load(f))
+        out["ranks"] = ranks
+        log(f"data parallel: ranks {json.dumps(ranks)[:3000]}")
+        for r in ranks:
+            check(r["backend"] == "gloo", f"rank backend {r['backend']}")
+            faults = dp_faults(r["step"], out["loss"], bounds)
+            check(not faults, f"rank {r['rank']}'s step disagrees with the "
+                              f"one-process step: {faults}")
+            check(bool(dp_faults(r["control"], out["loss"], bounds)),
+                  f"rank {r['rank']} with rank-local BatchNorm statistics "
+                  f"passed the step bounds")
+        check(ranks[0]["step"]["digest"] == ranks[1]["step"]["digest"],
+              "the two ranks' weights differ after the step")
+        fits = [r["fit"] for r in ranks]
+        shard = N_TRAIN // DP_RANKS
+        steps = shard // BATCH
+        for f in fits:
+            for e in ("epoch1", "epoch2"):
+                check(f[e]["shard"] == shard and f[e]["steps"] == steps,
+                      f"a rank read {f[e]['shard']} records in "
+                      f"{f[e]['steps']} steps, not {shard} in {steps}")
+                check(f[e]["train_ingest_launches"] == steps,
+                      f"train_ingest launched {f[e]['train_ingest_launches']}"
+                      f" times in a rank's {steps} steps")
+        for e in ("epoch1", "epoch2"):
+            for k in ("val_top1", "val_loss", "losses", "digest"):
+                check(fits[0][e][k] == fits[1][e][k],
+                      f"{e} {k} differs between the ranks: "
+                      f"{fits[0][e][k]} vs {fits[1][e][k]}")
+        check(fits[0]["writes"] >= 1 and fits[1]["writes"] == 0,
+              f"checkpoint files written by rank 0: {fits[0]['writes']}, "
+              f"by rank 1: {fits[1]['writes']}")
+        check(fits[0]["restored"] == fits[1]["restored"]
+              == fits[0]["epoch1"]["digest"],
+              "the resume did not restore the saved state bit for bit")
+        ckpts = sorted(os.listdir(os.path.join(tmp, "fit", "checkpoints")))
+        check(ckpts == [str(steps), str(2 * steps)],
+              f"checkpoints {ckpts}")
+        for r in ranks:
+            y = r["yolo"]
+            check(y["best_iou_max_launches"] == 3 * y["steps"]
+                  == 3 * DP_YOLO_STEPS,
+                  f"rank {r['rank']}: best_iou_max launched "
+                  f"{y['best_iou_max_launches']} times in {y['steps']} "
+                  f"YOLOv3 steps")
+            check(all(math.isfinite(v) for v in y["losses"]),
+                  f"YOLOv3 losses {y['losses']}")
+        check(ranks[0]["yolo"]["digest"] == ranks[1]["yolo"]["digest"],
+              "the ranks' YOLOv3 weights differ")
+        cli_steps = N_TRAIN // BATCH
+        check("backend=nccl" in nccl["device_line"]
+              and "backend=nccl" in resumed["device_line"],
+              f"the torchrun rank's backend: {nccl['device_line']}")
+        for run in (nccl, resumed):
+            check(run["launches"]["train_ingest"] == cli_steps,
+                  f"train_ingest launched {run['launches']['train_ingest']} "
+                  f"times in {cli_steps} steps")
+        # the training phase's run (no mesh, eager) logged the same steps
+        # where its epochs end
+        got = dict(resumed["series"]["train_loss"])
+        want = dict(training["losses"])
+        common = sorted(set(got) & set(want))
+        check(len(common) >= 2 and all(
+            abs(got[k] - want[k]) <= 1e-4 * abs(want[k]) for k in common),
+            f"NCCL losses {got} vs no mesh {want}")
+        check(all(math.isfinite(v) for v in got.values()),
+              f"the NCCL run's losses {got}")
+        out["cli"] = {k: {"launches": run["launches"],
+                          "device_line": run["device_line"],
+                          "losses": run["series"]["train_loss"]}
+                      for k, run in (("nccl", nccl), ("resumed", resumed))}
+        out["cli"]["no_mesh_losses"] = [[k, want[k]] for k in common]
+    log(f"data parallel: {json.dumps(out)[:4000]}")
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7824,6 +8406,7 @@ def main() -> int:
         "model": "yolov3_coco", "work": os.path.join(keep, "work"),
         "data": os.path.join(keep, "data")})
     shutil.rmtree(keep)
+    data_parallel = phase_data_parallel(training)
     faults = phase_faults(card_line)
     plane = phase_plane()
     fleet = phase_fleet()
@@ -7888,6 +8471,11 @@ def main() -> int:
         "recipes_resnet50_scan_ema": recipes["resnet50"][
             "train_ingest_launches"],
         "native_resnet50": native_input["train_ingest_launches"],
+        **{f"dp_rank{r['rank']}_resnet50": r["fit"]["epoch1"][
+            "train_ingest_launches"] + r["fit"]["epoch2"][
+            "train_ingest_launches"] for r in data_parallel["ranks"]},
+        **{f"dp_{k}_cli_resnet50": data_parallel["cli"][k]["launches"][
+            "train_ingest"] for k in ("nccl", "resumed")},
         "train_inception3": zoo_train["launches"],
         "pretrained_resnet50": cli_tools["pretrained"][
             "train_ingest_launches"],
@@ -7924,7 +8512,10 @@ def main() -> int:
                        "tasks"][" ".join(("yolov3_toy",) + RECIPE_TOY_ACCUM)][
                        "best_iou_max_launches"],
                    "infer_eval_yolov3_coco": cli_tools["eval"][
-                       "best_iou_max_launches"]}
+                       "best_iou_max_launches"],
+                   **{f"dp_rank{r['rank']}_yolov3_coco": r["yolo"][
+                       "best_iou_max_launches"]
+                      for r in data_parallel["ranks"]}}
     micro_row = next(r for r in iou_rows
                      if tuple(r["shape"]) == IOU_MICRO_SHAPE)
     kernels.append({
@@ -7963,6 +8554,7 @@ def main() -> int:
     print(json.dumps({"gan_step_check": gan_check}), flush=True)
     print(json.dumps({"trainer_recipes": recipes}), flush=True)
     print(json.dumps({"cli_tools": cli_tools}), flush=True)
+    print(json.dumps({"data_parallel": data_parallel}), flush=True)
     print(json.dumps({"generate_serving": generate}), flush=True)
     print(json.dumps({"faults": faults}), flush=True)
     print(json.dumps({"plane": plane}), flush=True)
@@ -7986,4 +8578,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--phase-times-of":
         sys.exit(phase_times_of(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--dp-rank":
+        sys.exit(dp_rank_main(sys.argv[2], int(sys.argv[3])))
+    if len(sys.argv) > 2 and sys.argv[1] == "--cli-train":
+        sys.exit(cli_train_main(sys.argv[2:]))
     sys.exit(main())

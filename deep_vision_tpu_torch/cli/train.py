@@ -25,6 +25,8 @@
     ... [--scan-steps K] [--grad-accum A] [--ema-decay D] \
         [--momentum-dtype bfloat16] [--pretrained P.pth] \
         [--host-normalize | --tf-preprocessing] [--upload URI]
+    python -m torch.distributed.run --nproc-per-node N \
+        -m deep_vision_tpu_torch.cli.train -m resnet50 --mesh data=N ...
 
 Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
 classification branch, ``build_classification_val_loader``,
@@ -71,6 +73,19 @@ gsutil where installed) and, on a fresh workdir, restores them from
 there first (``core/upload.py``).  Every run writes TensorBoard event
 files under ``workdir/tensorboard``.  Runs on CUDA unless given
 ``--device cpu``; without a GPU it raises.
+
+Data parallelism (``--mesh data=N``, ``parallel/``): under ``python -m
+torch.distributed.run --nproc-per-node N`` each process is a rank on
+``cuda:LOCAL_RANK`` (NCCL; gloo with ``--device cpu``), the reference's
+process: ``cfg.batch_size`` is a rank's batch, the global batch
+``cfg.batch_size × N``.  ImageNet loaders read the rank's 1/N of each
+epoch (the other loaders, as the reference's, read the whole split on
+every rank); BatchNorm uses the global batch's statistics and the
+gradients their mean over the ranks.  Without ``--mesh`` the mesh is
+every rank of the launched group (one rank outside one).  ``--mesh
+data=N`` outside a launched group of N ranks exits naming
+``torch.distributed.run``; other axes and ``--microbatches`` come with
+later slices.
 """
 
 from __future__ import annotations
@@ -123,6 +138,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "recipes)")
     p.add_argument("--image-size", type=int, default=None,
                    help="override config (smoke runs at low resolution)")
+    p.add_argument("--mesh", default=None,
+                   help="mesh spec like 'data=8', 'data=4,model=2', "
+                        "'data=2,spatial=4' (image rows sharded over "
+                        "'spatial'), or 'data=2,pipe=4' (GPipe pipeline "
+                        "over the stacked families: hourglass pose, "
+                        "CenterNet detection); one rank a device under "
+                        "python -m torch.distributed.run (only 'data' is "
+                        "ported so far)")
+    p.add_argument("--microbatches", type=int, default=None,
+                   help="pipeline microbatches per step (with a pipe mesh "
+                        "axis; default = pipe axis size)")
     p.add_argument("--num-workers", type=int, default=16,
                    help="record read/crop worker processes (0 = inline)")
     p.add_argument("--host-normalize", action="store_true",
@@ -150,6 +176,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="list configs and exit")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
+
+
+def parse_mesh_spec(spec: str | None):
+    """``--mesh`` → the data-parallel mesh of the launched group's ranks:
+    every rank on ``data`` by default; ``data=N`` must name the group's
+    N ranks (``python -m torch.distributed.run --nproc-per-node N``)."""
+    from deep_vision_tpu_torch.parallel import distributed, make_mesh
+
+    if spec is None:
+        return make_mesh()
+    sizes = {}
+    for part in spec.split(","):
+        k, v = part.split("=")
+        sizes[k.strip()] = int(v)
+    world = distributed.process_count()
+    want = 1
+    for v in sizes.values():
+        want *= max(v, 1)
+    if -1 not in sizes.values() and want != world:
+        raise SystemExit(
+            f"--mesh {spec} needs {want} ranks, and this process is one of "
+            f"{world}: launch it as python -m torch.distributed.run "
+            f"--nproc-per-node {want} -m deep_vision_tpu_torch.cli.train "
+            f"... --mesh {spec} (one process a device)")
+    return make_mesh(sizes)
 
 
 #: the configs that train on MNIST's idx-ubyte files
@@ -206,13 +257,36 @@ def build_classification_val_loader(cfg, data_root: str, split: str,
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
-    from deep_vision_tpu_torch.core.config import get_config, list_configs
+    from deep_vision_tpu_torch.core.config import list_configs
 
     if args.list:
         print("\n".join(list_configs()))
         return 0
+    if args.microbatches is not None:
+        raise SystemExit("--microbatches drives the pipeline axis, which "
+                         "comes with the pipeline slice (parallel/"
+                         "pipeline.py); the port has only 'data' so far")
+    import torch
+
+    from deep_vision_tpu_torch.parallel import distributed
+
+    # join the group torch.distributed.run launched (nothing without its
+    # variables): a bare "cuda" becomes the rank's cuda:LOCAL_RANK
+    dev = torch.device(args.device)
+    distributed.initialize(
+        device=None if dev.type == "cuda" and dev.index is None else dev)
     device = resolve_device(args.device)
+    try:
+        return _main(args, device)
+    finally:
+        distributed.shutdown()
+
+
+def _main(args, device) -> int:
+    from deep_vision_tpu_torch.core.config import get_config
+
     configure_precision()
+    mesh = parse_mesh_spec(args.mesh)
 
     cfg = get_config(args.model)
     if args.epochs is not None:
@@ -231,16 +305,16 @@ def main(argv=None):
         cfg.image_size = args.image_size
     if args.prefetch_depth is not None:
         cfg.prefetch_depth = args.prefetch_depth
+    print(f"device: {device} mesh={mesh.shape} rank={mesh.rank} "
+          f"backend={mesh.backend}", flush=True)
     if cfg.task in GAN_TASKS:
-        print(f"device: {device}", flush=True)
-        return _main_gan(args, cfg, device)
+        return _main_gan(args, cfg, device, mesh)
     build = LOADERS.get(cfg.task)
     if build is None:
         raise NotImplementedError(
             f"task '{cfg.task}' is not ported; have "
             f"{sorted([*LOADERS, *GAN_TASKS])}")
 
-    print(f"device: {device}", flush=True)
     loaders = []
     try:
         task, train_loader, val_loader, preprocess_fn = build(args, cfg,
@@ -249,7 +323,7 @@ def main(argv=None):
 
         trainer = Trainer(cfg, cfg.model(), task, workdir=args.workdir,
                           preprocess_fn=preprocess_fn, device=device,
-                          upload=args.upload)
+                          upload=args.upload, mesh=mesh)
         if args.profile:
             trainer.profile_steps = (10, 20)
         state = None
@@ -463,7 +537,7 @@ def _pose_loaders(args, cfg, loaders: list):
         make_scale_preprocess() if dev_norm else None
 
 
-def _main_gan(args, cfg, device) -> int:
+def _main_gan(args, cfg, device, mesh) -> int:
     """DCGAN or CycleGAN through the adversarial trainer, on uint8
     batches that ``make_gan_preprocess`` scales on the device."""
     import torch
@@ -514,7 +588,7 @@ def _main_gan(args, cfg, device) -> int:
     trainer = AdversarialTrainer(
         cfg, task, workdir=args.workdir,
         preprocess_fn=make_gan_preprocess() if dev_norm else None,
-        device=device, upload=args.upload)
+        device=device, upload=args.upload, mesh=mesh)
     states = trainer.fit(loader, epochs=cfg.total_epochs,
                          resume=args.resume)
     print("done: trained", ", ".join(states), flush=True)

@@ -29,7 +29,16 @@ step at a time), reading a group's metrics once and showing the guard
 every step; a ragged tail runs as single steps.  A task that is not
 scan-safe (CycleGAN's image pools) runs per step, as the reference does.
 ``fit(..., sample_hook=f)`` calls ``f(epoch, states)`` after each
-epoch's checkpoint.  Gradient accumulation is refused, as the reference
+epoch's checkpoint.
+
+Under a data-parallel ``mesh`` (``parallel/mesh.py``) every network is
+initialized on rank 0 and broadcast, its BatchNorm layers normalize by
+the global batch, and each network's gradients with the step's losses
+become the global batch's means through one all-reduce of a flat
+buffer before the proposals, so the joint guard sees the same values
+and decides the same on every rank (``core/trainer.py``, the same
+rules: rank-folded step seeds, rank 0 writes, SIGTERM agreed at the
+step boundary).  Gradient accumulation is refused, as the reference
 refuses it; so is ``ema_decay``, which the reference accepts and
 ignores.
 """
@@ -59,9 +68,15 @@ from deep_vision_tpu_torch.core.step_graph import StepRunner, run_groups
 from deep_vision_tpu_torch.core.trainer import (
     StepGenerators,
     check_recipe,
+    check_scan_backend,
     install_sigterm_flag,
     log_input_stats,
-    to_device,
+)
+from deep_vision_tpu_torch.models.common import set_batchnorm_mesh
+from deep_vision_tpu_torch.parallel.mesh import (
+    make_mesh,
+    replicate,
+    shard_batch,
 )
 
 #: the reference's per-step rng chain starts from ``seed + 17``
@@ -70,7 +85,8 @@ RNG_OFFSET = 17
 
 class AdversarialTrainer:
     def __init__(self, config: TrainConfig, task, workdir: str | None = None,
-                 preprocess_fn=None, device=None, upload: str | None = None):
+                 preprocess_fn=None, device=None, upload: str | None = None,
+                 mesh=None):
         check_recipe(config)
         if config.grad_accum_steps > 1:
             raise NotImplementedError(
@@ -84,19 +100,23 @@ class AdversarialTrainer:
                 f"and ignores it)")
         self.config = config
         self.device = resolve_device(device)
-        self.generators = StepGenerators(self.device)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        if getattr(task, "scan_safe", False):
+            check_scan_backend(self.mesh, self.device, config.scan_steps)
+        self.generators = StepGenerators(self.device, self.mesh.rank)
         self._runner: StepRunner | None = None
         self.task = task
         # signature (batch, generator, train), as the Trainer's
         self.preprocess_fn = preprocess_fn
         self.workdir = workdir or os.path.join("runs", config.name)
-        self.logger = MetricLogger(self.workdir)
+        self.logger = MetricLogger(self.workdir,
+                                   writer=self.mesh.is_writer)
         self.scheduler = build_scheduler(
             config.scheduler.name, config.optimizer.learning_rate,
             **config.scheduler.kwargs)
         self.checkpointer = ckpt_lib.Checkpointer(
             os.path.join(self.workdir, "checkpoints"),
-            max_to_keep=config.keep_checkpoints)
+            max_to_keep=config.keep_checkpoints, mesh=self.mesh)
         # checkpoints mirrored to ``upload`` after every save
         # (core/upload.py)
         self.uploader = None
@@ -127,6 +147,8 @@ class AdversarialTrainer:
             model.to(self.device)
             if self.device.type == "cuda":
                 model.to(memory_format=torch.channels_last)
+            set_batchnorm_mesh(model, self.mesh)
+            replicate(model, self.mesh)
             states[name] = TrainState(
                 model, build_optimizer(self.task.opt, model),
                 rng=self.config.seed + RNG_OFFSET)
@@ -161,7 +183,7 @@ class AdversarialTrainer:
         outputs and the metrics (0-d device tensors, ``bad_steps``
         included).  ``draws`` replaces the task's own draw (tests and
         card-vs-CPU checks feed the same draws to both sides)."""
-        batch = to_device(batch, self.device)
+        batch = shard_batch(batch, self.mesh, self.device)
         self.seed_step(states)
         outputs, metrics = self.device_step(states, batch, draws)
         for st in states.values():
@@ -185,6 +207,7 @@ class AdversarialTrainer:
             st.model.train()
             before[name] = st.snapshot_stats()
         grads, outputs, metrics = self.task.train_step(states, batch, draws)
+        grads, metrics = self._reduce(grads, metrics)
         proposals = {name: st.opt.propose(grads[name])
                      for name, st in states.items()}
         ok = all_finite(list(metrics.values())) & all_finite(
@@ -194,6 +217,27 @@ class AdversarialTrainer:
             st.commit(proposals[name], ok, before[name])
         first = next(iter(states.values()))
         return outputs, dict(metrics, bad_steps=first.bad_steps.clone())
+
+    def _reduce(self, grads: dict, metrics: dict) -> tuple[dict, dict]:
+        """Every network's gradients and the step's losses as the global
+        batch's means: one all-reduce of a flat buffer of all of them."""
+        if not self.mesh.grouped:
+            return grads, metrics
+        names, keys = list(grads), list(metrics)
+        flat = [g for n in names for g in grads[n]] + \
+            [metrics[k] for k in keys]
+        out = self.mesh.mean_(flat)
+        reduced, i = {}, 0
+        for n in names:
+            reduced[n] = out[i:i + len(grads[n])]
+            i += len(grads[n])
+        return reduced, dict(zip(keys, out[i:]))
+
+    def _stopping(self) -> bool:
+        """Whether SIGTERM reached this rank or any other."""
+        if self.mesh.reduces:
+            self._preempted = self.mesh.any(self._preempted)
+        return self._preempted
 
     def step_runner(self, states: dict) -> StepRunner:
         """The ``scan_steps`` runner of ``states`` (made on first use, and
@@ -240,7 +284,8 @@ class AdversarialTrainer:
                 train_data.set_epoch(epoch)
             t0 = time.monotonic()
             run = self._epoch_scan if scan else self._epoch
-            if run(train_data, states, epoch):
+            run(train_data, states, epoch)
+            if self._stopping():
                 self._save(states, epoch - 1)
                 print(f"[preempt] checkpoint saved at step "
                       f"{next(iter(states.values())).step}; rerun with "
@@ -261,7 +306,10 @@ class AdversarialTrainer:
             extras={"epoch": epoch,
                     "scheduler": self.scheduler.state_dict()})
         if self.uploader is not None:
-            self.uploader.sync(self.checkpointer.directory, "checkpoints")
+            if self.mesh.is_writer:
+                self.uploader.sync(self.checkpointer.directory,
+                                   "checkpoints")
+            self.mesh.barrier()
 
     def _get_prefetcher(self):
         if self._prefetcher is None:
@@ -309,7 +357,7 @@ class AdversarialTrainer:
                         pending[0] % cfg.log_every_steps == 0:
                     self._log_metrics(epoch, *pending, meter)
                 pending = (first.step, metrics)
-                if self._preempted:
+                if self._stopping():
                     break
             if pending is not None:
                 self._log_metrics(epoch, *pending, meter)
@@ -359,11 +407,12 @@ class AdversarialTrainer:
             map(task.host_prepare, train_data))
         timer.mark()
         try:
-            tail = run_groups((to_device(b, self.device) for b in stream),
-                              runner, lambda: self.seed_step(states), advance,
-                              on_step, on_group, lambda: self._preempted)
+            tail = run_groups(
+                (shard_batch(b, self.mesh, self.device) for b in stream),
+                runner, lambda: self.seed_step(states), advance, on_step,
+                on_group, self._stopping)
             for batch in tail:  # the ragged tail: single steps
-                if self._preempted:
+                if self._stopping():
                     break
                 outputs, metrics = self.train_step(states, batch)
                 task.host_update(outputs)

@@ -8,8 +8,11 @@ a resumed run continues the LR schedule and metric history.
 ``save_tree``/``restore_tree`` do the same for ``{name: TrainState}``,
 the adversarial trainer's networks, in one file.  A save goes
 to a temporary directory first and is renamed into place, so a reader
-never sees a partial checkpoint.  Orbax checkpoints of the JAX package
-are not read.
+never sees a partial checkpoint.  Under a data-parallel mesh
+(``parallel/mesh.py``) every rank holds the same state: rank 0 writes,
+and every rank waits at a barrier until the write is in place; a resume
+reads on every rank, at any world size.  Orbax checkpoints of the JAX
+package are not read.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ FILENAME = "checkpoint.pt"
 class Checkpointer:
     """Keeps the newest ``max_to_keep`` checkpoints under ``directory``."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> list[int]:
@@ -50,18 +54,28 @@ class Checkpointer:
              extras: dict | None = None) -> str:
         """Write checkpoint ``step`` (replacing one of that step) and drop
         all but the newest ``max_to_keep``."""
-        return self._write(step, {"state": state.save_dict(),
-                                  "extras": extras or {}})
+        return self._write(step, lambda: {"state": state.save_dict(),
+                                          "extras": extras or {}})
 
     def save_tree(self, step: int, states: dict,
                   extras: dict | None = None) -> str:
         """:meth:`save` for ``{name: TrainState}`` (the adversarial
         trainer's networks), as atomic as one state."""
-        return self._write(step, {
+        return self._write(step, lambda: {
             "states": {k: v.save_dict() for k, v in states.items()},
             "extras": extras or {}})
 
-    def _write(self, step: int, payload: dict) -> str:
+    def _write(self, step: int, payload) -> str:
+        """Write ``payload()`` as checkpoint ``step``: here, or on rank 0
+        of the mesh while the other ranks wait at the barrier."""
+        if self.mesh is None:
+            return self._write_files(step, payload())
+        if self.mesh.is_writer:
+            self._write_files(step, payload())
+        self.mesh.barrier()
+        return os.path.join(self.directory, str(step))
+
+    def _write_files(self, step: int, payload: dict) -> str:
         tmp = tempfile.mkdtemp(prefix=f".{step}-", dir=self.directory)
         try:
             torch.save(payload, os.path.join(tmp, FILENAME))

@@ -20,6 +20,13 @@ def resolve_device(device=None) -> torch.device:
             "run on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device '{dev}' (cuda or cpu)")
+    if dev.type == "cuda" and dev.index is None:
+        from deep_vision_tpu_torch.parallel import distributed
+
+        if distributed.is_initialized():
+            # a rank's card, which parallel.distributed.initialize made
+            # the process's current one
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -21,15 +21,19 @@ class MetricLogger:
     as one JSON object per value and, with ``tensorboard`` (the
     default), written as TensorBoard scalars under
     ``workdir/tensorboard`` (the event file is made at the first log, so
-    a logger that never logs leaves none)."""
+    a logger that never logs leaves none).  With ``writer`` False (a
+    data-parallel rank other than 0) it keeps the history, so plateau
+    and best-checkpoint decisions agree on every rank, and writes no
+    file: rank 0 writes them once."""
 
     def __init__(self, workdir: str | None = None,
-                 filename: str = "metrics.jsonl", tensorboard: bool = True):
+                 filename: str = "metrics.jsonl", tensorboard: bool = True,
+                 writer: bool = True):
         self.history: dict[str, dict[str, list]] = {}
         self._path = None
         self._tb = None
         self._tb_dir = None
-        if workdir is not None:
+        if workdir is not None and writer:
             os.makedirs(workdir, exist_ok=True)
             self._path = os.path.join(workdir, filename)
             if tensorboard:

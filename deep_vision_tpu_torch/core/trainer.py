@@ -12,7 +12,7 @@ optimizer on one device.  A train step is
     optimizer ``config.optimizer.name`` picks (core/optim.py,
     core/state.py)
 
-PyTorch runs eagerly: there is no jit, no donation and no mesh.  Metrics
+PyTorch runs eagerly: there is no jit and no donation.  Metrics
 come back as device scalars and are fetched one step late at log
 intervals, so the host loop does not wait on the device every step; eval
 sums metrics on the device and fetches them once.  A task with
@@ -45,6 +45,23 @@ Every step's randomness comes from generators the trainer keeps for the
 run and re-seeds from ``(seed, step, stream)`` before each step, so a
 replayed graph draws what an eager step draws.
 
+Data parallelism (``mesh``, ``parallel/mesh.py``; the reference's
+``Mesh`` with its ``data`` axis): one process a device, each a rank of
+the ``torch.distributed`` group, each feeding its own shard of the
+global batch (``cfg.batch_size`` a rank).  The init is broadcast from
+rank 0; the BatchNorm layers normalize by the global batch's
+statistics (``models/common.py``); after ``Σg / A`` one all-reduce of a
+flat buffer of the gradients, the loss and the metrics makes them the
+global batch's means, so the guard decides on the global loss and
+every rank commits or skips the same step, with bit-identical weights.
+Each rank folds its index into its step seeds (rank 0 keeps the
+single-process ones); eval sums are all-reduced, and the host
+evaluator's outputs are gathered to rank 0, whose metrics are
+broadcast.  A SIGTERM on any rank stops every rank at the same step
+boundary.  Rank 0 writes the checkpoints, ``metrics.jsonl`` and the
+mirror while the others wait at barriers.  Without a group, or in a
+group of one rank, a step is the single-process step bit for bit.
+
 The metric logger writes ``metrics.jsonl`` and TensorBoard event files
 under the workdir.  With ``upload`` (``cli.train --upload``) every
 checkpoint directory is mirrored there after each save, and a fresh
@@ -71,8 +88,16 @@ from deep_vision_tpu_torch.core.metrics import (
 from deep_vision_tpu_torch.core.optim import build_optimizer, build_scheduler
 from deep_vision_tpu_torch.core.state import DivergenceGuard, TrainState
 from deep_vision_tpu_torch.core.step_graph import StepRunner, run_groups
-from deep_vision_tpu_torch.models.common import set_dropout_generator
+from deep_vision_tpu_torch.models.common import (
+    set_batchnorm_mesh,
+    set_dropout_generator,
+)
 from deep_vision_tpu_torch.ops.ingest import device_scalar
+from deep_vision_tpu_torch.parallel.mesh import (
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 
 
 def install_sigterm_flag(on_sigterm):
@@ -89,13 +114,18 @@ def install_sigterm_flag(on_sigterm):
     return lambda: signal.signal(signal.SIGTERM, restore_to)
 
 
-def step_seed(seed: int, step: int, stream: int | None = None) -> int:
+def step_seed(seed: int, step: int, stream: int | None = None,
+              rank: int = 0) -> int:
     """The per-step rng seed: a hash of ``(seed, step)``, the counterpart
     of the reference's ``fold_in(rng, step)`` chain; ``stream`` (1 for
-    dropout) derives an independent seed from the same pair."""
+    dropout) derives an independent seed from the same pair.  A
+    data-parallel rank above 0 folds its index in as the hash's spawn
+    key, so the ranks draw independent jitter and dropout for their
+    different images; rank 0 keeps the single-process seeds."""
     entropy = [int(seed), int(step)] + ([] if stream is None
                                         else [int(stream)])
-    return int(np.random.SeedSequence(entropy)
+    spawn = (int(rank),) if rank else ()
+    return int(np.random.SeedSequence(entropy, spawn_key=spawn)
                .generate_state(1, np.uint64)[0] >> 1)
 
 
@@ -108,11 +138,12 @@ ACCUM_STREAM = 2
 class StepGenerators:
     """The per-step generators of one trainer, kept for the run on one
     device: ``get(stream)`` makes one on first use, ``seed(rng, step)``
-    re-seeds every one from ``step_seed(rng, step, stream)`` (the
+    re-seeds every one from ``step_seed(rng, step, stream, rank)`` (the
     preprocess and draw stream is ``None``)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, rank: int = 0):
         self.device = device
+        self.rank = int(rank)
         self._gens: dict = {}
 
     def get(self, stream: int | None = None) -> torch.Generator:
@@ -122,7 +153,7 @@ class StepGenerators:
 
     def seed(self, rng: int, step: int) -> None:
         for stream, gen in self._gens.items():
-            gen.manual_seed(step_seed(rng, step, stream))
+            gen.manual_seed(step_seed(rng, step, stream, self.rank))
 
     def all(self) -> list[torch.Generator]:
         return list(self._gens.values())
@@ -151,6 +182,48 @@ def interleaved_split(batch: dict, parts: int) -> list[dict]:
                          f"grad_accum_steps={parts}")
     return [{k: v[a::parts].contiguous() for k, v in batch.items()}
             for a in range(parts)]
+
+
+def check_scan_backend(mesh, device: torch.device, scan_steps: int) -> None:
+    """A captured step on the card holds its collectives, which NCCL can
+    be captured with and gloo cannot: refuse ``scan_steps`` there."""
+    if scan_steps > 1 and mesh.grouped and device.type == "cuda" \
+            and mesh.backend != "nccl":
+        raise ValueError(
+            f"scan_steps={scan_steps} captures the step's collectives in "
+            f"a CUDA graph, which the '{mesh.backend}' backend cannot be "
+            f"captured with; run the ranks under nccl (one card a rank) "
+            f"or drop --scan-steps")
+
+
+def reduce_step(mesh, loss: torch.Tensor, aux: dict,
+                grads: list[torch.Tensor]):
+    """``(loss, aux, grads)`` as the global batch's means: one all-reduce
+    of a flat buffer of all of them, divided by the ranks (the
+    reference's gradient psum over ``data``)."""
+    if not mesh.grouped:
+        return loss, aux, grads
+    keys = list(aux)
+    out = mesh.mean_([*grads, loss, *(aux[k] for k in keys)])
+    n = len(grads)
+    return out[n], dict(zip(keys, out[n + 1:])), out[:n]
+
+
+def gather_extras(mesh, extras: list) -> list:
+    """The eval outputs of every rank's batches, on rank 0 (elsewhere
+    none): batch ``b`` is the ranks' rows of their batch ``b`` in rank
+    order (the reference's tiled all-gather over ``data``)."""
+    if not mesh.grouped:
+        return extras
+    per_rank = mesh.gather_objects(extras)
+    if per_rank is None:
+        return []
+    out = []
+    for b in range(max(len(r) for r in per_rank)):
+        parts = [r[b] for r in per_rank if b < len(r)]
+        out.append({k: np.concatenate([p[k] for p in parts])
+                    for k in parts[0]})
+    return out
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
@@ -188,23 +261,30 @@ class Trainer:
 
     def __init__(self, config: TrainConfig, model: torch.nn.Module, task,
                  workdir: str | None = None, preprocess_fn=None,
-                 device=None, upload: str | None = None):
+                 device=None, upload: str | None = None, mesh=None):
         check_recipe(config)
         self.config = config
         self.device = resolve_device(device)
+        # the data axis over the process group's ranks (one rank and no
+        # collective without a group)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        check_scan_backend(self.mesh, self.device, config.scan_steps)
         self.accum = int(config.grad_accum_steps)
         self.ema_decay = float(config.ema_decay)
-        self.generators = StepGenerators(self.device)
+        self.generators = StepGenerators(self.device, self.mesh.rank)
         # the scan_steps runner of one state (a resume or a new state
         # makes a new one, which captures anew)
         self._runner: StepRunner | None = None
         self.model = model
         self.task = task
+        if hasattr(task, "mesh"):  # a loss normalized over the global batch
+            task.mesh = self.mesh
         # device-side input preprocessing, signature (batch, generator,
         # train): on the card the uint8 → jitter → normalize kernel
         self.preprocess_fn = preprocess_fn
         self.workdir = workdir or os.path.join("runs", config.name)
-        self.logger = MetricLogger(self.workdir)
+        self.logger = MetricLogger(self.workdir,
+                                   writer=self.mesh.is_writer)
         self.scheduler = build_scheduler(
             config.scheduler.name, config.optimizer.learning_rate,
             **config.scheduler.kwargs)
@@ -218,17 +298,21 @@ class Trainer:
             # preemption recovery: a fresh host (empty workdir) pulls the
             # mirror's checkpoints back before anything looks for them;
             # otherwise its first sync would wipe the mirror's copies
+            # (rank 0 pulls, the other ranks wait for it)
             ckpt_dir = os.path.join(self.workdir, "checkpoints")
-            if not os.path.isdir(ckpt_dir) or not os.listdir(ckpt_dir):
+            if self.mesh.is_writer and (not os.path.isdir(ckpt_dir)
+                                        or not os.listdir(ckpt_dir)):
                 self.uploader.restore(ckpt_dir, "checkpoints")
                 self.uploader.restore(
                     os.path.join(self.workdir, "checkpoints_best"),
                     "checkpoints_best")
+            self.mesh.barrier()
         self.checkpointer = ckpt_lib.Checkpointer(
             os.path.join(self.workdir, "checkpoints"),
-            max_to_keep=config.keep_checkpoints)
+            max_to_keep=config.keep_checkpoints, mesh=self.mesh)
         self.best_checkpointer = ckpt_lib.Checkpointer(
-            os.path.join(self.workdir, "checkpoints_best"), max_to_keep=1)
+            os.path.join(self.workdir, "checkpoints_best"), max_to_keep=1,
+            mesh=self.mesh)
         self.start_epoch = 1
         self.guard = DivergenceGuard(config.max_bad_steps)
         # preemption: SIGTERM asks for a step-boundary checkpoint and a
@@ -250,10 +334,13 @@ class Trainer:
         return self.state_for(self.model)
 
     def state_for(self, model: torch.nn.Module) -> TrainState:
-        """A fresh TrainState around ``model``'s current weights."""
+        """A fresh TrainState around ``model``'s current weights (rank
+        0's on every rank of the mesh)."""
         model.to(self.device)
         if self.device.type == "cuda":
             model.to(memory_format=torch.channels_last)
+        set_batchnorm_mesh(model, self.mesh)
+        replicate(model, self.mesh)
         self.model = model
         return TrainState(model, build_optimizer(self.config.optimizer,
                                                  model),
@@ -293,8 +380,9 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
-        """One guarded optimizer step; metrics are 0-d device tensors."""
-        batch = to_device(batch, self.device)
+        """One guarded optimizer step on this rank's shard of the global
+        batch; metrics are 0-d device tensors (the global batch's)."""
+        batch = shard_batch(batch, self.mesh, self.device)
         self.seed_step(state)
         metrics = self.device_step(state, batch)
         state.advance()
@@ -303,8 +391,9 @@ class Trainer:
     def device_step(self, state: TrainState, batch: dict) -> dict:
         """The device work of one step on a device batch, with the
         generators seeded: preprocess → forward and backward (per
-        microbatch) → guarded update → EMA.  Reads nothing from the host
-        that changes between steps, so it may be captured."""
+        microbatch) → the ranks' mean → guarded update → EMA.  Reads
+        nothing from the host that changes between steps, so it may be
+        captured."""
         model = state.model
         model.train()
         if self.preprocess_fn is not None:
@@ -316,6 +405,7 @@ class Trainer:
                 state, batch, self.generators.get(DROPOUT_STREAM))
         else:
             loss, aux, grads = self._accumulated(state, batch)
+        loss, aux, grads = reduce_step(self.mesh, loss, aux, grads)
         state.apply_gradients_if_finite(loss, grads, stats_before)
         if self.ema_decay:
             state.update_ema(self.ema_decay)
@@ -367,7 +457,7 @@ class Trainer:
         the EMA on, the forward runs the EMA parameters and leaves the
         training parameters alone."""
         state.model.eval()
-        batch = to_device(batch, self.device)
+        batch = shard_batch(batch, self.mesh, self.device)
         if self.preprocess_fn is not None:
             batch = self.preprocess_fn(batch, None, False)
         if state.ema:  # the EMA copy, with the raw BatchNorm statistics
@@ -390,23 +480,32 @@ class Trainer:
     # ----------------------------------------------------------------- loops
 
     def evaluate(self, state: TrainState, val_data: Iterable) -> dict:
-        """Mean eval metrics over ``val_data``, with the host evaluator's
-        metrics (mAP) where the task has one."""
+        """Mean eval metrics over ``val_data`` (every rank's shard), with
+        the host evaluator's metrics (mAP) where the task has one: rank 0
+        computes them over every rank's outputs and broadcasts them."""
         make_ev = getattr(self.task, "make_host_evaluator", None)
         evaluator = make_ev() if make_ev is not None else None
         totals: dict[str, torch.Tensor] = {}
+        extras: list = []
         for batch in val_data:
             sums, extra = self._eval_forward(state, batch)
             for k, v in sums.items():
                 totals[k] = totals[k] + v if k in totals else v
             if evaluator is not None and extra is not None:
-                evaluator.add_batch({k: v.cpu().numpy()
-                                     for k, v in extra.items()})
+                extras.append({k: v.cpu().numpy() for k, v in extra.items()})
+        keys = sorted(totals)
+        if self.mesh.grouped and keys:
+            summed = self.mesh.all_reduce_(torch.stack(
+                [totals[k].to(torch.float32) for k in keys]))
+            totals = dict(zip(keys, summed))
         host = {k: float(v) for k, v in totals.items()}
         count = max(host.pop("count", 1.0), 1.0)
         out = {k: v / count for k, v in host.items()}
         if evaluator is not None:
-            out.update(evaluator.compute())
+            for extra in gather_extras(self.mesh, extras):
+                evaluator.add_batch(extra)
+            ev = evaluator.compute() if self.mesh.is_writer else None
+            out.update(self.mesh.broadcast_object(ev))
         return out
 
     def _get_prefetcher(self):
@@ -454,7 +553,7 @@ class Trainer:
             pending = metrics
             if prof is not None and i + 1 == profiling[1]:
                 prof = self._stop_profile(prof)
-            if self._preempted:
+            if self._stopping():
                 print("[preempt] SIGTERM — stopping at step boundary",
                       flush=True)
                 break
@@ -515,14 +614,15 @@ class Trainer:
 
         stream = self._get_prefetcher().iterate(train_data)
         timer.mark()
-        tail = run_groups((to_device(b, self.device) for b in stream), runner,
-                          lambda: self.seed_step(state), state.advance,
-                          on_step, on_group, lambda: self._preempted)
+        tail = run_groups(
+            (shard_batch(b, self.mesh, self.device) for b in stream),
+            runner, lambda: self.seed_step(state), state.advance, on_step,
+            on_group, self._stopping)
         if self._preempted:
             print("[preempt] SIGTERM — stopping at group boundary",
                   flush=True)
         for batch in tail:  # the ragged tail: single steps
-            if self._preempted:
+            if self._stopping():
                 break
             state, metrics = self.train_step(state, batch)
             self._log_metrics(state.step, metrics)
@@ -576,6 +676,13 @@ class Trainer:
         return install_sigterm_flag(
             lambda: setattr(self, "_preempted", True))
 
+    def _stopping(self) -> bool:
+        """Whether SIGTERM reached this rank or any other (a step
+        boundary's agreement, so every rank stops at the same step)."""
+        if self.mesh.reduces:
+            self._preempted = self.mesh.any(self._preempted)
+        return self._preempted
+
     def _fit_epochs(self, train_data, val_data, state, monitor):
         cfg = self.config
         best = None
@@ -586,7 +693,7 @@ class Trainer:
                 train_data.set_epoch(epoch)
             t0 = time.monotonic()
             state = self.train_epoch(state, train_data, epoch)
-            if self._preempted:
+            if self._stopping():
                 # mid-epoch save as epoch-1: resume re-runs this epoch
                 # from its start but keeps every applied update
                 self.save(state, epoch - 1)
@@ -605,7 +712,7 @@ class Trainer:
                       + " ".join(f"{k}={v:.4f}"
                                  for k, v in val_metrics.items())
                       + f" ({time.monotonic() - t0:.1f}s)", flush=True)
-            if self._preempted:
+            if self._stopping():
                 self.save(state, epoch)
                 print(f"[preempt] checkpoint saved at step {state.step}; "
                       f"rerun with --resume to continue", flush=True)
@@ -619,9 +726,7 @@ class Trainer:
                     state.step, state,
                     extras={"epoch": epoch, "metric": float(metric_val),
                             "monitor": monitor or ""})
-                if self.uploader is not None:
-                    self.uploader.sync(self.best_checkpointer.directory,
-                                       "checkpoints_best")
+                self._upload(self.best_checkpointer, "checkpoints_best")
         return state
 
     def save(self, state: TrainState, epoch: int):
@@ -630,5 +735,12 @@ class Trainer:
             extras={"epoch": epoch,
                     "scheduler": self.scheduler.state_dict(),
                     "history": self.logger.state_dict()})
-        if self.uploader is not None:
-            self.uploader.sync(self.checkpointer.directory, "checkpoints")
+        self._upload(self.checkpointer, "checkpoints")
+
+    def _upload(self, checkpointer, name: str) -> None:
+        """Mirror ``checkpointer``'s directory (rank 0; the others wait)."""
+        if self.uploader is None:
+            return
+        if self.mesh.is_writer:
+            self.uploader.sync(checkpointer.directory, name)
+        self.mesh.barrier()

@@ -235,6 +235,8 @@ class ImageNetLoader:
     def __init__(self, root_dir: str | None, labels_file: str | None,
                  batch_size: int, train: bool = True, image_size: int = 224,
                  resize: int = 256, num_workers: int = 16, seed: int = 0,
+                 process_index: int | None = None,
+                 process_count: int | None = None,
                  prefetch_batches: int = 2, device_normalize: bool = True,
                  preprocessing: str = "torch",
                  dataset: ImageNetRecords | None = None):
@@ -247,7 +249,14 @@ class ImageNetLoader:
                              "device_normalize")
         self.ds = dataset if dataset is not None \
             else ImageNetFolder(root_dir, labels_file)
-        self.host_indices = np.arange(len(self.ds))
+        from deep_vision_tpu_torch.parallel import distributed
+
+        pi = distributed.process_index() if process_index is None \
+            else process_index
+        pc = distributed.process_count() if process_count is None \
+            else process_count
+        # the rank's shard: every rank reads a disjoint 1/pc of each epoch
+        self.host_indices = np.arange(pi, len(self.ds), pc)
         self.batch_size = batch_size
         self.train = train
         self.image_size, self.resize = image_size, resize

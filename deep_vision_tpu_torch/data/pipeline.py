@@ -135,6 +135,11 @@ class _EpochStream:
 
     def _loop(self):
         try:
+            if self._side is not None and self.device.index is not None:
+                # a thread starts on card 0: pin it to a rank's card
+                # before it allocates pinned buffers or events (a bare
+                # "cuda" is the current card, 0 in every thread)
+                torch.cuda.set_device(self.device)
             it = iter(self._iterable)
             while not self._stop.is_set():
                 try:

@@ -199,16 +199,30 @@ class _TrainBatchNorm(torch.autograd.Function):
     at batch 256 does not fit on an 80 GB card."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, out_dtype):
+    def forward(ctx, x, weight, bias, eps, out_dtype, mesh=None):
         shape = (1, -1, 1, 1)
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=(0, 2, 3))
-        mean2 = (xf * xf).mean(dim=(0, 2, 3))
+        ctx.mesh = mesh if mesh is not None and mesh.reduces else None
+        if ctx.mesh is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = (xf * xf).mean(dim=(0, 2, 3))
+            n = x.numel() // x.shape[1]
+        else:
+            # the global batch's statistics: one all-reduce of the
+            # per-channel sums of x and x² with the element count
+            c = x.shape[1]
+            sums = torch.cat([xf.sum(dim=(0, 2, 3)),
+                              (xf * xf).sum(dim=(0, 2, 3)),
+                              xf.new_full((1,), x.numel() // c)])
+            ctx.mesh.all_reduce_(sums)
+            n = sums[2 * c:]
+            mean, mean2 = sums[:c] / n, sums[c:2 * c] / n
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
         mul = rstd * weight.to(torch.float32)
         y = (xf - mean.view(shape)) * mul.view(shape) + \
             bias.to(torch.float32).view(shape)
+        ctx.n = n
         ctx.save_for_backward(x, weight, mean, rstd)
         ctx.mark_non_differentiable(mean, var)
         return y.to(out_dtype), mean, var
@@ -217,19 +231,26 @@ class _TrainBatchNorm(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, weight, mean, rstd = ctx.saved_tensors
         shape = (1, -1, 1, 1)
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         dyf = dy.to(torch.float32)
         xhat = (x.to(torch.float32) - mean.view(shape)) * rstd.view(shape)
         dbias = dyf.sum(dim=(0, 2, 3))
         dscale = (dyf * xhat).sum(dim=(0, 2, 3))
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = (dyf - (dbias / n).view(shape)
-                  - xhat * (dscale / n).view(shape)) * \
+            gbias, gscale = dbias, dscale
+            if ctx.mesh is not None:
+                # the input gradient needs the global Σdy and Σdy·x̂; the
+                # scale and bias gradients stay this rank's own (the
+                # trainer's gradient all-reduce averages them)
+                both = ctx.mesh.all_reduce_(torch.cat([dbias, dscale]))
+                gbias, gscale = both[:dbias.numel()], both[dbias.numel():]
+            dx = (dyf - (gbias / n).view(shape)
+                  - xhat * (gscale / n).view(shape)) * \
                 (rstd * weight.to(torch.float32)).view(shape)
             dx = dx.to(x.dtype)
         return (dx, dscale.to(weight.dtype), dbias.to(weight.dtype), None,
-                None)
+                None, None)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -244,11 +265,15 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.compute_dtype = dtype
         self.flax_momentum = momentum
         self.update_stats = True
+        # the data axis whose ranks share the batch statistics
+        # (set_batchnorm_mesh); None: this process's batch alone
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             y, mean, var = _TrainBatchNorm.apply(
-                x, self.weight, self.bias, self.eps, self.compute_dtype)
+                x, self.weight, self.bias, self.eps, self.compute_dtype,
+                self.mesh)
             if self.update_stats:
                 m = self.flax_momentum
                 with torch.no_grad():
@@ -263,6 +288,18 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = (x.to(torch.float32) - self.running_mean.view(shape)) * \
             mul.view(shape) + self.bias.to(torch.float32).view(shape)
         return y.to(self.compute_dtype)
+
+
+def set_batchnorm_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Point every :class:`BatchNorm2d` of ``model`` at ``mesh``: with
+    more than one rank on its data axis, a training forward normalizes
+    by the global batch's statistics (flax's BatchNorm under the
+    reference's mesh) and updates the running statistics from them;
+    otherwise (None, or one rank) the layer is unchanged."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.mesh = mesh
+    return model
 
 
 class ConvBN(nn.Module):

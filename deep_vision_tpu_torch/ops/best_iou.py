@@ -97,9 +97,10 @@ def best_iou_max(pred: torch.Tensor, gt: torch.Tensor,
     if gt.data_ptr() % 16:
         gt = gt.clone()
     lib = _library()
-    err = lib.dvt_best_iou_max(
-        pred.data_ptr(), gt.data_ptr(), mask.data_ptr(), out.data_ptr(), b,
-        n, m, torch.cuda.current_stream(pred.device).cuda_stream)
+    with torch.cuda.device(pred.device):  # launch on the stream's device
+        err = lib.dvt_best_iou_max(
+            pred.data_ptr(), gt.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            b, n, m, torch.cuda.current_stream(pred.device).cuda_stream)
     if err != 0:
         msg = lib.dvt_best_iou_max_error_string(err).decode()
         raise RuntimeError(f"best_iou_max kernel launch failed: {msg} "

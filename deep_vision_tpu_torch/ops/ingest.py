@@ -126,11 +126,14 @@ def serve_ingest(x: torch.Tensor, kind: str, act_scale: float = 1.0,
     mean_c = (ctypes.c_float * channels)(*mean.tolist())
     std_c = (ctypes.c_float * channels)(*std.tolist())
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.dvt_serve_ingest(
-        x.data_ptr(), out.data_ptr(), x.numel(), channels,
-        ctypes.cast(mean_c, ctypes.c_void_p),
-        ctypes.cast(std_c, ctypes.c_void_p),
-        float(act_scale), int(bool(quantize)), int(vectorized), stream)
+    # the runtime launches on the thread's current device, which must be
+    # the stream's (a rank on another card than the thread's current one)
+    with torch.cuda.device(x.device):
+        err = lib.dvt_serve_ingest(
+            x.data_ptr(), out.data_ptr(), x.numel(), channels,
+            ctypes.cast(mean_c, ctypes.c_void_p),
+            ctypes.cast(std_c, ctypes.c_void_p),
+            float(act_scale), int(bool(quantize)), int(vectorized), stream)
     if err != 0:
         msg = lib.dvt_cuda_error_string(err).decode()
         raise RuntimeError(f"serve_ingest kernel launch failed: {msg} "

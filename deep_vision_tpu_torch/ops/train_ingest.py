@@ -163,12 +163,13 @@ def train_ingest(x: torch.Tensor, factors: torch.Tensor,
     mean_c = (ctypes.c_float * 3)(*mean.tolist())
     std_c = (ctypes.c_float * 3)(*std.tolist())
     lib = _library()
-    err = lib.dvt_train_ingest(
-        x.data_ptr(), factors.data_ptr(), out.data_ptr(), batch, pixels,
-        ctypes.cast(mean_c, ctypes.c_void_p),
-        ctypes.cast(std_c, ctypes.c_void_p),
-        int(tiled_path(x.data_ptr(), out.data_ptr(), pixels)), magic, shift,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):  # launch on the stream's device
+        err = lib.dvt_train_ingest(
+            x.data_ptr(), factors.data_ptr(), out.data_ptr(), batch, pixels,
+            ctypes.cast(mean_c, ctypes.c_void_p),
+            ctypes.cast(std_c, ctypes.c_void_p),
+            int(tiled_path(x.data_ptr(), out.data_ptr(), pixels)), magic,
+            shift, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         msg = lib.dvt_train_ingest_error_string(err).decode()
         raise RuntimeError(f"train_ingest kernel launch failed: {msg} "

@@ -135,6 +135,9 @@ class CenterNetTask:
         self.wh_weight = wh_weight
         self.offset_weight = offset_weight
         self.eval_score_threshold = eval_score_threshold
+        # the trainer's data-parallel mesh: the wh and offset losses are
+        # normalized by the global batch's object count
+        self.mesh = None
 
     @staticmethod
     def _l1_terms(wh, offset, batch):
@@ -149,9 +152,18 @@ class CenterNetTask:
     def loss(self, outputs, batch):
         """(the loss summed over stacks, per-stack components
         ``heat_s``, ``wh_s``, ``off_s``); wh and offset normalized by
-        the batch's objects."""
+        the batch's objects.  Under a mesh of R > 1 ranks the batch is
+        the global one: a rank's wh and offset sums are divided by the
+        all-reduced object count and multiplied by R, so the ranks' mean
+        (what the trainer's all-reduce takes) is the global loss; the
+        focal term is a per-image mean and needs nothing."""
         total, comps = 0.0, {}
         n = torch.clamp_min(batch["obj_mask"].sum(), 1.0)
+        if self.mesh is not None and self.mesh.reduces:
+            # this rank's share of max(global count, 1)
+            count = self.mesh.all_reduce_(
+                batch["obj_mask"].sum().detach().to(torch.float32))
+            n = torch.clamp_min(count, 1.0) / float(self.mesh.data_size)
         for s, (heat, wh, offset) in enumerate(outputs):
             l_heat = focal_loss(heat, batch["heatmap"]).mean()
             e_wh, e_off = self._l1_terms(wh, offset, batch)

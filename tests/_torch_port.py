@@ -119,10 +119,13 @@ def adam_step_errors(got: dict, want: dict, init: dict, lr: float) -> dict:
 
 
 def jax_trainer_step(jax_model, variables, task, batch, task_name: str,
-                     size: int, lr: float):
+                     size: int, lr: float, data: int = 1, val=None,
+                     clip=None):
     """One step of the JAX ``Trainer`` (Adam at ``lr``, the [0, 1] scale
-    preprocess) on ``batch`` from the flax ``variables``: (loss, the
-    host variables after the step)."""
+    preprocess) on ``batch`` from the flax ``variables``, on a mesh of
+    ``data`` devices (global-norm clipping at ``clip``): (loss, the host
+    variables after the step), and with ``val`` batches also the
+    ``evaluate`` of the start's weights."""
     import tempfile
 
     from deep_vision_tpu.core.config import OptimizerConfig
@@ -134,8 +137,11 @@ def jax_trainer_step(jax_model, variables, task, batch, task_name: str,
     cfg = TrainConfig(name="parity", model=lambda: jax_model, task=task_name,
                       batch_size=len(batch["image"]), image_size=size,
                       optimizer=OptimizerConfig(name="adam",
-                                                learning_rate=lr))
-    mesh = make_mesh({"data": 1}, devices=jax.devices()[:1])
+                                                learning_rate=lr,
+                                                grad_clip_norm=clip))
+    mesh = make_mesh({"data": data}, devices=jax.devices()[:data])
+    if hasattr(task, "mesh") and data > 1:
+        task.mesh = mesh  # the Pallas kernel's data-axis shard_map
     with tempfile.TemporaryDirectory() as work:
         trainer = Trainer(cfg, jax_model, task, mesh=mesh, workdir=work,
                           preprocess_fn=make_scale_preprocess())
@@ -146,9 +152,13 @@ def jax_trainer_step(jax_model, variables, task, batch, task_name: str,
             batch_stats=jax.tree_util.tree_map(jnp.asarray,
                                                variables["batch_stats"]),
             opt_state=trainer.tx.init(params)), mesh)
+        evals = None if val is None else trainer.evaluate(
+            state, [{k: np.array(v) for k, v in b.items()} for b in val])
         # the step donates its arguments: hand it a copy of the batch
         state, m = trainer.train_step(state, {k: np.array(v)
                                               for k, v in batch.items()})
         host = jax.device_get(state)
-    return float(m["loss"]), {"params": host.params,
-                              "batch_stats": host.batch_stats}
+    after = {"params": host.params, "batch_stats": host.batch_stats}
+    if val is not None:
+        return float(m["loss"]), after, evals
+    return float(m["loss"]), after

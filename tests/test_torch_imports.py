@@ -40,7 +40,8 @@ def test_every_module_imports_with_jax_blocked():
                 "serve.edge", "serve.gateway", "cli.gateway", "serve.jobs",
                 "serve.batch_sched", "core.step_graph", "models.pretrained",
                 "core.tboard", "core.upload", "core.export", "cli.infer",
-                "viz", "data.prep", "data.native", "cli.prepare_data"):
+                "viz", "data.prep", "data.native", "cli.prepare_data",
+                "parallel", "parallel.mesh", "parallel.distributed"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
