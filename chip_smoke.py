@@ -873,6 +873,18 @@ BATCH_FLAGS = ["--batch-cache-shards", "1", "--brownout",
 RECIPE_STEPS, RECIPE_SCAN = 16, 8
 #: the other Trainer tasks captured at their toy sizes, 8 steps each:
 #: (name, extra cli.train flags)
+#: mesh serving: ResNet-50 int8 through cli.serve on a 2×2 data×model
+#: grid that repeats one card (an explicit --device cuda:K lays it at
+#: every place of the grid), 8 sequential then 24 concurrent requests a
+#: server over the sharded ladder 2..32; the reference's classifier
+#: table is refused on int8 (its kernel rules hit the 1-D param_scales
+#: leaves), so its intent runs anchored on params/
+MESH_DEVICE = "cuda:0"
+MESH_AXES = (2, 2)
+MESH_N_SEQ, MESH_N_CONC = 8, 24
+MESH_PARAMS_TABLE = r"^params/.*Dense_\d+/kernel$=-,model;.*="
+MESH_REFUSAL = "is only valid for values of rank at least 2, but was " \
+    "applied to a value of rank 1"
 RECIPE_TOY_ACCUM = ("--grad-accum", "2", "--ema-decay", "0.9")
 RECIPE_TOY_TASKS = (
     ("yolov3_toy", ()), ("centernet_toy", ()), ("hourglass_toy", ()),
@@ -8295,6 +8307,279 @@ def phase_data_parallel(training: dict) -> dict:
     return out
 
 
+def mesh_faults(replies, refs: dict, bound: float) -> tuple[list, float]:
+    """Each /v1/classify answer against the unsharded model's direct
+    logits of its image (``refs``: bucket → one row an image).  An
+    answer holds at a bucket when every served logit lies within
+    ``bound`` of the direct logit of its class, each served class is in
+    the direct top 5 up to a tie within ``bound``, and top-1 is equal
+    where the direct margin exceeds ``bound``.  Returns the faults and
+    the largest logit difference of the buckets that held."""
+    faults, worst = [], 0.0
+    for i, (status, got, _) in enumerate(replies):
+        if status != 200:
+            faults.append(f"request {i}: HTTP {status} {got}")
+            continue
+        classes = [t["class"] for t in got["top"]]
+        logits = np.array([t["logit"] for t in got["top"]], np.float64)
+        best = math.inf
+        for ref in refs.values():
+            r = ref[i].astype(np.float64)
+            order = np.sort(r)
+            err = float(np.abs(logits - r[classes]).max())
+            if err <= bound and r[classes].min() >= order[-5] - bound \
+                    and (order[-1] - order[-2] <= bound
+                         or classes[0] == int(r.argmax())):
+                best = min(best, err)
+        if len(classes) != 5 or best > bound:
+            faults.append(f"request {i}: top-5 {classes} held by no "
+                          f"bucket's direct logits within {bound:.3g}")
+        else:
+            worst = max(worst, best)
+    return faults, worst
+
+
+def split_shapes(view) -> dict:
+    """layer name → (mode, the kernel shape each model shard holds) of
+    every layer the view splits over ``model``."""
+    out = {}
+    mesh = view.mesh_shape()
+    m = mesh.get("model", 1)
+    for key, s in view._layout.specs.items():
+        if s.mode in ("column", "row"):
+            w = view._layout.shapes[key]
+            dim = 0 if s.mode == "column" else 1
+            shard = list(w)
+            shard[dim] //= m
+            out[key[:-len(".weight")]] = (s.mode, tuple(shard))
+    return out
+
+
+def layer_calls(view, x) -> list:
+    """(input shape, weight shape, device) of every convolution and
+    dense product one call of ``view``'s bucket callable makes."""
+    import torch
+    import torch.nn.functional as F
+
+    seen = []
+    originals = {"conv2d": F.conv2d, "linear": F.linear}
+
+    def recorder(name):
+        def run(inp, weight, *args, **kwargs):
+            seen.append((tuple(inp.shape), tuple(weight.shape),
+                         str(weight.device)))
+            return originals[name](inp, weight, *args, **kwargs)
+        return run
+
+    fn = view.compile_bucket(int(x.shape[0]))
+    try:
+        for name in originals:
+            setattr(F, name, recorder(name))
+        fn(x)
+        torch.cuda.synchronize()
+    finally:
+        for name, f in originals.items():
+            setattr(F, name, f)
+    return seen
+
+
+def mesh_server(workdir: str, flags: list, bodies: list, refs: dict,
+                bound: float, n_data: int) -> tuple:
+    """``cli.serve --device MESH_DEVICE`` with ``flags`` over the
+    workdir's ResNet-50 int8: the requests answered (``mesh_faults``),
+    ``serve_ingest`` launched once a data shard a batch, the mesh and
+    the bytes in /v1/stats, /v1/healthz and the two /metrics gauges.
+    Returns (engine, server, the run's numbers); the caller stops
+    them."""
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+
+    engine, server = boot_cli(
+        ["-m", MODEL, "--workdir", workdir, "--wire-dtype", "uint8",
+         "--infer-dtype", "int8", "--port", "0", "--device", MESH_DEVICE,
+         "--max-batch", str(max(BUCKETS)), *flags])
+    port = server.port
+    batches0 = engine.stats()["batches"]
+    serve_ingest.launches = 0
+    replies = drive(port, bodies, MESH_N_SEQ)
+    launches = serve_ingest.launches
+    st = engine.stats()
+    ran = st["batches"] - batches0
+    faults, worst = mesh_faults(replies, refs, bound)
+    check(not faults, f"mesh {flags}: {faults[:5]}")
+    check(launches == ran * n_data,
+          f"mesh {flags}: serve_ingest launched {launches} times for "
+          f"{ran} batches over {n_data} data shards")
+    status, blob = get_url(port, "/v1/stats")
+    stats = json.loads(blob)[MODEL]
+    status, blob = get_url(port, "/v1/healthz")
+    health = json.loads(blob)["engines"][MODEL]
+    mesh = engine.model.mesh_shape()
+    check(stats["mesh_shape"] == mesh and health["mesh_shape"] == mesh,
+          f"mesh {flags}: stats {stats['mesh_shape']}, healthz "
+          f"{health['mesh_shape']}, model {mesh}")
+    status, blob = get_url(port, "/metrics")
+    samples = parse_metrics(blob.decode())
+    gauges = {axis: samples.get(
+        f'dvt_serve_mesh_shape{{axis="{axis}",model="{MODEL}"}}')
+        for axis in mesh}
+    shard_g = samples.get(f'dvt_serve_param_shard_bytes{{model="{MODEL}"}}')
+    check(gauges == {k: float(v) for k, v in mesh.items()}
+          and shard_g == stats["param_shard_bytes"],
+          f"mesh {flags}: /metrics mesh {gauges} and shard bytes "
+          f"{shard_g} against /v1/stats {mesh}, "
+          f"{stats['param_shard_bytes']}")
+    return engine, server, {
+        "flags": flags, "mesh": mesh, "requests": len(replies),
+        "batches": ran, "launches": launches,
+        "max_logit_err": worst, "buckets": st["buckets"],
+        "placement": engine.model.placement_desc(),
+        "param_shard_bytes": stats["param_shard_bytes"],
+        "param_global_bytes": stats["param_global_bytes"]}
+
+
+def phase_mesh_serving(card_line: str) -> dict:
+    """ResNet-50 int8 at full width on the uint8 wire through
+    ``cli.serve``'s ``build_server`` over a data×model grid of one card:
+    ``--mesh 2,2 --partition-rules classifier`` refused with the
+    reference's words (int8), the classifier table's dense rule anchored
+    on ``params/``, the fallback sharder (column- and row-parallel
+    convolutions and a row-parallel classifier), and ``--shard-batches``
+    over two.  Each answer within twice the card's own bucket-1-vs-32
+    logit spread of the unsharded bucket callable, ``serve_ingest``
+    launched batches × D times, the mesh and bytes in the stats and
+    gauges; on the fallback view: every split layer's shards seen at
+    their shapes and devices, the shards reversed failing most rows,
+    one chip's bytes below the whole model's with ``memory_allocated``
+    rising by D copies of it (shards, not M copies), spill and re-admit
+    bit for bit."""
+    import torch
+
+    from deep_vision_tpu_torch.cli import serve as cli
+    from deep_vision_tpu_torch.parallel.mesh import make_mesh
+    from deep_vision_tpu_torch.serve.mesh_view import ShardedLayer
+    from deep_vision_tpu_torch.serve.registry import ModelRegistry
+
+    body = {"top_k": 5}
+    n_data, n_model = MESH_AXES
+    mesh_flag = f"{n_data},{n_model}"
+    out: dict = {"card": card_line}
+    os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        workdir = os.path.join(tmp, MODEL)
+        write_checkpoint(workdir, 1, seeded_classifier(6))
+        # the reference's classifier table on int8: refused, its words
+        try:
+            cli.build_server(cli.build_parser().parse_args(
+                ["-m", MODEL, "--workdir", workdir, "--wire-dtype",
+                 "uint8", "--infer-dtype", "int8", "--port", "0",
+                 "--device", MESH_DEVICE, "--mesh", mesh_flag,
+                 "--partition-rules", "classifier"]))
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        check(refusal is not None and MESH_REFUSAL in refusal,
+              f"--partition-rules classifier on int8: {refusal}")
+        out["classifier_int8_refusal"] = refusal
+
+        sm = ModelRegistry().load_checkpoint(
+            MODEL, workdir=workdir, wire_dtype="uint8", infer_dtype="int8",
+            device=MESH_DEVICE)
+        imgs = np.random.RandomState(41).randint(
+            0, 256, (MESH_N_SEQ + MESH_N_CONC, *sm.input_shape), np.uint8)
+        bodies = [json.dumps({"pixels": im.tolist(), **body}).encode()
+                  for im in imgs]
+        refs = {b: bucket_logits(sm, imgs, b) for b in BUCKETS}
+        spread = float(np.abs(refs[min(BUCKETS)]
+                              - refs[max(BUCKETS)]).max())
+        bound = 2.0 * spread
+        out["bucket_spread"] = spread
+        out["bound"] = bound
+        x32 = torch.from_numpy(imgs).to(MESH_DEVICE)
+
+        runs = {}
+        engine, server, runs["params_table"] = mesh_server(
+            workdir, ["--mesh", mesh_flag, "--partition-rules",
+                      MESH_PARAMS_TABLE], bodies, refs, bound, n_data)
+        stop_server(engine, server)
+
+        engine, server, runs["fallback"] = mesh_server(
+            workdir, ["--mesh", mesh_flag], bodies, refs, bound, n_data)
+        try:
+            view = engine.model
+            check(view.param_bytes() < view.param_global_bytes(),
+                  f"per-chip bytes {view.param_bytes()} not below the "
+                  f"model's {view.param_global_bytes()}")
+            # the shards ran where they lie, at their shapes
+            calls = layer_calls(view, x32)
+            split = split_shapes(view)
+            check(bool(split) and {m for m, _ in split.values()}
+                  == {"column", "row"}, f"split layers {split}")
+            for name, (mode, shape) in split.items():
+                hits = [c for c in calls if c[1] == shape
+                        and c[0][0] == len(imgs) // n_data]
+                check(len(hits) >= n_data * n_model,
+                      f"{name} ({mode}) ran {len(hits)} shards of {shape}")
+            devices = sorted({c[2] for c in calls})
+            # forward ms a bucket, the view beside the single engine
+            ms = {"mesh": bucket_forward_ms(view, (2, 32), iters=5),
+                  "single": bucket_forward_ms(sm, (2, 32), iters=5)}
+            # the control: every split layer's shards joined reversed
+            fn = view.compile_bucket(32)
+            layers = [m for m in view._model.modules()
+                      if isinstance(m, ShardedLayer)]
+            for m in layers:
+                m.shards = torch.nn.ModuleList(list(m.shards)[::-1])
+            try:
+                wrong = fn(x32)
+                torch.cuda.synchronize()
+            finally:
+                for m in layers:
+                    m.shards = torch.nn.ModuleList(list(m.shards)[::-1])
+            wrong = wrong.cpu().numpy()
+            rows = [(200, json.loads(json.dumps(sm.workload.respond(
+                sm, body, wrong[i]))), 0.0) for i in range(len(imgs))]
+            control = len(mesh_faults(rows, refs, bound)[0])
+            check(2 * control > len(imgs), f"reversed shards passed the "
+                  f"answer check on {len(imgs) - control} rows")
+            # spill and re-admit through the same callable
+            first = fn(x32).cpu()
+            before = memory_idle(False)
+            spilled = view.spill_weights()
+            after = memory_idle(False)
+            again = fn(x32).cpu()
+            check(torch.equal(first, again), "a re-admitted mesh view "
+                                             "answered differently")
+            # memory: D copies of the model's bytes, not D·M
+            base = memory_idle(True)
+            probe = sm.for_mesh(make_mesh(
+                {"data": n_data, "model": n_model},
+                devices=[MESH_DEVICE] * (n_data * n_model)))
+            rise = memory_idle(True) - base
+            want = n_data * sm.param_global_bytes()
+            check(abs(rise - want) <= PLANE_MEM_SLACK,
+                  f"a {mesh_flag} view took {rise} B, want {want} B "
+                  f"(D copies of the model's bytes)")
+            del probe
+            runs["fallback"].update(
+                split_layers=len(split), call_devices=devices,
+                control_faults=control, forward_ms=ms,
+                spill={"host_bytes": spilled, "freed": before - after,
+                       "bit_identical": True},
+                view_bytes={"rise": rise, "want": want})
+        finally:
+            stop_server(engine, server)
+
+        engine, server, runs["shard_batches"] = mesh_server(
+            workdir, ["--shard-batches", "--serve-devices", "2"], bodies,
+            refs, bound, 2)
+        stop_server(engine, server)
+        out["runs"] = runs
+        out["launches"] = sum(r["launches"] for r in runs.values())
+    log(f"mesh serving: {json.dumps(out)}")
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -8415,6 +8700,7 @@ def main() -> int:
     brownout = phase_brownout(card_line)
     gateway = phase_gateway(card_line)
     batch = phase_batch(card_line)
+    mesh = phase_mesh_serving(card_line)
     main_row = next(r for r in rows if r["shape"] == [32, 224, 224, 3]
                     and r["out"] == "int8")
     by_path = {"classify_resnet50": serving["launches"],
@@ -8440,6 +8726,8 @@ def main() -> int:
                "brownout_resnet50": brownout["launches"],
                "gateway_resnet50": gateway["launches"],
                "batch_resnet50": batch["launches"],
+               **{f"mesh_{k}_resnet50": run["launches"]
+                  for k, run in mesh["runs"].items()},
                "stablehlo_resnet50": cli_tools["export"][
                    "serve_ingest_launches"]}
     zoo_serve_rows = [{k: r[k] for k in ("kind", "shape", "out", "ms",
@@ -8566,6 +8854,7 @@ def main() -> int:
         flush=True)
     print(json.dumps({"gateway": gateway}), flush=True)
     print(json.dumps({"batch": batch}), flush=True)
+    print(json.dumps({"mesh_serving": mesh}), flush=True)
     print(json.dumps({"phase_seconds": seconds}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

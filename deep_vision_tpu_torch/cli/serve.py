@@ -11,6 +11,9 @@
         --infer-dtype int8 --warmup
     python -m deep_vision_tpu_torch.cli.serve -m resnet50 \\
         --serve-devices 0 --wire-dtype uint8 --infer-dtype int8 --warmup
+    python -m deep_vision_tpu_torch.cli.serve -m resnet50 --mesh 2,2 \\
+        [--partition-rules classifier] [--partition-strict] \\
+        [--partition-min-dim 1024] --wire-dtype uint8 --infer-dtype int8
     python -m deep_vision_tpu_torch.cli.serve --models resnet50 \\
         --workdir runs --watch --watch-interval-s 2 --gate-dir holdout \\
         --min-replicas 1 --max-replicas 4 --wire-dtype uint8 \\
@@ -68,7 +71,22 @@ GPUs behind one queue (0 = all; ``serve/replicas.py``); with ``--device
 cpu`` it builds N CPU replicas.  Two replicas on ONE card are built
 through the API (``ReplicatedEngine(devices=[cuda:0, cuda:0])`` or
 ``add_replica(device="cuda:0")``): asking for more devices than the
-machine has is an error, never a silent reuse.  With ``--models``,
+machine has is an error, never a silent reuse.
+
+``--shard-batches`` serves one engine over a data axis of
+``--serve-devices`` devices instead: each padded batch splits over them
+(buckets become multiples of the device count).  ``--mesh D,M`` is the
+2-D form (``D,1`` is batch sharding): batches split D ways, and the
+weights are laid over the M devices of the ``model`` axis by
+``--partition-rules`` (a built-in table, ``classifier`` or ``gan``, or
+``regex=axes`` entries over the reference's flax paths; default: the
+first dim ≥ ``--partition-min-dim`` divisible by M), each kernel split
+on its output or input features running column- or row-parallel
+(``serve/mesh_view.py``).  The grid comes from ``--device``: ``cuda``
+takes the first D×M local GPUs, an explicit ``cuda:K`` lays card K at
+every place of the grid (one card holding a whole mesh: layout and
+accounting, no scaling), ``cpu`` a grid of CPUs.  Both flags are
+single-model only.  With ``--models``,
 ``--watch`` polls each ``<workdir>/<name>`` for new checkpoints, gates
 them on held-out data (``--gate-dir``) and rolls passing ones out
 through shadow and canary; ``--min-replicas``/``--max-replicas`` put an
@@ -103,8 +121,7 @@ thread-per-request server.  Several of these processes go behind one
 endpoint with ``cli.gateway``.
 
 Port of ``deep_vision_tpu/cli/serve.py`` (``build_server``,
-``_build_plane_server``, ``main``); the mesh flags wait for their
-slice.
+``_build_plane_server``, ``_parse_mesh_arg``, ``main``).
 """
 
 from __future__ import annotations
@@ -178,6 +195,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "behind one queue (0 = all; default 1 = one "
                         "engine); each replica holds its own copy of the "
                         "weights, batches route to the least-loaded one")
+    p.add_argument("--shard-batches", action="store_true",
+                   help="instead of replicating, shard each padded "
+                        "batch across the data axis of a mesh over "
+                        "--serve-devices devices (0/1 = all) — one "
+                        "logical big batch uses every device; buckets "
+                        "become multiples of the device count")
+    p.add_argument("--mesh", default=None,
+                   help="2-D data×model serving mesh as 'D,M' axis "
+                        "sizes (needs D×M local devices, or one card "
+                        "repeated with --device cuda:K): batches split D "
+                        "ways over data, params shard M ways over model "
+                        "per --partition-rules; buckets become multiples "
+                        "of D (subsumes --shard-batches: 'N,1' is pure "
+                        "batch sharding)")
+    p.add_argument("--partition-rules", default=None,
+                   help="how --mesh lays params over the model axis: "
+                        "a built-in table name ('classifier', 'gan') "
+                        "or ';'-separated regex=axes entries matched "
+                        "against /-joined flax param paths, e.g. "
+                        "'head/kernel=-,model;.*=' (default: shard "
+                        "the first dim ≥1024 divisible by the model "
+                        "axis, replicate the rest)")
+    p.add_argument("--partition-strict", action="store_true",
+                   help="every param leaf must match exactly one "
+                        "--partition-rules entry (layout drift fails "
+                        "at load, not silently at runtime)")
+    p.add_argument("--partition-min-dim", type=int, default=1024,
+                   help="fallback sharder only touches dims >= this "
+                        "(small leaves replicate — sharding them "
+                        "trades copy latency for no memory win); lower "
+                        "it for small test models")
     # -- fault plane and supervision --
     p.add_argument("--faults", default=None,
                    help="fault-injection spec stage:mode[:k=v]...[;...], "
@@ -467,6 +515,92 @@ def _replica_devices(device, n: int) -> list:
     return local_devices(n or None)
 
 
+def _parse_mesh_arg(spec: str) -> tuple[int, int]:
+    """``--mesh D,M`` (data,model) → (D, M); a single value N means
+    N,1 — pure batch sharding, same as --shard-batches over N."""
+    parts = [s.strip() for s in str(spec).split(",") if s.strip()]
+    try:
+        sizes = [int(s) for s in parts]
+    except ValueError:
+        sizes = []
+    if len(sizes) == 1:
+        sizes.append(1)
+    if len(sizes) != 2 or any(n < 1 for n in sizes):
+        raise ValueError(
+            f"--mesh '{spec}': expected 'data,model' positive axis "
+            "sizes (e.g. '2,2', '4,1', '1,4')")
+    return sizes[0], sizes[1]
+
+
+def _grid_devices(device, n: int | None) -> list:
+    """``n`` devices for a serving mesh: ``n`` CPUs on the CPU, card K
+    ``n`` times for an explicit ``cuda:K``, else the first ``n`` local
+    GPUs (None = all; more than exist raises)."""
+    from deep_vision_tpu_torch.serve.replicas import local_devices
+
+    if device.type == "cpu" or device.index is not None:
+        return [device] * max(1, n or 1)
+    return local_devices(n)
+
+
+def _mesh_engine(args, sm, plan: tuple, kwargs: dict):
+    """The engine of ``--mesh`` / ``--shard-batches`` over ``sm``'s view
+    on the mesh of ``plan`` (:func:`_mesh_devices`)."""
+    from deep_vision_tpu_torch.parallel.mesh import make_mesh
+    from deep_vision_tpu_torch.parallel.partition import (
+        parse_partition_rules,
+    )
+    from deep_vision_tpu_torch.serve.engine import (
+        BatchingEngine,
+        sharded_buckets,
+    )
+
+    axes, devices = plan
+    mesh = make_mesh(axes, devices=devices)
+    if kwargs["buckets"] is None:
+        # buckets key off the DATA-axis size only
+        kwargs = dict(kwargs, buckets=sharded_buckets(args.max_batch,
+                                                      mesh.data_size))
+    if args.mesh:
+        rules = parse_partition_rules(args.partition_rules) \
+            if args.partition_rules else None
+        view = sm.for_mesh(mesh, partition_rules=rules,
+                           strict=bool(args.partition_strict),
+                           min_shard_dim=int(args.partition_min_dim or 1024))
+    else:
+        view = sm.for_mesh(mesh)
+    return BatchingEngine(view, **kwargs)
+
+
+def _mesh_devices(args, device):
+    """(mesh axes, devices) of ``--mesh`` or ``--shard-batches``, None
+    without either; raises the reference's words on a conflict or a
+    device count the machine lacks."""
+    if args.mesh and args.shard_batches:
+        raise ValueError("--mesh subsumes --shard-batches (a D×1 mesh "
+                         "IS batch sharding); pass one")
+    if args.mesh:
+        n_data, n_model = _parse_mesh_arg(args.mesh)
+        try:
+            devices = _grid_devices(device, n_data * n_model)
+        except ValueError:
+            # re-raised under the flag the operator typed
+            import torch
+
+            raise ValueError(
+                f"--mesh {n_data},{n_model} needs "
+                f"{n_data * n_model} device(s); only "
+                f"{torch.cuda.device_count()} local device(s) present "
+                f"— shrink an axis or add hosts") from None
+        return {"data": n_data, "model": n_model}, devices
+    if args.shard_batches:
+        # shard over N devices (0/1 → every local device)
+        devices = _grid_devices(device, args.serve_devices
+                                if args.serve_devices > 1 else None)
+        return {"data": len(devices)}, devices
+    return None
+
+
 def _brownout(args, engines_provider, tracer):
     """``--brownout`` → a started BrownoutController, or None.  It polls
     ``engines_provider()`` each tick (so a hot reload's new engine is
@@ -608,8 +742,9 @@ def build_server(args):
         raise ValueError("--cascade routes across the model control "
                          "plane; use --models front,big")
     # fail on a device count the machine lacks before any model work
+    mesh_plan = _mesh_devices(args, device)
     devices = _replica_devices(device, args.serve_devices) \
-        if args.serve_devices != 1 else None
+        if args.serve_devices != 1 and mesh_plan is None else None
     if args.stablehlo:
         # the archive was traced at float32 on host-normalized input: the
         # wire knob does not apply (describe() shows the real wire); a
@@ -634,7 +769,10 @@ def build_server(args):
     admission = AdmissionController(
         max_queue=sm.workload.slo.bound_queue(args.max_queue),
         max_wait_ms=args.max_wait_ms)
-    if devices is not None and len(devices) > 1:
+    if mesh_plan is not None:
+        engine = _mesh_engine(args, sm, mesh_plan,
+                              dict(kwargs, admission=admission))
+    elif devices is not None and len(devices) > 1:
         engine = ReplicatedEngine(sm, devices=devices, admission=admission,
                                   **kwargs)
     else:
@@ -684,6 +822,14 @@ def _build_plane_server(args, registry, device):
         raise ValueError("--models needs --workdir (one subdirectory per "
                          "model)")
     spec = _cascade_spec(args, names) if args.cascade else None
+    if args.shard_batches:
+        raise ValueError("--shard-batches is single-model only; "
+                         "--models replicates per engine instead "
+                         "(--serve-devices N)")
+    if args.mesh:
+        raise ValueError("--mesh is single-model only; --models "
+                         "replicates per engine instead "
+                         "(--serve-devices N)")
     min_replicas, max_replicas = args.min_replicas, args.max_replicas
     if max_replicas and not min_replicas:
         min_replicas = 1
@@ -868,6 +1014,17 @@ def main(argv=None):
             print(f"[serve] {name}: {len(eng.replicas)} replicas on "
                   + ", ".join(r.model.placement_desc()
                               for r in eng.replicas), flush=True)
+    mesh_shape = sm.mesh_shape() if not args.models else None
+    if mesh_shape is not None:
+        if mesh_shape.get("model", 1) > 1:
+            print(f"[serve] 2-D mesh {mesh_shape.get('data', 1)}×"
+                  f"{mesh_shape.get('model', 1)} data×model: "
+                  f"{sm.placement_desc()}; per-chip params "
+                  f"{sm.param_bytes():,} B of "
+                  f"{sm.param_global_bytes():,} B logical", flush=True)
+        else:
+            print(f"[serve] sharded batches: {sm.placement_desc()}",
+                  flush=True)
     cascade = server.httpd.cascade
     if cascade is not None:
         sp = cascade.spec

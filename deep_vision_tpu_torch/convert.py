@@ -901,3 +901,78 @@ def load_gan(model, variables: Mapping) -> None:
     sd = gan_from_flax(variables, model)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
                           strict=True)
+
+
+# ---------------------------------------------------------------------------
+# Any family: the flax tree and the flax path of each tensor
+# ---------------------------------------------------------------------------
+
+
+def to_flax(model, state_dict: Mapping | None = None) -> dict:
+    """``model``'s weights (or ``state_dict`` in its layout) as the flax
+    ``{"params", "batch_stats"}`` tree (numpy) of its family, through
+    that family's strict ``*_to_flax`` converter: the inverse of
+    ``core.restore.import_weights``."""
+    from deep_vision_tpu_torch.models.centernet import CenterNet
+    from deep_vision_tpu_torch.models.common import Classifier
+    from deep_vision_tpu_torch.models.gan import GANModel
+    from deep_vision_tpu_torch.models.hourglass import StackedHourglass
+    from deep_vision_tpu_torch.models.resnet import ResNet
+    from deep_vision_tpu_torch.models.yolo import YoloV3
+
+    sd = model.state_dict() if state_dict is None else state_dict
+    if isinstance(model, ResNet) and not model.preact:
+        return import_torch_resnet(sd, stage_sizes=model.stage_sizes,
+                                   block=model.block_cls.__name__)
+    if isinstance(model, Classifier):
+        return classifier_to_flax(sd, model)
+    if isinstance(model, YoloV3):
+        return yolo_to_flax(sd, model.blocks)
+    if isinstance(model, CenterNet):
+        return centernet_to_flax(sd, model.num_stack, model.order,
+                                 model.filters)
+    if isinstance(model, StackedHourglass):
+        return stacked_hourglass_to_flax(sd, model.num_stack,
+                                         model.num_heatmap, model.filters,
+                                         model.num_residual, model.order)
+    if isinstance(model, GANModel):
+        return gan_to_flax(sd, model)
+    raise TypeError(f"no flax layout for {type(model).__name__}")
+
+
+def flax_leaf_map(model) -> dict:
+    """``state_dict`` key → flax path (``params/Dense_0/kernel``) of every
+    tensor of ``model`` that the reference's tree holds, read off the
+    family's converter (:func:`to_flax`) run on tagged tensors: tensor
+    ``i`` becomes the constant ``i`` (a zero-stride view, so a full-width
+    model costs nothing), and each flax leaf names the one tensor it was
+    made from.  An int8 model's ``weight_scale`` is the reference's
+    ``param_scales/<path>/kernel``; ``num_batches_tracked`` has no
+    counterpart.  A converter that mixes tensors raises."""
+    sd = model.state_dict()
+    # the map depends on the tensors' names and shapes only: kept on the
+    # model for the next call while they stay the same
+    sig = tuple((k, tuple(t.shape)) for k, t in sd.items())
+    memo = model.__dict__.get("_flax_leaf_map")
+    if memo is not None and memo[0] == sig:
+        return dict(memo[1])
+    keys = [k for k, t in sd.items()
+            if not k.endswith((".weight_scale", ".num_batches_tracked"))]
+    tags = {k: np.broadcast_to(np.float32(i), tuple(sd[k].shape))
+            for i, k in enumerate(keys)}
+    out: dict = {}
+    for path, leaf in flatten_tree(to_flax(model, tags)).items():
+        leaf = np.asarray(leaf)
+        i = int(leaf.flat[0]) if leaf.size else -1
+        if leaf.size == 0 or leaf.min() != leaf.max() or \
+                not 0 <= i < len(keys) or keys[i] in out:
+            raise ValueError(f"flax leaf '{path}' is not one tensor of "
+                             f"{type(model).__name__}")
+        out[keys[i]] = path
+    for k in sd:
+        if k.endswith(".weight_scale"):
+            w = k[:-len("_scale")]
+            if w in out and out[w].startswith("params/"):
+                out[k] = "param_scales/" + out[w][len("params/"):]
+    model.__dict__["_flax_leaf_map"] = (sig, dict(out))
+    return out

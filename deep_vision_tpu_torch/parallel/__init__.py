@@ -1,7 +1,9 @@
-"""Parallelism over ranks (one process a device): the data axis.
+"""Parallelism: training ranks on the data axis (one process a device),
+and serving's ``data × model`` grid of one process's devices with the
+partition rules that lay weights over ``model``.
 
-Port of ``deep_vision_tpu/parallel``'s mesh and multi-process modules;
-the pipeline's ``pipeline_apply``, ``stack_stages`` and
+Port of ``deep_vision_tpu/parallel``'s mesh, multi-process and partition
+modules; the pipeline's ``pipeline_apply``, ``stack_stages`` and
 ``unstack_stages`` come with the pipeline slice."""
 
 from deep_vision_tpu_torch.parallel.mesh import (
@@ -9,6 +11,7 @@ from deep_vision_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     PIPE_AXIS,
     SPATIAL_AXIS,
+    LocalMesh,
     Mesh,
     batch_sharding,
     make_mesh,
@@ -23,6 +26,7 @@ __all__ = [
     "MODEL_AXIS",
     "PIPE_AXIS",
     "SPATIAL_AXIS",
+    "LocalMesh",
     "Mesh",
     "make_mesh",
     "replicate",

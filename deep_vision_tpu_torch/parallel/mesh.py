@@ -17,11 +17,20 @@ the mesh is a rank, and the collectives are explicit calls of
   (``models/common.py``), and :func:`replicate` broadcasts rank 0's
   weights.
 
-Only the ``data`` axis is ported in this slice; a ``model``, ``spatial``
-or ``pipe`` axis above 1 raises naming the slice that brings it.
+The rank mesh has only the ``data`` axis: the reference's trainer never
+shards over ``model``, and a ``spatial`` or ``pipe`` axis above 1 raises
+naming the module still to be ported.
 ``torch.distributed.device_mesh.DeviceMesh`` is not used: with one axis
 and one process a device it would add a CUDA-or-CPU device type to the
 group without changing a collective.
+
+Serving's mesh is the other form (:class:`LocalMesh`):
+``make_mesh({"data": D, "model": M}, devices=[torch.device, ...])``
+lays this process's own devices on a ``data × model`` grid, as the
+reference's single-controller server lays its local chips.  One process
+drives every device of the grid (``serve/mesh_view.py``): no ranks, no
+process group.  A device may repeat (``[cuda:0] * 4``, ``["cpu"] * 4``),
+as ``ReplicatedEngine(devices=[cuda:0, cuda:0])`` allows.
 
 Device collectives (``all_reduce_``, ``broadcast_``) take tensors on the
 rank's device and use only ``all_reduce`` and ``broadcast``, the two
@@ -47,11 +56,14 @@ MODEL_AXIS = "model"
 SPATIAL_AXIS = "spatial"  # image-row (context) axis
 PIPE_AXIS = "pipe"
 
-#: the slice of the port that brings each axis other than ``data``
+#: where each axis other than ``data`` stands for the rank mesh
 LATER_AXES = {
-    MODEL_AXIS: "serving's mesh (parallel/partition.py)",
-    SPATIAL_AXIS: "the pipeline and spatial slice (parallel/spatial.py)",
-    PIPE_AXIS: "the pipeline and spatial slice (parallel/pipeline.py)",
+    MODEL_AXIS: "is serving's alone: a grid of this process's devices "
+                "(make_mesh(..., devices=[torch.device, ...]) with "
+                "parallel/partition.py); the trainer never shards over "
+                "it, as the reference's does not",
+    SPATIAL_AXIS: "is not ported yet (parallel/spatial.py)",
+    PIPE_AXIS: "is not ported yet (parallel/pipeline.py)",
 }
 
 
@@ -176,13 +188,62 @@ def _timeout():
     return datetime.timedelta(seconds=distributed.timeout_s())
 
 
+class LocalMesh:
+    """A ``data × model`` grid of this process's devices: ``shape`` (axis
+    name → size, as given), ``devices`` the ``(D, M)`` object array of
+    ``torch.device`` (row ``r`` is data shard ``r``; its first device
+    runs what is not split over ``model``)."""
+
+    def __init__(self, shape: Mapping[str, int], grid: np.ndarray):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.size = math.prod(self.shape.values())
+        self.devices = grid
+
+    def __repr__(self) -> str:
+        return f"LocalMesh({self.shape}, {self.device_list()})"
+
+    @property
+    def data_size(self) -> int:
+        return int(self.shape.get(DATA_AXIS, 1))
+
+    @property
+    def model_size(self) -> int:
+        return int(self.shape.get(MODEL_AXIS, 1))
+
+    def device_list(self) -> list:
+        return [d for row in self.devices for d in row]
+
+
+def _is_local(devices) -> bool:
+    return any(isinstance(d, (torch.device, str)) for d in devices)
+
+
+def _local_mesh(names, sizes, devices) -> LocalMesh:
+    for name, size in zip(names, sizes):
+        if name not in (DATA_AXIS, MODEL_AXIS) and size > 1:
+            raise NotImplementedError(
+                f"mesh axis '{name}'={size}: a local device grid has the "
+                f"'{DATA_AXIS}' and '{MODEL_AXIS}' axes; '{name}' "
+                f"{LATER_AXES.get(name, 'is not ported yet')}")
+    shape = dict(zip(names, sizes))
+    d, m = int(shape.get(DATA_AXIS, 1)), int(shape.get(MODEL_AXIS, 1))
+    grid = np.empty((d, m), dtype=object)
+    for i, dev in enumerate(devices[:d * m]):
+        grid[i // m, i % m] = torch.device(dev)
+    return LocalMesh(shape, grid)
+
+
 def make_mesh(axis_sizes: Mapping[str, int] | None = None,
-              devices=None) -> Mesh:
-    """A :class:`Mesh` of the process group's ranks.  Default: every rank
-    on the ``data`` axis.  ``-1`` means all remaining ranks.  ``devices``
-    (the ranks) defaults to ``range(world size)``."""
+              devices=None):
+    """A :class:`Mesh` of the process group's ranks (``devices`` the
+    ranks, default ``range(world size)``), or with ``devices`` given as
+    ``torch.device``s (or their names) a :class:`LocalMesh` of them.
+    Default: everything on the ``data`` axis.  ``-1`` means all the
+    remaining ranks or devices."""
     if devices is None:
         devices = list(range(distributed.process_count()))
+    local = _is_local(devices)
     if axis_sizes is None:
         axis_sizes = {DATA_AXIS: len(devices)}
     names = tuple(axis_sizes.keys())
@@ -195,12 +256,14 @@ def make_mesh(axis_sizes: Mapping[str, int] | None = None,
         raise ValueError(
             f"mesh {dict(zip(names, sizes))} needs {total} devices, "
             f"have {len(devices)}")
+    if local:
+        return _local_mesh(names, sizes, list(devices))
     for name, size in zip(names, sizes):
         if name != DATA_AXIS and size > 1:
             raise NotImplementedError(
-                f"mesh axis '{name}'={size}: the port has only the "
-                f"'{DATA_AXIS}' axis so far; '{name}' comes with "
-                f"{LATER_AXES.get(name, 'a later slice')}")
+                f"mesh axis '{name}'={size}: the rank mesh has only the "
+                f"'{DATA_AXIS}' axis; '{name}' "
+                f"{LATER_AXES.get(name, 'is not ported yet')}")
     if total < len(devices):
         raise ValueError(
             f"mesh {dict(zip(names, sizes))} uses {total} of the "

@@ -1,6 +1,7 @@
 """Pipelined background-thread dynamic micro-batcher on one device.
 
 Port of ``deep_vision_tpu/serve/engine.py`` (``power_of_two_buckets``,
+``sharded_buckets``,
 ``StagingPool``, ``BatchingEngine``).  Two stages:
 
   batcher thread   drains the queue up to ``max_batch``/``max_wait_ms``,
@@ -137,6 +138,17 @@ def power_of_two_buckets(max_batch: int) -> list[int]:
         b *= 2
     buckets.append(max_batch)
     return buckets
+
+
+def sharded_buckets(max_batch: int, num_devices: int) -> list[int]:
+    """Bucket ladder for the sharded big-batch path (``--shard-batches``
+    and mesh serving; pass the DATA-axis size, not the device count: a
+    2×2 data×model mesh splits each batch 2 ways): every bucket a
+    multiple of ``num_devices`` so the padded batch splits evenly over
+    the mesh's data axis — n, 2n, 4n, ... max."""
+    n = max(1, int(num_devices))
+    top = max(1, max_batch // n)
+    return [n * b for b in power_of_two_buckets(top)]
 
 
 def _resolve(fut: Future, value=None, error: BaseException | None = None):
@@ -1085,6 +1097,9 @@ class BatchingEngine:
         rep["can_serve"] = rep["state"] == "ok"
         rep["device"] = str(self.device)
         rep["placement"] = self.model.placement_desc()
+        # the mesh advertisement of the reference's report: the layout
+        # of this engine's weights and one device's share of them
+        rep["mesh_shape"] = self.model.mesh_shape()
         rep["param_shard_bytes"] = self.model.param_bytes()
         rep["hbm_headroom_bytes"] = device_hbm_headroom(self.device)
         with self._lock:
@@ -1150,9 +1165,12 @@ class BatchingEngine:
                    "wire_dtype": str(self.wire_dtype),
                    "infer_dtype": self.model.infer_dtype,
                    # the served weights' bytes on the device (int8
-                   # models: the quantized size)
+                   # models: the quantized size; a mesh view: one
+                   # device's share, beside the whole model's)
                    "weight_hbm_bytes": weight_bytes,
                    "param_shard_bytes": weight_bytes,
+                   "param_global_bytes": self.model.param_global_bytes(),
+                   "mesh_shape": self.model.mesh_shape(),
                    "pipeline": {
                        "depth": self.pipeline_depth,
                        "inflight": self._inflight,

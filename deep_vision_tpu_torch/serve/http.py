@@ -603,6 +603,16 @@ def _render_engine_metrics(p, name: str, s: dict) -> None:
     p.gauge("dvt_serve_weight_hbm_bytes", s.get("weight_hbm_bytes"), lab,
             help="Byte footprint of the served weights on the device "
                  "(int8 models report the quantized size)")
+    p.gauge("dvt_serve_param_shard_bytes", s.get("param_shard_bytes"), lab,
+            help="PER-CHIP addressable weight bytes (a mesh view prices "
+                 "one chip's shard, not the global logical size)")
+    mesh = s.get("mesh_shape")
+    if isinstance(mesh, dict):
+        for axis, size in mesh.items():
+            p.gauge("dvt_serve_mesh_shape", size,
+                    {**lab, "axis": str(axis)},
+                    help="Serving mesh axis sizes (data/model); absent "
+                         "off-mesh")
     p.counter("dvt_serve_requests_submitted_total", s["submitted"], lab,
               help="Requests entering submit (incl. shed)")
     p.counter("dvt_serve_requests_served_total", s["served"], lab,

@@ -36,6 +36,16 @@ view of a checkpoint model that owns its own copy of the weights on
 bucket callables run there.  Two views on one CUDA device hold two
 copies.  The base model is left as it was.
 
+Mesh serving: ``for_mesh(mesh)`` is a view over a ``data × model`` grid
+of local devices (``parallel.mesh.LocalMesh``; ``--shard-batches`` and
+``--mesh D,M``): a padded batch splits over ``data`` (the ingest runs
+once a data shard, on that row's first device), the weights are laid
+over ``model`` by the partition rules (``parallel/partition.py``) and run
+column- or row-parallel (``serve/mesh_view.py``), and the outputs come
+back in row order on the grid's first device, the engine's.  The view
+owns its device storage; ``param_bytes()`` prices one chip's share,
+``param_global_bytes()`` the whole model.
+
 Wire and compute dtypes: a uint8 wire ships raw 0–255 pixels and the
 callable normalizes them on the device; a float32 wire ships
 host-normalized pixels.  ``infer_dtype`` "bfloat16" casts the float
@@ -53,6 +63,7 @@ asked.
 from __future__ import annotations
 
 import contextlib
+import copy
 import threading
 
 import numpy as np
@@ -122,15 +133,17 @@ class ServingModel:
         self._model: torch.nn.Module | None = None
         # weight residency (serve/models.py WeightCache): the cache that
         # manages this model, the host copy of every parameter and
-        # buffer once spilled, whether the device copy is live, the
-        # event a readmit's copies end at, and every CUDA stream that
-        # ran this model (their work must finish before an evicted
-        # storage is reused: record_stream)
+        # buffer once spilled with the device each goes back to, whether
+        # the device copy is live, the event a readmit's copies end at on
+        # each card, and every CUDA stream that ran this model (their
+        # work must finish before an evicted storage is reused:
+        # record_stream)
         self._cache = None
         self._host_weights: list[torch.Tensor] | None = None
+        self._home: list[torch.device] = []
         self._resident = True
         self._weights_ready = None
-        self._streams: dict[int, torch.cuda.Stream] = {}
+        self._streams: dict[tuple, torch.cuda.Stream] = {}
         self._residency_lock = threading.Lock()
         # (FLOPs of one image, source), counted at the first bucket built
         self._image_flops: tuple[float | None, str] | None = None
@@ -154,13 +167,35 @@ class ServingModel:
         raise NotImplementedError
 
     def param_bytes(self) -> int:
-        """Bytes the weights and buffers take on the device when
+        """Bytes the weights and buffers take on one device when
         resident: for int8 models the int8 codes plus float32 scales,
-        biases and BN statistics.  The weight cache's unit."""
+        biases and BN statistics; for a mesh view one chip's share, a
+        tensor split over an axis priced at its block, as the
+        reference's ``shard_shape``.  The weight cache's unit."""
+        layout = getattr(self, "_layout", None)
+        if layout is not None:
+            return layout.chip_bytes
+        return self.param_global_bytes()
+
+    def param_global_bytes(self) -> int:
+        """The whole model's bytes (what replication costs one chip):
+        the denominator of a mesh view's saving beside ``param_bytes``."""
+        layout = getattr(self, "_layout", None)
+        if layout is not None:
+            return layout.global_bytes
         if self._model is None:
             return 0
         return int(sum(t.numel() * t.element_size()
                        for t in self._model.state_dict().values()))
+
+    def mesh_shape(self) -> dict | None:
+        """``{"data": D, "model": M}`` (the axes as given) for a mesh
+        view, None otherwise: advertised through the engine's stats and
+        health to /v1/healthz and the gateway."""
+        mesh = getattr(self, "_mesh", None)
+        if mesh is None:
+            return None
+        return {str(k): int(v) for k, v in mesh.shape.items()}
 
     # -- weight residency ----------------------------------------------------
 
@@ -177,19 +212,23 @@ class ServingModel:
         host (0 after the first spill)."""
         tensors = self._tensors()
         copied = 0
-        on_cuda = self.device.type == "cuda"
         if self._host_weights is None:
-            if on_cuda:
-                torch.cuda.synchronize(self.device)  # every writer done
+            # each tensor goes back to its own device (a mesh view's
+            # shards lie on several)
+            self._home = [t.device for t in tensors]
+            for dev in {d for d in self._home if d.type == "cuda"}:
+                torch.cuda.synchronize(dev)  # every writer done
             self._host_weights = [
                 torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
-                                    device="cpu", pin_memory=on_cuda
+                                    device="cpu", pin_memory=t.is_cuda
                                     ).copy_(t) for t in tensors]
             copied = sum(t.numel() * t.element_size() for t in tensors)
-        streams = list(self._streams.values()) if on_cuda else []
+        streams = list(self._streams.values())
         for t, host in zip(tensors, self._host_weights):
-            for s in streams:
-                t.data.record_stream(s)
+            if t.is_cuda:
+                for s in streams:
+                    if s.device == t.device:
+                        t.data.record_stream(s)
             t.data = host
         self._resident = False
         self._weights_ready = None
@@ -197,21 +236,29 @@ class ServingModel:
 
     def admit_weights(self) -> None:
         """Copy the host copy into fresh device storage on the caller's
-        current stream (``non_blocking``: the copies queue ahead of the
-        forward on that stream; other streams wait on
-        ``_weights_ready``).  A failed allocation raises: the model never
-        serves from host weights."""
-        on_cuda = self.device.type == "cuda"
-        for t, host in zip(self._tensors(), self._host_weights):
+        current stream of each tensor's device (``non_blocking``: the
+        copies queue ahead of the forward on that stream; other streams
+        wait on that device's event in ``_weights_ready``).  A failed
+        allocation raises: the model never serves from host weights."""
+        for t, host, home in zip(self._tensors(), self._host_weights,
+                                 self._home):
             dev = torch.empty_strided(host.size(), host.stride(),
-                                      dtype=host.dtype, device=self.device)
-            dev.copy_(host, non_blocking=on_cuda)
+                                      dtype=host.dtype, device=home)
+            dev.copy_(host, non_blocking=home.type == "cuda")
             t.data = dev
-        if on_cuda:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(self.device))
-            self._weights_ready = ready
+        ready = {}
+        for dev in self._cuda_devices():
+            ready[dev] = torch.cuda.Event()
+            ready[dev].record(torch.cuda.current_stream(dev))
+        self._weights_ready = ready or None
         self._resident = True
+
+    def _cuda_devices(self) -> list[torch.device]:
+        """The CUDA devices holding this model's weights: its device, or
+        every card of a mesh view's grid once."""
+        mesh = getattr(self, "_mesh", None)
+        devices = mesh.device_list() if mesh is not None else [self.device]
+        return [d for d in dict.fromkeys(devices) if d.type == "cuda"]
 
     def release_device_weights(self) -> None:
         """Free the device copy of a retired version's weights (they stay
@@ -234,12 +281,13 @@ class ServingModel:
                 if not self._resident:
                     self.admit_weights()
         try:
-            if self.device.type == "cuda":
-                stream = torch.cuda.current_stream(self.device)
-                self._streams.setdefault(stream.cuda_stream, stream)
-                ready = self._weights_ready
-                if ready is not None:
-                    stream.wait_event(ready)
+            ready = self._weights_ready
+            for dev in self._cuda_devices():
+                stream = torch.cuda.current_stream(dev)
+                self._streams.setdefault(
+                    (stream.device_index, stream.cuda_stream), stream)
+                if ready is not None and dev in ready:
+                    stream.wait_event(ready[dev])
             yield
         finally:
             if pinned:
@@ -248,6 +296,11 @@ class ServingModel:
     def placement_desc(self) -> str:
         """Where this model's weights and batches live (stats and
         health name each replica's device with it)."""
+        mesh = getattr(self, "_mesh", None)
+        if mesh is not None:
+            devs = [str(d) for d in mesh.device_list()]
+            return (f"sharded over {len(devs)} devices {devs} "
+                    f"({self.device.type})")
         return str(self.device)
 
     def describe(self) -> dict:
@@ -269,6 +322,8 @@ class ServingModel:
                 "output_wire": self.output_wire,
                 "infer_dtype": self.infer_dtype,
                 "device": str(self.device),
+                "placement": self.placement_desc(),
+                "mesh": self.mesh_shape(),
                 "weights": self.weights,
                 "restored_step": self.restored_step,
                 "restore_fallback": self.restore_fallback,
@@ -337,8 +392,6 @@ class CheckpointServingModel(ServingModel):
         keeps its own residency state (its weights are registered with
         the weight cache apart from this model's, and released apart:
         ``release_device_weights``); this model is left untouched."""
-        import copy
-
         device = resolve_device(device)
         view = copy.copy(self)
         view.device = device
@@ -350,6 +403,54 @@ class CheckpointServingModel(ServingModel):
         view._cache = None  # registered by whoever budgets the replica
         with self.weights_in_use(), torch.no_grad():
             view._model = copy.deepcopy(self._model).to(device)
+        return view
+
+    def for_mesh(self, mesh, partition_rules=None, strict: bool = False,
+                 min_shard_dim: int = 1024) -> "CheckpointServingModel":
+        """A view over ``mesh`` (``parallel.mesh.LocalMesh``, made by
+        ``make_mesh(..., devices=[torch.device, ...])``): bucket callables
+        split the batch over the ``data`` axis, and on a 2-D ``data ×
+        model`` grid the weights are laid out by the partition rules, so
+        each device holds its shard of the wide leaves
+        (``serve/mesh_view.py``).  On a data-only grid
+        (``--shard-batches``) every row holds the whole model.
+
+        ``partition_rules`` is an ordered ``(regex, spec)`` table
+        (``parallel.partition.match_partition_rules``) over the
+        reference's flax paths; None = the first-divisible-axis fallback
+        sharder.  ``strict`` demands every leaf match exactly one rule.
+        A spec the reference's ``device_put`` refuses raises its words
+        here, before any device memory is taken.  Buckets must be
+        divisible by the data axis (``compile_bucket`` names both axes).
+        The view owns its device storage, copied from this model once,
+        here; this model is left untouched."""
+        from deep_vision_tpu_torch.parallel.partition import (
+            leaf_paths,
+            param_partition_spec,
+        )
+        from deep_vision_tpu_torch.serve.mesh_view import MeshLayout
+
+        with self.weights_in_use(), torch.no_grad():
+            # one image's FLOPs, counted once on the whole model
+            per_image, source = self._bucket_flops(1)
+            leaves = leaf_paths(self._model)
+            specs = param_partition_spec(self._model, mesh, min_shard_dim,
+                                         rules=partition_rules,
+                                         strict=strict)
+            layout = MeshLayout(self._model, mesh, specs, leaves)
+        view = copy.copy(self)
+        view._image_flops = (per_image, source)
+        view.device = mesh.devices[0][0]
+        view._mesh = mesh
+        view._layout = layout
+        view._model = layout.module
+        view._host_weights = None
+        view._home = []
+        view._resident = True
+        view._weights_ready = None
+        view._streams = {}
+        view._residency_lock = threading.Lock()
+        view._cache = None  # registered by whoever budgets the view
         return view
 
     def _bucket_flops(self, batch: int) -> tuple[float | None, str]:
@@ -379,6 +480,10 @@ class CheckpointServingModel(ServingModel):
             except Exception:  # noqa: BLE001 — the count is best effort; the fallback is labelled
                 self._image_flops = (None, "params_lower_bound")
         per_image, source = self._image_flops
+        mesh = getattr(self, "_mesh", None)
+        if mesh is not None:
+            # one device's share, the numerator of a per-device peak
+            return per_image * batch / mesh.size, f"{source}_per_device"
         if per_image is None:
             return params_flops_lower_bound(self._model, batch), \
                 "params_lower_bound"
@@ -396,20 +501,23 @@ class CheckpointServingModel(ServingModel):
         compute = torch.bfloat16 if self.infer_dtype == "bfloat16" \
             else torch.float32
         model = self._model
+        layout = getattr(self, "_layout", None)
+        if layout is not None:
+            model = layout.run_row  # (row, shard) → that row's forward
         if self.infer_dtype == "int8":
             act_scale = float(self.quant.act_scale)
             pre_q = make_int8_ingest(self.preprocess_kind, wire, act_scale)
 
-            def forward(x):
+            def forward(x, *row):
                 # int8 activations dequantize into the first conv's
                 # input; the weights dequantize inside each layer
                 xf = pre_q(x).to(torch.float32) * act_scale
-                return model(xf)
+                return model(*row, xf)
         else:
             pre = make_serve_preprocess(self.preprocess_kind, wire, compute)
 
-            def forward(x):
-                return model(pre(x))
+            def forward(x, *row):
+                return model(*row, pre(x))
 
         post = self.workload.make_epilogue(self) if epilogue else None
 
@@ -422,6 +530,9 @@ class CheckpointServingModel(ServingModel):
         device = self.device
         wire_np = self.wire_dtype
         owner = self
+        layout = getattr(self, "_layout", None)
+        if layout is not None:
+            forward = self._mesh_forward(batch, forward)
 
         def call(x):
             if not isinstance(x, torch.Tensor):
@@ -435,6 +546,58 @@ class CheckpointServingModel(ServingModel):
 
         call.cost_flops, call.flops_source = owner._bucket_flops(batch)
         return call
+
+
+    def _mesh_forward(self, batch: int, forward):
+        """The mesh view's forward of bucket ``batch``: the batch split
+        into ``D`` row shards in order, each run on its row (prologue
+        included: the int8 ingest launches once a shard, on the row's
+        first device), and the float32 outputs gathered back in row order
+        on the engine's device."""
+        from deep_vision_tpu_torch.serve.mesh_view import _on, to_device
+
+        mesh = self._mesh
+        n_data = mesh.data_size
+        if batch % n_data != 0:
+            # only the batch splits over ``data``; ``model`` constrains
+            # nothing here but belongs in the message (the operator
+            # picked one mesh, the error names it)
+            n_model = mesh.model_size
+            nearest = max(n_data, ((batch + n_data - 1) // n_data) * n_data)
+            raise ValueError(
+                f"sharded serving of '{self.name}': bucket {batch} "
+                f"not divisible by the data axis of the "
+                f"{n_data}×{n_model} data×model mesh — "
+                f"nearest usable bucket is {nearest}; use buckets "
+                f"that are multiples of {n_data} "
+                f"(engine.sharded_buckets)")
+        firsts = [mesh.devices[r][0] for r in range(n_data)]
+        home = self.device
+
+        def run(x):
+            outs = []
+            for r, xr in enumerate(x.chunk(n_data)):
+                with _on(firsts[r]):
+                    out = forward(to_device(xr, firsts[r]), r)
+                    outs.append(map_leaves(lambda t: t.to(torch.float32)
+                                           if t.is_floating_point() else t,
+                                           out))
+            return _cat_rows([map_leaves(lambda t: to_device(t, home), o)
+                              for o in outs])
+
+        return run
+
+
+def _cat_rows(outs: list):
+    """Row outputs (each a tensor or a tuple/list/dict of them) joined
+    along the batch, in row order."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(outs) if len(outs) > 1 else first
+    if isinstance(first, dict):
+        return {k: _cat_rows([o[k] for o in outs]) for k in first}
+    return type(first)(_cat_rows([o[i] for o in outs])
+                       for i in range(len(first)))
 
 
 class ExportedServingModel(ServingModel):

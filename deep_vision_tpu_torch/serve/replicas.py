@@ -736,6 +736,9 @@ class ReplicatedEngine:
         ages = [a for r in replicas.values() if not r.get("retired")
                 if (a := r.get("last_batch_age_s")) is not None]
         rep["last_batch_age_s"] = min(ages) if ages else None
+        # the single engine's mesh keys (replica views are one device
+        # each: None unless the base model is a mesh view)
+        rep["mesh_shape"] = self.model.mesh_shape()
         rep["param_shard_bytes"] = self.model.param_bytes()
         heads = [h for r in replicas.values() if not r.get("retired")
                  if (h := r.get("hbm_headroom_bytes")) is not None]
@@ -802,6 +805,8 @@ class ReplicatedEngine:
                    # the single engine's keys
                    "weight_hbm_bytes": weight_bytes,
                    "param_shard_bytes": weight_bytes,
+                   "param_global_bytes": self.model.param_global_bytes(),
+                   "mesh_shape": self.model.mesh_shape(),
                    "routing": {
                        "policy": "least_outstanding_work",
                        "replicas": len(self.replicas),

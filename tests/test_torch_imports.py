@@ -41,7 +41,8 @@ def test_every_module_imports_with_jax_blocked():
                 "serve.batch_sched", "core.step_graph", "models.pretrained",
                 "core.tboard", "core.upload", "core.export", "cli.infer",
                 "viz", "data.prep", "data.native", "cli.prepare_data",
-                "parallel", "parallel.mesh", "parallel.distributed"):
+                "parallel", "parallel.mesh", "parallel.distributed",
+                "parallel.partition", "serve.mesh_view"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"
