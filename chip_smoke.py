@@ -204,6 +204,32 @@ Phases, each of which must pass:
               requests answer 400 naming ``/v1/pose``.  Prints forward and
               epilogue ms per bucket, the client p50 and the concurrent
               img/s;
+15a. pipeline training — ``parallel/pipelined.py`` on one card.  (a)
+              ``cli.train -m hourglass104 --mesh data=1,pipe=4
+              --microbatches 4 --device cuda:0`` (every pipe place is
+              the card) on phase 13's records, an epoch and a resumed
+              second (resume digest as phase 5), the checkpoints in the
+              pipelined layout (``stem.*``, ``stages.<s>.*``); (b) under
+              deterministic algorithms at 128², batch 8, float32:
+              ``memory_allocated`` after placing the four places is the
+              monolithic weights plus the last stage's re-injection convs
+              (not four copies); at one microbatch the pipelined eval
+              forward and one trainer step (Adam) equal the monolithic
+              ``StackedHourglass``'s from the same weights bit for bit;
+              at four the step equals the plain loop over the same four
+              contiguous microbatches bit for bit, and misses the
+              monolithic step's update by more than 1e-3 in L2 (the
+              control); (c) ``load_state(workdir=...)`` of (a)'s workdir
+              is the monolithic network, whose eval forward equals the
+              pipelined model's from the same checkpoint (bit for bit at
+              one microbatch, 1e-3 of the largest heatmap at four), and
+              ``cli.serve -m hourglass104 --workdir`` (float32, uint8
+              wire, buckets 1, 8, 32) serves those weights: 32
+              ``/v1/pose`` answers 200
+              (8 sequential ones equal to a direct bucket-1 call and
+              not to an "imagenet" ingest's), ``serve_ingest``
+              launches = batches; (d) a full-width ``centernet`` on ``pipe=2``, one
+              step at 128², batch 8, equal bit for bit to the plain loop;
 16. zoo kernels — within phases 2 and 4: ``train_ingest`` at the zoo's
               shapes (128, 224, 224, 3), (128, 299, 299, 3) (299·299·3
               bytes an image is no multiple of 16) and
@@ -304,8 +330,10 @@ Phases, each of which must pass:
               bounds, the momentum stored in bfloat16; the same run
               without nesterov must fail.  Also in (a): yolov3_toy,
               centernet_toy and hourglass_toy through ``cli.train
-              --synthetic``, 8 steps with ``--scan-steps 4`` and 1 under
-              deterministic algorithms: checkpoints bit-identical;
+              --synthetic`` (hourglass_toy also on a pipe grid of four
+              places on ``cuda:0``), 8 steps with ``--scan-steps 4`` and
+              1 under deterministic algorithms: checkpoints
+              bit-identical;
 24. generate serving — seeded generator weights (non-zero BN scales)
               through ``gan_to_flax``: dcgan at float32 (its float32
               latent wire forced over the requested uint8) and cyclegan
@@ -731,6 +759,17 @@ POSE_ROW_BYTES = 16 * (2 * 4 + 4)
 MODEL = "resnet50"
 BUCKETS = (1, 2, 4, 8, 16, 32)
 N_SEQ, N_CONC = 8, 24
+#: the pipeline training phase: hourglass104 with its four stacks over a
+#: pipe grid of four places, all on one card, four microbatches; the
+#: step checks at HEAT_CHECK_SIZE² with PIPE_CHECK_BATCH images; the
+#: CenterNet step on a grid of two
+PIPE_MODEL, PIPE_CENTERNET, PIPE_DEVICE = POSE_MODEL, "centernet", "cuda:0"
+PIPE_SIZE, PIPE_MICRO, PIPE_CHECK_BATCH = 4, 4, 8
+#: the pipeline workdir's server: two buckets (phase 15 warms all six),
+#: N_SEQ sequential requests and PIPE_SERVE_CONC concurrent ones
+PIPE_SERVE_BUCKETS, PIPE_SERVE_CONC = (1, 8), 8
+#: the update bound the control must miss (L2 over the parameters)
+PIPE_CONTROL_BOUND = 1e-3
 #: detect serving: both detection families at full width, int8 on the
 #: uint8 wire, with the default decode knobs (K = 100, score floor 0.05)
 DETECT_MODELS = ("yolov3_coco", "centernet")
@@ -886,17 +925,26 @@ MESH_PARAMS_TABLE = r"^params/.*Dense_\d+/kernel$=-,model;.*="
 MESH_REFUSAL = "is only valid for values of rank at least 2, but was " \
     "applied to a value of rank 1"
 RECIPE_TOY_ACCUM = ("--grad-accum", "2", "--ema-decay", "0.9")
+#: the toy tasks captured against single steps; the last, the Stacked
+#: Hourglass's four stacks on a pipe grid of four places on one card
+RECIPE_TOY_PIPE = ("--mesh", "data=1,pipe=4", "--microbatches", "2",
+                   "--device", "cuda:0")
 RECIPE_TOY_TASKS = (
     ("yolov3_toy", ()), ("centernet_toy", ()), ("hourglass_toy", ()),
-    ("yolov3_toy", RECIPE_TOY_ACCUM))
+    ("yolov3_toy", RECIPE_TOY_ACCUM), ("hourglass_toy", RECIPE_TOY_PIPE))
 RECIPE_TOY_STEPS = 8
 RECIPE_R50_SCAN, RECIPE_EMA = 4, 0.9999
 RECIPE_YOLO_TRAIN, RECIPE_YOLO_VAL, RECIPE_ACCUM = 258, 64, 2
 RECIPE_NESTEROV_STEPS = 3
 
 
+#: the script's start: each log line carries the seconds since it
+_START = time.monotonic()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke] +{time.monotonic() - _START:.1f}s {msg}",
+          flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1777,6 +1825,346 @@ def phase_pose_serving() -> dict:
     out.update(heatmap_std=float(host.std()),
                by_bucket_ms=bucket_epilogue_ms(sm, BUCKETS))
     log(f"pose serving: {json.dumps(out)}")
+    return out
+
+
+def pipelined_from(name: str, sd: dict, pipe: int, micro: int):
+    """Config ``name``'s monolithic weights ``sd`` in a ``PipelinedModel``
+    over ``pipe`` places at PIPE_DEVICE, ``micro`` microbatches, float32
+    (the last stage's re-injection convs, which no output reads, as
+    constructed), placed."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.parallel import make_mesh
+    from deep_vision_tpu_torch.parallel.pipelined import PipelinedModel
+
+    mesh = make_mesh({"data": 1, "pipe": pipe}, pipe_device=PIPE_DEVICE)
+    pm = PipelinedModel.for_model(get_config(name).model(), mesh, micro)
+    pm.import_monolithic_variables(sd)
+    return pm.set_compute_dtype(torch.float32).place()
+
+
+def plain_loop(pm, micro: int):
+    """``pm`` with its forward replaced by the plain loop the pipeline
+    schedules: the stem on the batch, then each of ``micro`` contiguous
+    microbatches through every stage in turn."""
+    import torch
+
+    def cat(parts):
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat(parts)
+        return tuple(cat([p[i] for p in parts]) for i in range(len(parts[0])))
+
+    def forward(x):
+        outs = [[] for _ in pm.stages]
+        carry = pm.stem(x.to(pm.places[0]))
+        for c in carry.split(x.shape[0] // micro):
+            for s, stage in enumerate(pm.stages):
+                c, o = stage(c)
+                outs[s].append(o)
+        return tuple(cat(o) for o in outs)
+
+    pm.forward = forward
+    return pm
+
+
+#: the wall ms of the last ``pipe_step`` of each config, the loss read
+STEP_MS: dict = {}
+
+
+def pipe_step(name: str, model, batch: dict) -> tuple:
+    """One float32 trainer step (the config's optimizer, Adam) of
+    ``model`` on ``batch`` at PIPE_DEVICE: ``(loss, state before, state
+    after)``, the states CPU ``state_dict``s in the monolithic layout;
+    its wall ms to the loss read in ``STEP_MS[name]``."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.ops.preprocess import make_scale_preprocess
+    from deep_vision_tpu_torch.tasks.centernet import CenterNetTask
+    from deep_vision_tpu_torch.tasks.pose import PoseTask
+
+    cfg = get_config(name)
+    task = PoseTask() if cfg.task == "pose" else \
+        CenterNetTask(cfg.num_classes)
+
+    def mono_sd(m):
+        if hasattr(m, "export_monolithic_variables"):
+            return m.export_monolithic_variables()
+        return {k: v.detach().cpu().clone() for k, v in
+                m.state_dict().items()}
+
+    model.set_compute_dtype(torch.float32)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as work:
+        trainer = Trainer(cfg, model, task, workdir=work,
+                          preprocess_fn=make_scale_preprocess(),
+                          device=PIPE_DEVICE,
+                          mesh=getattr(model, "mesh", None))
+        state = trainer.state_for(model)
+        before = mono_sd(model)
+        sync = torch.cuda.synchronize if PIPE_DEVICE.startswith("cuda") \
+            else (lambda: None)
+        sync()
+        t0 = time.monotonic()
+        state, m = trainer.train_step(state, batch)
+        loss = float(m["loss"])
+        STEP_MS[name] = (time.monotonic() - t0) * 1e3
+        check(int(state.bad_steps) == 0, f"{name}: the step was skipped")
+        return loss, before, mono_sd(model)
+
+
+def same_tensors(a: dict, b: dict) -> bool:
+    import torch
+
+    return sorted(a) == sorted(b) and all(
+        torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def pipe_placement(name: str, sd: dict) -> dict:
+    """``memory_allocated`` taken by placing config ``name``'s pipelined
+    model on PIPE_SIZE places of one card: the monolithic tensors plus
+    the last stage's re-injection convs, each once."""
+    import torch
+
+    def rounded(t):  # the caching allocator's 512-byte blocks
+        return -(-t.numel() * t.element_size() // 512) * 512
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    pm = pipelined_from(name, sd, PIPE_SIZE, 1)
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    psd = pm.state_dict()
+    mono_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+    last = f"stages.{pm.num_stages - 1}.reinject"
+    extra = sum(t.numel() * t.element_size() for k, t in psd.items()
+                if k.startswith(last))
+    want = sum(rounded(t) for t in psd.values())
+    out = {"placed_bytes": placed, "tensor_bytes_rounded": want,
+           "monolithic_bytes": mono_bytes, "reinject_extra_bytes": extra,
+           "pipelined_bytes": sum(t.numel() * t.element_size()
+                                  for t in psd.values()),
+           "places": [str(d) for d in pm.places]}
+    check(out["pipelined_bytes"] == mono_bytes + extra,
+          f"pipelined tensors {out['pipelined_bytes']} B are not the "
+          f"monolithic {mono_bytes} + re-injection {extra}")
+    check(abs(placed - want) <= 4 * 2**20 and placed < 1.5 * mono_bytes,
+          f"placing {PIPE_SIZE} places took {placed} B for {want} B of "
+          f"tensors (monolithic {mono_bytes})")
+    del pm
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_step_check(name: str, sd: dict, seed: int, pipe: int,
+                    micro: int, monolithic: bool) -> dict:
+    """Config ``name`` at full width from its seeded weights ``sd`` (its
+    batch from ``seed + 1``), on ``pipe`` places at HEAT_CHECK_SIZE² with
+    PIPE_CHECK_BATCH images, float32, under deterministic algorithms: the
+    step at ``micro`` microbatches equals the plain loop over the same
+    contiguous microbatches bit for bit.  With ``monolithic`` also: at
+    one microbatch the eval forward and the step equal the monolithic
+    network's bit for bit, and the step at ``micro`` misses the
+    monolithic step (whole-batch statistics) by more than
+    PIPE_CONTROL_BOUND (the control)."""
+    import torch
+
+    from deep_vision_tpu_torch.core.config import get_config
+
+    batch = heatmap_batch(name, PIPE_CHECK_BATCH, seed=seed + 1)
+    out = {}
+    with deterministic():
+        if monolithic:
+            mono_model = get_config(name).model()
+            mono_model.load_state_dict(sd)
+            mono_model.set_compute_dtype(torch.float32).to(PIPE_DEVICE)
+            pm = pipelined_from(name, sd, pipe, 1)
+            x = torch.rand((PIPE_CHECK_BATCH, HEAT_CHECK_SIZE,
+                            HEAT_CHECK_SIZE, 3),
+                           generator=torch.Generator().manual_seed(seed))
+            with torch.no_grad():
+                a = pm.eval()(x.to(PIPE_DEVICE))
+                b = mono_model.eval()(x.to(PIPE_DEVICE))
+            out["m1_forward_bit_equal"] = all(
+                torch.equal(u, v) for u, v in zip(a, b))
+            mono = pipe_step(name, mono_model, batch)
+            out["monolithic_step_ms"] = STEP_MS[name]
+            one = pipe_step(name, pm, batch)
+            out["m1_step_bit_equal"] = one[0] == mono[0] and \
+                same_tensors(one[2], mono[2])
+            del pm, mono_model
+        piped = pipe_step(name, pipelined_from(name, sd, pipe, micro), batch)
+        out["step_ms"] = STEP_MS[name]
+        loop = pipe_step(name, plain_loop(pipelined_from(name, sd, pipe,
+                                                         micro), micro),
+                         batch)
+    out.update(loss=piped[0], loop_bit_equal=piped[0] == loop[0]
+               and same_tensors(piped[2], loop[2]))
+    check(math.isfinite(piped[0]), f"{name} pipelined loss {piped[0]}")
+    check(out["loop_bit_equal"], f"{name}: the pipelined step at "
+          f"{micro} microbatches differs from the plain loop over them")
+    if monolithic:
+        errs = update_errors(piped, mono)
+        out.update(loss_monolithic=mono[0],
+                   control_params_l2=errs["params"],
+                   control_stats_l2=errs["stats"])
+        check(out["m1_forward_bit_equal"] and out["m1_step_bit_equal"],
+              f"{name} at one microbatch differs from the monolithic "
+              f"network: {out}")
+        check(errs["params"] > PIPE_CONTROL_BOUND,
+              f"{name}: the step at {micro} microbatches is within "
+              f"{PIPE_CONTROL_BOUND} of the whole-batch monolithic step "
+              f"({errs['params']:.3e}): the control passed")
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipe_served(work: str) -> dict:
+    """(c): ``load_state`` of the pipeline-trained workdir is the
+    monolithic network, whose eval forward equals the pipelined model's
+    from the same checkpoint; ``cli.serve --workdir`` serves those
+    weights on /v1/pose with one ``serve_ingest`` launch a batch."""
+    import torch
+
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+    from deep_vision_tpu_torch.core.config import get_config
+    from deep_vision_tpu_torch.core.restore import (
+        PIPELINE_LAYOUT,
+        checkpoint_weights,
+        load_state,
+    )
+    from deep_vision_tpu_torch.models.hourglass import StackedHourglass
+    from deep_vision_tpu_torch.ops.ingest import serve_ingest
+    from deep_vision_tpu_torch.parallel.pipelined import (
+        monolithic_state_dict,
+    )
+
+    info = {}
+    mono = load_state(get_config(PIPE_MODEL), workdir=work, info=info)
+    check(isinstance(mono, StackedHourglass)
+          and info["layout"] == PIPELINE_LAYOUT,
+          f"load_state of the pipeline workdir gave {type(mono).__name__} "
+          f"({info})")
+    weights = checkpoint_weights(Checkpointer(info["dir"]).load(
+        info["step"]))
+    merged = monolithic_state_dict(mono, weights)
+    x = torch.rand((8, HEAT_SIZE, HEAT_SIZE, 3),
+                   generator=torch.Generator().manual_seed(41))
+    mono = mono.set_compute_dtype(torch.float32).to(PIPE_DEVICE).eval()
+    out = {"step": info["step"], "dir": os.path.basename(info["dir"])}
+    with deterministic(), torch.no_grad():
+        want = mono(x.to(PIPE_DEVICE))
+        pm = pipelined_from(PIPE_MODEL, merged, PIPE_SIZE, 1).eval()
+        pm.load_state_dict(weights)
+        for micro in (1, PIPE_MICRO):
+            pm.num_microbatches = micro
+            got = pm(x.to(PIPE_DEVICE))
+            out[f"m{micro}_max_abs_err"] = max(
+                float((u - v).abs().max()) for u, v in zip(got, want))
+        del pm
+    scale = max(float(v.abs().max()) for v in want)
+    out["heatmap_max_abs"] = scale
+    del mono
+    torch.cuda.empty_cache()
+    check(out["m1_max_abs_err"] == 0.0,
+          f"the restored network's eval forward differs from the pipelined "
+          f"model's at one microbatch: {out}")
+    check(out[f"m{PIPE_MICRO}_max_abs_err"] <= 1e-3 * scale,
+          f"the restored network's eval forward is more than 1e-3 of "
+          f"{scale} from the pipelined model's at {PIPE_MICRO}: {out}")
+    engine, server = boot_cli([
+        "-m", PIPE_MODEL, "--workdir", work, "--wire-dtype", "uint8",
+        "--infer-dtype", "float32", "--port", "0", "--device",
+        PIPE_DEVICE.split(":")[0], "--max-batch",
+        str(max(PIPE_SERVE_BUCKETS)),
+        "--buckets", ",".join(map(str, PIPE_SERVE_BUCKETS)), "--warmup"])
+    sm = engine.model
+    imgs = np.random.RandomState(7).randint(
+        0, 256, (N_SEQ + PIPE_SERVE_CONC, *sm.input_shape), np.uint8)
+    bodies = [json.dumps({"pixels": im.tolist()}).encode() for im in imgs]
+    try:
+        got = sm._model.state_dict()
+        same = same_tensors({k: v for k, v in got.items()}, merged)
+        serve_ingest.launches = 0
+        replies = [post(server.port, b, "/v1/pose") for b in bodies[:N_SEQ]]
+        with concurrent.futures.ThreadPoolExecutor(PIPE_SERVE_CONC) as pool:
+            replies += list(pool.map(
+                lambda b: post(server.port, b, "/v1/pose"), bodies[N_SEQ:]))
+        launches = serve_ingest.launches
+        batches = engine.stats()["batches"]
+    finally:
+        server.shutdown()
+        engine.stop(drain_deadline=10.0)
+    check(same, "cli.serve --workdir did not serve the merged pipeline "
+                "checkpoint's weights")
+    check(launches == batches > 0, f"pipeline workdir on /v1/pose: "
+          f"serve_ingest launched {launches} times for {batches} batches")
+    # the sequential requests ran one a batch: each answer is the direct
+    # bucket-1 call's exactly, and not an "imagenet" ingest's (phase 15
+    # holds the concurrent batches of this path at every bucket)
+    seq = replies[:N_SEQ]
+    agree = compare_rows(sm, seq, {1: direct_rows(sm, imgs[:N_SEQ], 1)},
+                         {}, (0.0, 0.0), pose_diff)
+    wrong = compare_rows(sm, seq, {1: direct_rows(sm, imgs[:N_SEQ], 1,
+                                                  "imagenet")},
+                         {}, (0.0, 0.0), pose_diff)
+    check(all(r[0] == 200 for r in replies) and agree["exact"] == N_SEQ,
+          f"pipeline workdir on /v1/pose: {agree}")
+    check(2 * len(wrong["faults"]) > N_SEQ,
+          "pipeline workdir on /v1/pose: the answers held against an "
+          "'imagenet' ingest")
+    out.update(launches=launches, batches=batches, requests=len(replies),
+               exact_sequential=agree["exact"],
+               control_faults=len(wrong["faults"]))
+    return out
+
+
+def phase_pipeline_training(pose_data: str) -> dict:
+    """The pipeline training mode on one card (docstring, phase 15a):
+    (a) cli.train on a pipe grid over phase 13's records, (b) the step
+    checks and the placement bytes, (c) the workdir served as the
+    monolithic network, (d) CenterNet on a grid of two."""
+    from deep_vision_tpu_torch.core.checkpoint import Checkpointer
+
+    out, seconds = {}, {}
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
+            as tmp:
+        work = os.path.join(tmp, "work")
+        run, _ = train_and_resume(
+            PIPE_MODEL, pose_data, work, HEAT_WORKERS,
+            HEAT_TRAIN // HEAT_BATCH, epochs=DETECT_EPOCHS,
+            extra=["--mesh", f"data=1,pipe={PIPE_SIZE}", "--microbatches",
+                   str(PIPE_MICRO), "--device", PIPE_DEVICE])
+        keys = list(Checkpointer(os.path.join(work, "checkpoints")).load()[
+            "state"]["model"])
+        check(all(k.startswith(("stem.", "stages.")) for k in keys)
+              and f"stages.{PIPE_SIZE - 1}.reinject_heat.weight" in keys,
+              f"the pipeline run's checkpoint is not in the pipelined "
+              f"layout: {keys[:4]}")
+        out["train"] = run
+        log(f"pipeline training: {json.dumps(run)}")
+        seconds["train"] = time.monotonic() - t0
+        out["served"] = pipe_served(work)
+        log(f"pipeline served: {json.dumps(out['served'])}")
+        seconds["served"] = time.monotonic() - t0 - seconds["train"]
+    t1 = time.monotonic()
+    sd = seeded_model(PIPE_MODEL, 13).state_dict()
+    out["placement"] = pipe_placement(PIPE_MODEL, sd)
+    out["step_check"] = pipe_step_check(PIPE_MODEL, sd, 13, PIPE_SIZE,
+                                        PIPE_MICRO, monolithic=True)
+    seconds["step_check"] = time.monotonic() - t1
+    t1 = time.monotonic()
+    out["centernet"] = pipe_step_check(
+        PIPE_CENTERNET, seeded_model(PIPE_CENTERNET, 17).state_dict(), 17,
+        2, 2, monolithic=False)
+    seconds["centernet"] = time.monotonic() - t1
+    out["seconds"] = seconds
+    log(f"pipeline checks: {json.dumps({k: out[k] for k in ('placement', 'step_check', 'centernet')})}")
     return out
 
 
@@ -2720,15 +3108,16 @@ def phase_yolo_training(keep: str | None = None) -> dict:
     return out
 
 
-def phase_heatmap_training(name: str) -> dict:
+def phase_heatmap_training(name: str, keep: str | None = None) -> dict:
     """cli.train end to end for ``centernet`` or ``hourglass104`` at full
     width on the card (256², batch 32, bf16, Adam): seeded raw records
     stored at 256², loader workers, DETECT_EPOCHS: an epoch and a resumed
-    one.  No
-    hand-written kernel runs on these paths."""
+    one.  No hand-written kernel runs on these paths.  With ``keep`` the
+    records and workdir stay under that directory (the pipeline phase
+    trains on the same records)."""
     os.makedirs(os.path.join(REPO, "_scratch"), exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "_scratch")) \
-            as tmp:
+    with (contextlib.nullcontext(keep) if keep else tempfile.
+          TemporaryDirectory(dir=os.path.join(REPO, "_scratch"))) as tmp:
         data, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
         t0 = time.monotonic()
         write = write_pose_shards if name == POSE_MODEL \
@@ -7017,7 +7406,8 @@ def scan_equivalence(name: str, tmp: str) -> dict:
 
 def tasks_capture(tmp: str) -> dict:
     """(a) for the other Trainer tasks: yolov3_toy, centernet_toy and
-    hourglass_toy, and yolov3_toy with accumulation and the EMA, through
+    hourglass_toy, yolov3_toy with accumulation and the EMA, and
+    hourglass_toy on a pipe grid of one card (RECIPE_TOY_PIPE), through
     ``cli.train --synthetic`` for RECIPE_TOY_STEPS steps with
     ``--scan-steps RECIPE_R50_SCAN`` and with 1, under deterministic
     algorithms (cuDNN's atomics otherwise make two eager runs differ):
@@ -8667,11 +9057,17 @@ def main() -> int:
     yolo_check = phase_yolo_step_check()
     detect = phase_detect_serving()
     heat_train, heat_check = {}, {}
+    # the hourglass run's records stay for phase_pipeline_training
+    pose_keep = tempfile.mkdtemp(dir=os.path.join(REPO, "_scratch"))
     for name in HEAT_MODELS:
-        heat_train[name] = phase_heatmap_training(name)
+        heat_train[name] = phase_heatmap_training(
+            name, pose_keep if name == POSE_MODEL else None)
         heat_check[name] = phase_heatmap_step_check(name)
         torch.cuda.empty_cache()
     pose = phase_pose_serving()
+    pipeline = phase_pipeline_training(os.path.join(pose_keep, "data"))
+    shutil.rmtree(pose_keep)
+    torch.cuda.empty_cache()
     zoo_steps = phase_zoo_steps()
     zoo_train = phase_zoo_training()
     lenet = phase_lenet_training()
@@ -8707,6 +9103,8 @@ def main() -> int:
                **{f"detect_{m}": detect[m]["launches"]
                   for m in DETECT_MODELS},
                f"pose_{POSE_MODEL}": pose["launches"],
+               f"pose_{POSE_MODEL}_pipeline_workdir": pipeline["served"][
+                   "launches"],
                **{f"classify_{m}": classify[m]["launches"]
                   for m, _, _ in CLASSIFY_MODELS},
                "classify_lenet5_workdir": lenet["served"]["launches"],
@@ -8833,6 +9231,7 @@ def main() -> int:
     print(json.dumps({"heatmap_training": heat_train}), flush=True)
     print(json.dumps({"heatmap_step_check": heat_check}), flush=True)
     print(json.dumps({"pose_serving": pose}), flush=True)
+    print(json.dumps({"pipeline_training": pipeline}), flush=True)
     print(json.dumps({"zoo_steps": zoo_steps}), flush=True)
     print(json.dumps({"zoo_training": {"inception3": zoo_train,
                                        "lenet5": lenet}}), flush=True)

@@ -27,6 +27,8 @@
         [--host-normalize | --tf-preprocessing] [--upload URI]
     python -m torch.distributed.run --nproc-per-node N \
         -m deep_vision_tpu_torch.cli.train -m resnet50 --mesh data=N ...
+    python -m deep_vision_tpu_torch.cli.train -m hourglass104 \
+        --mesh data=1,pipe=4 --microbatches 4 [--device cuda:0] ...
 
 Port of ``deep_vision_tpu/cli/train.py`` (``build_parser``, ``main``'s
 classification branch, ``build_classification_val_loader``,
@@ -84,8 +86,20 @@ every rank); BatchNorm uses the global batch's statistics and the
 gradients their mean over the ranks.  Without ``--mesh`` the mesh is
 every rank of the launched group (one rank outside one).  ``--mesh
 data=N`` outside a launched group of N ranks exits naming
-``torch.distributed.run``; other axes and ``--microbatches`` come with
-later slices.
+``torch.distributed.run``.
+
+Pipeline parallelism (``--mesh data=d,pipe=p [--microbatches M]``,
+``parallel/pipelined.py``): the stacked families (``hourglass*``,
+``centernet*``) train as a stem and ``num_stack`` stages, the stages
+split over each rank's ``p`` places and run as a GPipe pipeline of ``M``
+contiguous microbatches (default ``p``).  ``d`` counts ranks, as above;
+the places lie inside a rank: with ``--device cuda:K`` or ``cpu`` every
+place is that device, with a plain ``cuda`` rank ``r`` takes cards
+``r·p … r·p+p−1`` (fewer raises).  A pipe axis on another family exits
+naming the stacked families; ``--microbatches`` without a pipe axis is
+ignored, as the reference ignores it.  The checkpoints hold the
+pipelined layout, which ``core/restore.py`` serves as the monolithic
+network.  A ``spatial`` axis above 1 is not ported yet.
 """
 
 from __future__ import annotations
@@ -143,9 +157,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "'data=2,spatial=4' (image rows sharded over "
                         "'spatial'), or 'data=2,pipe=4' (GPipe pipeline "
                         "over the stacked families: hourglass pose, "
-                        "CenterNet detection); one rank a device under "
-                        "python -m torch.distributed.run (only 'data' is "
-                        "ported so far)")
+                        "CenterNet detection); one rank a 'data' place "
+                        "under python -m torch.distributed.run, the 'pipe' "
+                        "places within a rank ('spatial' is not ported "
+                        "yet)")
     p.add_argument("--microbatches", type=int, default=None,
                    help="pipeline microbatches per step (with a pipe mesh "
                         "axis; default = pipe axis size)")
@@ -178,29 +193,48 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def parse_mesh_spec(spec: str | None):
-    """``--mesh`` → the data-parallel mesh of the launched group's ranks:
-    every rank on ``data`` by default; ``data=N`` must name the group's
-    N ranks (``python -m torch.distributed.run --nproc-per-node N``)."""
-    from deep_vision_tpu_torch.parallel import distributed, make_mesh
-
-    if spec is None:
-        return make_mesh()
+def _mesh_sizes(spec: str) -> dict:
     sizes = {}
     for part in spec.split(","):
         k, v = part.split("=")
         sizes[k.strip()] = int(v)
+    return sizes
+
+
+def pipe_size(spec: str | None) -> int:
+    """The ``pipe`` size of a ``--mesh`` spec (1 without one)."""
+    return max(_mesh_sizes(spec).get("pipe", 1), 1) if spec else 1
+
+
+def parse_mesh_spec(spec: str | None, device=None):
+    """``--mesh`` → the mesh of the launched group's ranks: every rank on
+    ``data`` by default; ``data=N`` must name the group's N ranks
+    (``python -m torch.distributed.run --nproc-per-node N``), and a
+    ``pipe`` axis, which lies inside each rank, counts none: its places
+    come from ``device`` (``parallel/mesh.pipe_places``)."""
+    from deep_vision_tpu_torch.parallel import distributed, make_mesh
+
+    if spec is None:
+        return make_mesh()
+    from deep_vision_tpu_torch.parallel.mesh import LATER_AXES, SPATIAL_AXIS
+
+    sizes = _mesh_sizes(spec)
+    if sizes.get(SPATIAL_AXIS, 1) > 1:
+        raise NotImplementedError(
+            f"--mesh {spec}: the '{SPATIAL_AXIS}' axis "
+            f"{LATER_AXES[SPATIAL_AXIS]}")
     world = distributed.process_count()
     want = 1
-    for v in sizes.values():
-        want *= max(v, 1)
+    for k, v in sizes.items():
+        if k != "pipe":
+            want *= max(v, 1)
     if -1 not in sizes.values() and want != world:
         raise SystemExit(
             f"--mesh {spec} needs {want} ranks, and this process is one of "
             f"{world}: launch it as python -m torch.distributed.run "
             f"--nproc-per-node {want} -m deep_vision_tpu_torch.cli.train "
             f"... --mesh {spec} (one process a device)")
-    return make_mesh(sizes)
+    return make_mesh(sizes, pipe_device=device)
 
 
 #: the configs that train on MNIST's idx-ubyte files
@@ -262,19 +296,17 @@ def main(argv=None):
     if args.list:
         print("\n".join(list_configs()))
         return 0
-    if args.microbatches is not None:
-        raise SystemExit("--microbatches drives the pipeline axis, which "
-                         "comes with the pipeline slice (parallel/"
-                         "pipeline.py); the port has only 'data' so far")
     import torch
 
     from deep_vision_tpu_torch.parallel import distributed
 
     # join the group torch.distributed.run launched (nothing without its
-    # variables): a bare "cuda" becomes the rank's cuda:LOCAL_RANK
+    # variables): a bare "cuda" becomes the rank's first pipe card,
+    # cuda:LOCAL_RANK·pipe
     dev = torch.device(args.device)
     distributed.initialize(
-        device=None if dev.type == "cuda" and dev.index is None else dev)
+        device=None if dev.type == "cuda" and dev.index is None else dev,
+        pipe=pipe_size(args.mesh))
     device = resolve_device(args.device)
     try:
         return _main(args, device)
@@ -286,7 +318,9 @@ def _main(args, device) -> int:
     from deep_vision_tpu_torch.core.config import get_config
 
     configure_precision()
-    mesh = parse_mesh_spec(args.mesh)
+    mesh = parse_mesh_spec(args.mesh, args.device)
+    if mesh.pipe_devices:  # the trainer's device: the first pipe place
+        device = mesh.pipe_devices[0]
 
     cfg = get_config(args.model)
     if args.epochs is not None:
@@ -308,12 +342,18 @@ def _main(args, device) -> int:
     print(f"device: {device} mesh={mesh.shape} rank={mesh.rank} "
           f"backend={mesh.backend}", flush=True)
     if cfg.task in GAN_TASKS:
+        if mesh.pipe_size > 1:
+            raise SystemExit(
+                f"--mesh pipe axis: pipeline training mode supports the "
+                f"stacked-hourglass families (StackedHourglass, "
+                f"CenterNet); got the adversarial task '{cfg.task}'")
         return _main_gan(args, cfg, device, mesh)
     build = LOADERS.get(cfg.task)
     if build is None:
         raise NotImplementedError(
             f"task '{cfg.task}' is not ported; have "
             f"{sorted([*LOADERS, *GAN_TASKS])}")
+    model = maybe_pipelined(cfg.model(), mesh, args)
 
     loaders = []
     try:
@@ -321,7 +361,7 @@ def _main(args, device) -> int:
                                                               loaders)
         from deep_vision_tpu_torch.core.trainer import Trainer
 
-        trainer = Trainer(cfg, cfg.model(), task, workdir=args.workdir,
+        trainer = Trainer(cfg, model, task, workdir=args.workdir,
                           preprocess_fn=preprocess_fn, device=device,
                           upload=args.upload, mesh=mesh)
         if args.profile:
@@ -338,6 +378,26 @@ def _main(args, device) -> int:
     print("final:", " ".join(f"{k}={v:.4f}" for k, v in final.items()),
           flush=True)
     return 0
+
+
+def maybe_pipelined(model, mesh, args):
+    """``model`` as a ``PipelinedModel`` when the mesh has a pipe axis
+    above 1 (``--microbatches`` of them a step, default the pipe size),
+    with the reference's ``[pipeline]`` line; a family with no stage
+    sequence exits with the reference's words."""
+    if mesh.pipe_size <= 1:
+        return model
+    from deep_vision_tpu_torch.parallel.pipelined import PipelinedModel
+
+    try:
+        model = PipelinedModel.for_model(
+            model, mesh, num_microbatches=args.microbatches)
+    except TypeError as e:
+        raise SystemExit(f"--mesh pipe axis: {e}") from e
+    print(f"[pipeline] {model.num_stages} stages over pipe="
+          f"{mesh.shape['pipe']}, {model.num_microbatches} microbatches",
+          flush=True)
+    return model
 
 
 def _classification_loaders(args, cfg, loaders: list):

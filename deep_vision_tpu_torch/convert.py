@@ -432,6 +432,124 @@ def _stacked_hourglass_leaves(num_stack: int, num_heatmap: int,
             yield "conv", f"{t}.reinject_heat", (f"Conv_{base + 3}",)
 
 
+# The pipeline split (parallel/pipelined.py): the reference's pipelined
+# model keeps its stem's tree as the monolithic stem's (``Conv_0``,
+# ``BatchNorm_0``, ``PreActBottleneck_k``) and one stage's tree, every
+# leaf stacked on a leading stage axis, as a HourglassStack or
+# CenterNetStack names it (the stack's own ``Conv_k`` counting from 0,
+# re-injection included).
+
+def hourglass_stem_leaves(t: str, filters: int):
+    yield "conv", f"{t}.conv", ("Conv_0",)
+    yield "bn", f"{t}.bn", ("BatchNorm_0",)
+    for j, (cin, cout) in enumerate(((64, 128), (128, 128),
+                                     (128, filters))):
+        yield from _preact_leaves(f"{t}.block{j + 1}",
+                                  (f"PreActBottleneck_{j}",), cin != cout)
+
+
+def hourglass_stage_leaves(t: str, num_heatmap: int, filters: int,
+                           num_residual: int, order: int):
+    yield from _hourglass_leaves(f"{t}.hourglass", ("HourglassModule_0",),
+                                 filters, order, filters, num_residual)
+    for j in range(num_residual):
+        yield from _preact_leaves(f"{t}.residual.{j}",
+                                  (f"PreActBottleneck_{j}",), False)
+    yield "conv", f"{t}.linear", ("Conv_0",)
+    yield "bn", f"{t}.bn", ("BatchNorm_0",)
+    yield "conv", f"{t}.heat", ("Conv_1",)
+    yield "conv", f"{t}.reinject_features", ("Conv_2",)
+    yield "conv", f"{t}.reinject_heat", ("Conv_3",)
+
+
+def centernet_stem_leaves(t: str, filters):
+    base = filters[0]
+    yield "conv", f"{t}.conv", ("Conv_0",)
+    yield "bn", f"{t}.bn", ("BatchNorm_0",)
+    yield from _preact_leaves(f"{t}.block", ("PreActBottleneck_0",),
+                              base // 2 != base)
+
+
+def centernet_stage_leaves(t: str, num_classes: int, order: int, filters):
+    del num_classes  # the heads' widths come from the tensors
+    base = filters[0]
+    yield from _hourglass_leaves(f"{t}.hourglass", ("HourglassModule_0",),
+                                 base, order, list(filters))
+    yield "conv", f"{t}.conv", ("Conv_0",)
+    yield "bn", f"{t}.bn", ("BatchNorm_0",)
+    for j, head in enumerate(("heat", "wh", "offset")):
+        yield "conv", f"{t}.{head}.conv", (f"DetectionHead_{j}", "Conv_0")
+        yield "conv", f"{t}.{head}.out", (f"DetectionHead_{j}", "Conv_1")
+    yield "conv", f"{t}.reinject", ("Conv_1",)
+
+
+def _pipelined_walkers(model):
+    """(stem leaves, stage leaves of stage ``s``) of a PipelinedModel,
+    from its family's walkers (``parallel/pipelined.families``)."""
+    fam, arch = model.family, model.arch
+    return (fam.flax_stem("stem", arch["filters"]),
+            lambda s: fam.flax_stage(f"stages.{s}", **arch))
+
+
+def pipelined_from_flax(variables: Mapping, model) -> dict:
+    """The reference's pipelined flax tree (``params``/``batch_stats``
+    → ``{"stem", "stages"}``, each stage leaf stacked on a leading axis
+    of ``model.num_stages``) → the port's ``PipelinedModel``
+    ``state_dict`` (numpy).  Strict: a missing leaf, a leaf no module
+    takes, another top-level key or another stage count raises."""
+    from deep_vision_tpu_torch.parallel.pipeline import unstack_stages
+
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    for tree in (params, stats):
+        if tree and set(tree) != {"stem", "stages"}:
+            raise KeyError(f"a pipelined tree holds 'stem' and 'stages', "
+                           f"not {sorted(tree)}")
+    S = model.num_stages
+
+    def stages(tree) -> list:
+        flat = {k: np.asarray(a) for k, a in flatten_tree(tree).items()}
+        for a in flat.values():
+            if a.shape[:1] != (S,):
+                raise ValueError(f"stage leaf of shape {a.shape}: expected "
+                                 f"a leading stage axis of {S}")
+        if not flat:
+            return [{}] * S
+        return [unflatten_tree(d) for d in unstack_stages(flat)]
+
+    stem_leaves, stage_leaves = _pipelined_walkers(model)
+    sd = _from_flax(stem_leaves, {"params": params["stem"],
+                                  "batch_stats": stats.get("stem", {})})
+    for s, (p, b) in enumerate(zip(stages(params["stages"]),
+                                   stages(stats.get("stages", {})))):
+        sd.update(_from_flax(stage_leaves(s),
+                             {"params": p, "batch_stats": b}))
+    return sd
+
+
+def pipelined_to_flax(state_dict: Mapping, model) -> dict:
+    """The inverse of :func:`pipelined_from_flax`."""
+    from deep_vision_tpu_torch.parallel.pipeline import stack_stages
+
+    stem_leaves, stage_leaves = _pipelined_walkers(model)
+    stem = _to_flax(stem_leaves, state_dict)
+    stages = [_to_flax(stage_leaves(s), state_dict)
+              for s in range(model.num_stages)]
+    return {col: {"stem": stem[col],
+                  "stages": unflatten_tree(stack_stages(
+                      [flatten_tree(st[col]) for st in stages]))}
+            for col in ("params", "batch_stats")}
+
+
+def load_pipelined(model, variables: Mapping) -> None:
+    """Copy the reference's pipelined flax ``variables`` into a port
+    ``PipelinedModel`` (strict both ways)."""
+    import torch
+
+    sd = pipelined_from_flax(variables, model)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                          strict=True)
+
+
 def _flax_dense(w, chw) -> np.ndarray:
     """A port dense weight ``(O, I)`` → flax kernel ``(I, O)``; with
     ``chw = (C, H, W)`` the layer reads an NCHW flatten in the port and
@@ -919,8 +1037,11 @@ def to_flax(model, state_dict: Mapping | None = None) -> dict:
     from deep_vision_tpu_torch.models.hourglass import StackedHourglass
     from deep_vision_tpu_torch.models.resnet import ResNet
     from deep_vision_tpu_torch.models.yolo import YoloV3
+    from deep_vision_tpu_torch.parallel.pipelined import PipelinedModel
 
     sd = model.state_dict() if state_dict is None else state_dict
+    if isinstance(model, PipelinedModel):
+        return pipelined_to_flax(sd, model)
     if isinstance(model, ResNet) and not model.preact:
         return import_torch_resnet(sd, stage_sizes=model.stage_sizes,
                                    block=model.block_cls.__name__)

@@ -32,6 +32,11 @@ as they were, as the reference keeps its old ``opt_state``.  A step is
 ``propose`` (the new values, nothing written) then ``commit`` (written
 where the flag holds), so a guard may decide on the proposed
 parameters themselves, as the adversarial trainer's joint guard does.
+Parameters may lie on several devices (a pipelined model's places,
+``parallel/pipelined.py``): a 0-d device tensor (the learning rate,
+Adam's bias corrections, the guard's flag) enters a foreach op as a
+copy on each parameter's device (:func:`per_device`), and each
+parameter is written on its own.
 """
 
 from __future__ import annotations
@@ -73,17 +78,44 @@ def weight_decay_mask(model: nn.Module) -> dict[str, bool]:
     return mask
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float
+def spread_devices(tensors: list[torch.Tensor]) -> list | None:
+    """Each tensor's device when they lie on several, else None: what
+    :func:`per_device` takes, found once where the tensors are placed."""
+    devices = [t.device for t in tensors]
+    return devices if len(set(devices)) > 1 else None
+
+
+def per_device(scalar: torch.Tensor, devices: list | None):
+    """``scalar`` (0-d, on a device) as the operand of a foreach op over
+    tensors on ``devices`` (:func:`spread_devices`): itself when they
+    share its device (``None``), else a copy on each tensor's device (a
+    0-d tensor of one card does not mix with another card's tensors)."""
+    return scalar if devices is None else [scalar.to(d) for d in devices]
+
+
+def stack_on(tensors: list[torch.Tensor], device=None) -> torch.Tensor:
+    """0-d tensors of any devices stacked on ``device`` (default: the
+    first tensor's)."""
+    device = tensors[0].device if device is None else device
+    return torch.stack([t.to(device) for t in tensors])
+
+
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        devices: list | None = None
                         ) -> list[torch.Tensor]:
     """optax's ``clip_by_global_norm``: the gradients as they are when
     their global L2 norm is below ``max_norm``, else ``g / norm ·
     max_norm``.  Decided on the device: when the norm is below, the
-    division and product are by 1 and exact."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    division and product are by 1 and exact.  ``devices``: the
+    gradients' devices where they lie on several
+    (:func:`spread_devices`)."""
+    norm = torch.linalg.vector_norm(stack_on(torch._foreach_norm(grads)))
     below = norm < max_norm
     one = torch.ones((), dtype=norm.dtype, device=norm.device)
-    out = torch._foreach_div(grads, torch.where(below, one, norm))
-    torch._foreach_mul_(out, torch.where(below, one, one * max_norm))
+    out = torch._foreach_div(grads, per_device(torch.where(below, one, norm),
+                                               devices))
+    torch._foreach_mul_(out, per_device(torch.where(below, one,
+                                                    one * max_norm), devices))
     return out
 
 
@@ -96,6 +128,8 @@ class _Optimizer:
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        #: the parameters' devices where they lie on several, else None
+        self.devices = spread_devices(self.params)
         mask = weight_decay_mask(model)
         self.decayed = [i for i, n in enumerate(self.names) if mask[n]]
         self.lr = torch.tensor(cfg.learning_rate, dtype=torch.float32,
@@ -109,7 +143,8 @@ class _Optimizer:
 
     def _clipped(self, grads: list[torch.Tensor]) -> list[torch.Tensor]:
         if self.cfg.grad_clip_norm:
-            return clip_by_global_norm(grads, self.cfg.grad_clip_norm)
+            return clip_by_global_norm(grads, self.cfg.grad_clip_norm,
+                                       self.devices)
         return grads
 
     def _with_decay(self, updates: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -126,8 +161,9 @@ class _Optimizer:
 
     def _stepped(self, updates: list[torch.Tensor]) -> list[torch.Tensor]:
         """``p − lr·u``."""
-        return torch._foreach_sub(self.params,
-                                  torch._foreach_mul(updates, self.lr))
+        return torch._foreach_sub(
+            self.params,
+            torch._foreach_mul(updates, per_device(self.lr, self.devices)))
 
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor], ok: torch.Tensor) -> None:
@@ -142,7 +178,7 @@ class _Optimizer:
         """Write a :meth:`propose` result where ``ok`` holds."""
         for old, new in proposal:
             for o, n in zip(old, new):
-                torch.where(ok, n, o, out=o)
+                torch.where(ok.to(o.device), n, o, out=o)
 
     def proposed_params(self, proposal: list) -> list[torch.Tensor]:
         """The new parameters of a :meth:`propose` result."""
@@ -215,10 +251,10 @@ class Adam(_Optimizer):
         one = torch.ones((), dtype=torch.float32, device=t.device)
         bc1 = one - torch.pow(one * cfg.b1, t)
         bc2 = one - torch.pow(one * cfg.b2, t)
-        denom = torch._foreach_div(nu, bc2)
+        denom = torch._foreach_div(nu, per_device(bc2, self.devices))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, cfg.eps)
-        u = torch._foreach_div(mu, bc1)
+        u = torch._foreach_div(mu, per_device(bc1, self.devices))
         torch._foreach_div_(u, denom)
         return [(self.params, self._stepped(self._with_decay(u))),
                 (self.mu, mu), (self.nu, nu), ([self.count], [count])]
@@ -260,7 +296,7 @@ class RMSprop(_Optimizer):
         scale = torch._foreach_add(nu, cfg.eps)
         torch._foreach_rsqrt_(scale)
         u = torch._foreach_mul(scale, g)
-        torch._foreach_mul_(u, self.lr)
+        torch._foreach_mul_(u, per_device(self.lr, self.devices))
         trace = torch._foreach_mul(self.trace, cfg.momentum)
         trace = torch._foreach_add(u, trace)
         return [(self.params, torch._foreach_sub(self.params, trace)),

@@ -17,7 +17,11 @@ Weights come from one of three places:
 
 A checkpoint that holds a params EMA (``cli.train --ema-decay``) serves
 the EMA parameters with the raw BatchNorm buffers, the copy eval scored,
-as the reference does; ``info["ema"]`` says which copy served.  The
+as the reference does; ``info["ema"]`` says which copy served.  A
+pipeline-trained checkpoint (``cli.train --mesh ...,pipe=p``: ``stem.*``
+and ``stages.<s>.*``) is merged into the family's monolithic layout
+(``parallel/pipelined.monolithic_state_dict``), the reference's
+``restore_pipelined``, so every serving surface reads it unchanged.  The
 serving plane's reload and the deploy watcher's gate restore through
 this path, so they gate and serve that copy too.
 """
@@ -165,8 +169,17 @@ def checkpoint_has_ema(payload: dict) -> bool:
     return bool((payload.get("state") or {}).get("ema"))
 
 
+#: ``info["layout"]`` of a pipeline-trained checkpoint
+PIPELINE_LAYOUT = "pipeline layout → monolithic"
+
+
 def _restore_workdir(cfg, workdir: str, log, tag: str, info: dict):
     """The newest restorable step under ``workdir``, or None."""
+    from deep_vision_tpu_torch.parallel.pipelined import (
+        is_pipelined_state,
+        monolithic_state_dict,
+    )
+
     for sub in CHECKPOINT_DIRS:
         d = os.path.join(workdir, sub)
         if not os.path.isdir(d):
@@ -178,8 +191,11 @@ def _restore_workdir(cfg, workdir: str, log, tag: str, info: dict):
                 payload = torch.load(os.path.join(step_dir, FILENAME),
                                      map_location="cpu", weights_only=True)
                 model = cfg.model()
-                model.load_state_dict(checkpoint_weights(payload),
-                                      strict=True)
+                weights = checkpoint_weights(payload)
+                pipelined = is_pipelined_state(weights)
+                if pipelined:
+                    weights = monolithic_state_dict(model, weights)
+                model.load_state_dict(weights, strict=True)
             except (KeyboardInterrupt, SystemExit):
                 raise
             except Exception as e:  # noqa: BLE001 — a corrupt or partial step
@@ -192,7 +208,9 @@ def _restore_workdir(cfg, workdir: str, log, tag: str, info: dict):
             info.update({"step": step, "dir": d, "fallback": fallback,
                          "mtime": os.path.getmtime(step_dir),
                          "ema": EMA_WEIGHTS if ema else RAW_WEIGHTS})
+            info["layout"] = PIPELINE_LAYOUT if pipelined else None
             log(f"[{tag}] restored from {d} step {step}"
+                + (f" ({PIPELINE_LAYOUT})" if pipelined else "")
                 + (f" ({EMA_WEIGHTS})" if ema else "")
                 + (" [FALLBACK: newer step was corrupt]" if fallback
                    else ""))
@@ -214,7 +232,8 @@ def load_state(cfg, weights: str | None = None, *, workdir: str | None = None,
     ``info`` (optional dict) receives ``weights`` (the npz path or None),
     ``step`` (the step restored, None otherwise), ``dir``, ``fallback``
     (True when a step older than the newest was restored), ``mtime`` (the
-    step directory's), ``ema`` (:data:`EMA_WEIGHTS` when the EMA copy
+    step directory's), ``layout`` (:data:`PIPELINE_LAYOUT` for a
+    pipeline-trained checkpoint, else None), ``ema`` (:data:`EMA_WEIGHTS` when the EMA copy
     serves, else :data:`RAW_WEIGHTS`) and ``digest``
     (:func:`params_digest`)."""
     from deep_vision_tpu_torch import convert
@@ -222,7 +241,8 @@ def load_state(cfg, weights: str | None = None, *, workdir: str | None = None,
     if info is None:
         info = {}
     info.update({"weights": weights or None, "step": None, "dir": None,
-                 "fallback": False, "mtime": None, "ema": RAW_WEIGHTS})
+                 "fallback": False, "mtime": None, "layout": None,
+                 "ema": RAW_WEIGHTS})
     model = None
     if weights:
         model = cfg.model()

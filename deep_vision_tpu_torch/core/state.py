@@ -8,9 +8,10 @@ decay reads), the count of skipped non-finite steps, the rng seed and
 the params EMA (``ema``, empty when it is off).  Unlike the reference's
 immutable pytree it is updated in place; the guard of
 ``apply_gradients_if_finite``/``keep_if`` becomes ``torch.where`` on a
-device flag, so a non-finite step costs no host sync.  Nothing here
-reads the host step, so a step's device work may be captured once in a
-CUDA graph and replayed (``core/step_graph.py``); the trainer advances
+device flag, so a non-finite step costs no host sync (the flag is
+copied to each tensor's own device where they lie on several, as a
+pipelined model's do).  Nothing here reads the host step, so a step's
+device work may be captured once in a CUDA graph and replayed (``core/step_graph.py``); the trainer advances
 the host counter with :meth:`TrainState.advance`.
 """
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from deep_vision_tpu_torch.core.optim import per_device, stack_on
 
 
 class DivergenceGuard:
@@ -54,7 +56,7 @@ def all_finite(tensors: list[torch.Tensor]) -> torch.Tensor:
     zeroed tensors are all 0 exactly when every element is finite (a norm
     of the tensors themselves could overflow on large finite values)."""
     norms = torch._foreach_norm(torch._foreach_mul(tensors, 0.0))
-    return torch.isfinite(torch.stack(norms)).all()
+    return torch.isfinite(stack_on(norms)).all()
 
 
 def _to_cpu(tree):
@@ -109,8 +111,8 @@ class TrainState:
         values and the EMA re-averages toward them."""
         d = ema_decay_at(decay, self.device_step)
         scaled = torch._foreach_mul([p.detach() for p in self.opt.params],
-                                    1.0 - d)
-        torch._foreach_mul_(self.ema, d)
+                                    per_device(1.0 - d, self.opt.devices))
+        torch._foreach_mul_(self.ema, per_device(d, self.opt.devices))
         torch._foreach_add_(self.ema, scaled)
 
     def ema_named(self) -> dict[str, torch.Tensor]:
@@ -138,7 +140,7 @@ class TrainState:
         statistics keep their values and ``bad_steps`` counts one.  The
         device step counter advances either way, and the trainer's
         :meth:`advance` the host's, so the per-step rng never repeats."""
-        ok = torch.isfinite(loss) & all_finite(grads)
+        ok = torch.isfinite(loss) & all_finite(grads).to(loss.device)
         self.commit(self.opt.propose(grads), ok, stats_before)
 
     @torch.no_grad()
@@ -151,7 +153,7 @@ class TrainState:
         EMA is not touched."""
         self.opt.commit(proposal, ok)
         for s, old in zip(self.running_stats, stats_before):
-            torch.where(ok, s, old, out=s)
+            torch.where(ok.to(s.device), s, old, out=s)
         self.bad_steps += (~ok).to(torch.int32)
         self.device_step += 1
 

@@ -62,6 +62,19 @@ boundary.  Rank 0 writes the checkpoints, ``metrics.jsonl`` and the
 mirror while the others wait at barriers.  Without a group, or in a
 group of one rank, a step is the single-process step bit for bit.
 
+Pipeline parallelism (``parallel/pipelined.py``; ``mesh`` with a
+``pipe`` axis, whose places lie inside each rank): the model is a
+``PipelinedModel``, which places its stem and stages itself
+(:meth:`Trainer.state_for`); only its stem's BatchNorm reduces across
+the ranks.  Its parameters may lie on several devices: the gradient
+all-reduce takes one flat buffer a device, and the guard's flag, the
+learning rate and the EMA's decay reach each device as copies
+(``core/optim.py``).  ``grad_accum_steps`` splits the batch the
+interleaved way first, and the pipeline splits each part into
+contiguous microbatches, the reference's order.  ``scan_steps``
+captures a pipe grid whose places are one card; a grid of distinct
+cards is refused (:func:`check_scan_backend`).
+
 The metric logger writes ``metrics.jsonl`` and TensorBoard event files
 under the workdir.  With ``upload`` (``cli.train --upload``) every
 checkpoint directory is mirrored there after each save, and a fresh
@@ -85,7 +98,11 @@ from deep_vision_tpu_torch.core.metrics import (
     StepTimer,
     ThroughputMeter,
 )
-from deep_vision_tpu_torch.core.optim import build_optimizer, build_scheduler
+from deep_vision_tpu_torch.core.optim import (
+    build_optimizer,
+    build_scheduler,
+    per_device,
+)
 from deep_vision_tpu_torch.core.state import DivergenceGuard, TrainState
 from deep_vision_tpu_torch.core.step_graph import StepRunner, run_groups
 from deep_vision_tpu_torch.models.common import (
@@ -186,7 +203,18 @@ def interleaved_split(batch: dict, parts: int) -> list[dict]:
 
 def check_scan_backend(mesh, device: torch.device, scan_steps: int) -> None:
     """A captured step on the card holds its collectives, which NCCL can
-    be captured with and gloo cannot: refuse ``scan_steps`` there."""
+    be captured with and gloo cannot, and runs on one card's stream, so
+    a pipe grid of distinct cards cannot be captured: refuse
+    ``scan_steps`` there."""
+    cards = {d for d in getattr(mesh, "pipe_devices", ())
+             if d.type == "cuda"}
+    if scan_steps > 1 and len(cards) > 1:
+        raise ValueError(
+            f"scan_steps={scan_steps} captures the step as one CUDA graph "
+            f"on one card's stream, and this rank's pipe grid spans "
+            f"{len(cards)} cards ({sorted(map(str, cards))}), whose "
+            f"hand-offs the capture cannot hold; lay the pipe places on "
+            f"one card (--device cuda:K) or drop --scan-steps")
     if scan_steps > 1 and mesh.grouped and device.type == "cuda" \
             and mesh.backend != "nccl":
         raise ValueError(
@@ -335,10 +363,15 @@ class Trainer:
 
     def state_for(self, model: torch.nn.Module) -> TrainState:
         """A fresh TrainState around ``model``'s current weights (rank
-        0's on every rank of the mesh)."""
-        model.to(self.device)
-        if self.device.type == "cuda":
-            model.to(memory_format=torch.channels_last)
+        0's on every rank of the mesh).  A model that places itself (the
+        pipelined model, on its pipe places) does; any other moves to
+        the trainer's device."""
+        if hasattr(model, "place"):
+            model.place()
+        else:
+            model.to(self.device)
+            if self.device.type == "cuda":
+                model.to(memory_format=torch.channels_last)
         set_batchnorm_mesh(model, self.mesh)
         replicate(model, self.mesh)
         self.model = model
@@ -445,7 +478,8 @@ class Trainer:
             else:
                 torch._foreach_add_(gsum, grads)
         grads = torch._foreach_div(
-            gsum, device_scalar(float(self.accum), self.device))
+            gsum, per_device(device_scalar(float(self.accum), self.device),
+                             state.opt.devices))
         aux = {k: torch.stack([x[k] for x in auxes]).mean()
                for k in auxes[0]}
         return torch.stack(losses).mean(), aux, grads

@@ -11,8 +11,16 @@ back to its input (re-injection).  Every conv has a bias.
 
 ``forward`` takes the reference's NHWC layout and returns one
 ``(heat, wh, offset)`` triple per stack, each float32 NHWC
-``(B, H/4, W/4, ·)``.  The pipeline split (``CenterNetStem``,
-``CenterNetStack``) is not ported.
+``(B, H/4, W/4, ·)``.
+
+The pipeline split (``parallel/pipelined.py``), as for the Stacked
+Hourglass (``models/hourglass.py``): ``CenterNetStem`` is the stem alone
+(``conv``, ``bn``, ``block``: the monolithic ``stem_conv``, ``stem_bn``,
+``stem_block``), ``CenterNetStack`` one stack that always re-injects,
+and ``merge_/split_centernet_variables`` rename a pipelined
+``state_dict`` to the monolithic one and back, the last stage's
+re-injection conv dropped by the merge and taken from a template by the
+split.
 """
 
 from __future__ import annotations
@@ -26,11 +34,15 @@ from deep_vision_tpu_torch.models.common import (
     Conv2d,
     conv_kernel_init,
     lecun_conv_init,
-    same_pad,
+    same_pad,  # noqa: F401 (re-exported for the tests)
 )
 from deep_vision_tpu_torch.models.hourglass import (
     HourglassModule,
     PreActBottleneck,
+    hourglass_stem,
+    merge_stage_layout,
+    num_stages,
+    split_stage_layout,
 )
 
 #: depth-indexed filters of the order-5 module
@@ -54,15 +66,18 @@ class DetectionHead(nn.Module):
         return y.permute(0, 2, 3, 1).to(torch.float32)
 
 
-class _Stack(nn.Module):
+class CenterNetStack(nn.Module):
     """One stack: hourglass → 3×3 conv + BN + ReLU → the three heads,
-    and (all but the last stack) the 1×1 re-injection conv of the
+    and with ``reinject`` (all but the last stack of the monolithic
+    network, every pipeline stage) the 1×1 re-injection conv of the
     features, added to the stack's input for the next stack."""
 
-    def __init__(self, num_classes: int, order: int, filters,
-                 reinject: bool, dtype: torch.dtype):
+    def __init__(self, num_classes: int, order: int = 5,
+                 filters=CENTERNET_FILTERS, reinject: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         base = filters[0]
+        self.compute_dtype = dtype
         self.hourglass = HourglassModule(base, order, list(filters), 1,
                                          dtype)
         self.conv = Conv2d(base, base, 3, 1, 1, dtype, bias=True)
@@ -80,6 +95,24 @@ class _Stack(nn.Module):
         if self.reinject is not None:
             x = x + self.reinject(y)
         return x, heads
+
+
+class CenterNetStem(nn.Module):
+    """The stem of :class:`CenterNet` alone: NHWC ``(N, H, W, 3)`` → the
+    first stack's input, NCHW ``(N, filters[0], H/4, W/4)``."""
+
+    def __init__(self, filters=CENTERNET_FILTERS,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        base = filters[0]
+        self.compute_dtype = dtype
+        self.conv = Conv2d(3, base // 2, 7, 2, 0, dtype, bias=True)
+        self.bn = BatchNorm2d(base // 2, dtype)
+        self.block = PreActBottleneck(base // 2, base, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return hourglass_stem(x, self.conv, self.bn, (self.block,),
+                              self.compute_dtype)
 
 
 class CenterNet(nn.Module):
@@ -101,8 +134,9 @@ class CenterNet(nn.Module):
         self.stem_bn = BatchNorm2d(base // 2, dtype)
         self.stem_block = PreActBottleneck(base // 2, base, dtype)
         self.stacks = nn.ModuleList(
-            _Stack(num_classes, order, self.filters, s < num_stack - 1,
-                   dtype) for s in range(num_stack))
+            CenterNetStack(num_classes, order, self.filters,
+                           s < num_stack - 1, dtype)
+            for s in range(num_stack))
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "CenterNet":
         for m in self.modules():
@@ -113,12 +147,8 @@ class CenterNet(nn.Module):
     def forward(self, x: torch.Tensor):
         """NHWC ``(N, H, W, 3)`` float input → a tuple of ``num_stack``
         ``(heat, wh, offset)`` float32 NHWC triples."""
-        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        ph, pw = same_pad(x.shape[2], 7, 2), same_pad(x.shape[3], 7, 2)
-        x = self.stem_conv(F.pad(x, (*pw, *ph)))                     # /2
-        x = F.relu(self.stem_bn(x))
-        x = self.stem_block(x)
-        x = F.max_pool2d(x, 2, 2)                                    # /4
+        x = hourglass_stem(x, self.stem_conv, self.stem_bn,
+                           (self.stem_block,), self.compute_dtype)
         outputs = []
         for stack in self.stacks:
             x, heads = stack(x)
@@ -126,28 +156,55 @@ class CenterNet(nn.Module):
         return tuple(outputs)
 
     def reset_parameters(self, generator: torch.Generator) -> "CenterNet":
-        """The reference's init: He normal over fan-out for the convs
-        that name ``conv_kernel_init``, flax's default LeCun normal
-        (truncated at two standard deviations) for the heads' last conv
-        and the re-injection conv; biases 0 but the heatmap head's
-        −2.19; BatchNorm scale 1 and bias 0, running mean 0 and
-        variance 1."""
-        lecun = set()
-        for stack in self.stacks:
-            lecun.update(id(h.out) for h in
-                         (stack.heat, stack.wh, stack.offset))
-            if stack.reinject is not None:
-                lecun.add(id(stack.reinject))
-        for m in self.modules():
-            if isinstance(m, Conv2d):
-                if id(m) in lecun:
-                    lecun_conv_init(m.weight, generator)
-                else:
-                    conv_kernel_init(m.weight, generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, BatchNorm2d):
-                m.reset_parameters()
-        with torch.no_grad():
-            for stack in self.stacks:
-                stack.heat.out.bias.fill_(HEAT_BIAS)
+        """The reference's init (:func:`reset_centernet_parameters`)."""
+        reset_centernet_parameters(self, generator)
         return self
+
+
+def reset_centernet_parameters(module: nn.Module,
+                               generator: torch.Generator) -> None:
+    """The reference's init, in module order: He normal over fan-out for
+    the convs that name ``conv_kernel_init``, flax's default LeCun normal
+    (truncated at two standard deviations) for the heads' last conv and
+    the re-injection conv; biases 0 but the heatmap head's −2.19;
+    BatchNorm scale 1 and bias 0, running mean 0 and variance 1.  The
+    pipeline split draws what the monolithic network draws, the last
+    stage's re-injection conv last."""
+    stacks = [m for m in module.modules() if isinstance(m, CenterNetStack)]
+    lecun = set()
+    for stack in stacks:
+        lecun.update(id(h.out) for h in (stack.heat, stack.wh, stack.offset))
+        if stack.reinject is not None:
+            lecun.add(id(stack.reinject))
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            if id(m) in lecun:
+                lecun_conv_init(m.weight, generator)
+            else:
+                conv_kernel_init(m.weight, generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, BatchNorm2d):
+            m.reset_parameters()
+    with torch.no_grad():
+        for stack in stacks:
+            stack.heat.out.bias.fill_(HEAT_BIAS)
+
+
+#: the re-injection conv a pipeline stage has and the monolithic
+#: network's last stack does not
+CENTERNET_LAST_ONLY = ("reinject.",)
+
+
+def merge_centernet_variables(state_dict: dict, num_stack: int) -> dict:
+    """A pipelined CenterNet ``state_dict`` (``CenterNetStem`` and
+    ``num_stack`` ``CenterNetStack`` stages) → the monolithic
+    :class:`CenterNet` one; the last stage's re-injection conv is
+    dropped."""
+    return merge_stage_layout(state_dict, num_stack, CENTERNET_LAST_ONLY)
+
+
+def split_centernet_variables(state_dict: dict, template: dict) -> dict:
+    """The inverse of :func:`merge_centernet_variables`; the last
+    stage's re-injection conv comes from ``template``."""
+    return split_stage_layout(state_dict, template, num_stages(template),
+                              CENTERNET_LAST_ONLY)

@@ -295,8 +295,11 @@ def set_batchnorm_mesh(model: nn.Module, mesh) -> nn.Module:
     more than one rank on its data axis, a training forward normalizes
     by the global batch's statistics (flax's BatchNorm under the
     reference's mesh) and updates the running statistics from them;
-    otherwise (None, or one rank) the layer is unchanged."""
-    for m in model.modules():
+    otherwise (None, or one rank) the layer is unchanged.  A model with
+    a ``batchnorm_mesh_root()`` (the pipelined model: its stem) points
+    only the layers under it."""
+    root = getattr(model, "batchnorm_mesh_root", None)
+    for m in (model if root is None else root()).modules():
         if isinstance(m, BatchNorm2d):
             m.mesh = mesh
     return model

@@ -16,9 +16,19 @@ The blocks take and return NCHW tensors (channels_last on the card);
 ``StackedHourglass`` takes the reference's NHWC input and returns NHWC
 float32 heatmaps.  The module tree is named for the reader, and
 ``convert.py`` maps it onto flax's auto-names (``Conv_k``,
-``BatchNorm_k``, ``PreActBottleneck_k``, ``HourglassModule_k``).  The
-pipeline split (``HourglassStem``, ``HourglassStack``,
-``merge_/split_stacked_variables``) is not ported.
+``BatchNorm_k``, ``PreActBottleneck_k``, ``HourglassModule_k``).
+
+The pipeline split (``parallel/pipelined.py``): ``HourglassStem`` is the
+stem of ``StackedHourglass`` as a module of its own, and
+``HourglassStack`` one stack, the same-shape stage unit, which always
+re-injects (the reference's own stage unit: every stage has one
+structure, and the last stage's re-injection convs go unused).
+``merge_stacked_variables``/``split_stacked_variables`` map a pipelined
+``state_dict`` (``stem.*``, ``stages.<s>.*``) onto the monolithic one
+(``stem_*``, ``stacks.<s>.*``) and back: the names below ``stem.`` and
+``stages.<s>.`` are the monolithic ones, so both maps are renames, but
+for the last stage's re-injection convs, which the monolithic network
+does not have: dropped by the merge, taken from a template by the split.
 """
 
 from __future__ import annotations
@@ -133,15 +143,18 @@ class HourglassModule(nn.Module):
         return up1 + up2(low)
 
 
-class _PoseStack(nn.Module):
+class HourglassStack(nn.Module):
     """One stack: hourglass → ``num_residual`` bottlenecks → the linear
-    layer (1×1 conv + BN + ReLU) → the 1×1 heatmap conv; all but the last
-    stack re-inject the linear layer's features and the heatmaps, each
-    through its own 1×1 conv, into the stack's input."""
+    layer (1×1 conv + BN + ReLU) → the 1×1 heatmap conv; with
+    ``reinject`` (every stack of the monolithic network but its last, and
+    every pipeline stage) the linear layer's features and the heatmaps,
+    each through its own 1×1 conv, are added to the stack's input."""
 
-    def __init__(self, num_heatmap: int, filters: int, num_residual: int,
-                 order: int, reinject: bool, dtype: torch.dtype):
+    def __init__(self, num_heatmap: int, filters: int, num_residual: int = 1,
+                 order: int = 4, reinject: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.hourglass = HourglassModule(filters, order, filters,
                                          num_residual, dtype)
         self.residual = nn.ModuleList(
@@ -158,7 +171,7 @@ class _PoseStack(nn.Module):
                                         dtype=dtype, bias=True)
 
     def forward(self, x: torch.Tensor):
-        """``(next stack's input, heatmaps NCHW in the compute dtype)``."""
+        """``(next stack's input, float32 NHWC heatmaps)``."""
         y = self.hourglass(x)
         for block in self.residual:
             y = block(y)
@@ -166,7 +179,69 @@ class _PoseStack(nn.Module):
         heat = self.heat(y)
         if self.reinject_features is not None:
             x = x + self.reinject_features(y) + self.reinject_heat(heat)
-        return x, heat
+        return x, heat.permute(0, 2, 3, 1).to(torch.float32)
+
+
+def hourglass_stem(x: torch.Tensor, conv: nn.Module, bn: nn.Module,
+                   blocks, dtype: torch.dtype) -> torch.Tensor:
+    """The stem of both stacked families: NHWC input → a 7×7/2 conv with
+    flax's "SAME" padding ((2, 3) at an even input) → BN + ReLU → the
+    first block → a 2×2 pool → the other blocks, as NCHW in ``dtype``."""
+    x = x.permute(0, 3, 1, 2).to(dtype)
+    ph, pw = same_pad(x.shape[2], 7, 2), same_pad(x.shape[3], 7, 2)
+    x = conv(F.pad(x, (*pw, *ph)))                                   # /2
+    x = F.relu(bn(x))
+    x = blocks[0](x)
+    x = F.max_pool2d(x, 2, 2)                                        # /4
+    for block in blocks[1:]:
+        x = block(x)
+    return x
+
+
+class HourglassStem(nn.Module):
+    """The stem of :class:`StackedHourglass` alone: NHWC ``(N, H, W, 3)``
+    → the first stack's input, NCHW ``(N, filters, H/4, W/4)``.  Its
+    modules are ``conv``, ``bn`` and ``block1..3``, the monolithic
+    ``stem_conv``, ``stem_bn`` and ``stem_block1..3``."""
+
+    def __init__(self, filters: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.conv = Conv2d(3, 64, 7, 2, 0, dtype, bias=True)
+        self.bn = BatchNorm2d(64, dtype)
+        self.block1 = PreActBottleneck(64, 128, dtype)
+        self.block2 = PreActBottleneck(128, 128, dtype)
+        self.block3 = PreActBottleneck(128, filters, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return hourglass_stem(x, self.conv, self.bn,
+                              (self.block1, self.block2, self.block3),
+                              self.compute_dtype)
+
+
+def reset_hourglass_parameters(module: nn.Module,
+                               generator: torch.Generator) -> None:
+    """The reference's init of the Stacked Hourglass, in module order:
+    He normal over fan-out for the convs that name ``conv_kernel_init``
+    (all but the re-injection convs), flax's default LeCun normal for
+    the re-injection convs; biases 0; BatchNorm scale 1 and bias 0,
+    running mean 0 and variance 1.  The monolithic network and its
+    pipeline split (stem, then the stages) draw the same numbers for the
+    same modules, the last stage's re-injection convs coming last."""
+    lecun = {id(c) for s in module.modules()
+             if isinstance(s, HourglassStack)
+             for c in (s.reinject_features, s.reinject_heat)
+             if c is not None}
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            if id(m) in lecun:
+                lecun_conv_init(m.weight, generator)
+            else:
+                conv_kernel_init(m.weight, generator)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, BatchNorm2d):
+            m.reset_parameters()
 
 
 class StackedHourglass(nn.Module):
@@ -192,8 +267,9 @@ class StackedHourglass(nn.Module):
         self.stem_block2 = PreActBottleneck(128, 128, dtype)
         self.stem_block3 = PreActBottleneck(128, filters, dtype)
         self.stacks = nn.ModuleList(
-            _PoseStack(num_heatmap, filters, num_residual, order,
-                       s < num_stack - 1, dtype) for s in range(num_stack))
+            HourglassStack(num_heatmap, filters, num_residual, order,
+                           s < num_stack - 1, dtype)
+            for s in range(num_stack))
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "StackedHourglass":
         for m in self.modules():
@@ -204,36 +280,98 @@ class StackedHourglass(nn.Module):
     def forward(self, x: torch.Tensor):
         """NHWC ``(N, H, W, 3)`` float input → a tuple of ``num_stack``
         float32 NHWC heatmaps ``(N, H/4, W/4, num_heatmap)``."""
-        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)
-        ph, pw = same_pad(x.shape[2], 7, 2), same_pad(x.shape[3], 7, 2)
-        x = self.stem_conv(F.pad(x, (*pw, *ph)))                     # /2
-        x = F.relu(self.stem_bn(x))
-        x = self.stem_block1(x)
-        x = F.max_pool2d(x, 2, 2)                                    # /4
-        x = self.stem_block3(self.stem_block2(x))
+        x = hourglass_stem(x, self.stem_conv, self.stem_bn,
+                           (self.stem_block1, self.stem_block2,
+                            self.stem_block3), self.compute_dtype)
         outputs = []
         for stack in self.stacks:
             x, heat = stack(x)
-            outputs.append(heat.permute(0, 2, 3, 1).to(torch.float32))
+            outputs.append(heat)
         return tuple(outputs)
 
     def reset_parameters(self, generator: torch.Generator
                          ) -> "StackedHourglass":
-        """The reference's init: He normal over fan-out for the convs
-        that name ``conv_kernel_init`` (all but the re-injection convs),
-        flax's default LeCun normal for the re-injection convs; biases
-        0; BatchNorm scale 1 and bias 0, running mean 0 and variance
-        1."""
-        lecun = {id(c) for s in self.stacks
-                 for c in (s.reinject_features, s.reinject_heat)
-                 if c is not None}
-        for m in self.modules():
-            if isinstance(m, Conv2d):
-                if id(m) in lecun:
-                    lecun_conv_init(m.weight, generator)
-                else:
-                    conv_kernel_init(m.weight, generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, BatchNorm2d):
-                m.reset_parameters()
+        """The reference's init (:func:`reset_hourglass_parameters`)."""
+        reset_hourglass_parameters(self, generator)
         return self
+
+
+#: the monolithic name of each stem module of the pipeline split
+STEM_PREFIX, MONOLITHIC_STEM_PREFIX = "stem.", "stem_"
+
+
+def merge_stage_layout(state_dict: dict, num_stack: int,
+                       last_only: tuple) -> dict:
+    """A pipelined ``state_dict`` → the monolithic one: ``stem.X`` →
+    ``stem_X``, ``stages.<s>.Y`` → ``stacks.<s>.Y``, and the last
+    stage's modules named in ``last_only`` (its re-injection, which the
+    monolithic network does not have) dropped."""
+    out = {}
+    last = f"stages.{num_stack - 1}."
+    for k, v in state_dict.items():
+        if k.startswith(STEM_PREFIX):
+            out[MONOLITHIC_STEM_PREFIX + k[len(STEM_PREFIX):]] = v
+        elif k.startswith("stages."):
+            if k.startswith(last) and \
+                    k[len(last):].startswith(last_only):
+                continue
+            out["stacks." + k[len("stages."):]] = v
+        else:
+            raise KeyError(f"'{k}' is neither a stem nor a stage tensor")
+    return out
+
+
+def split_stage_layout(state_dict: dict, template: dict, num_stack: int,
+                       last_only: tuple) -> dict:
+    """The inverse of :func:`merge_stage_layout`: a monolithic
+    ``state_dict`` → the pipelined one in ``template``'s order (a
+    pipelined ``state_dict``), the last stage's ``last_only`` modules
+    taken from ``template`` (they get no gradient, so any finite values
+    keep the trajectory).  Any other tensor missing on either side
+    raises ``KeyError``."""
+    out = {}
+    for k, v in state_dict.items():
+        if k.startswith(MONOLITHIC_STEM_PREFIX):
+            out[STEM_PREFIX + k[len(MONOLITHIC_STEM_PREFIX):]] = v
+        elif k.startswith("stacks."):
+            out["stages." + k[len("stacks."):]] = v
+        else:
+            raise KeyError(f"'{k}' is neither a stem nor a stack tensor")
+    last = f"stages.{num_stack - 1}."
+    for k in template:
+        if k not in out and k.startswith(last) and \
+                k[len(last):].startswith(last_only):
+            out[k] = template[k]
+    missing, extra = set(template) - set(out), set(out) - set(template)
+    if missing or extra:
+        raise KeyError(f"monolithic tensors do not match the pipelined "
+                       f"layout: missing {sorted(missing)[:5]}, no "
+                       f"counterpart {sorted(extra)[:5]}")
+    return {k: out[k] for k in template}
+
+
+def num_stages(state_dict: dict) -> int:
+    """The number of stages of a pipelined ``state_dict``."""
+    return 1 + max(int(k.split(".")[1]) for k in state_dict
+                   if k.startswith("stages."))
+
+
+#: the re-injection convs a pipeline stage has and the monolithic
+#: network's last stack does not
+POSE_LAST_ONLY = ("reinject_features.", "reinject_heat.")
+
+
+def merge_stacked_variables(state_dict: dict, num_stack: int) -> dict:
+    """A pipelined Stacked Hourglass ``state_dict`` (``HourglassStem``
+    and ``num_stack`` ``HourglassStack`` stages) → the monolithic
+    :class:`StackedHourglass` one; the last stage's re-injection convs
+    are dropped.  Pipeline-trained checkpoints serve through it."""
+    return merge_stage_layout(state_dict, num_stack, POSE_LAST_ONLY)
+
+
+def split_stacked_variables(state_dict: dict, template: dict) -> dict:
+    """The inverse of :func:`merge_stacked_variables`; the last stage's
+    re-injection convs come from ``template`` (a pipelined
+    ``state_dict``)."""
+    return split_stage_layout(state_dict, template,
+                              num_stages(template), POSE_LAST_ONLY)

@@ -1,10 +1,11 @@
-"""Parallelism: training ranks on the data axis (one process a device),
-and serving's ``data × model`` grid of one process's devices with the
-partition rules that lay weights over ``model``.
+"""Parallelism: training ranks on the data axis (one process a device)
+with each rank's pipeline places on the ``pipe`` axis, and serving's
+``data × model`` grid of one process's devices with the partition rules
+that lay weights over ``model``.
 
-Port of ``deep_vision_tpu/parallel``'s mesh, multi-process and partition
-modules; the pipeline's ``pipeline_apply``, ``stack_stages`` and
-``unstack_stages`` come with the pipeline slice."""
+Port of ``deep_vision_tpu/parallel``'s mesh, multi-process, partition
+and pipeline modules (``pipeline_apply``, ``stack_stages``,
+``unstack_stages``; the training mode in ``parallel/pipelined.py``)."""
 
 from deep_vision_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -20,6 +21,11 @@ from deep_vision_tpu_torch.parallel.mesh import (
     shard_batch,
     shard_batch_stacked,
 )
+from deep_vision_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    stack_stages,
+    unstack_stages,
+)
 
 __all__ = [
     "DATA_AXIS",
@@ -34,4 +40,7 @@ __all__ = [
     "shard_batch_stacked",
     "batch_sharding",
     "replicated_sharding",
+    "pipeline_apply",
+    "stack_stages",
+    "unstack_stages",
 ]

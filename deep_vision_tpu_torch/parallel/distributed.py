@@ -40,7 +40,7 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None,
                backend: str | None = None, device=None,
-               timeout_s: float = DEFAULT_TIMEOUT_S) -> bool:
+               timeout_s: float = DEFAULT_TIMEOUT_S, pipe: int = 1) -> bool:
     """Join (or create) the process group; True once a group exists.
 
     A no-op returning False for a single process with nothing
@@ -48,9 +48,10 @@ def initialize(coordinator_address: str | None = None,
     environment).  ``coordinator_address`` is ``host:port`` of rank 0
     (default ``MASTER_ADDR:MASTER_PORT``); ``num_processes`` and
     ``process_id`` default to ``WORLD_SIZE`` and ``RANK``.  ``device``
-    is the rank's device; by default ``cuda:LOCAL_RANK`` (set as the
-    process's current device), which raises naming both numbers when
-    the machine has fewer cards.  ``backend`` defaults to ``nccl`` on
+    is the rank's device; by default ``cuda:LOCAL_RANK·pipe`` (set as
+    the process's current device: the first of the rank's ``pipe``
+    pipeline places, ``parallel/mesh.pipe_places``), which raises naming
+    the numbers when the machine has fewer cards.  ``backend`` defaults to ``nccl`` on
     a CUDA device and ``gloo`` on the CPU."""
     if dist.is_initialized():
         return True
@@ -70,15 +71,19 @@ def initialize(coordinator_address: str | None = None,
     world = 1 if world is None else int(world)
     rank = 0 if rank is None else int(rank)
     local_rank = int(env.get("LOCAL_RANK", rank))
+    first = local_rank * max(int(pipe), 1)
     if device is None:
         count = torch.cuda.device_count()
-        if local_rank >= count:
+        if first >= count:
             raise RuntimeError(
-                f"rank {rank} has LOCAL_RANK {local_rank}, but this machine "
-                f"has {count} CUDA device(s); launch at most {count} ranks "
-                f"a machine, or pass device= (two ranks share a card only "
-                f"under backend='gloo'; --device cpu for the CPU)")
-        device = torch.device("cuda", local_rank)
+                f"rank {rank} has LOCAL_RANK {local_rank}"
+                + (f" and pipe={pipe} (first card {first})" if pipe > 1
+                   else "")
+                + f", but this machine has {count} CUDA device(s); launch "
+                f"at most {count} ranks a machine, or pass device= (two "
+                f"ranks share a card only under backend='gloo'; --device "
+                f"cpu for the CPU)")
+        device = torch.device("cuda", first)
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -86,7 +91,7 @@ def initialize(coordinator_address: str | None = None,
                 "CUDA is not available on this machine; pass device='cpu' "
                 "(--device cpu) to run the ranks on the CPU")
         if device.index is None:
-            device = torch.device("cuda", local_rank)
+            device = torch.device("cuda", first)
         torch.cuda.set_device(device)
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
@@ -107,6 +112,12 @@ def is_initialized() -> bool:
 def process_index() -> int:
     """This rank (0 without a group)."""
     return dist.get_rank() if is_initialized() else 0
+
+
+def local_rank() -> int:
+    """This rank's index on its machine (``LOCAL_RANK``, else the rank;
+    0 without a group)."""
+    return int(os.environ.get("LOCAL_RANK", process_index()))
 
 
 def process_count() -> int:

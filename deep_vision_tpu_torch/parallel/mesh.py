@@ -17,9 +17,16 @@ the mesh is a rank, and the collectives are explicit calls of
   (``models/common.py``), and :func:`replicate` broadcasts rank 0's
   weights.
 
-The rank mesh has only the ``data`` axis: the reference's trainer never
-shards over ``model``, and a ``spatial`` or ``pipe`` axis above 1 raises
-naming the module still to be ported.
+The rank mesh has the ``data`` axis over ranks and, for the pipeline
+training mode (``parallel/pipelined.py``), a ``pipe`` axis inside each
+rank: ``Mesh.pipe_devices``, the rank's own grid of places, as the
+reference lays ``data`` across processes and ``pipe`` within each
+(``tests/dist_pipe_worker.py``).  With an explicit device (``cpu`` or
+``cuda:K``) every pipe place is that device; with a plain ``cuda``, rank
+``r`` of ``pipe=p`` takes the machine's cards ``r·p … r·p+p−1``, and a
+machine with fewer raises (no place falls back to the CPU or to fewer
+cards).  The reference's trainer never shards over ``model``, and a
+``spatial`` axis above 1 raises naming the module still to be ported.
 ``torch.distributed.device_mesh.DeviceMesh`` is not used: with one axis
 and one process a device it would add a CUDA-or-CPU device type to the
 group without changing a collective.
@@ -63,17 +70,23 @@ LATER_AXES = {
                 "parallel/partition.py); the trainer never shards over "
                 "it, as the reference's does not",
     SPATIAL_AXIS: "is not ported yet (parallel/spatial.py)",
-    PIPE_AXIS: "is not ported yet (parallel/pipeline.py)",
+    PIPE_AXIS: "is the trainer's: a rank's own grid of pipeline places "
+               "(make_mesh({'data': d, 'pipe': p}, pipe_device=...), "
+               "parallel/pipelined.py); serving runs the monolithic "
+               "network",
 }
 
 
 class Mesh:
     """``shape`` (axis name → size) over the ranks of the process group
     (none: one rank, every collective a no-op).  ``rank`` is this
-    process's place on the data axis; ``devices`` the rank grid."""
+    process's place on the data axis; ``devices`` the rank grid;
+    ``pipe_devices`` the rank's pipeline places (``torch.device``s, one a
+    place of the ``pipe`` axis; empty without that axis)."""
 
-    def __init__(self, shape: Mapping[str, int]):
+    def __init__(self, shape: Mapping[str, int], pipe_devices=()):
         self.shape = dict(shape)
+        self.pipe_devices = [torch.device(d) for d in pipe_devices]
         self.axis_names = tuple(self.shape)
         self.size = math.prod(self.shape.values())
         self.grouped = distributed.is_initialized()
@@ -89,17 +102,24 @@ class Mesh:
         return self
 
     def __repr__(self) -> str:
+        pipe = f", pipe={self.pipe_devices}" if self.pipe_devices else ""
         return (f"Mesh({self.shape}, rank={self.rank}, "
-                f"backend={self.backend})")
+                f"backend={self.backend}{pipe})")
 
     @property
     def devices(self) -> np.ndarray:
-        """The ranks, shaped as the axes."""
-        return np.arange(self.size).reshape(tuple(self.shape.values()))
+        """The ranks, shaped as the rank axes (every axis but ``pipe``,
+        which lies inside a rank)."""
+        return np.arange(self.size // self.pipe_size).reshape(tuple(
+            v for k, v in self.shape.items() if k != PIPE_AXIS))
 
     @property
     def data_size(self) -> int:
         return int(self.shape.get(DATA_AXIS, 1))
+
+    @property
+    def pipe_size(self) -> int:
+        return int(self.shape.get(PIPE_AXIS, 1))
 
     @property
     def reduces(self) -> bool:
@@ -123,18 +143,23 @@ class Mesh:
 
     def mean_(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         """The ranks' mean of each tensor, through one all-reduce of a
-        float32 buffer of their values (``Σ / ranks``; a group of one
-        rank divides by nothing).  Returns new tensors, contiguous, in
-        the shapes and dtypes given."""
+        float32 buffer of their values a device (``Σ / ranks``; a group
+        of one rank divides by nothing).  Returns new tensors,
+        contiguous, in the order, shapes and dtypes given."""
         if not self.grouped:
             return list(tensors)
-        flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
-                          for t in tensors])
-        self.all_reduce_(flat)
-        if self.data_size > 1:
-            flat.div_(float(self.data_size))
-        return [c.view(t.shape).to(t.dtype) for c, t in
-                zip(flat.split([t.numel() for t in tensors]), tensors)]
+        out: list = [None] * len(tensors)
+        for idx in _by_device(tensors).values():
+            part = [tensors[i] for i in idx]
+            flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
+                              for t in part])
+            self.all_reduce_(flat)
+            if self.data_size > 1:
+                flat.div_(float(self.data_size))
+            for i, c, t in zip(idx, flat.split([t.numel() for t in part]),
+                               part):
+                out[i] = c.view(t.shape).to(t.dtype)
+        return out
 
     @torch.no_grad()
     def broadcast_(self, tensors: list[torch.Tensor], src: int = 0) -> None:
@@ -180,6 +205,37 @@ class Mesh:
         box = [obj]
         dist.broadcast_object_list(box, src=0, group=self._host)
         return box[0]
+
+
+def _by_device(tensors: list[torch.Tensor]) -> dict:
+    """``{device: [index, ...]}`` of ``tensors``, in order."""
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.device, []).append(i)
+    return groups
+
+
+def pipe_places(size: int, device=None, local_rank: int | None = None
+                ) -> list[torch.device]:
+    """The ``size`` pipeline places of this rank: ``device`` at every
+    place when it is ``cpu`` or names a card (``cuda:K``); otherwise
+    (None or a plain ``cuda``) the machine's cards ``r·size …
+    r·size+size−1`` for local rank ``r`` (``LOCAL_RANK``, else the
+    rank).  Raises the reference's ``ValueError`` when the machine has
+    fewer cards: no place falls back to the CPU."""
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type == "cpu" or dev.index is not None:
+            return [dev] * size
+    if local_rank is None:
+        local_rank = distributed.local_rank()
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    first = local_rank * size
+    if first + size > count:
+        raise ValueError(f"mesh {{'{PIPE_AXIS}': {size}}} of local rank "
+                         f"{local_rank} needs {first + size} devices, have "
+                         f"{count}")
+    return [torch.device("cuda", first + i) for i in range(size)]
 
 
 def _timeout():
@@ -235,12 +291,13 @@ def _local_mesh(names, sizes, devices) -> LocalMesh:
 
 
 def make_mesh(axis_sizes: Mapping[str, int] | None = None,
-              devices=None):
+              devices=None, pipe_device=None):
     """A :class:`Mesh` of the process group's ranks (``devices`` the
     ranks, default ``range(world size)``), or with ``devices`` given as
     ``torch.device``s (or their names) a :class:`LocalMesh` of them.
     Default: everything on the ``data`` axis.  ``-1`` means all the
-    remaining ranks or devices."""
+    remaining ranks or devices.  A ``pipe`` axis lies inside each rank:
+    its places are :func:`pipe_places` of ``pipe_device``."""
     if devices is None:
         devices = list(range(distributed.process_count()))
     local = _is_local(devices)
@@ -249,27 +306,37 @@ def make_mesh(axis_sizes: Mapping[str, int] | None = None,
     names = tuple(axis_sizes.keys())
     sizes = list(axis_sizes.values())
     if -1 in sizes:
-        known = math.prod(s for s in sizes if s != -1)
+        # the pipe axis of a rank mesh lies inside a rank: no rank's share
+        known = math.prod(s for n, s in zip(names, sizes) if s != -1
+                          and (local or n != PIPE_AXIS))
         sizes[sizes.index(-1)] = len(devices) // known
+    shape = dict(zip(names, sizes))
     total = math.prod(sizes)
-    if total > len(devices):
-        raise ValueError(
-            f"mesh {dict(zip(names, sizes))} needs {total} devices, "
-            f"have {len(devices)}")
     if local:
+        if total > len(devices):
+            raise ValueError(f"mesh {shape} needs {total} devices, "
+                             f"have {len(devices)}")
         return _local_mesh(names, sizes, list(devices))
+    # the pipe axis lies inside a rank: the others are the ranks
+    ranks = total // int(shape.get(PIPE_AXIS, 1))
+    if ranks > len(devices):
+        raise ValueError(f"mesh {shape} needs {ranks} devices, have "
+                         f"{len(devices)}")
     for name, size in zip(names, sizes):
-        if name != DATA_AXIS and size > 1:
+        if name not in (DATA_AXIS, PIPE_AXIS) and size > 1:
             raise NotImplementedError(
-                f"mesh axis '{name}'={size}: the rank mesh has only the "
-                f"'{DATA_AXIS}' axis; '{name}' "
-                f"{LATER_AXES.get(name, 'is not ported yet')}")
-    if total < len(devices):
+                f"mesh axis '{name}'={size}: the rank mesh has the "
+                f"'{DATA_AXIS}' axis over ranks and '{PIPE_AXIS}' within "
+                f"each; '{name}' {LATER_AXES.get(name, 'is not ported yet')}")
+    if ranks < len(devices):
         raise ValueError(
-            f"mesh {dict(zip(names, sizes))} uses {total} of the "
-            f"{len(devices)} ranks; every rank of the group must be on "
-            f"the mesh (one process a device)")
-    return Mesh(dict(zip(names, sizes)))
+            f"mesh {shape} uses {ranks} of the {len(devices)} ranks; "
+            f"every rank of the group must be on the mesh (one process a "
+            f"device)")
+    places = ()
+    if PIPE_AXIS in shape:
+        places = pipe_places(int(shape[PIPE_AXIS]), pipe_device)
+    return Mesh(shape, places)
 
 
 def batch_sharding(mesh: Mesh, ndim: int = 0) -> tuple:

@@ -211,6 +211,101 @@ def steps(rank: int, world: int, kind: str, variables, batches: list,
             "momentum": momentum}
 
 
+def _conv_stage_cls():
+    import torch
+    import torch.nn.functional as F
+    from torch import nn
+
+    class ConvStage(nn.Module):
+        """tests/test_pipeline.py's toy stage on NHWC tensors: a 3×3 SAME
+        conv of the flax kernel ``w`` (HWIO), ``+ b``, tanh; the carry is
+        its own output."""
+
+        def __init__(self, w, b):
+            super().__init__()
+            self.w = nn.Parameter(torch.from_numpy(np.ascontiguousarray(
+                np.asarray(w).transpose(3, 2, 0, 1))))
+            self.b = nn.Parameter(torch.from_numpy(np.array(b)))
+
+        def forward(self, x):
+            y = F.conv2d(x.permute(0, 3, 1, 2), self.w, padding=1)
+            y = torch.tanh(y.permute(0, 2, 3, 1) + self.b)
+            return y, y
+
+    return ConvStage
+
+
+def ConvStage(w, b):  # noqa: N802 (a class made on first use)
+    return _conv_stage_cls()(w, b)
+
+
+def pipeline(rank: int, world: int, weights: list, x, pipe: int,
+             micro: int) -> np.ndarray:
+    """``pipeline_apply`` of :class:`ConvStage` stages over ``pipe`` CPU
+    places on the rank's rows of ``x``: ``(S, rows, ...)``."""
+    import torch
+
+    from deep_vision_tpu_torch.parallel import make_mesh, pipeline_apply
+
+    mesh = make_mesh({"data": max(world, 1), "pipe": pipe},
+                     pipe_device="cpu")
+    stages = [ConvStage(p["w"], p["b"]) for p in weights]
+    mine = torch.from_numpy(shard({"x": x}, rank, world)["x"])
+    with torch.no_grad():
+        outs = pipeline_apply(stages, mine, mesh, micro)
+    return np.stack([o.numpy() for o in outs])
+
+
+def pipelined_steps(rank: int, world: int, family: str, arch: dict,
+                    variables, batches: list, lr: float, pipe: int,
+                    micro: int, control: str | None = None) -> dict:
+    """SGD (momentum 0) trainer steps of the port's ``PipelinedModel`` of
+    ``family`` (``StackedHourglass`` or ``CenterNet`` of ``arch``) loaded
+    from the reference's pipelined flax ``variables``, on the rank's
+    rows of ``batches``, with ``pipe`` CPU places and ``micro``
+    microbatches: each step's metrics and the final ``state_dict``.
+    ``control``: ``"stages_across_ranks"``, the stages' BatchNorm over
+    every rank's microbatch (the reference keeps it the rank's own);
+    ``"stem_local"``, the stem's over the rank's batch alone."""
+    from deep_vision_tpu_torch import convert
+    from deep_vision_tpu_torch.core.config import TrainConfig
+    from deep_vision_tpu_torch.core.optim import OptimizerConfig
+    from deep_vision_tpu_torch.core.trainer import Trainer
+    from deep_vision_tpu_torch.models.centernet import CenterNet
+    from deep_vision_tpu_torch.models.common import set_batchnorm_mesh
+    from deep_vision_tpu_torch.models.hourglass import StackedHourglass
+    from deep_vision_tpu_torch.parallel import make_mesh
+    from deep_vision_tpu_torch.parallel.pipelined import PipelinedModel
+    from deep_vision_tpu_torch.tasks.centernet import CenterNetTask
+    from deep_vision_tpu_torch.tasks.pose import PoseTask
+
+    w = max(world, 1)
+    mesh = make_mesh({"data": w, "pipe": pipe}, pipe_device="cpu")
+    if family == "hourglass":
+        mono, task = StackedHourglass(**arch), PoseTask()
+    else:
+        mono, task = CenterNet(**arch), CenterNetTask(arch["num_classes"])
+    pm = PipelinedModel.for_model(mono, mesh, micro)
+    convert.load_pipelined(pm, variables)
+    cfg = TrainConfig(name="pipe", model=None, task="pose",
+                      batch_size=len(batches[0]["image"]) // w,
+                      optimizer=OptimizerConfig(name="sgd", learning_rate=lr,
+                                                momentum=0.0))
+    with tempfile.TemporaryDirectory() as work:
+        trainer = Trainer(cfg, pm, task, workdir=work, device="cpu",
+                          mesh=mesh)
+        state = trainer.state_for(pm)
+        if control == "stages_across_ranks":
+            set_batchnorm_mesh(pm.stages, mesh)
+        elif control == "stem_local":
+            set_batchnorm_mesh(pm, None)
+        metrics = []
+        for b in batches:
+            state, m = trainer.train_step(state, shard(b, rank, world))
+            metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "state": numpy_sd(state.model)}
+
+
 def evaluate(rank: int, world: int, kind: str, variables,
              batches: list) -> dict:
     """``Trainer.evaluate`` over the rank's shards of ``batches``."""
@@ -337,7 +432,8 @@ def loader(rank: int, world: int, root: str, split: str, **kw) -> list:
 
 SCENARIOS = {"steps": steps, "evaluate": evaluate, "fit": fit,
              "dcgan_step": dcgan_step, "loader": loader,
-             "preempt": preempt}
+             "preempt": preempt, "pipeline": pipeline,
+             "pipelined_steps": pipelined_steps}
 
 
 def _rank_main(spec_path: str, rank: int, out_path: str) -> None:

@@ -98,10 +98,16 @@ def test_a_mesh_outside_a_launched_group_names_torchrun(tmp_path, spec,
     assert f"--nproc-per-node {ranks}" in msg
 
 
-def test_microbatches_wait_for_the_pipeline_slice(tmp_path):
-    with pytest.raises(SystemExit, match="pipeline"):
-        cli.main(["-m", "resnet34", "--microbatches", "4", "--device", "cpu",
-                  "--synthetic", "--workdir", str(tmp_path)])
+def test_microbatches_are_ignored_without_a_pipe_axis(tmp_path, capsys):
+    """As the reference's: ``--microbatches`` drives the pipe axis alone;
+    without one the run trains the monolithic network."""
+    assert cli.main(["-m", "resnet34", "--microbatches", "4", "--device",
+                     "cpu", "--synthetic", "--synthetic-size", "8",
+                     "--batch-size", "4", "--image-size", "32", "--epochs",
+                     "1", "--workdir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "[pipeline]" not in out and "final:" in out
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == ["2"]
 
 
 def test_mesh_flags_match_the_reference_parser():

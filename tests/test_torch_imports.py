@@ -42,7 +42,8 @@ def test_every_module_imports_with_jax_blocked():
                 "core.tboard", "core.upload", "core.export", "cli.infer",
                 "viz", "data.prep", "data.native", "cli.prepare_data",
                 "parallel", "parallel.mesh", "parallel.distributed",
-                "parallel.partition", "serve.mesh_view"):
+                "parallel.partition", "serve.mesh_view", "parallel.pipeline",
+                "parallel.pipelined"):
         assert f"deep_vision_tpu_torch.{new}" in mods
     code = (
         "import sys\n"

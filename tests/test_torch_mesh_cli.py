@@ -280,7 +280,24 @@ def test_mesh_2x2_server_answers_as_the_reference(seeded, tmp_path):
             eng.stop()
 
 
-def test_boot_lines_and_shard_batches(seeded, monkeypatch, capsys):
+@pytest.fixture
+def dvt_logger_restored():
+    """``main`` attaches a stderr handler to the ``dvt`` logger
+    (``obs/log.configure_logging``) that outlives the test, bound to the
+    capture stream pytest closes after it; put the logger back as it
+    was, so a later test of this process logs through it unchanged."""
+    import logging
+
+    root = logging.getLogger("dvt")
+    saved = (list(root.handlers), root.level, root.propagate)
+    yield
+    root.handlers[:] = saved[0]
+    root.setLevel(saved[1])
+    root.propagate = saved[2]
+
+
+def test_boot_lines_and_shard_batches(seeded, monkeypatch, capsys,
+                                      dvt_logger_restored):
     """``main`` prints the mesh, the per-chip and logical bytes; with
     --shard-batches over 2 CPUs, the sharded-batches line and the
     reference's bucket ladder."""

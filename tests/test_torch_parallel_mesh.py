@@ -87,13 +87,51 @@ def test_pod_mesh_resolves_minus_one_against_the_world():
 
 
 @pytest.mark.parametrize("axis,later", [("model", "parallel/partition.py"),
-                                        ("spatial", "parallel/spatial.py"),
-                                        ("pipe", "parallel/pipeline.py")])
+                                        ("spatial", "parallel/spatial.py")])
 def test_axes_of_later_slices_are_refused_naming_them(axis, later):
     with pytest.raises(NotImplementedError, match=later):
         make_mesh({"data": 2, axis: 2}, devices=list(range(4)))
     # a size-1 axis is no parallelism: accepted
     assert make_mesh({"data": 1, axis: 1}).shape == {"data": 1, axis: 1}
+
+
+@pytest.mark.parametrize("device,want", [
+    ("cpu", ["cpu"] * 4), ("cuda:3", ["cuda:3"] * 4)])
+def test_the_pipe_axis_is_a_grid_of_the_rank_s_places(device, want):
+    """``pipe`` lies inside a rank: data=2,pipe=4 is two ranks, each with
+    four places; an explicit device is every place."""
+    mesh = make_mesh({"data": 2, "pipe": 4}, devices=[0, 1],
+                     pipe_device=device)
+    assert mesh.shape == {"data": 2, "pipe": 4}
+    assert mesh.pipe_size == 4 and mesh.data_size == 2
+    assert [str(d) for d in mesh.pipe_devices] == want
+    assert mesh.devices.shape == (2,)
+    # the pipe axis counts no rank: data=2,pipe=4 over 8 ranks is short
+    with pytest.raises(ValueError, match="uses 2 of the 8 ranks"):
+        make_mesh({"data": 2, "pipe": 4}, devices=list(range(8)),
+                  pipe_device="cpu")
+    # a size-1 pipe axis is one place
+    assert make_mesh({"data": 1, "pipe": 1}, pipe_device="cpu") \
+        .pipe_devices == [torch.device("cpu")]
+    # -1 resolves over the ranks alone
+    assert make_mesh({"data": -1, "pipe": 4}, devices=[0, 1],
+                     pipe_device="cpu").shape == {"data": 2, "pipe": 4}
+
+
+def test_a_pipe_grid_larger_than_the_machine_raises(monkeypatch):
+    """Plain cuda takes cards r·p … r·p+p−1 and raises the reference's
+    words on a machine with fewer; it never falls back to the CPU."""
+    from deep_vision_tpu_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert [str(d) for d in mesh_mod.pipe_places(2, "cuda", 1)] == \
+        ["cuda:2", "cuda:3"]
+    with pytest.raises(ValueError, match="needs 6 devices, have 4"):
+        mesh_mod.pipe_places(2, None, 2)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
+        make_mesh({"data": 1, "pipe": 4})
 
 
 def test_a_mesh_must_hold_every_rank():
